@@ -1,0 +1,85 @@
+"""Builds the port's CUDA kernels with ``nvcc`` at first use and loads them with ctypes.
+
+All of ``planedepth_tpu_torch/csrc/*.cu`` is compiled for ``sm_90a`` into one
+shared library with a plain C interface.  The library lands in
+``build/planedepth_tpu_torch/<hash>/`` under the repository root, keyed by a
+hash of the sources and the flags, so an unchanged tree builds once.  Only
+sources in the repository are compiled and nothing is fetched.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+PACKAGE_DIR = Path(__file__).resolve().parents[1]
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_ROOT = PACKAGE_DIR.parent / "build" / "planedepth_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LIB_NAME = "libpdt_kernels.so"
+
+
+def _sources():
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    candidates = [shutil.which("nvcc")]
+    for env in ("CUDA_HOME", "CUDA_PATH"):
+        if os.environ.get(env):
+            candidates.append(os.path.join(os.environ[env], "bin", "nvcc"))
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for c in candidates:
+        if c and os.path.isfile(c):
+            return c
+    raise RuntimeError("nvcc not found (PATH, CUDA_HOME, /usr/local/cuda)")
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_ROOT / h.hexdigest()[:16] / LIB_NAME
+
+
+def build() -> dict:
+    """Compile the kernels unless the library for these sources exists.
+
+    Returns ``{"path", "seconds", "cached", "log"}``; ``log`` holds the
+    compiler's output (``-Xptxas -v``: registers, shared memory, spills).
+    """
+    path = library_path()
+    log_path = path.with_suffix(".log")
+    if path.exists():
+        log = log_path.read_text() if log_path.exists() else ""
+        return {"path": str(path), "seconds": 0.0, "cached": True, "log": log}
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(f".{LIB_NAME}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+    log_path.write_text(log)
+    os.replace(tmp, path)
+    return {"path": str(path), "seconds": seconds, "cached": False, "log": log}
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """Build if needed, load, and declare every C entry point's signature."""
+    lib = ctypes.CDLL(build()["path"])
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.pdt_disp_head_fwd.argtypes = [p, p, p, p, p, i, i, i, i, p]
+    lib.pdt_disp_head_fwd.restype = i
+    return lib
