@@ -1,14 +1,21 @@
-"""Configuration of the inference slice (counterpart of ``planedepth_tpu/config.py``).
+"""Configuration (counterpart of ``planedepth_tpu/config.py``).
 
-Same names and defaults as the JAX package's ``PlaneConfig`` and
-``ModelConfig``, and the ``height``/``width`` of its ``DataConfig``.  The
-TPU-only fields (``s2d_tail``, ``s2d_stem``, ``fused_head``,
-``fused_head_bf16``, ``fused_sweep_loss``, ``remat``) have no counterpart: the
-disparity head takes its CUDA kernel whenever its tensors lie on the card.
+Same names and defaults as the JAX package's ``PlaneConfig``, ``ModelConfig``,
+``LossConfig``, ``OptimConfig`` and the fields of ``TrainConfig`` that the
+stereo training step reads, the ``height``/``width`` of its ``DataConfig``,
+and the stage-1 and HR-finetune presets.  The fields that choose a TPU layout
+or a TPU memory trade (``s2d_tail``, ``s2d_stem``, ``fused_head``,
+``fused_head_bf16``, ``remat``, ``sweep_rows``, ``sweep_gp_taps*``,
+``sweep_quad*``, ``pc_s2d``, ``warp2d_*``, ``mesh_shape``, ``remat_warp``,
+``rowshift_warp``, ``warp_sample_bf16``) have no counterpart: the kernels run
+whenever their tensors lie on the card.  ``bf16`` is not ported: the port
+trains in float32.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
+from typing import Tuple
 
 
 @dataclass(frozen=True)
@@ -51,6 +58,9 @@ class ModelConfig:
     use_mixture_loss: bool = True
     plane_residual: bool = True
     render_probability: bool = False
+    # set by train.step.ModelBundle on the fused stereo path: the decoder
+    # then stops at the plane heads in training and the sweep computes disp
+    fused_sweep_loss: bool = False
     planes: PlaneConfig = field(default_factory=PlaneConfig)
 
 
@@ -64,3 +74,103 @@ class DataConfig:
     def __post_init__(self):
         if self.height % 32 or self.width % 32:
             raise ValueError("'height' and 'width' must be multiples of 32")
+
+
+@dataclass(frozen=True)
+class LossConfig:
+    """Loss weights and switches (reference: options.py:62-77,141-155,208-248)."""
+
+    alpha_smooth: float = 0.04
+    gamma_smooth: float = 2.0
+    alpha_pc: float = 0.1
+    alpha_self: float = 0.0
+    self_distillation: float = 0.0
+    automask: bool = False
+    match_aug: bool = False
+    pc_net: str = "vgg19"           # vgg19 (resnet18: ROADMAP A4)
+    use_mom: bool = False           # mirror occlusion mask
+
+
+@dataclass(frozen=True)
+class OptimConfig:
+    """Optimizer schedule (reference: options.py:176-206); the epoch counts
+    come with the trainer (ROADMAP A7)."""
+
+    learning_rate: float = 1e-4
+    beta_1: float = 0.5
+    beta_2: float = 0.999
+    milestones: Tuple[int, ...] = (30, 40)
+    lr_gamma: float = 0.5
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Training configuration: the fields of the JAX ``TrainConfig`` that the
+    stereo step reads, with the same defaults."""
+
+    model: ModelConfig = field(default_factory=ModelConfig)
+    loss: LossConfig = field(default_factory=LossConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    optim: OptimConfig = field(default_factory=OptimConfig)
+
+    batch_size: int = 8             # GLOBAL batch before flip_right halving
+    seed: int = 1
+    warp_type: str = "disp_warp"    # depth_warp | disp_warp | homography_warp
+    novel_frame_ids: Tuple[int, ...] = ()
+    no_stereo: bool = False
+    flip_right: bool = False
+    # checkpoint the perceptual net's pred-branch forward (same numbers)
+    pc_remat: bool = True
+    fused_sweep: bool = False
+
+    def __post_init__(self):
+        if self.loss.use_mom and not self.flip_right:
+            # reference trainer.py:74-75 forces flip_right under use_mom
+            object.__setattr__(self, "flip_right", True)
+        if self.warp_type not in ("depth_warp", "disp_warp", "homography_warp"):
+            raise ValueError(f"unknown warp_type {self.warp_type!r}")
+
+    @property
+    def per_step_batch(self) -> int:
+        """Images loaded per optimizer step: halved under flip_right, then
+        doubled by the flip (reference trainer.py:77-78,252-276)."""
+        return self.batch_size // 2 if self.flip_right else self.batch_size
+
+    @property
+    def effective_batch(self) -> int:
+        """Batch size the networks see."""
+        return self.per_step_batch * (2 if self.flip_right else 1)
+
+    @property
+    def target_sides(self) -> Tuple:
+        """Warping targets: stereo right + temporal neighbours
+        (reference trainer.py:85-88)."""
+        sides = () if self.no_stereo else ("r",)
+        return sides + tuple(self.novel_frame_ids)
+
+    def replace(self, **kw) -> "TrainConfig":
+        return dataclasses.replace(self, **kw)
+
+
+def stage1_config(**overrides) -> TrainConfig:
+    """Stage 1: 640x192 stereo, 50 epochs, full feature set."""
+    cfg = TrainConfig(
+        fused_sweep=True,
+        flip_right=True,
+        batch_size=8,
+        data=DataConfig(height=192, width=640),
+        optim=OptimConfig(learning_rate=1e-4, milestones=(30, 40)),
+    )
+    return cfg.replace(**overrides) if overrides else cfg
+
+
+def hr_finetune_config(**overrides) -> TrainConfig:
+    """Stage 2: 1280x384 high-resolution finetune, 1 epoch, lr 2.5e-5."""
+    cfg = TrainConfig(
+        fused_sweep=True,
+        flip_right=True,
+        batch_size=8,
+        data=DataConfig(height=384, width=1280),
+        optim=OptimConfig(learning_rate=2.5e-5, milestones=()),
+    )
+    return cfg.replace(**overrides) if overrides else cfg

@@ -11,15 +11,14 @@ import numpy as np
 import torch
 
 from planedepth_tpu_torch.eval.metrics import batch_post_process_disparity
+from planedepth_tpu_torch.train.flip import flip_grid, flip_w
 
 
 def mirror_batch(image: torch.Tensor, grid: torch.Tensor):
     """Double an NCHW batch with its mirror image: W flipped, and the grid
     flipped with its x channel negated (``evaluator.py:61-65``)."""
-    flipped = grid.flip(-1)
-    flipped = torch.cat([-flipped[:, :1], flipped[:, 1:]], dim=1)
-    return (torch.cat([image, image.flip(-1)]).contiguous(),
-            torch.cat([grid, flipped]).contiguous())
+    return (torch.cat([image, flip_w(image)]).contiguous(),
+            torch.cat([grid, flip_grid(grid)]).contiguous())
 
 
 def predict_disparities(

@@ -5,9 +5,12 @@ each [BN -> ReLU -> 1x1 conv -> BN -> ReLU -> 3x3 dilated conv -> channel
 dropout], then dropout and a 1x1 fuse.  Module names are the reference's
 (``ASPP_{d}.norm1/conv1/norm2/conv2``, ``classification.1``).  BN momentum is
 the reference's 0.0003 in torch's convention; in eval mode BN uses its running
-statistics and dropout is inactive.
+statistics and dropout is inactive.  In training the channel-dropout masks are
+drawn from the ``torch.Generator`` the caller passes.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn as nn
@@ -17,36 +20,59 @@ DILATIONS = (3, 6, 12, 18, 24)
 NUM_FEATURES, D_FEATURE0, D_FEATURE1, DROPOUT0 = 256, 512, 128, 0.1
 
 
+def channel_dropout(x: torch.Tensor, rate: float, training: bool,
+                    generator: Optional[torch.Generator]) -> torch.Tensor:
+    """``F.dropout2d`` with its per-sample channel mask drawn from
+    ``generator`` (flax ``nn.Dropout(broadcast_dims=(1, 2))`` in NHWC).  The
+    ``(B, C)`` mask is drawn in float32 on the generator's device and moved to
+    x's, so a CPU generator gives the same masks on the card and on the CPU,
+    in any dtype."""
+    if not training or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("DenseASPP dropout in training needs a torch.Generator")
+    keep = torch.full(x.shape[:2] + (1, 1), 1.0 - rate, device=generator.device)
+    keep = torch.bernoulli(keep, generator=generator).to(x.device, x.dtype)
+    return x * keep / (1.0 - rate)
+
+
 class DenseAsppBlock(nn.Module):
-    def __init__(self, in_ch: int, dilation: int, bn_start: bool):
+    def __init__(self, in_ch: int, dilation: int, bn_start: bool, dropout: float):
         super().__init__()
+        self.dropout = dropout
         self.norm1 = nn.BatchNorm2d(in_ch, momentum=0.0003) if bn_start else None
         self.conv1 = nn.Conv2d(in_ch, D_FEATURE0, 1)
         self.norm2 = nn.BatchNorm2d(D_FEATURE0, momentum=0.0003)
         self.conv2 = nn.Conv2d(D_FEATURE0, D_FEATURE1, 3, padding=dilation,
                                dilation=dilation)
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         if self.norm1 is not None:
             x = self.norm1(x)
         x = self.conv1(F.relu(x))
         x = self.conv2(F.relu(self.norm2(x)))
-        return F.dropout2d(x, DROPOUT0, training=self.training)
+        return channel_dropout(x, self.dropout, self.training, generator)
 
 
 class DenseAspp(nn.Module):
-    def __init__(self, in_ch: int):
+    """``dropout`` is the JAX module's ``dropout0``: the rate of every
+    channel dropout (the reference's 0.1)."""
+
+    def __init__(self, in_ch: int, dropout: float = DROPOUT0):
         super().__init__()
+        self.dropout = dropout
         ch = in_ch
         for i, d in enumerate(DILATIONS):
-            setattr(self, f"ASPP_{d}", DenseAsppBlock(ch, d, bn_start=i > 0))
+            setattr(self, f"ASPP_{d}", DenseAsppBlock(ch, d, i > 0, dropout))
             ch += D_FEATURE1
+        # index 0 keeps the reference's key ``classification.1``
         self.classification = nn.Sequential(
-            nn.Dropout2d(DROPOUT0), nn.Conv2d(ch, NUM_FEATURES, 1))
+            nn.Identity(), nn.Conv2d(ch, NUM_FEATURES, 1))
 
-    def forward(self, x):
+    def forward(self, x, generator: Optional[torch.Generator] = None):
         feature = x
         for d in DILATIONS:
-            out = getattr(self, f"ASPP_{d}")(feature)
+            out = getattr(self, f"ASPP_{d}")(feature, generator)
             feature = torch.cat([out, feature], dim=1)
+        feature = channel_dropout(feature, self.dropout, self.training, generator)
         return self.classification(feature)

@@ -8,12 +8,17 @@ heads ``dispconv`` (plane logits), ``sigmaconv`` (mixture scales) and
 (``utils/torch_convert.py:convert_depth_decoder``): [epconv] + upconv
 (4,0)..(0,1) + [denseaspp] + dispconv + [sigmaconv] + [residualconv], so a
 reference ``depth.pth`` loads as it is.  The JAX package's space-to-depth
-tail and fused-sweep training branch are TPU layout work and have no
+tail and its merged ``ls`` training head are TPU layout work and have no
 counterpart here.
+
+With ``fused_sweep_loss`` in training mode the decoder stops at the plane
+heads, as the JAX decoder does (``depth_decoder.py:380-386``): the fused
+plane sweep computes ``disp`` from its own centre samples, and nothing reads
+the probability volume, whose passes eager PyTorch would not drop.
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -51,7 +56,8 @@ class DepthDecoder(nn.Module):
     def __init__(self, num_ch_enc: Sequence[int], planes: PlaneConfig = PlaneConfig(),
                  num_ep: int = 8, pe_type: str = "neural",
                  use_denseaspp: bool = True, use_mixture_loss: bool = True,
-                 render_probability: bool = False, plane_residual: bool = True):
+                 render_probability: bool = False, plane_residual: bool = True,
+                 fused_sweep_loss: bool = False):
         super().__init__()
         if render_probability:
             raise NotImplementedError(
@@ -62,6 +68,7 @@ class DepthDecoder(nn.Module):
         self.use_denseaspp = use_denseaspp
         self.use_mixture_loss = use_mixture_loss
         self.plane_residual = plane_residual
+        self.fused_sweep_loss = fused_sweep_loss
         n_planes = planes.all_levels
         if num_ep == 0:
             n_pe = 0
@@ -94,9 +101,10 @@ class DepthDecoder(nn.Module):
                 nn.Conv2d(NUM_CH_DEC[0], n_planes, 1))
         self.decoder = nn.ModuleList(self.convs.values())
 
-    def forward(self, input_features: Sequence[torch.Tensor],
-                grid: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """``grid`` is the ``(B, 2, H, W)`` augmentation grid; every output is
+    def forward(self, input_features: Sequence[torch.Tensor], grid: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """``grid`` is the ``(B, 2, H, W)`` augmentation grid and ``generator``
+        draws DenseASPP's dropout masks in training; every output is
         plane-first: logits, sigma, pi, probability ``(B, N, H, W)``, disp and
         depth ``(B, 1, H, W)``, disp_layered and padding_mask ``(B, N, H, 1)``
         without yz planes (``(B, N, H, W)`` with them), disp_rows ``(B, H, N)``
@@ -113,7 +121,7 @@ class DepthDecoder(nn.Module):
             x = torch.cat([x, input_features[i - 1]], dim=1)
             x = c[f"upconv_{i}_1"](inject_grid(x, grid_ep))
             if i == 4 and self.use_denseaspp:
-                x = c["denseaspp"](x)
+                x = c["denseaspp"](x, generator)
         x = upsample2x_nearest(c["upconv_0_0"](x))
         x = c["upconv_0_1"](x)
 
@@ -131,10 +139,13 @@ class DepthDecoder(nn.Module):
 
         logits = c["dispconv"](x).float() * vol.padding_mask
         out["logits"] = logits
-        probability = torch.softmax(logits, dim=1)
         if self.use_mixture_loss:
             sigma = torch.clamp(torch.sigmoid(c["sigmaconv"](x).float()), 0.01, 1.0)
             out["sigma"] = sigma
+        if self.fused_sweep_loss and self.training:
+            return out
+        probability = torch.softmax(logits, dim=1)
+        if self.use_mixture_loss:
             out["pi"] = probability
             probability = mixture_reweight(probability, sigma, vol.padding_mask)
         out["probability"] = probability

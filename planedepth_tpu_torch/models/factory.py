@@ -2,7 +2,7 @@
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn as nn
@@ -36,10 +36,13 @@ class DepthModel(nn.Module):
             use_mixture_loss=cfg.use_mixture_loss,
             render_probability=cfg.render_probability,
             plane_residual=cfg.plane_residual,
+            fused_sweep_loss=cfg.fused_sweep_loss,
         )
 
-    def forward(self, image: torch.Tensor, grid: torch.Tensor) -> Dict[str, torch.Tensor]:
-        return self.depth(self.encoder(image), grid)
+    def forward(self, image: torch.Tensor, grid: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """``generator`` draws the decoder's dropout masks in training."""
+        return self.depth(self.encoder(image), grid, generator)
 
 
 @torch.no_grad()

@@ -1,6 +1,7 @@
 """Builds the port's CUDA kernels with ``nvcc`` at first use and loads them with ctypes.
 
-All of ``planedepth_tpu_torch/csrc/*.cu`` is compiled for ``sm_90a`` into one
+Each ``planedepth_tpu_torch/csrc/*.cu`` is compiled for ``sm_90a`` by its own
+``nvcc`` process, all started together, and the objects are linked into one
 shared library with a plain C interface.  The library lands in
 ``build/planedepth_tpu_torch/<hash>/`` under the repository root, keyed by a
 hash of the sources and the flags, so an unchanged tree builds once.  Only
@@ -21,7 +22,7 @@ PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_ROOT = PACKAGE_DIR.parent / "build" / "planedepth_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libpdt_kernels.so"
 
 
@@ -61,15 +62,31 @@ def build() -> dict:
         log = log_path.read_text() if log_path.exists() else ""
         return {"path": str(path), "seconds": 0.0, "cached": True, "log": log}
     path.parent.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f".{LIB_NAME}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    tag = f"{os.getpid()}.tmp"
+    tmp = path.with_name(f".{LIB_NAME}.{tag}")
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    objs, procs = [], []
+    for src in _sources():
+        obj = path.with_name(f".{src.stem}.{tag}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True)))
+    steps = [(cmd, proc.communicate()[0], proc.returncode) for cmd, proc in procs]
+    if all(rc == 0 for _, _, rc in steps):
+        cmd = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *map(str, objs)]
+        link = subprocess.run(cmd, capture_output=True, text=True)
+        steps.append((cmd, link.stdout + link.stderr, link.returncode))
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    log = "".join(out for _, out, _ in steps)
+    failed = [(cmd, out, rc) for cmd, out, rc in steps if rc != 0]
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+        cmd, out, rc = failed[0]
+        raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}")
     log_path.write_text(log)
     os.replace(tmp, path)
     return {"path": str(path), "seconds": seconds, "cached": False, "log": log}
@@ -79,7 +96,11 @@ def build() -> dict:
 def load_library() -> ctypes.CDLL:
     """Build if needed, load, and declare every C entry point's signature."""
     lib = ctypes.CDLL(build()["path"])
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.pdt_disp_head_fwd.argtypes = [p, p, p, p, p, i, i, i, i, p]
     lib.pdt_disp_head_fwd.restype = i
+    lib.pdt_plane_sweep_fwd.argtypes = [p] * 11 + [i, i, i, i, f, i, i, p]
+    lib.pdt_plane_sweep_fwd.restype = i
+    lib.pdt_plane_sweep_bwd.argtypes = [p] * 14 + [i, i, i, i, f, i, p]
+    lib.pdt_plane_sweep_bwd.restype = i
     return lib

@@ -5,6 +5,7 @@ a JAX ``DepthModel`` tree (``{"encoder": {"encoder": trunk}, "depth": decoder}``
 as numpy) goes into the port's ``state_dict``.  Conv kernels are transposed
 HWIO -> OIHW; BatchNorm ``scale``/``bias`` (params) and ``mean``/``var``
 (batch stats) become ``weight``/``bias``/``running_mean``/``running_var``.
+``load_jax_pc_params`` does the same for the frozen perceptual VGG.
 """
 from __future__ import annotations
 
@@ -83,7 +84,7 @@ def load_jax_params(model: nn.Module, params: Mapping, batch_stats: Mapping) -> 
             value = np.transpose(value, (3, 2, 0, 1))          # HWIO -> OIHW
         if tuple(value.shape) != tuple(tensor.shape):
             raise ValueError(f"{key}: JAX {value.shape} vs port {tuple(tensor.shape)}")
-        tensor.copy_(torch.from_numpy(np.ascontiguousarray(value)))
+        tensor.copy_(torch.from_numpy(np.array(value)))
 
 
 def load_reference_state_dicts(model: nn.Module, encoder_sd: Dict,
@@ -97,3 +98,33 @@ def load_reference_state_dicts(model: nn.Module, encoder_sd: Dict,
     enc_keys = model.encoder.state_dict().keys()
     model.encoder.load_state_dict({k: torch.as_tensor(encoder_sd[k]) for k in enc_keys})
     model.depth.load_state_dict({k: torch.as_tensor(v) for k, v in depth_sd.items()})
+
+
+# torchvision ``features`` indices of the VGG-19 convs, in JAX ``conv_{i}`` order
+VGG19_CONV_IDS = (0, 2, 5, 7, 10, 12, 14, 16, 19, 21, 23, 25)
+
+
+@torch.no_grad()
+def load_jax_pc_params(vgg: nn.Module, tree: Mapping) -> None:
+    """Weights into the port's ``Vgg19Features``, from either the JAX
+    ``pc_params`` tree (``{"params": {"conv_{i}": {kernel, bias}}}``, the
+    inverse of ``utils/torch_convert.py:convert_vgg19_features``) or a
+    torchvision-layout state dict (``features.{i}.weight`` or ``{i}.weight``).
+    Every conv of ``vgg`` must be found.
+    """
+    if "params" in tree:
+        src = {}
+        for i, cid in enumerate(VGG19_CONV_IDS):
+            leaf = tree["params"].get(f"conv_{i}")
+            if leaf is None:
+                break
+            src[f"{cid}.weight"] = np.transpose(np.asarray(leaf["kernel"]), (3, 2, 0, 1))
+            src[f"{cid}.bias"] = np.asarray(leaf["bias"])
+    else:
+        src = {k.removeprefix("features."): v for k, v in tree.items()}
+    for key, tensor in vgg.features.state_dict().items():
+        value = torch.from_numpy(np.array(src[key], dtype=np.float32))
+        if tuple(value.shape) != tuple(tensor.shape):
+            raise ValueError(f"features.{key}: source {tuple(value.shape)} vs "
+                             f"port {tuple(tensor.shape)}")
+        tensor.copy_(value)

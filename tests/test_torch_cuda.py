@@ -1,4 +1,5 @@
-"""The port's CUDA kernels on the card, each held to its plain PyTorch version.
+"""The port's CUDA kernels on the card, each held to its plain PyTorch version,
+and one training step on the card held to the same step on the CPU.
 
 These tests need an NVIDIA GPU with nvcc (a CUDA kernel has no CPU mode) and
 skip without one.  They import neither JAX nor the JAX package, so they run
@@ -10,9 +11,16 @@ import numpy as np
 import pytest
 import torch
 
-from planedepth_tpu_torch.config import ModelConfig, PlaneConfig
+from planedepth_tpu_torch.config import (
+    DataConfig,
+    LossConfig,
+    ModelConfig,
+    PlaneConfig,
+    stage1_config,
+)
 from planedepth_tpu_torch.models.factory import DepthModel, init_weights_
 from planedepth_tpu_torch.ops.disp_head import disp_head, disp_head_plain
+from planedepth_tpu_torch.ops.plane_sweep import plane_sweep, plane_sweep_plain
 
 pytestmark = pytest.mark.cuda
 TOL = dict(rtol=1e-5, atol=1e-5)     # only the f32 summation order differs
@@ -83,3 +91,74 @@ def test_depth_model_on_cuda_matches_cpu(cuda):
     for key in ("logits", "sigma", "probability", "disp"):
         torch.testing.assert_close(got[key].cpu(), want[key], rtol=1e-3, atol=1e-3,
                                    msg=key)
+
+
+def sweep_inputs(shape, seed, device):
+    """Step-like sweep operands from numpy: row-constant vertical shifts up to
+    ~320, per-row ground shifts, shifts past the W edge, one fully masked
+    row (2); logits, sigma and shift require grad."""
+    b, n, h, w = shape
+    rng = np.random.default_rng(seed)
+    nv = max(1, (7 * n) // 9)
+    vert = np.repeat(rng.uniform(0.0, 320.0, (b, 1, nv)), h, 1)
+    vert[:, :, 0] = w - 1.5
+    ground = (rng.uniform(0.0, 40.0, (b, 1, n - nv))
+              + rng.uniform(0.0, 0.9, (b, 1, n - nv)) * np.arange(h)[None, :, None])
+    shift = np.concatenate([vert, ground], -1).astype(np.float32)
+    mask = (rng.uniform(0, 1, (b, h, n)) > 0.2).astype(np.float32)
+    mask[:, :, :nv] = 1.0
+    mask[:, 2 % h] = 0.0
+    logits = 2.0 * rng.standard_normal((b, n, h, w)).astype(np.float32)
+    logits *= np.moveaxis(mask, -1, 1)[..., None]
+    sigma = rng.uniform(0.0, 1.0, (b, n, h, w)).astype(np.float32)
+    src, tgt = (rng.uniform(0, 1, (b, 3, h, w)).astype(np.float32) for _ in range(2))
+    arrays = (src, tgt, logits, sigma, shift, mask)
+    return [torch.from_numpy(a).to(device).requires_grad_(i in (2, 3, 4))
+            for i, a in enumerate(arrays)]
+
+
+# W below, at and above the 512 threads of a block; N = 63 (the recipe)
+@pytest.mark.parametrize("shape,with_auto", [((2, 6, 8, 64), True),
+                                             ((2, 63, 4, 640), False),
+                                             ((1, 14, 3, 1280), True),
+                                             ((1, 5, 3, 100), False)])
+def test_plane_sweep_kernels_match_plain(cuda, shape, with_auto):
+    """Forward outputs at atol = rtol = 1e-5; d_logits, d_sigma, d_shift at
+    1e-4 of each gradient's largest magnitude (d_shift sums W terms in
+    another order)."""
+    inputs = sweep_inputs(shape, sum(shape), cuda)
+    fwd, bwd = plane_sweep.fwd_launches, plane_sweep.bwd_launches
+    got = plane_sweep(*inputs, 328, with_auto, True)
+    want = plane_sweep_plain(*inputs, 328, with_auto, True)
+    assert plane_sweep.fwd_launches == fwd + 1
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    cts = [torch.randn(o.shape, generator=gen, device=cuda) for o in got]
+    heads = inputs[2:5]
+    d_got = torch.autograd.grad(sum((o * c).sum() for o, c in zip(got, cts)), heads)
+    d_want = torch.autograd.grad(sum((o * c).sum() for o, c in zip(want, cts)), heads)
+    torch.cuda.synchronize()
+    assert plane_sweep.bwd_launches == bwd + 1
+    for g, w in zip(d_got, d_want):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-4 * float(w.abs().max()))
+
+
+def test_train_step_on_cuda_matches_cpu(cuda):
+    """One stage-1-style step (DenseASPP dropout included: both draw their
+    masks from the same CPU generator) on the card and on the CPU, held as
+    chip_smoke.py holds the full-size model: losses at rtol 1e-3, gradients
+    against a float64 step, post-Adam parameters at atol 1e-4."""
+    from chip_smoke import check_step_against_cpu
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = stage1_config(
+        model=ModelConfig(num_layers=18, planes=PlaneConfig(disp_levels=7, disp_max=24,
+                                                            xz_levels=3)),
+        loss=LossConfig(automask=True), data=DataConfig(64, 96), batch_size=2)
+    fwd, bwd = plane_sweep.fwd_launches, plane_sweep.bwd_launches
+    worst = check_step_against_cpu(cfg, cuda)
+    torch.cuda.synchronize()
+    assert (plane_sweep.fwd_launches, plane_sweep.bwd_launches) == (fwd + 1, bwd + 1)
+    assert worst["share_of_weights_held_at_atol"] > 0.5

@@ -62,18 +62,29 @@ def test_plane_volume_matches_jax(yz_levels, residual):
     assert pm.min() == 0 and pm.max() == 1         # both mask values occur
 
 
-@pytest.mark.parametrize("name", ["PlaneConfig", "ModelConfig", "DataConfig"])
+def _assert_shared_fields_equal(port, ref):
+    for f in dataclasses.fields(port):
+        value = getattr(port, f.name)
+        if dataclasses.is_dataclass(value):
+            _assert_shared_fields_equal(value, getattr(ref, f.name))
+        else:
+            assert value == getattr(ref, f.name), f.name
+
+
+@pytest.mark.parametrize("name", ["PlaneConfig", "ModelConfig", "DataConfig",
+                                  "LossConfig", "OptimConfig", "TrainConfig",
+                                  "stage1_config", "hr_finetune_config"])
 def test_config_copies_match_jax_defaults(name):
-    """Every field the port keeps has the JAX package's name and default."""
+    """Every field the port keeps has the JAX package's name and default,
+    in the stage presets too."""
     port = getattr(tcfg, name)()
     ref = getattr(jcfg, name)()
-    for f in dataclasses.fields(port):
-        if f.name == "planes":
-            assert dataclasses.asdict(port.planes) == dataclasses.asdict(ref.planes)
-        else:
-            assert getattr(port, f.name) == getattr(ref, f.name), f.name
+    _assert_shared_fields_equal(port, ref)
     if name == "PlaneConfig":
         assert port.all_levels == ref.all_levels == 63
+    if name.endswith("config"):
+        for prop in ("per_step_batch", "effective_batch", "target_sides"):
+            assert getattr(port, prop) == getattr(ref, prop), prop
 
 
 def test_camera_constants_match_jax():
