@@ -1,4 +1,4 @@
-"""Drive the PyTorch/CUDA port's inference path and stage-1 training step on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's inference path, stage-1 step and stage-2 -> stage-3 trainer on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -28,24 +28,48 @@ Phases, each printing a line:
      make_stereo_batch(4, 192, 640) flipped to 8: 3 warm-up and 10 timed
      steps with every launch count read around them, one validation step
      (make_eval_step, which launches disp_head), and one step on the card
-     held to the same step on the CPU at 64x192.
+     held to the same step on the CPU at 64x192;
+  7. shift: the row-shift kernel against row_shift_plain at the stage-3
+     shape (4, 63, 384, 1280) on seeded signed shifts (the teacher's +/-
+     disparities, integers, beyond the clip at both ends); kernel, twin and
+     F.grid_sample times by CUDA events;
+  8. distill: a stage-2 Trainer (hr_finetune_config, 1280x384, batch 4
+     flipped to 8) on synthetic samples takes 2 steps and saves last_models;
+     a stage-3 Trainer (self_distillation_config: 1280x384, batch 4, the
+     frozen teacher on 8 images) restores encoder and depth from it and
+     takes 3 warm-up and 10 timed steps and one validation pass, with the
+     launch counts read around every step and around the run; the teacher
+     must equal the restored student and stay unchanged, the student must
+     move; one stage-3 step on the card is held to the CPU at 64x192; then
+     2 use_mom steps of stage1_config (6 row-shift launches a step).
 Then one JSON line of the kernels and, last, the ok line.  TF32 is off for
 convolutions and matmuls so that the card computes in float32 throughout.
 """
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from planedepth_tpu_torch.config import DataConfig, ModelConfig, stage1_config
+from planedepth_tpu_torch.config import (
+    DataConfig,
+    LossConfig,
+    ModelConfig,
+    hr_finetune_config,
+    self_distillation_config,
+    stage1_config,
+)
 from planedepth_tpu_torch.data.synthetic import make_stereo_batch
 from planedepth_tpu_torch.eval.evaluator import mirror_batch, predict_disparities
 from planedepth_tpu_torch.eval.metrics import evaluate_disparities
@@ -53,6 +77,8 @@ from planedepth_tpu_torch.models.factory import DepthModel, init_weights_
 from planedepth_tpu_torch.ops import _build
 from planedepth_tpu_torch.ops.disp_head import disp_head, disp_head_plain
 from planedepth_tpu_torch.ops.plane_sweep import plane_sweep, plane_sweep_plain
+from planedepth_tpu_torch.ops.row_shift import row_shift, row_shift_plain, shift_limit
+from planedepth_tpu_torch.train.distill import generate_post_process_disp
 from planedepth_tpu_torch.train.state import make_optimizer
 from planedepth_tpu_torch.train.step import (
     ModelBundle,
@@ -62,9 +88,12 @@ from planedepth_tpu_torch.train.step import (
     process_batch,
     sweep_pad,
 )
+from planedepth_tpu_torch.train.trainer import Trainer
+from planedepth_tpu_torch.utils.checkpoint import load_checkpoint
 
 SHAPE = (8, 63, 384, 1280)            # (B, N, H, W): eval batch 4, doubled
 SWEEP_SHAPE = (8, 63, 192, 640)       # stage-1 batch 4, flipped to 8
+SHIFT_SHAPE = (4, 63, 384, 1280)      # stage 3: batch 4, the teacher's half
 TOL = dict(rtol=1e-5, atol=1e-5)      # only the f32 summation order differs
 # gradients: d_shift sums W terms in another order; relative to max |value|
 GRAD_TOL = 1e-4
@@ -81,7 +110,12 @@ KERNELS = {
                         "planedepth_tpu/ops/pallas_sweep.py:376"),
     "plane_sweep_bwd": ("planedepth_tpu_torch/csrc/plane_sweep.cu",
                         "planedepth_tpu/ops/pallas_sweep.py:542"),
+    "row_shift_fwd": ("planedepth_tpu_torch/csrc/row_shift.cu",
+                      "planedepth_tpu/ops/pallas_shift.py:31"),
 }
+# per stage-3 step: the teacher's 5 row shifts and its disp head, one sweep
+DISTILL_STEP = {"disp_head_fwd": 1, "plane_sweep_fwd": 1, "plane_sweep_bwd": 1,
+                "row_shift_fwd": 5}
 
 
 def bound(nbytes, flops):
@@ -344,11 +378,13 @@ def phase_sweep(card, shape=SWEEP_SHAPE, dev=torch.device("cuda")):
 def launch_counts():
     return {"disp_head_fwd": disp_head.launches,
             "plane_sweep_fwd": plane_sweep.fwd_launches,
-            "plane_sweep_bwd": plane_sweep.bwd_launches}
+            "plane_sweep_bwd": plane_sweep.bwd_launches,
+            "row_shift_fwd": row_shift.launches}
 
 
 def reset_launch_counts():
     disp_head.launches = plane_sweep.fwd_launches = plane_sweep.bwd_launches = 0
+    row_shift.launches = 0
 
 
 def phase_train(card, dev=torch.device("cuda"), warmup=3, steps=10):
@@ -371,17 +407,11 @@ def phase_train(card, dev=torch.device("cuda"), warmup=3, steps=10):
         times.append(time.perf_counter() - t0)
     launches = launch_counts()
     want = {"disp_head_fwd": 0, "plane_sweep_fwd": warmup + steps,
-            "plane_sweep_bwd": warmup + steps}
+            "plane_sweep_bwd": warmup + steps, "row_shift_fwd": 0}
     if launches != want:
         raise AssertionError(f"training launches {launches}, want {want}")
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-    for ls in losses:
-        if not all(math.isfinite(v) for v in ls.values()):
-            raise AssertionError(f"non-finite loss: {ls}")
-        total = (ls["loss/ph_loss"] + cfg.loss.alpha_pc * ls["loss/pc_loss"]
-                 + cfg.loss.alpha_smooth * ls["loss/smooth_loss"])
-        if not math.isclose(ls["loss/total_loss"], total, rel_tol=1e-5, abs_tol=1e-6):
-            raise AssertionError(f"total {ls['loss/total_loss']} != {total}")
+    check_losses(losses, cfg)
     moved = sum(int(not torch.equal(p, first[k]))
                 for k, p in bundle.model.named_parameters())
     if moved < len(first) // 2:
@@ -411,6 +441,14 @@ def phase_train(card, dev=torch.device("cuda"), warmup=3, steps=10):
     return launches
 
 
+def distinct_teacher(bundle, seed):
+    """Seeded weights of its own for ``bundle``'s teacher, if it has one."""
+    if bundle.teacher is None:
+        return False
+    init_weights_(bundle.teacher, torch.Generator().manual_seed(seed))
+    return True
+
+
 def check_step_against_cpu(cfg, dev, seed=1):
     """One training step of ``cfg`` on the card and on the CPU (plain twin)
     from the same weights, batch and dropout masks; returns the worst errors.
@@ -427,11 +465,17 @@ def check_step_against_cpu(cfg, dev, seed=1):
       gradient is under the card's and the CPU's largest float32 error on
       their leaf may differ by one step each way (2 * lr), and are held to
       that.
+
+    Under ``self_distillation`` every bundle's teacher gets weights of its
+    own (seed + 1), so the step is held with a teacher that is not the
+    student.
     """
     batch = make_stereo_batch(cfg.per_step_batch, cfg.data.height, cfg.data.width,
                               seed=seed)
     cpu_dev = torch.device("cpu")
     bundles = (ModelBundle(cfg, dev), ModelBundle(cfg, cpu_dev))
+    for bundle in bundles:
+        distinct_teacher(bundle, cfg.seed + 1)
     losses = []
     for bundle in bundles:
         opt, sched = make_optimizer(cfg, bundle.model.parameters(), 1000)
@@ -445,6 +489,8 @@ def check_step_against_cpu(cfg, dev, seed=1):
     ref.model.double().train()
     if ref.pc is not None:
         ref.pc.double()
+    if distinct_teacher(ref, cfg.seed + 1):
+        ref.teacher.double()
     out = process_batch(ref, {k: v.double() for k, v in
                               batch_to_tensors(batch, cpu_dev).items()},
                         torch.Generator().manual_seed(cfg.seed << 32))
@@ -479,6 +525,216 @@ def check_step_against_cpu(cfg, dev, seed=1):
     return worst
 
 
+def seeded_shift_inputs(shape, pad, seed, dev):
+    """The teacher's row-shift operands: maps in [0, 1) and signed shifts,
+    +/- the disparities of 49/63 row-constant vertical planes up to ~320 and
+    of ground planes that vary by row, with one plane at an integer shift
+    and two beyond the clip at either end."""
+    B, N, H, W = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rand = lambda *size: torch.rand(size, generator=g, device=dev)
+    nv = (49 * N) // 63
+    vert = (2.0 * (160.0 ** rand(B, 1, nv))).expand(B, H, nv)
+    ground = 40.0 * rand(B, 1, N - nv) + rand(B, 1, N - nv) * torch.arange(
+        H, device=dev)[None, :, None] * (200.0 / H)
+    sign = torch.where(rand(B, 1, N) < 0.5, -1.0, 1.0)
+    shift = (torch.cat([vert, ground], -1) * sign).contiguous()
+    lim = shift_limit(pad)
+    shift[:, :, 0] = torch.round(shift[:, :, 0])
+    shift[:, :, 1] = lim + 50.25
+    shift[:, :, 2] = -(lim + 80.5)
+    return rand(B, N, H, W), shift
+
+
+def phase_shift(card, shape=SHIFT_SHAPE, dev=torch.device("cuda")):
+    """The row-shift kernel against its twin; returns its JSON fields."""
+    pad = sweep_pad(self_distillation_config())
+    maps, shift = seeded_shift_inputs(shape, pad, 3, dev)
+    got = row_shift(maps, shift, pad)
+    torch.cuda.synchronize(dev)
+    want = row_shift_plain(maps, shift, pad)
+    err = (got - want).abs().max().item()
+    torch.testing.assert_close(got, want, **TOL)
+    ms = cuda_ms(lambda: row_shift(maps, shift, pad))
+    plain_ms = cuda_ms(lambda: row_shift_plain(maps, shift, pad), warmup=1, reps=5)
+
+    # the library call: the same 2-tap filter through F.grid_sample on
+    # (B*N, 1, H, W), the grid built outside the timed region
+    B, N, H, W = shape
+    lim = shift_limit(pad)
+    xs = torch.arange(W, device=dev, dtype=torch.float32)
+    gx = (xs + shift.clamp(-lim, lim).transpose(1, 2)[..., None]) * (2.0 / (W - 1)) - 1.0
+    gy = (torch.arange(H, device=dev, dtype=torch.float32) * (2.0 / (H - 1)) - 1.0)
+    grid = torch.stack([gx, gy[None, None, :, None].expand_as(gx)], -1).view(B * N, H, W, 2)
+    flat = maps.view(B * N, 1, H, W)
+    sample = lambda: F.grid_sample(flat, grid, mode="bilinear", padding_mode="zeros",
+                                   align_corners=True)
+    lib_err = (sample().view(shape) - got).abs().max().item()
+    library_ms = cuda_ms(sample)
+    del grid, flat
+
+    moved = nbytes(maps, shift, got)
+    bound_ms, bound_by = bound(moved, 3 * maps.numel())
+    print(f"[shift] row_shift vs plain at {shape}, pad {pad} (clip +/-{lim:.0f}), signed "
+          f"shifts: max_abs_err {err:.3e} (rtol {TOL['rtol']}, atol {TOL['atol']}); "
+          f"F.grid_sample vs kernel max_abs_err {lib_err:.3e} | {card}")
+    print(f"[shift] kernel {ms:.4f} ms ({moved / ms / 1e9:.2f} TB/s of "
+          f"{moved / 1e6:.1f} MB moved, {bound_ms / ms:.1%} of the bound {bound_ms:.4f} ms, "
+          f"{bound_by}); twin {plain_ms:.3f} ms; F.grid_sample {library_ms:.3f} ms "
+          f"(CUDA events, median) | {card}")
+    return {"row_shift_fwd": {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                              "bound_ms": bound_ms, "bound_by": bound_by,
+                              "library_ms": library_ms}}
+
+
+class SyntheticStereo:
+    """Unbatched synthetic stereo samples in the trainer's dataset protocol
+    (``__len__``, ``getitem(index, epoch)``) at one size."""
+
+    def __init__(self, n, height, width):
+        self.n, self.height, self.width = n, height, width
+
+    def __len__(self):
+        return self.n
+
+    def getitem(self, index, epoch=0):
+        batch = make_stereo_batch(1, self.height, self.width, seed=index)
+        return {k: v[0] for k, v in batch.items()}
+
+
+def check_losses(losses, cfg):
+    for ls in losses:
+        if not all(math.isfinite(v) for v in ls.values()):
+            raise AssertionError(f"non-finite loss: {ls}")
+        total = (ls["loss/ph_loss"] + cfg.loss.alpha_pc * ls["loss/pc_loss"]
+                 + cfg.loss.alpha_smooth * ls["loss/smooth_loss"]
+                 + cfg.loss.self_distillation * ls.get("loss/disp_loss", 0.0))
+        if not math.isclose(ls["loss/total_loss"], total, rel_tol=1e-5, abs_tol=1e-6):
+            raise AssertionError(f"total {ls['loss/total_loss']} != {total}")
+
+
+def phase_distill(card, dev=torch.device("cuda"), warmup=3, steps=10):
+    """Stage 2 -> stage 3 through the Trainer at full width; returns the
+    launch counts of the stage-3 run."""
+    with tempfile.TemporaryDirectory(prefix="pdt_chip_smoke_") as log_dir:
+        cfg2 = hr_finetune_config(log_dir=log_dir)
+        h, w = cfg2.data.height, cfg2.data.width
+        stage2 = Trainer(cfg2, datasets=(SyntheticStereo(2 * cfg2.per_step_batch, h, w),
+                                         SyntheticStereo(cfg2.per_step_batch, h, w)),
+                         device=dev)
+        reset_launch_counts()
+        stage2.train()
+        stage2.close()
+        s2_launches = launch_counts()
+        want = {"disp_head_fwd": 1, "plane_sweep_fwd": 2, "plane_sweep_bwd": 2,
+                "row_shift_fwd": 0}                     # 2 steps + one val batch
+        if s2_launches != want:
+            raise AssertionError(f"stage-2 launches {s2_launches}, want {want}")
+        ckpt = os.path.join(log_dir, cfg2.model_name, "last_models")
+        payload = load_checkpoint(ckpt)
+        saved = {f"{name}.{k}": v for name in ("encoder", "depth")
+                 for k, v in payload[name].items() if torch.is_tensor(v)}
+
+        cfg = self_distillation_config(log_dir=log_dir, load_weights_folder=ckpt,
+                                       optim=dataclasses.replace(
+                                           self_distillation_config().optim, num_epochs=1))
+        b = cfg.per_step_batch
+        trainer = Trainer(cfg, datasets=(SyntheticStereo(b * (warmup + steps), h, w),
+                                         SyntheticStereo(b, h, w)), device=dev)
+        teacher, student = trainer.bundle.teacher, trainer.bundle.model
+        for name, module in (("teacher", teacher), ("student", student)):
+            if any(not torch.equal(v.cpu(), saved[k]) for k, v in module.state_dict().items()):
+                raise AssertionError(f"the {name} is not the restored stage-2 model")
+
+        times, losses, val = [], [], {}
+        step_fn, val_fn = trainer.train_step, trainer.val
+
+        def timed_step(batch):
+            if len(times) == warmup:
+                torch.cuda.reset_peak_memory_stats(dev)
+            before = launch_counts()
+            t0 = time.perf_counter()
+            out = step_fn(batch)                  # floats: the step has synchronised
+            times.append(time.perf_counter() - t0)
+            delta = {k: v - before[k] for k, v in launch_counts().items()}
+            if delta != DISTILL_STEP:
+                raise AssertionError(f"stage-3 step launches {delta}, want {DISTILL_STEP}")
+            losses.append(out)
+            return out
+
+        trainer.train_step = timed_step
+        trainer.val = lambda epoch: val.setdefault("metrics", val_fn(epoch))
+        reset_launch_counts()
+        trainer.train()
+        launches = launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        trainer.close()
+        n = warmup + steps
+        want = {k: v * n for k, v in DISTILL_STEP.items()}
+        want["disp_head_fwd"] += 1                      # the validation batch
+        if launches != want or len(times) != n:
+            raise AssertionError(f"stage-3 run launches {launches} in {len(times)} "
+                                 f"steps, want {want} in {n}")
+        check_losses(losses, cfg)
+        if not val.get("metrics") or not all(math.isfinite(v) for v in val["metrics"].values()):
+            raise AssertionError(f"validation metrics {val}")
+        if any(not torch.equal(v.cpu(), saved[k]) for k, v in teacher.state_dict().items()):
+            raise AssertionError("the teacher changed during training")
+        moved = sum(int(not torch.equal(v.cpu(), saved[k]))
+                    for k, v in student.state_dict().items() if v.is_floating_point())
+        n_float = sum(int(v.is_floating_point()) for v in student.state_dict().values())
+        if moved < n_float // 2:
+            raise AssertionError(f"only {moved} of {n_float} student tensors moved")
+
+        batch = batch_to_tensors(make_stereo_batch(b, h, w, seed=0), dev)
+        with torch.no_grad():
+            teacher_ms = cuda_ms(lambda: generate_post_process_disp(
+                teacher, batch["color_aug_l"], batch["grid"], sweep_pad(cfg)),
+                warmup=1, reps=5)
+    step_ms = statistics.median(times[warmup:]) * 1e3
+    cpu = check_step_against_cpu(self_distillation_config(
+        data=DataConfig(height=64, width=192)), dev)
+    print(f"[distill] stage 2 (hr_finetune_config {w}x{h}, batch {cfg2.per_step_batch} "
+          f"flipped to {cfg2.effective_batch}): 2 steps, launches {s2_launches}, saved "
+          f"last_models; stage 3 (self_distillation_config ResNet-{cfg.model.num_layers} "
+          f"DenseASPP {cfg.model.planes.disp_levels}+{cfg.model.planes.xz_levels} planes "
+          f"VGG19 alpha_pc {cfg.loss.alpha_pc}, {w}x{h}, batch {b}, teacher on {2 * b} "
+          f"images) restored encoder+depth: {warmup}+{steps} steps, launches {launches} "
+          f"(per step {DISTILL_STEP}, + 1 disp head for validation), teacher unchanged, "
+          f"{moved}/{n_float} student tensors moved, first/last losses "
+          f"{json.dumps(losses[0])} {json.dumps(losses[-1])}")
+    print(f"[distill] validation metrics {json.dumps(val['metrics'])}")
+    print(f"[distill] card vs CPU at 64x192 (stage-3 step, teacher of its own): "
+          f"{json.dumps(cpu)}")
+    print(f"[distill] stage-3 step {step_ms:.2f} ms median of {steps} (host clock around "
+          f"synchronised steps, after {warmup} warm-up), {b / step_ms * 1e3:.2f} imgs/s "
+          f"(student images), peak device memory {peak_gb:.2f} GB; teacher pass "
+          f"(forward on {2 * b} images + 5 row shifts) {teacher_ms:.2f} ms = "
+          f"{teacher_ms / step_ms:.1%} of the step; float32, TF32 off | {card}")
+    return launches
+
+
+def phase_mom(card, dev=torch.device("cuda"), steps=2):
+    """use_mom at the stage-1 size: 6 row-shift launches a step."""
+    cfg = stage1_config(loss=LossConfig(use_mom=True))
+    bundle = ModelBundle(cfg, dev)
+    optimizer, scheduler = make_optimizer(cfg, bundle.model.parameters(), 1000)
+    train_step = make_train_step(bundle, optimizer, scheduler)
+    batch = batch_to_tensors(make_stereo_batch(cfg.per_step_batch, cfg.data.height,
+                                               cfg.data.width, seed=0), dev)
+    reset_launch_counts()
+    losses = [train_step(batch) for _ in range(steps)]
+    launches = launch_counts()
+    want = {"disp_head_fwd": 0, "plane_sweep_fwd": steps, "plane_sweep_bwd": steps,
+            "row_shift_fwd": 6 * steps}
+    if launches != want:
+        raise AssertionError(f"use_mom launches {launches}, want {want}")
+    check_losses(losses, cfg)
+    print(f"[mom] stage1_config use_mom at {cfg.data.width}x{cfg.data.height}, batch "
+          f"{cfg.per_step_batch} flipped to {cfg.effective_batch}: {steps} steps, launches "
+          f"{launches}, losses {json.dumps(losses[-1])} | {card}")
+
+
 def main():
     card = phase_device()
     phase_build()
@@ -487,6 +743,9 @@ def main():
     fields.update(phase_sweep(card))
     train = phase_train(card)
     launches.update({k: train[k] for k in ("plane_sweep_fwd", "plane_sweep_bwd")})
+    fields.update(phase_shift(card))
+    launches["row_shift_fwd"] = phase_distill(card)["row_shift_fwd"]
+    phase_mom(card)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": launches[name], **fields[name]}

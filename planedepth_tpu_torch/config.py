@@ -2,8 +2,11 @@
 
 Same names and defaults as the JAX package's ``PlaneConfig``, ``ModelConfig``,
 ``LossConfig``, ``OptimConfig`` and the fields of ``TrainConfig`` that the
-stereo training step reads, the ``height``/``width`` of its ``DataConfig``,
-and the stage-1 and HR-finetune presets.  The fields that choose a TPU layout
+stereo training step and the trainer read, the ``height``/``width`` and
+``num_workers`` of its ``DataConfig``, the three stage presets and the
+``to_json``/``from_dict`` round trip (``from_dict`` skips the JAX package's
+fields that have no counterpart here, so it reads the JAX ``opt.json``
+too).  The fields that choose a TPU layout
 or a TPU memory trade (``s2d_tail``, ``s2d_stem``, ``fused_head``,
 ``fused_head_bf16``, ``remat``, ``sweep_rows``, ``sweep_gp_taps*``,
 ``sweep_quad*``, ``pc_s2d``, ``warp2d_*``, ``mesh_shape``, ``remat_warp``,
@@ -14,8 +17,9 @@ trains in float32.
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass, field
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -66,10 +70,12 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class DataConfig:
-    """Network input size (reference: options.py:27-60)."""
+    """Network input size and loader threads (reference: options.py:27-60,
+    217-220)."""
 
     height: int = 192
     width: int = 640
+    num_workers: int = 12           # loader threads (data/loader.py)
 
     def __post_init__(self):
         if self.height % 32 or self.width % 32:
@@ -93,21 +99,24 @@ class LossConfig:
 
 @dataclass(frozen=True)
 class OptimConfig:
-    """Optimizer schedule (reference: options.py:176-206); the epoch counts
-    come with the trainer (ROADMAP A7)."""
+    """Optimizer schedule (reference: options.py:176-206)."""
 
     learning_rate: float = 1e-4
     beta_1: float = 0.5
     beta_2: float = 0.999
+    num_epochs: int = 50
     milestones: Tuple[int, ...] = (30, 40)
     lr_gamma: float = 0.5
+    start_epoch: int = 0
 
 
 @dataclass(frozen=True)
 class TrainConfig:
     """Training configuration: the fields of the JAX ``TrainConfig`` that the
-    stereo step reads, with the same defaults."""
+    stereo step and the trainer read, with the same defaults."""
 
+    model_name: str = "planedepth"
+    log_dir: str = "./log"
     model: ModelConfig = field(default_factory=ModelConfig)
     loss: LossConfig = field(default_factory=LossConfig)
     data: DataConfig = field(default_factory=DataConfig)
@@ -119,6 +128,15 @@ class TrainConfig:
     novel_frame_ids: Tuple[int, ...] = ()
     no_stereo: bool = False
     flip_right: bool = False
+
+    # checkpoint / logging
+    load_weights_folder: Optional[str] = None
+    models_to_load: Tuple[str, ...] = ("encoder", "depth")
+    # restore the Adam state saved with the checkpoint when its shapes match
+    # (reference trainer.py:905-913 restores adam.pth when present)
+    restore_optimizer: bool = True
+    log_frequency: int = 500
+    log_img_frequency: int = 250
     # checkpoint the perceptual net's pred-branch forward (same numbers)
     pc_remat: bool = True
     fused_sweep: bool = False
@@ -151,15 +169,53 @@ class TrainConfig:
     def replace(self, **kw) -> "TrainConfig":
         return dataclasses.replace(self, **kw)
 
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2, default=str)
+
+    @staticmethod
+    def from_dict(d: dict) -> "TrainConfig":
+        """Rebuild a TrainConfig from ``json.loads(cfg.to_json())`` (the
+        opt.json / checkpoint-meta format); unknown keys are skipped."""
+        return _dataclass_from_dict(TrainConfig, d)
+
+
+def _dataclass_from_dict(cls, d: dict):
+    kw = {}
+    for f in dataclasses.fields(cls):
+        if f.name not in d:
+            continue
+        v = d[f.name]
+        ftype = _FIELD_DATACLASSES.get((cls.__name__, f.name))
+        if ftype is not None and isinstance(v, dict):
+            kw[f.name] = _dataclass_from_dict(ftype, v)
+        elif isinstance(v, list):
+            kw[f.name] = tuple(v)
+        elif v == "None":
+            kw[f.name] = None
+        else:
+            kw[f.name] = v
+    return cls(**kw)
+
+
+# nested-dataclass fields for from_dict reconstruction
+_FIELD_DATACLASSES = {
+    ("TrainConfig", "model"): ModelConfig,
+    ("TrainConfig", "loss"): LossConfig,
+    ("TrainConfig", "data"): DataConfig,
+    ("TrainConfig", "optim"): OptimConfig,
+    ("ModelConfig", "planes"): PlaneConfig,
+}
+
 
 def stage1_config(**overrides) -> TrainConfig:
     """Stage 1: 640x192 stereo, 50 epochs, full feature set."""
     cfg = TrainConfig(
+        model_name="stage1",
         fused_sweep=True,
         flip_right=True,
         batch_size=8,
         data=DataConfig(height=192, width=640),
-        optim=OptimConfig(learning_rate=1e-4, milestones=(30, 40)),
+        optim=OptimConfig(learning_rate=1e-4, num_epochs=50, milestones=(30, 40)),
     )
     return cfg.replace(**overrides) if overrides else cfg
 
@@ -167,10 +223,38 @@ def stage1_config(**overrides) -> TrainConfig:
 def hr_finetune_config(**overrides) -> TrainConfig:
     """Stage 2: 1280x384 high-resolution finetune, 1 epoch, lr 2.5e-5."""
     cfg = TrainConfig(
+        model_name="hr_finetune",
         fused_sweep=True,
         flip_right=True,
         batch_size=8,
         data=DataConfig(height=384, width=1280),
-        optim=OptimConfig(learning_rate=2.5e-5, milestones=()),
+        optim=OptimConfig(learning_rate=2.5e-5, num_epochs=1, milestones=()),
+        models_to_load=("encoder", "depth"),
     )
     return cfg.replace(**overrides) if overrides else cfg
+
+
+def self_distillation_config(**overrides) -> TrainConfig:
+    """Stage 3: self-distillation with a frozen teacher, 10 epochs, lr 2e-5.
+
+    The reference's stage-3 command drops ``--flip_right`` (reference
+    README.md:56-74): the loaded batch is the full batch_size 4 with no flip
+    doubling.
+    """
+    cfg = TrainConfig(
+        model_name="self_distillation",
+        fused_sweep=True,
+        batch_size=4,
+        loss=LossConfig(self_distillation=1.0),
+        data=DataConfig(height=384, width=1280),
+        optim=OptimConfig(learning_rate=2e-5, num_epochs=10, milestones=(5,)),
+        models_to_load=("encoder", "depth"),
+    )
+    return cfg.replace(**overrides) if overrides else cfg
+
+
+STAGE_PRESETS = {
+    "stage1": stage1_config,
+    "hr_finetune": hr_finetune_config,
+    "self_distillation": self_distillation_config,
+}

@@ -103,4 +103,6 @@ def load_library() -> ctypes.CDLL:
     lib.pdt_plane_sweep_fwd.restype = i
     lib.pdt_plane_sweep_bwd.argtypes = [p] * 14 + [i, i, i, i, f, i, p]
     lib.pdt_plane_sweep_bwd.restype = i
+    lib.pdt_row_shift_fwd.argtypes = [p, p, p, i, i, i, i, f, p]
+    lib.pdt_row_shift_fwd.restype = i
     return lib

@@ -3,13 +3,16 @@
 One ``train_step`` call is the reference's per-batch work for the stereo
 recipes (trainer.py:278-356): flip_right batch doubling on the device, the
 depth forward in training mode (BatchNorm on batch statistics, DenseASPP
-dropout drawn from a generator seeded per step), the fused plane sweep
-against the right view, the mixture NLL, perceptual and smoothness losses,
-backward, and the Adam step.  Batches are dicts of NCHW tensors
-(:func:`batch_to_tensors` converts the NHWC numpy batches of ``data/``).
+dropout drawn from a generator seeded per step), under ``self_distillation``
+the frozen teacher's ``disp_pp`` and ``mask_novel``, under ``use_mom`` the
+mirror occlusion mask, the fused plane sweep against the right view, the
+mixture NLL, perceptual, smoothness and distillation losses, backward, and
+the Adam step.  Batches are dicts of NCHW tensors (:func:`batch_to_tensors`
+converts the NHWC numpy batches of ``data/``).
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Callable, Dict, Mapping, Optional
 
@@ -21,6 +24,10 @@ from planedepth_tpu_torch.models.factory import DepthModel, init_weights_
 from planedepth_tpu_torch.models.perceptual import Vgg19Features
 from planedepth_tpu_torch.ops.losses import smooth_loss_disp
 from planedepth_tpu_torch.ops.plane_sweep import plane_sweep
+from planedepth_tpu_torch.train.distill import (
+    fused_mom_mask_novel,
+    generate_post_process_disp,
+)
 from planedepth_tpu_torch.train.flip import add_flip_right_inputs
 from planedepth_tpu_torch.train.losses import compute_depth_metrics, perceptual_loss
 
@@ -47,11 +54,8 @@ def _check_ported(cfg: TrainConfig) -> None:
     if cfg.novel_frame_ids:
         raise NotImplementedError("pose networks and temporal sides are not "
                                   "ported yet (ROADMAP A10)")
-    if cfg.loss.self_distillation > 0 or cfg.loss.use_mom:
-        raise NotImplementedError("the distillation teacher and use_mom are not "
-                                  "ported yet (ROADMAP A9)")
     if cfg.loss.alpha_self > 0:
-        raise NotImplementedError("alpha_self waits on its JAX oracle (ROADMAP C1)")
+        raise NotImplementedError("alpha_self is not ported yet (ROADMAP C1)")
     if not cfg.model.use_mixture_loss:
         raise NotImplementedError("the no-mixture sweep is not ported yet "
                                   "(ROADMAP B1')")
@@ -64,8 +68,9 @@ def _check_ported(cfg: TrainConfig) -> None:
 
 
 class ModelBundle:
-    """The ``DepthModel`` and the frozen perceptual VGG of one configuration,
-    with seeded random weights (``init_weights_`` from ``cfg.seed``), on
+    """The ``DepthModel``, the frozen perceptual VGG and, under
+    ``self_distillation``, the frozen teacher of one configuration, with
+    seeded random weights (``init_weights_`` from ``cfg.seed``), on
     ``device``: the card unless the caller names another device."""
 
     def __init__(self, cfg: TrainConfig, device: Optional[torch.device] = None):
@@ -82,6 +87,16 @@ class ModelBundle:
         self.model = init_weights_(DepthModel(model_cfg), g).to(self.device)
         self.pc = (init_weights_(Vgg19Features(), g).to(self.device)
                    if cfg.loss.alpha_pc > 0 else None)
+        self.teacher: Optional[DepthModel] = None
+        if cfg.loss.self_distillation > 0:
+            self.freeze_teacher()
+
+    def freeze_teacher(self) -> None:
+        """The teacher becomes a deep copy of the student as it is now
+        (reference trainer.py:109-112): eval mode (running statistics, no
+        dropout), no parameter requires a gradient.  The trainer calls this
+        after restoring the student."""
+        self.teacher = copy.deepcopy(self.model).eval().requires_grad_(False)
 
 
 def batch_to_tensors(batch: Mapping[str, np.ndarray],
@@ -97,9 +112,11 @@ def batch_to_tensors(batch: Mapping[str, np.ndarray],
 def fused_stereo_losses(bundle: ModelBundle, outputs: Dict[str, torch.Tensor],
                         batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """The stereo loss of the mixture recipes through the fused plane sweep:
-    mixture NLL (with the automask minimum), perceptual loss on the
-    composited reconstruction, edge-aware smoothness on the right 80% of
-    columns (``planedepth_tpu/train/step.py:fused_stereo_losses``)."""
+    mixture NLL (with the automask minimum, times ``mask_novel`` when the
+    outputs hold one), perceptual loss on the composited reconstruction
+    (blended with the target by ``mask_novel``), the distillation L1 to the
+    teacher's ``disp_pp``, edge-aware smoothness on the right 80% of columns
+    (``planedepth_tpu/train/step.py:fused_stereo_losses``)."""
     cfg = bundle.cfg
     color = "color_aug" if cfg.loss.match_aug else "color"
     source, target = batch[f"{color}_l"], batch[f"{color}_r"]
@@ -112,15 +129,25 @@ def fused_stereo_losses(bundle: ModelBundle, outputs: Dict[str, torch.Tensor],
     rgb, nll = sweep[:2]
     ph = torch.minimum(nll, sweep[2]) if with_auto else nll
     disp = sweep[-1][:, None] if with_disp else outputs["disp"]
+    mask_novel = outputs.get("mask_novel")                    # (B, 1, H, W)
+    if mask_novel is not None:
+        ph = ph * mask_novel[:, 0]
 
     ph_loss = ph.mean()
     losses = {"loss/ph_loss": ph_loss, "loss/pc_loss": torch.zeros_like(ph_loss)}
     total = ph_loss
     if bundle.pc is not None:
-        pc = perceptual_loss(bundle.pc, rgb, target,
+        pred = rgb
+        if mask_novel is not None:
+            pred = rgb * mask_novel + target * (1.0 - mask_novel)
+        pc = perceptual_loss(bundle.pc, pred, target,
                              source if with_auto else None, remat=cfg.pc_remat)
         losses["loss/pc_loss"] = pc
         total = total + cfg.loss.alpha_pc * pc
+    if cfg.loss.self_distillation > 0 and "disp_pp" in outputs:
+        disp_loss = (disp - outputs["disp_pp"]).abs().mean()
+        losses["loss/disp_loss"] = disp_loss
+        total = total + cfg.loss.self_distillation * disp_loss
     x0 = int(0.2 * source.shape[-1])
     smooth = smooth_loss_disp(disp[..., x0:], batch["color_l"][..., x0:],
                               gamma=cfg.loss.gamma_smooth)
@@ -131,21 +158,38 @@ def fused_stereo_losses(bundle: ModelBundle, outputs: Dict[str, torch.Tensor],
 
 def process_batch(bundle: ModelBundle, batch: Dict[str, torch.Tensor],
                   generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
-    """Flip doubling, depth forward and losses -> the loss dict.  The
-    model's mode (train or eval) is the caller's."""
-    if bundle.cfg.flip_right:
+    """Flip doubling, the teacher's targets, depth forward, the mirror
+    occlusion mask and losses -> the loss dict.  The model's mode (train or
+    eval) is the caller's.
+
+    The teacher runs before the student, so its volumes are freed before the
+    student's activations are built; the order changes no number.
+    """
+    cfg = bundle.cfg
+    if cfg.flip_right:
         batch = add_flip_right_inputs(batch)
+    targets = {}
+    if cfg.loss.self_distillation > 0 and bundle.teacher is not None:
+        targets["disp_pp"], targets["mask_novel"] = generate_post_process_disp(
+            bundle.teacher, batch["color_aug_l"], batch["grid"], sweep_pad(cfg))
     outputs = bundle.model(batch["color_aug_l"], batch["grid"], generator)
+    outputs.update(targets)
+    if cfg.loss.use_mom and cfg.flip_right:
+        # overwrites the teacher's mask_novel, in the reference's order
+        outputs["mask_novel"] = fused_mom_mask_novel(
+            outputs, cfg.model.use_mixture_loss, sweep_pad(cfg))
     return fused_stereo_losses(bundle, outputs, batch)
 
 
 def make_train_step(bundle: ModelBundle, optimizer: torch.optim.Optimizer,
-                    scheduler) -> Callable[[Dict[str, torch.Tensor]], Dict[str, float]]:
+                    scheduler, step: int = 0
+                    ) -> Callable[[Dict[str, torch.Tensor]], Dict[str, float]]:
     """``train_step(batch) -> {loss name: float}``: forward, backward, Adam
-    step, LR schedule step.  Step t draws its dropout masks from a CPU
-    generator seeded with ``(cfg.seed, t)``: the same masks on any device."""
+    step, LR schedule step.  Step t (counted from ``step``) draws its dropout
+    masks from a CPU generator seeded with ``(cfg.seed, t)``: the same masks
+    on any device."""
     cfg = bundle.cfg
-    state = {"step": 0}
+    state = {"step": step}
 
     def train_step(batch: Dict[str, torch.Tensor]) -> Dict[str, float]:
         bundle.model.train()

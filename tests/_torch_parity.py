@@ -80,6 +80,56 @@ def inputs(batch, height, width, seed=0):
     return image, np.ascontiguousarray(grid, dtype=np.float32)
 
 
+def bn_sizes(model):
+    """Records n = B*H*W of every BatchNorm2d input during the next forward."""
+    sizes = {}
+    for name, mod in model.named_modules():
+        if isinstance(mod, torch.nn.BatchNorm2d):
+            mod.register_forward_pre_hook(
+                lambda m, a, name=name: sizes.__setitem__(name, a[0].numel() // a[0].shape[1]))
+    return sizes
+
+
+def assert_step_matches(model, want, before, sizes, lr):
+    """Post-Adam parameters of ``model`` against the JAX step's (``want``, a
+    port state dict) at atol 5e-5 wherever the step's direction is
+    determined; BatchNorm statistics with torch's unbiased variance.
+
+    The first Adam step moves each weight by ~lr * sign(g).  Float32
+    rounding through train-mode BatchNorm leaves the JAX package's encoder
+    gradients of these weights off by about a percent of a leaf's largest
+    |g| (ROADMAP C4), so where |g| is under 5% of the leaf's largest the
+    sign, and with it the step, is not fixed: there the two may differ by
+    one step each way, 2 * lr.  Returns the number of weights held at 5e-5.
+    """
+    got = model.state_dict()
+    grads = {k: p.grad for k, p in model.named_parameters()}
+    moved = 0
+    for key, value in got.items():
+        if key.endswith("num_batches_tracked"):
+            continue
+        if key.endswith("running_var"):
+            # flax: rv0 + m*(var_b - rv0); torch: rv0 + m*(var_b*n/(n-1) - rv0)
+            n = sizes[key.rsplit(".", 1)[0]]
+            rv0 = before[key]
+            term = want[key] - 0.9 * rv0                  # ResNet BN momentum 0.1
+            expect = 0.9 * rv0 + term * n / (n - 1)
+            torch.testing.assert_close(value, expect, rtol=0, atol=5e-5, msg=key)
+            assert not torch.allclose(want[key], expect), key
+            continue
+        err = (value - want[key]).abs()
+        if key in grads:
+            g = grads[key].abs()
+            fixed = g >= 0.05 * g.max()
+            assert float(err[fixed].max()) <= 5e-5, key
+            assert float(err.max()) <= 2 * lr + 5e-5, key
+            moved += int(fixed.sum())
+        else:
+            assert float(err.max()) <= 5e-5, key                 # running_mean
+    assert moved > 0.3 * sum(g.numel() for g in grads.values())
+    return moved
+
+
 def nchw(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(np.moveaxis(a, -1, 1)))
 

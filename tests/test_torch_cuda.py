@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card, each held to its plain PyTorch version,
-and one training step on the card held to the same step on the CPU.
+and one stage-1 and one stage-3 training step on the card held to the same
+step on the CPU.
 
 These tests need an NVIDIA GPU with nvcc (a CUDA kernel has no CPU mode) and
 skip without one.  They import neither JAX nor the JAX package, so they run
@@ -16,11 +17,13 @@ from planedepth_tpu_torch.config import (
     LossConfig,
     ModelConfig,
     PlaneConfig,
+    self_distillation_config,
     stage1_config,
 )
 from planedepth_tpu_torch.models.factory import DepthModel, init_weights_
 from planedepth_tpu_torch.ops.disp_head import disp_head, disp_head_plain
 from planedepth_tpu_torch.ops.plane_sweep import plane_sweep, plane_sweep_plain
+from planedepth_tpu_torch.ops.row_shift import row_shift, row_shift_plain, shift_limit
 
 pytestmark = pytest.mark.cuda
 TOL = dict(rtol=1e-5, atol=1e-5)     # only the f32 summation order differs
@@ -161,4 +164,56 @@ def test_train_step_on_cuda_matches_cpu(cuda):
     worst = check_step_against_cpu(cfg, cuda)
     torch.cuda.synchronize()
     assert (plane_sweep.fwd_launches, plane_sweep.bwd_launches) == (fwd + 1, bwd + 1)
+    assert worst["share_of_weights_held_at_atol"] > 0.5
+
+
+# W: the scalar path (W % 4 != 0), the 16-byte path (1280, 64), and a row
+# narrower than the block; pads 16 (clip 126) and 328 (the recipe, clip 382)
+@pytest.mark.parametrize("shape,pad", [((2, 63, 8, 1280), 328), ((1, 5, 7, 100), 16),
+                                       ((2, 3, 4, 64), 16), ((1, 4, 3, 130), 16)])
+def test_row_shift_kernel_matches_plain(cuda, shape, pad):
+    """Signed shifts, integers, past both W edges and beyond the clip at
+    both ends; a sliced (misaligned) input takes the scalar path."""
+    b, n, h, w = shape
+    rng = np.random.default_rng(sum(shape))
+    lim = shift_limit(pad)
+    maps = torch.from_numpy(rng.uniform(-1, 1, shape).astype(np.float32)).to(cuda)
+    shift = rng.uniform(-1.2 * lim, 1.2 * lim, (b, h, n))
+    shift[:, :, 0] = np.round(shift[:, :, 0])
+    shift[:, 0, 1], shift[:, -1, 1] = lim + 3.5, -(lim + 9.25)
+    shift = torch.from_numpy(shift.astype(np.float32)).to(cuda)
+    before = row_shift.launches
+    got = row_shift(maps, shift, pad)
+    torch.cuda.synchronize()
+    assert row_shift.launches == before + 1
+    torch.testing.assert_close(got, row_shift_plain(maps, shift, pad), rtol=1e-5, atol=1e-5)
+    sliced = torch.from_numpy(rng.uniform(-1, 1, (b * n * h * w + 1,)).astype(np.float32))
+    sliced = sliced.to(cuda)[1:].view(shape)                 # 4-byte aligned only
+    torch.testing.assert_close(row_shift(sliced, shift, pad),
+                               row_shift_plain(sliced, shift, pad), rtol=1e-5, atol=1e-5)
+
+
+def test_row_shift_refuses_a_gradient(cuda):
+    maps = torch.zeros(1, 2, 3, 8, device=cuda, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="forward only"):
+        row_shift(maps, torch.zeros(1, 3, 2, device=cuda), 16)
+
+
+def test_distillation_step_on_cuda_matches_cpu(cuda):
+    """One stage-3 step (the frozen teacher with weights of its own, its
+    5 row shifts and disp head) on the card and on the CPU, held as
+    chip_smoke.py holds it."""
+    from chip_smoke import check_step_against_cpu
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = self_distillation_config(
+        model=ModelConfig(num_layers=18, planes=PlaneConfig(disp_levels=7, disp_max=24,
+                                                            xz_levels=3)),
+        data=DataConfig(64, 96), batch_size=2)
+    counts = (row_shift.launches, disp_head.launches, plane_sweep.fwd_launches)
+    worst = check_step_against_cpu(cfg, cuda)
+    torch.cuda.synchronize()
+    assert (row_shift.launches, disp_head.launches, plane_sweep.fwd_launches) == (
+        counts[0] + 5, counts[1] + 1, counts[2] + 1)
     assert worst["share_of_weights_held_at_atol"] > 0.5
