@@ -22,26 +22,33 @@ Phases, each printing a line:
      step-like inputs (row-constant vertical shifts up to ~320, per-row
      ground shifts, a fully masked row, shifts beyond the clip):
      forward outputs, then d_logits, d_sigma, d_shift from autograd with
-     seeded cotangents; kernel and twin times by CUDA events;
+     seeded cotangents; kernel and twin times by CUDA events, and the
+     kernels' times at the stage-3 shape (4, 63, 384, 1280);
   6. train: stage1_config() (ResNet-50, DenseASPP, 49+14 planes, VGG19
      perceptual loss, Adam) at 640x192 with seeded random weights on
      make_stereo_batch(4, 192, 640) flipped to 8: 3 warm-up and 10 timed
-     steps with every launch count read around them, one validation step
-     (make_eval_step, which launches disp_head), and one step on the card
-     held to the same step on the CPU at 64x192;
-  7. shift: the row-shift kernel against row_shift_plain at the stage-3
+     steps with every launch count read around them, the memory of one
+     more step by aten op, one validation step (make_eval_step, which
+     launches disp_head), and one step on the card held to the same step
+     on the CPU at 64x192;
+  7. epilogue: the head-epilogue forward and backward kernels against
+     head_epilogue_plain at the stage-3 student's shape (4, 63, 384, 1280)
+     with a row-constant mask and raw sigmas past both ends of the clip;
+     kernel and twin times by CUDA events;
+  8. shift: the row-shift kernel against row_shift_plain at the stage-3
      shape (4, 63, 384, 1280) on seeded signed shifts (the teacher's +/-
      disparities, integers, beyond the clip at both ends); kernel, twin and
      F.grid_sample times by CUDA events;
-  8. distill: a stage-2 Trainer (hr_finetune_config, 1280x384, batch 4
-     flipped to 8) on synthetic samples takes 2 steps and saves last_models;
-     a stage-3 Trainer (self_distillation_config: 1280x384, batch 4, the
-     frozen teacher on 8 images) restores encoder and depth from it and
-     takes 3 warm-up and 10 timed steps and one validation pass, with the
-     launch counts read around every step and around the run; the teacher
-     must equal the restored student and stay unchanged, the student must
-     move; one stage-3 step on the card is held to the CPU at 64x192; then
-     2 use_mom steps of stage1_config (6 row-shift launches a step).
+  9. distill: a stage-2 Trainer (hr_finetune_config, 1280x384, batch 4
+     flipped to 8) on synthetic samples takes 2 steps and saves last_models,
+     and is freed; a stage-3 Trainer (self_distillation_config: 1280x384,
+     batch 4, the frozen teacher on 8 images) restores encoder and depth
+     from it and takes 3 warm-up and 10 timed steps and one validation
+     pass, with the launch counts read around every step and around the
+     run; the teacher must equal the restored student and stay unchanged,
+     the student must move; the memory of one more step by aten op; one
+     stage-3 step on the card is held to the CPU at 64x192; then 2 use_mom
+     steps of stage1_config (6 row-shift launches a step).
 Then one JSON line of the kernels and, last, the ok line.  TF32 is off for
 convolutions and matmuls so that the card computes in float32 throughout.
 """
@@ -49,6 +56,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -61,6 +69,7 @@ import time
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from planedepth_tpu_torch.config import (
     DataConfig,
@@ -76,6 +85,7 @@ from planedepth_tpu_torch.eval.metrics import evaluate_disparities
 from planedepth_tpu_torch.models.factory import DepthModel, init_weights_
 from planedepth_tpu_torch.ops import _build
 from planedepth_tpu_torch.ops.disp_head import disp_head, disp_head_plain
+from planedepth_tpu_torch.ops.head_epilogue import head_epilogue, head_epilogue_plain
 from planedepth_tpu_torch.ops.plane_sweep import plane_sweep, plane_sweep_plain
 from planedepth_tpu_torch.ops.row_shift import row_shift, row_shift_plain, shift_limit
 from planedepth_tpu_torch.train.distill import generate_post_process_disp
@@ -112,10 +122,15 @@ KERNELS = {
                         "planedepth_tpu/ops/pallas_sweep.py:542"),
     "row_shift_fwd": ("planedepth_tpu_torch/csrc/row_shift.cu",
                       "planedepth_tpu/ops/pallas_shift.py:31"),
+    "head_epilogue_fwd": ("planedepth_tpu_torch/csrc/head_epilogue.cu",
+                          "planedepth_tpu/ops/pallas_relayout.py:36"),
+    "head_epilogue_bwd": ("planedepth_tpu_torch/csrc/head_epilogue.cu",
+                          "planedepth_tpu/ops/pallas_relayout.py:144"),
 }
-# per stage-3 step: the teacher's 5 row shifts and its disp head, one sweep
+# per stage-3 step: the teacher's 5 row shifts, disp head and head
+# epilogue; the student's head epilogue and sweep, forward and backward
 DISTILL_STEP = {"disp_head_fwd": 1, "plane_sweep_fwd": 1, "plane_sweep_bwd": 1,
-                "row_shift_fwd": 5}
+                "row_shift_fwd": 5, "head_epilogue_fwd": 2, "head_epilogue_bwd": 1}
 
 
 def bound(nbytes, flops):
@@ -216,14 +231,17 @@ def phase_slice(card, data=DataConfig(height=384, width=1280),
     model = model.to(dev).eval()
     batch = make_stereo_batch(4, height, width, seed=0)
 
-    disp_head.launches = 0
+    reset_launch_counts()
     t0 = time.perf_counter()
     disps, prob_max = predict_disparities(model, [batch], post_process=True,
                                           device=dev)
     wall = time.perf_counter() - t0
-    launches = {"disp_head": disp_head.launches}
-    if launches["disp_head"] < 1:
-        raise AssertionError(f"main path launched no disp_head kernel: {launches}")
+    launches = launch_counts()
+    # each forward: the decoder's head epilogue, then its disp head
+    n = launches["disp_head_fwd"]
+    if n < 1 or launches != {**{k: 0 for k in launches}, "disp_head_fwd": n,
+                             "head_epilogue_fwd": n}:
+        raise AssertionError(f"inference launches {launches}")
     if disps.shape != (4, height, width) or not np.isfinite(disps).all():
         raise AssertionError(f"bad disparities: shape {disps.shape}")
     if not ((prob_max > 0) & (prob_max <= 1)).all():
@@ -305,7 +323,22 @@ def seeded_sweep_inputs(shape, seed, dev):
     return [src, tgt, logits, sigma, shift, mask]
 
 
-def phase_sweep(card, shape=SWEEP_SHAPE, dev=torch.device("cuda")):
+def sweep_bounds(inputs):
+    """(bytes, bound) of the sweep forward and of its backward: each input
+    read once, each output written once (stats: 7 maps); ~60 flops a
+    pixel-plane forward, ~100 backward."""
+    src, tgt, logits, sigma, shift, mask = inputs
+    B, N, H, W = logits.shape
+    row = B * H * W * 4
+    fwd_bytes = nbytes(src, tgt, logits, sigma, shift, mask) + row * (3 + 1 + 1 + 7)
+    bwd_bytes = (nbytes(src, tgt, logits, sigma, shift, mask) + row * (7 + 3 + 3 + 1 + 1)
+                 + nbytes(logits, sigma, shift))
+    return ((fwd_bytes, bound(fwd_bytes, 60 * logits.numel())),
+            (bwd_bytes, bound(bwd_bytes, 100 * logits.numel())))
+
+
+def phase_sweep(card, shape=SWEEP_SHAPE, dev=torch.device("cuda"),
+                hr_shape=SHIFT_SHAPE):
     """The sweep kernels against their twin; returns the JSON fields of both."""
     inputs = seeded_sweep_inputs(shape, 1, dev)
     heads = inputs[2:5]
@@ -345,16 +378,22 @@ def phase_sweep(card, shape=SWEEP_SHAPE, dev=torch.device("cuda")):
     bwd_ms = cuda_ms(lambda: torch.autograd.grad(got, heads, cts, retain_graph=True))
     plain_ms = cuda_ms(lambda: torch.autograd.grad(
         plane_sweep_plain(*inputs, pad, False, True), heads, cts), warmup=1, reps=3)
-    # bytes: each input read once, each output written once (stats: 7 maps);
-    # operations: ~60 flops a pixel-plane forward, ~100 backward
-    src, tgt, logits, sigma, shift, mask = inputs
-    B, N, H, W = shape
-    row = B * H * W * 4
-    fwd_bytes = nbytes(src, tgt, logits, sigma, shift, mask) + row * (3 + 1 + 1 + 7)
-    bwd_bytes = (nbytes(src, tgt, logits, sigma, shift, mask) + row * (7 + 3 + 3 + 1 + 1)
-                 + nbytes(logits, sigma, shift))
-    fwd_bound = bound(fwd_bytes, 60 * logits.numel())
-    bwd_bound = bound(bwd_bytes, 100 * logits.numel())
+    (fwd_bytes, fwd_bound), (bwd_bytes, bwd_bound) = sweep_bounds(inputs)
+    del got, want, cts, d_got, d_want, inputs, heads
+
+    # the same kernels at the stage-3 student's shape, where the TPU runs
+    # its quad kernels (ops/pallas_sweep_quad.py) instead
+    hr = seeded_sweep_inputs(hr_shape, 4, dev)
+    with torch.no_grad():
+        hr_fwd_ms = cuda_ms(lambda: plane_sweep(*hr, pad, False, True))
+        hr_plain_ms = cuda_ms(lambda: plane_sweep_plain(*hr, pad, False, True),
+                              warmup=1, reps=3)
+    hr_out = plane_sweep(*hr, pad, False, True)
+    hr_cts = [torch.ones_like(o) for o in hr_out]
+    hr_bwd_ms = cuda_ms(lambda: torch.autograd.grad(hr_out, hr[2:5], hr_cts,
+                                                    retain_graph=True))
+    (_, hr_fwd_bound), (_, hr_bwd_bound) = sweep_bounds(hr)
+    del hr, hr_out, hr_cts
     print(f"[sweep] plane_sweep vs plain at {shape}, pad {pad}: forward max_abs_err "
           f"{fwd_err:.3e} (rtol {TOL['rtol']}, atol {TOL['atol']}); grads max err / "
           f"max |value| {json.dumps({k: float(f'{v:.3e}') for k, v in rel.items()})} "
@@ -364,6 +403,9 @@ def phase_sweep(card, shape=SWEEP_SHAPE, dev=torch.device("cuda")):
           f"{bwd_bound[0]:.4f} ms, {bwd_bytes / 1e6:.0f} MB); twin forward "
           f"{plain_fwd_ms:.2f} ms, twin forward+backward {plain_ms:.2f} ms; no "
           f"single PyTorch call computes either | {card}")
+    print(f"[sweep] at the stage-3 shape {hr_shape}: forward kernel {hr_fwd_ms:.4f} ms "
+          f"(bound {hr_fwd_bound[0]:.4f} ms), backward kernel {hr_bwd_ms:.4f} ms (bound "
+          f"{hr_bwd_bound[0]:.4f} ms); twin forward {hr_plain_ms:.2f} ms | {card}")
     return {
         "plane_sweep_fwd": {"library_ms": None, "max_abs_err": fwd_err, "ms": fwd_ms,
                             "plain_ms": plain_fwd_ms, "bound_ms": fwd_bound[0],
@@ -379,16 +421,80 @@ def launch_counts():
     return {"disp_head_fwd": disp_head.launches,
             "plane_sweep_fwd": plane_sweep.fwd_launches,
             "plane_sweep_bwd": plane_sweep.bwd_launches,
-            "row_shift_fwd": row_shift.launches}
+            "row_shift_fwd": row_shift.launches,
+            "head_epilogue_fwd": head_epilogue.fwd_launches,
+            "head_epilogue_bwd": head_epilogue.bwd_launches}
 
 
 def reset_launch_counts():
     disp_head.launches = plane_sweep.fwd_launches = plane_sweep.bwd_launches = 0
-    row_shift.launches = 0
+    row_shift.launches = head_epilogue.fwd_launches = head_epilogue.bwd_launches = 0
+
+
+class PeakByOp(TorchDispatchMode):
+    """Device memory around every aten op while it is active: the bytes
+    allocated before and after the op and the allocator's peak inside it
+    (its peak statistic reset at the op's start).  Inside minus the larger
+    of before and after is the op's own transient: cuDNN's workspace and
+    the op's temporaries.  A peak between two ops the mode does not see is
+    kept too, as "between ops"."""
+
+    def __init__(self, dev):
+        super().__init__()
+        self.dev = dev
+        self.peak = (0, "", 0)            # (bytes, op, its transient)
+        self.boundary = 0                 # most bytes live between ops
+        self.conv_transient = (0, "")     # largest transient of a convolution
+        self.ops = self.backward_ops = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        dev = self.dev
+        gap = torch.cuda.max_memory_allocated(dev)
+        if gap > self.peak[0]:
+            self.peak = (gap, "between ops", 0)
+        before = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        out = func(*args, **(kwargs or {}))
+        inside = torch.cuda.max_memory_allocated(dev)
+        after = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        name = str(func.overloadpacket.__name__)
+        transient = inside - max(before, after)
+        self.ops += 1
+        self.backward_ops += int("backward" in name)
+        self.boundary = max(self.boundary, before, after)
+        if inside > self.peak[0]:
+            self.peak = (inside, name, transient)
+        if "conv" in name and transient > self.conv_transient[0]:
+            self.conv_transient = (transient, name)
+        return out
+
+
+def memory_by_op(step, dev):
+    """Run ``step()`` once under :class:`PeakByOp`; returns its summary in GB."""
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with PeakByOp(dev) as mode:
+        step()
+    torch.cuda.synchronize(dev)
+    peak, op, transient = mode.peak
+    return {"peak_gb": peak / 1e9, "peak_op": op, "peak_op_transient_gb": transient / 1e9,
+            "most_live_between_ops_gb": mode.boundary / 1e9,
+            "largest_conv_transient_gb": mode.conv_transient[0] / 1e9,
+            "largest_conv_transient_op": mode.conv_transient[1],
+            "aten_ops": mode.ops, "backward_ops": mode.backward_ops}
+
+
+def free_cache():
+    """Return the memory of freed tensors to the card, so that the next
+    phase's reserved memory is its own."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def phase_train(card, dev=torch.device("cuda"), warmup=3, steps=10):
     """The stage-1 step on the card; returns the launch counts of its run."""
+    free_cache()
     cfg = stage1_config()
     bundle = ModelBundle(cfg, dev)
     optimizer, scheduler = make_optimizer(cfg, bundle.model.parameters(), 1000)
@@ -406,21 +512,25 @@ def phase_train(card, dev=torch.device("cuda"), warmup=3, steps=10):
         losses.append(train_step(batch))          # floats: the step has synchronised
         times.append(time.perf_counter() - t0)
     launches = launch_counts()
-    want = {"disp_head_fwd": 0, "plane_sweep_fwd": warmup + steps,
-            "plane_sweep_bwd": warmup + steps, "row_shift_fwd": 0}
+    n = warmup + steps
+    want = {"disp_head_fwd": 0, "plane_sweep_fwd": n, "plane_sweep_bwd": n,
+            "row_shift_fwd": 0, "head_epilogue_fwd": n, "head_epilogue_bwd": n}
     if launches != want:
         raise AssertionError(f"training launches {launches}, want {want}")
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    reserved_gb = torch.cuda.max_memory_reserved(dev) / 1e9
     check_losses(losses, cfg)
     moved = sum(int(not torch.equal(p, first[k]))
                 for k, p in bundle.model.named_parameters())
     if moved < len(first) // 2:
         raise AssertionError(f"only {moved} of {len(first)} parameters changed")
+    memory = memory_by_op(lambda: train_step(batch), dev)
 
     reset_launch_counts()
     metrics = make_eval_step(bundle)(batch)
     eval_launches = launch_counts()
-    if eval_launches["disp_head_fwd"] != 1 or not all(math.isfinite(v) for v in metrics.values()):
+    if (eval_launches["disp_head_fwd"] != 1 or eval_launches["head_epilogue_fwd"] != 1
+            or not all(math.isfinite(v) for v in metrics.values())):
         raise AssertionError(f"validation: launches {eval_launches}, metrics {metrics}")
 
     step_ms = statistics.median(times[warmup:]) * 1e3
@@ -437,15 +547,18 @@ def phase_train(card, dev=torch.device("cuda"), warmup=3, steps=10):
     print(f"[train] step {step_ms:.2f} ms median of {steps} (host clock around "
           f"synchronised steps, after {warmup} warm-up), "
           f"{cfg.effective_batch / step_ms * 1e3:.2f} imgs/s, peak device memory "
-          f"{peak_gb:.2f} GB; float32, TF32 off for cudnn and matmul | {card}")
+          f"{peak_gb:.2f} GB allocated, {reserved_gb:.2f} GB reserved; float32, TF32 "
+          f"off for cudnn and matmul | {card}")
+    print(f"[train] memory of one more step by aten op: {json.dumps(memory)} | {card}")
     return launches
 
 
 def distinct_teacher(bundle, seed):
-    """Seeded weights of its own for ``bundle``'s teacher, if it has one."""
-    if bundle.teacher is None:
+    """Under ``self_distillation``, a frozen teacher for ``bundle`` with
+    seeded weights of its own."""
+    if bundle.cfg.loss.self_distillation <= 0:
         return False
-    init_weights_(bundle.teacher, torch.Generator().manual_seed(seed))
+    init_weights_(bundle.freeze_teacher(), torch.Generator().manual_seed(seed))
     return True
 
 
@@ -523,6 +636,66 @@ def check_step_against_cpu(cfg, dev, seed=1):
     worst["loss_rel_err"] = max(abs(losses[0][k] / v - 1) for k, v in losses[1].items())
     worst["share_of_weights_held_at_atol"] = checked / total
     return worst
+
+
+def phase_epilogue(card, shape=SHIFT_SHAPE, dev=torch.device("cuda")):
+    """The head-epilogue kernels against their twin; returns the JSON
+    fields of both."""
+    B, N, H, W = shape
+    g = torch.Generator(device=dev).manual_seed(5)
+    raw_l = 2.0 * torch.randn(shape, generator=g, device=dev)
+    raw_s = 16.0 * torch.rand(shape, generator=g, device=dev) - 8.0
+    raw_s[:, 0, :2] = 40.0                     # sigmoid rounds to 1
+    raw_s[:, 1, :2] = -40.0                    # clipped to 0.01
+    mask = (torch.rand((B, N, H, 1), generator=g, device=dev) > 0.2).float()
+    mask[:, :(49 * N) // 63] = 1.0             # vertical planes are never masked
+    heads = [raw_l.requires_grad_(), raw_s.requires_grad_()]
+    cts = [torch.randn(shape, generator=g, device=dev) for _ in range(2)]
+    got = head_epilogue(*heads, mask)
+    torch.cuda.synchronize(dev)
+    want = head_epilogue_plain(*heads, mask)
+    fwd_err = max((a - b).abs().max().item() for a, b in zip(got, want))
+    for name, a, b in zip(("logits", "sigma"), got, want):
+        torch.testing.assert_close(a, b, msg=name, **TOL)
+    d_got = torch.autograd.grad(got, heads, cts, retain_graph=True)
+    torch.cuda.synchronize(dev)
+    d_want = torch.autograd.grad(want, heads, cts, retain_graph=True)
+    bwd_err = max((a - b).abs().max().item() for a, b in zip(d_got, d_want))
+    for name, a, b in zip(("d_raw_logits", "d_raw_sigma"), d_got, d_want):
+        torch.testing.assert_close(a, b, msg=name, **TOL)
+
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: head_epilogue(*heads, mask))
+        plain_fwd_ms = cuda_ms(lambda: head_epilogue_plain(*heads, mask))
+    bwd_ms = cuda_ms(lambda: torch.autograd.grad(got, heads, cts, retain_graph=True))
+    plain_ms = cuda_ms(lambda: torch.autograd.grad(head_epilogue_plain(*heads, mask),
+                                                   heads, cts))
+    # each input read once, each output written once; ~6 flops a
+    # pixel-plane each way (the mask product, the sigmoid, the clip)
+    fwd_bytes = nbytes(raw_l, raw_s, mask, *got)
+    bwd_bytes = nbytes(*cts, got[1], mask, *d_got)
+    fwd_bound = bound(fwd_bytes, 6 * raw_l.numel())
+    bwd_bound = bound(bwd_bytes, 6 * raw_l.numel())
+    print(f"[epilogue] head_epilogue vs plain at {shape}, row-constant mask: forward "
+          f"max_abs_err {fwd_err:.3e}, backward {bwd_err:.3e} (rtol {TOL['rtol']}, atol "
+          f"{TOL['atol']}) | {card}")
+    print(f"[epilogue] forward kernel {fwd_ms:.4f} ms ({fwd_bytes / fwd_ms / 1e9:.2f} TB/s "
+          f"of {fwd_bytes / 1e6:.1f} MB, {fwd_bound[0] / fwd_ms:.1%} of the bound "
+          f"{fwd_bound[0]:.4f} ms), backward kernel {bwd_ms:.4f} ms "
+          f"({bwd_bytes / bwd_ms / 1e9:.2f} TB/s of {bwd_bytes / 1e6:.1f} MB, "
+          f"{bwd_bound[0] / bwd_ms:.1%} of the bound {bwd_bound[0]:.4f} ms); twin "
+          f"forward {plain_fwd_ms:.4f} ms, forward+backward {plain_ms:.4f} ms; no "
+          f"single PyTorch call computes either | {card}")
+    return {
+        "head_epilogue_fwd": {"max_abs_err": fwd_err, "ms": fwd_ms, "plain_ms": plain_fwd_ms,
+                              "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
+                              "library_ms": None},
+        "head_epilogue_bwd": {"max_abs_err": bwd_err, "ms": bwd_ms,
+                              # the twin's backward: its forward+backward less its forward
+                              "plain_ms": plain_ms - plain_fwd_ms,
+                              "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1],
+                              "library_ms": None},
+    }
 
 
 def seeded_shift_inputs(shape, pad, seed, dev):
@@ -616,6 +789,7 @@ def check_losses(losses, cfg):
 def phase_distill(card, dev=torch.device("cuda"), warmup=3, steps=10):
     """Stage 2 -> stage 3 through the Trainer at full width; returns the
     launch counts of the stage-3 run."""
+    free_cache()
     with tempfile.TemporaryDirectory(prefix="pdt_chip_smoke_") as log_dir:
         cfg2 = hr_finetune_config(log_dir=log_dir)
         h, w = cfg2.data.height, cfg2.data.width
@@ -627,9 +801,12 @@ def phase_distill(card, dev=torch.device("cuda"), warmup=3, steps=10):
         stage2.close()
         s2_launches = launch_counts()
         want = {"disp_head_fwd": 1, "plane_sweep_fwd": 2, "plane_sweep_bwd": 2,
-                "row_shift_fwd": 0}                     # 2 steps + one val batch
+                "row_shift_fwd": 0, "head_epilogue_fwd": 3,
+                "head_epilogue_bwd": 2}                 # 2 steps + one val batch
         if s2_launches != want:
             raise AssertionError(f"stage-2 launches {s2_launches}, want {want}")
+        del stage2                      # its model, VGG and Adam leave the card
+        free_cache()
         ckpt = os.path.join(log_dir, cfg2.model_name, "last_models")
         payload = load_checkpoint(ckpt)
         saved = {f"{name}.{k}": v for name in ("encoder", "depth")
@@ -668,10 +845,12 @@ def phase_distill(card, dev=torch.device("cuda"), warmup=3, steps=10):
         trainer.train()
         launches = launch_counts()
         peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        reserved_gb = torch.cuda.max_memory_reserved(dev) / 1e9
         trainer.close()
         n = warmup + steps
         want = {k: v * n for k, v in DISTILL_STEP.items()}
         want["disp_head_fwd"] += 1                      # the validation batch
+        want["head_epilogue_fwd"] += 1
         if launches != want or len(times) != n:
             raise AssertionError(f"stage-3 run launches {launches} in {len(times)} "
                                  f"steps, want {want} in {n}")
@@ -687,10 +866,13 @@ def phase_distill(card, dev=torch.device("cuda"), warmup=3, steps=10):
             raise AssertionError(f"only {moved} of {n_float} student tensors moved")
 
         batch = batch_to_tensors(make_stereo_batch(b, h, w, seed=0), dev)
+        memory = memory_by_op(lambda: step_fn(batch), dev)
         with torch.no_grad():
             teacher_ms = cuda_ms(lambda: generate_post_process_disp(
                 teacher, batch["color_aug_l"], batch["grid"], sweep_pad(cfg)),
                 warmup=1, reps=5)
+        del trainer, teacher, student, batch
+        free_cache()
     step_ms = statistics.median(times[warmup:]) * 1e3
     cpu = check_step_against_cpu(self_distillation_config(
         data=DataConfig(height=64, width=192)), dev)
@@ -700,7 +882,8 @@ def phase_distill(card, dev=torch.device("cuda"), warmup=3, steps=10):
           f"DenseASPP {cfg.model.planes.disp_levels}+{cfg.model.planes.xz_levels} planes "
           f"VGG19 alpha_pc {cfg.loss.alpha_pc}, {w}x{h}, batch {b}, teacher on {2 * b} "
           f"images) restored encoder+depth: {warmup}+{steps} steps, launches {launches} "
-          f"(per step {DISTILL_STEP}, + 1 disp head for validation), teacher unchanged, "
+          f"(per step {DISTILL_STEP}, + 1 disp head and 1 head epilogue for "
+          f"validation), teacher unchanged, "
           f"{moved}/{n_float} student tensors moved, first/last losses "
           f"{json.dumps(losses[0])} {json.dumps(losses[-1])}")
     print(f"[distill] validation metrics {json.dumps(val['metrics'])}")
@@ -708,9 +891,12 @@ def phase_distill(card, dev=torch.device("cuda"), warmup=3, steps=10):
           f"{json.dumps(cpu)}")
     print(f"[distill] stage-3 step {step_ms:.2f} ms median of {steps} (host clock around "
           f"synchronised steps, after {warmup} warm-up), {b / step_ms * 1e3:.2f} imgs/s "
-          f"(student images), peak device memory {peak_gb:.2f} GB; teacher pass "
-          f"(forward on {2 * b} images + 5 row shifts) {teacher_ms:.2f} ms = "
-          f"{teacher_ms / step_ms:.1%} of the step; float32, TF32 off | {card}")
+          f"(student images), peak device memory {peak_gb:.2f} GB allocated, "
+          f"{reserved_gb:.2f} GB reserved; teacher pass (forward on {2 * b} images + 5 "
+          f"row shifts) {teacher_ms:.2f} ms = {teacher_ms / step_ms:.1%} of the step; "
+          f"float32, TF32 off | {card}")
+    print(f"[distill] memory of one more stage-3 step by aten op: {json.dumps(memory)} "
+          f"| {card}")
     return launches
 
 
@@ -726,7 +912,8 @@ def phase_mom(card, dev=torch.device("cuda"), steps=2):
     losses = [train_step(batch) for _ in range(steps)]
     launches = launch_counts()
     want = {"disp_head_fwd": 0, "plane_sweep_fwd": steps, "plane_sweep_bwd": steps,
-            "row_shift_fwd": 6 * steps}
+            "row_shift_fwd": 6 * steps, "head_epilogue_fwd": steps,
+            "head_epilogue_bwd": steps}
     if launches != want:
         raise AssertionError(f"use_mom launches {launches}, want {want}")
     check_losses(losses, cfg)
@@ -738,13 +925,17 @@ def phase_mom(card, dev=torch.device("cuda"), steps=2):
 def main():
     card = phase_device()
     phase_build()
+    # launches: each kernel's count on the path that brought it to the port
     fields = {"disp_head_fwd": phase_kernel(card)}
-    launches = {"disp_head_fwd": phase_slice(card)["disp_head"]}
+    launches = {"disp_head_fwd": phase_slice(card)["disp_head_fwd"]}
     fields.update(phase_sweep(card))
     train = phase_train(card)
     launches.update({k: train[k] for k in ("plane_sweep_fwd", "plane_sweep_bwd")})
+    fields.update(phase_epilogue(card))
     fields.update(phase_shift(card))
-    launches["row_shift_fwd"] = phase_distill(card)["row_shift_fwd"]
+    distill = phase_distill(card)
+    launches.update({k: distill[k] for k in
+                     ("row_shift_fwd", "head_epilogue_fwd", "head_epilogue_bwd")})
     phase_mom(card)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,

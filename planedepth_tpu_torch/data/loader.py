@@ -1,12 +1,11 @@
-"""Deterministic host-sharded batch loader with background prefetch
-(a copy of ``planedepth_tpu/data/loader.py``, which the tests hold it to).
+"""Deterministic batch loader with background prefetch, for one process
+(``planedepth_tpu/data/loader.py`` at one host, which the tests hold it to).
 
-Replaces the reference's DataLoader + DistributedSampler + rmnone_collate
-stack (trainer.py:136-150, utils.py:141-194):
+Replaces the reference's DataLoader + rmnone_collate stack
+(trainer.py:136-150, utils.py:141-194):
 
-  * ``EpochSampler`` — the DistributedSampler semantics (per-epoch
-    permutation from (seed, epoch), padded to a multiple of num_hosts x
-    batch, sliced per host) as a pure function of (epoch, step);
+  * ``EpochSampler`` — a per-epoch permutation from (seed, epoch), cut or
+    padded to whole batches, as a pure function of the epoch;
   * ``BatchLoader`` — a thread pool decodes/augments samples and a
     double-buffered prefetcher overlaps host work with device steps;
   * samples that fail to load (the reference's ``rmnone_collate`` None-drop
@@ -23,58 +22,52 @@ from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
+PREFETCH = 2          # batches made ahead of the step
+
 
 class EpochSampler:
-    """Deterministic per-epoch permutation, sharded across hosts."""
+    """Deterministic per-epoch permutation, in batches."""
 
     def __init__(
         self,
         num_samples: int,
         batch_size: int,
-        num_hosts: int = 1,
-        host_id: int = 0,
         shuffle: bool = True,
         seed: int = 1,
         drop_last: bool = True,
     ):
         self.num_samples = num_samples
         self.batch_size = batch_size
-        self.num_hosts = num_hosts
-        self.host_id = host_id
         self.shuffle = shuffle
         self.seed = seed
         self.drop_last = drop_last
 
     def epoch_indices(self, epoch: int) -> np.ndarray:
-        """Global sample order for an epoch (same on every host)."""
+        """The epoch's sample order."""
         if self.shuffle:
             rng = np.random.default_rng([self.seed, epoch])
             order = rng.permutation(self.num_samples)
         else:
             order = np.arange(self.num_samples)
-        chunk = self.batch_size * self.num_hosts
         if self.drop_last:
-            usable = (len(order) // chunk) * chunk
+            usable = (len(order) // self.batch_size) * self.batch_size
             order = order[:usable]
         else:
-            pad = (-len(order)) % chunk
+            pad = (-len(order)) % self.batch_size
             if pad:
                 # cyclic repeat: order[:pad] is too short when the split
-                # is smaller than one global chunk (tiny val splits)
+                # is smaller than one batch (tiny val splits)
                 order = np.concatenate([order, np.resize(order, pad)])
         return order
 
-    def host_batches(self, epoch: int) -> np.ndarray:
-        """(steps, batch_size) index matrix for this host."""
-        order = self.epoch_indices(epoch)
-        order = order.reshape(-1, self.num_hosts, self.batch_size)
-        return order[:, self.host_id, :]
+    def batches(self, epoch: int) -> np.ndarray:
+        """(steps, batch_size) index matrix."""
+        return self.epoch_indices(epoch).reshape(-1, self.batch_size)
 
     def steps_per_epoch(self) -> int:
-        chunk = self.batch_size * self.num_hosts
         if self.drop_last:
-            return self.num_samples // chunk
-        return -(-self.num_samples // chunk)
+            return self.num_samples // self.batch_size
+        return -(-self.num_samples // self.batch_size)
 
 
 def collate(samples: Sequence[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
@@ -90,17 +83,10 @@ def collate(samples: Sequence[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
 class BatchLoader:
     """Iterates deterministic batches with background prefetch."""
 
-    def __init__(
-        self,
-        dataset,
-        sampler: EpochSampler,
-        num_workers: int = 2,
-        prefetch: int = 2,
-    ):
+    def __init__(self, dataset, sampler: EpochSampler, num_workers: int = 2):
         self.dataset = dataset
         self.sampler = sampler
         self.num_workers = max(1, num_workers)
-        self.prefetch = prefetch
 
     def _load_one(self, idx: int, epoch: int) -> Optional[Dict]:
         try:
@@ -108,22 +94,13 @@ class BatchLoader:
         except Exception:
             return None
 
-    def _make_batch(
-        self,
-        indices: np.ndarray,
-        epoch: int,
-        fallback: np.ndarray,
-        executor: Optional[ThreadPoolExecutor] = None,
-    ) -> Dict[str, np.ndarray]:
+    def _make_batch(self, indices: np.ndarray, epoch: int, fallback: np.ndarray,
+                    executor: ThreadPoolExecutor) -> Dict[str, np.ndarray]:
         # decode/augment the batch in parallel (the reference uses 12 worker
         # PROCESSES, options.py:217-220; PIL decode and np IO release the
         # GIL so threads suffice here and keep arrays zero-copy)
-        if executor is not None:
-            samples: List[Optional[Dict]] = list(
-                executor.map(lambda i: self._load_one(i, epoch), indices)
-            )
-        else:
-            samples = [self._load_one(i, epoch) for i in indices]
+        samples: List[Optional[Dict]] = list(
+            executor.map(lambda i: self._load_one(i, epoch), indices))
         # deterministic resample of failures, in batch-position order, from
         # the epoch permutation (replaces the reference's rmnone_collate
         # None-drop — every step keeps the batch shape)
@@ -139,48 +116,34 @@ class BatchLoader:
         return collate(out)
 
     def epoch(self, epoch: int) -> Iterator[Dict[str, np.ndarray]]:
-        batches = self.sampler.host_batches(epoch)
+        batches = self.sampler.batches(epoch)
         fallback = self.sampler.epoch_indices(epoch)
-        pool = (
-            ThreadPoolExecutor(self.num_workers)
-            if self.num_workers > 1 else None
-        )
-        try:
-            if self.prefetch <= 0:
-                for step_idx in batches:
-                    yield self._make_batch(step_idx, epoch, fallback, pool)
-                return
+        pool = ThreadPoolExecutor(self.num_workers)
+        q: "queue.Queue" = queue.Queue(maxsize=PREFETCH)
+        stop = threading.Event()
+        failure: List[BaseException] = []
 
-            q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
-            stop = threading.Event()
-            failure: List[BaseException] = []
-
-            def producer():
-                try:
-                    for step_idx in batches:
-                        if stop.is_set():
-                            return
-                        q.put(self._make_batch(step_idx, epoch, fallback,
-                                               pool))
-                except BaseException as e:   # propagate to the consumer —
-                    failure.append(e)        # a swallowed loader failure
-                finally:                     # would silently truncate the
-                    q.put(None)              # epoch (and the LR schedule)
-
-            t = threading.Thread(target=producer, daemon=True)
-            t.start()
+        def producer():
             try:
-                while True:
-                    b = q.get()
-                    if b is None:
-                        if failure:
-                            raise RuntimeError(
-                                "BatchLoader producer failed"
-                            ) from failure[0]
-                        break
-                    yield b
-            finally:
-                stop.set()
+                for step_idx in batches:
+                    if stop.is_set():
+                        return
+                    q.put(self._make_batch(step_idx, epoch, fallback, pool))
+            except BaseException as e:   # propagate to the consumer —
+                failure.append(e)        # a swallowed loader failure
+            finally:                     # would silently truncate the
+                q.put(None)              # epoch (and the LR schedule)
+
+        t = threading.Thread(target=producer, daemon=True)
+        t.start()
+        try:
+            while True:
+                b = q.get()
+                if b is None:
+                    if failure:
+                        raise RuntimeError("BatchLoader producer failed") from failure[0]
+                    break
+                yield b
         finally:
-            if pool is not None:
-                pool.shutdown(wait=False)
+            stop.set()
+            pool.shutdown(wait=False)

@@ -9,7 +9,9 @@ heads ``dispconv`` (plane logits), ``sigmaconv`` (mixture scales) and
 (4,0)..(0,1) + [denseaspp] + dispconv + [sigmaconv] + [residualconv], so a
 reference ``depth.pth`` loads as it is.  The JAX package's space-to-depth
 tail and its merged ``ls`` training head are TPU layout work and have no
-counterpart here.
+counterpart here; the epilogue of the plane heads (the padding mask on the
+logits, the sigma clip) runs in ``ops/head_epilogue.py``, the port of the
+arithmetic of the TPU's relayout kernels.
 
 With ``fused_sweep_loss`` in training mode the decoder stops at the plane
 heads, as the JAX decoder does (``depth_decoder.py:380-386``): the fused
@@ -36,6 +38,7 @@ from planedepth_tpu_torch.models.layers import (
     upsample2x_nearest,
 )
 from planedepth_tpu_torch.ops.disp_head import disp_head
+from planedepth_tpu_torch.ops.head_epilogue import head_epilogue
 
 NUM_CH_DEC = (16, 32, 64, 128, 256)
 
@@ -137,10 +140,12 @@ class DepthDecoder(nn.Module):
         if row_constant:
             out["disp_rows"] = vol.disp_layered[..., 0].transpose(1, 2).contiguous()
 
-        logits = c["dispconv"](x).float() * vol.padding_mask
+        logits, sigma = head_epilogue(
+            c["dispconv"](x).float(),
+            c["sigmaconv"](x).float() if self.use_mixture_loss else None,
+            vol.padding_mask)
         out["logits"] = logits
         if self.use_mixture_loss:
-            sigma = torch.clamp(torch.sigmoid(c["sigmaconv"](x).float()), 0.01, 1.0)
             out["sigma"] = sigma
         if self.fused_sweep_loss and self.training:
             return out

@@ -68,10 +68,12 @@ def _check_ported(cfg: TrainConfig) -> None:
 
 
 class ModelBundle:
-    """The ``DepthModel``, the frozen perceptual VGG and, under
-    ``self_distillation``, the frozen teacher of one configuration, with
-    seeded random weights (``init_weights_`` from ``cfg.seed``), on
-    ``device``: the card unless the caller names another device."""
+    """The ``DepthModel`` and the frozen perceptual VGG of one configuration,
+    with seeded random weights (``init_weights_`` from ``cfg.seed``), on
+    ``device``: the card unless the caller names another device.  Under
+    ``self_distillation`` the step also needs the frozen teacher, which
+    :meth:`freeze_teacher` takes from the student once its weights are
+    final (the trainer calls it after the restore)."""
 
     def __init__(self, cfg: TrainConfig, device: Optional[torch.device] = None):
         if device is None:
@@ -88,15 +90,13 @@ class ModelBundle:
         self.pc = (init_weights_(Vgg19Features(), g).to(self.device)
                    if cfg.loss.alpha_pc > 0 else None)
         self.teacher: Optional[DepthModel] = None
-        if cfg.loss.self_distillation > 0:
-            self.freeze_teacher()
 
-    def freeze_teacher(self) -> None:
+    def freeze_teacher(self) -> DepthModel:
         """The teacher becomes a deep copy of the student as it is now
         (reference trainer.py:109-112): eval mode (running statistics, no
-        dropout), no parameter requires a gradient.  The trainer calls this
-        after restoring the student."""
+        dropout), no parameter requires a gradient."""
         self.teacher = copy.deepcopy(self.model).eval().requires_grad_(False)
+        return self.teacher
 
 
 def batch_to_tensors(batch: Mapping[str, np.ndarray],
@@ -169,7 +169,10 @@ def process_batch(bundle: ModelBundle, batch: Dict[str, torch.Tensor],
     if cfg.flip_right:
         batch = add_flip_right_inputs(batch)
     targets = {}
-    if cfg.loss.self_distillation > 0 and bundle.teacher is not None:
+    if cfg.loss.self_distillation > 0:
+        if bundle.teacher is None:
+            raise RuntimeError("self_distillation needs the frozen teacher: call "
+                               "bundle.freeze_teacher() once the student's weights are final")
         targets["disp_pp"], targets["mask_novel"] = generate_post_process_disp(
             bundle.teacher, batch["color_aug_l"], batch["grid"], sweep_pad(cfg))
     outputs = bundle.model(batch["color_aug_l"], batch["grid"], generator)

@@ -72,6 +72,8 @@ def classify(name: str) -> str:
 
 def make_step(cfg, device):
     bundle = ModelBundle(cfg, device)
+    if cfg.loss.self_distillation > 0:
+        bundle.freeze_teacher()
     optimizer, scheduler = make_optimizer(cfg, bundle.model.parameters(), 1000)
     batch = batch_to_tensors(make_stereo_batch(cfg.per_step_batch, cfg.data.height,
                                                cfg.data.width, seed=0), device)

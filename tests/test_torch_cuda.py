@@ -22,6 +22,7 @@ from planedepth_tpu_torch.config import (
 )
 from planedepth_tpu_torch.models.factory import DepthModel, init_weights_
 from planedepth_tpu_torch.ops.disp_head import disp_head, disp_head_plain
+from planedepth_tpu_torch.ops.head_epilogue import head_epilogue, head_epilogue_plain
 from planedepth_tpu_torch.ops.plane_sweep import plane_sweep, plane_sweep_plain
 from planedepth_tpu_torch.ops.row_shift import row_shift, row_shift_plain, shift_limit
 
@@ -211,9 +212,60 @@ def test_distillation_step_on_cuda_matches_cpu(cuda):
         model=ModelConfig(num_layers=18, planes=PlaneConfig(disp_levels=7, disp_max=24,
                                                             xz_levels=3)),
         data=DataConfig(64, 96), batch_size=2)
-    counts = (row_shift.launches, disp_head.launches, plane_sweep.fwd_launches)
+    def counts():
+        return (row_shift.launches, disp_head.launches, plane_sweep.fwd_launches,
+                head_epilogue.fwd_launches, head_epilogue.bwd_launches)
+
+    before = counts()
     worst = check_step_against_cpu(cfg, cuda)
     torch.cuda.synchronize()
-    assert (row_shift.launches, disp_head.launches, plane_sweep.fwd_launches) == (
-        counts[0] + 5, counts[1] + 1, counts[2] + 1)
+    # the teacher: 5 row shifts, its disp head and head epilogue; the
+    # student: the sweep and the head epilogue, forward and backward
+    assert tuple(a - b for a, b in zip(counts(), before)) == (5, 1, 1, 2, 1)
     assert worst["share_of_weights_held_at_atol"] > 0.5
+
+
+# W: the 16-byte path (1280, 64) and the scalar path (W % 4 != 0); the
+# row-constant mask of the vertical and ground planes and a full mask
+@pytest.mark.parametrize("shape,full_mask", [((2, 63, 8, 1280), False),
+                                             ((1, 5, 7, 100), True),
+                                             ((2, 3, 4, 63), False),
+                                             ((1, 4, 3, 64), True)])
+def test_head_epilogue_kernels_match_plain(cuda, shape, full_mask):
+    """logits and sigma, then d_raw_logits and d_raw_sigma from autograd
+    with seeded cotangents, at rtol = atol = 1e-6; raw sigmas past both
+    ends of the clip; a sliced (misaligned) input takes the scalar path."""
+    b, n, h, w = shape
+    rng = np.random.default_rng(sum(shape))
+    raw_s = rng.uniform(-8, 8, shape).astype(np.float32)
+    raw_s[:, 0, 0], raw_s[:, -1, -1] = 40.0, -40.0
+    heads_np = (rng.normal(0, 2, shape).astype(np.float32), raw_s)
+    cts_np = [rng.normal(0, 1, shape).astype(np.float32) for _ in range(2)]
+    mask = torch.from_numpy((rng.uniform(0, 1, (b, n, h, w if full_mask else 1)) > 0.3)
+                            .astype(np.float32)).to(cuda)
+
+    def aligned(a):
+        return torch.from_numpy(a).to(cuda)
+
+    def misaligned(a):              # contiguous, 4 bytes past a 16-byte boundary
+        return torch.from_numpy(np.concatenate([[0.0], a.ravel()]).astype(
+            np.float32)).to(cuda)[1:].view(a.shape)
+
+    for place in (aligned, misaligned):
+        heads = [place(a).requires_grad_() for a in heads_np]
+        cts = [place(a) for a in cts_np]
+        fwd, bwd = head_epilogue.fwd_launches, head_epilogue.bwd_launches
+        got = head_epilogue(*heads, mask)
+        want = head_epilogue_plain(*heads, mask)
+        for g, wt in zip(got, want):
+            torch.testing.assert_close(g, wt, rtol=1e-6, atol=1e-6)
+        d_got = torch.autograd.grad(got, heads, cts)
+        d_want = torch.autograd.grad(want, heads, cts)
+        torch.cuda.synchronize()
+        assert (head_epilogue.fwd_launches, head_epilogue.bwd_launches) == (fwd + 1, bwd + 1)
+        for g, wt in zip(d_got, d_want):
+            torch.testing.assert_close(g, wt, rtol=1e-6, atol=1e-6)
+    raw_l = aligned(heads_np[0])
+    logits, sigma = head_epilogue(raw_l, None, mask)             # no sigma head
+    assert sigma is None
+    torch.testing.assert_close(logits, raw_l * mask, rtol=0, atol=0)

@@ -200,7 +200,7 @@ def steps(request, jax_init):
     port = ModelBundle(tc, CPU)
     load_jax_params(port.model, params_np["model"], stats_np["model"])
     if teacher is not None:
-        load_jax_params(port.teacher, teacher["params"]["model"],
+        load_jax_params(port.freeze_teacher(), teacher["params"]["model"],
                         teacher["batch_stats"]["model"])
     if pc_np is not None:
         load_jax_pc_params(port.pc, pc_np)

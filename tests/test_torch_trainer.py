@@ -69,18 +69,18 @@ def test_config_json_round_trip(name):
     assert tcfg.TrainConfig.from_dict(json.loads(ref.to_json())) == cfg
 
 
-@pytest.mark.parametrize("n,batch,hosts,shuffle,drop_last", [
-    (10, 3, 1, True, True), (10, 3, 1, False, False), (7, 2, 2, True, False),
-    (2, 4, 1, False, False), (25, 4, 1, True, True)])
-def test_epoch_sampler_order_equals_jax(n, batch, hosts, shuffle, drop_last):
-    for host in range(hosts):
-        kw = dict(num_hosts=hosts, host_id=host, shuffle=shuffle, seed=3,
-                  drop_last=drop_last)
-        got, want = tloader.EpochSampler(n, batch, **kw), jloader.EpochSampler(n, batch, **kw)
-        assert got.steps_per_epoch() == want.steps_per_epoch()
-        for epoch in range(3):
-            np.testing.assert_array_equal(got.epoch_indices(epoch), want.epoch_indices(epoch))
-            np.testing.assert_array_equal(got.host_batches(epoch), want.host_batches(epoch))
+@pytest.mark.parametrize("n,batch,shuffle,drop_last", [
+    (10, 3, True, True), (10, 3, False, False), (7, 2, True, False),
+    (2, 4, False, False), (25, 4, True, True)])
+def test_epoch_sampler_order_equals_jax(n, batch, shuffle, drop_last):
+    """The port's one-process sampler is the JAX sampler at one host."""
+    kw = dict(shuffle=shuffle, seed=3, drop_last=drop_last)
+    got = tloader.EpochSampler(n, batch, **kw)
+    want = jloader.EpochSampler(n, batch, num_hosts=1, host_id=0, **kw)
+    assert got.steps_per_epoch() == want.steps_per_epoch()
+    for epoch in range(3):
+        np.testing.assert_array_equal(got.epoch_indices(epoch), want.epoch_indices(epoch))
+        np.testing.assert_array_equal(got.batches(epoch), want.host_batches(epoch))
 
 
 class FlakyDataset:
@@ -95,14 +95,16 @@ class FlakyDataset:
         return {"x": np.array([index, epoch], np.int64)}
 
 
-@pytest.mark.parametrize("workers,prefetch", [(1, 0), (3, 2)])
-def test_batch_loader_equals_jax(workers, prefetch):
+@pytest.mark.parametrize("workers", [1, 3])
+def test_batch_loader_equals_jax(workers):
+    """Batches and the fallback of failed samples equal the JAX loader's at
+    its default prefetch depth, the port's."""
     batches = []
     for mod in (tloader, jloader):
         sampler = mod.EpochSampler(9, 3, shuffle=True, seed=5, drop_last=True)
-        loader = mod.BatchLoader(FlakyDataset(), sampler, num_workers=workers,
-                                 prefetch=prefetch)
+        loader = mod.BatchLoader(FlakyDataset(), sampler, num_workers=workers)
         batches.append([b["x"] for e in range(2) for b in loader.epoch(e)])
+    assert jloader.BatchLoader(None, None).prefetch == tloader.PREFETCH
     assert len(batches[0]) == 6
     for got, want in zip(*batches):
         np.testing.assert_array_equal(got, want)
