@@ -1,4 +1,4 @@
-"""Drive the PyTorch/CUDA port's inference path, stage-1 step and stage-2 -> stage-3 trainer on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's inference path, stage-1 step, stage-2 -> stage-3 trainer and mono trainer on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -48,7 +48,23 @@ Phases, each printing a line:
      run; the teacher must equal the restored student and stay unchanged,
      the student must move; the memory of one more step by aten op; one
      stage-3 step on the card is held to the CPU at 64x192; then 2 use_mom
-     steps of stage1_config (6 row-shift launches a step).
+     steps of stage1_config (6 row-shift launches a step);
+ 10. warp2d: the 2-D warp forward and backward kernels against warp2d_plain
+     on odd shapes (W not a multiple of the block, boundary-partial and
+     degenerate coordinates) and at the mono step's (8, 63, 192, 640), then
+     timed there (the backward kernel alone, and through autograd) with
+     their twin and F.grid_sample on (B*N, 5, H, W);
+ 11. disp_head_bwd: the disp-head backward kernel against autograd through
+     disp_head_plain (row 5 fully masked) on odd shapes and at (8, 63, 192,
+     640), then timed there;
+ 12. mono: mono_config() (ResNet-50, DenseASPP, 49+14 planes, ResNet-18 pose
+     encoder + PoseDecoder, homography warp to the sides r, -1, 1, automask,
+     VGG19 per side) through Trainer at 640x192, batch 8, on synthetic
+     samples with temporal frames: 3 warm-up and 10 timed steps with every
+     step's launch counts read, one validation batch, the memory of one
+     more step by aten op, every network's parameters moved, one step on
+     the card held to the CPU at 64x128; then 2 steps of the mixed
+     disp_warp recipe for their launch counts.
 Then one JSON line of the kernels and, last, the ok line.  TF32 is off for
 convolutions and matmuls so that the card computes in float32 throughout.
 """
@@ -76,18 +92,21 @@ from planedepth_tpu_torch.config import (
     LossConfig,
     ModelConfig,
     hr_finetune_config,
+    mono_config,
     self_distillation_config,
     stage1_config,
 )
 from planedepth_tpu_torch.data.synthetic import make_stereo_batch
 from planedepth_tpu_torch.eval.evaluator import mirror_batch, predict_disparities
 from planedepth_tpu_torch.eval.metrics import evaluate_disparities
+from planedepth_tpu_torch.geometry.pose import transformation_from_parameters
 from planedepth_tpu_torch.models.factory import DepthModel, init_weights_
 from planedepth_tpu_torch.ops import _build
 from planedepth_tpu_torch.ops.disp_head import disp_head, disp_head_plain
 from planedepth_tpu_torch.ops.head_epilogue import head_epilogue, head_epilogue_plain
 from planedepth_tpu_torch.ops.plane_sweep import plane_sweep, plane_sweep_plain
 from planedepth_tpu_torch.ops.row_shift import row_shift, row_shift_plain, shift_limit
+from planedepth_tpu_torch.ops.warp2d import warp2d, warp2d_plain
 from planedepth_tpu_torch.train.distill import generate_post_process_disp
 from planedepth_tpu_torch.train.state import make_optimizer
 from planedepth_tpu_torch.train.step import (
@@ -126,11 +145,26 @@ KERNELS = {
                           "planedepth_tpu/ops/pallas_relayout.py:36"),
     "head_epilogue_bwd": ("planedepth_tpu_torch/csrc/head_epilogue.cu",
                           "planedepth_tpu/ops/pallas_relayout.py:144"),
+    "disp_head_bwd": ("planedepth_tpu_torch/csrc/disp_head.cu",
+                      "planedepth_tpu/ops/pallas_disp.py:65"),
+    "warp2d_fwd": ("planedepth_tpu_torch/csrc/warp2d.cu",
+                   "planedepth_tpu/ops/pallas_warp2d.py:200"),
+    "warp2d_bwd": ("planedepth_tpu_torch/csrc/warp2d.cu",
+                   "planedepth_tpu/ops/pallas_warp2d.py:244"),
 }
 # per stage-3 step: the teacher's 5 row shifts, disp head and head
 # epilogue; the student's head epilogue and sweep, forward and backward
 DISTILL_STEP = {"disp_head_fwd": 1, "plane_sweep_fwd": 1, "plane_sweep_bwd": 1,
-                "row_shift_fwd": 5, "head_epilogue_fwd": 2, "head_epilogue_bwd": 1}
+                "row_shift_fwd": 5, "head_epilogue_fwd": 2, "head_epilogue_bwd": 1,
+                "disp_head_bwd": 0, "warp2d_fwd": 0, "warp2d_bwd": 0}
+# per mono step: the 2-D warp of each of the sides r, -1, 1 forward and
+# backward, the decoder's head epilogue and disp head forward and backward
+MONO_STEP = {"disp_head_fwd": 1, "plane_sweep_fwd": 0, "plane_sweep_bwd": 0,
+             "row_shift_fwd": 0, "head_epilogue_fwd": 1, "head_epilogue_bwd": 1,
+             "disp_head_bwd": 1, "warp2d_fwd": 3, "warp2d_bwd": 3}
+# per mixed step: side r through the sweep, the sides -1, 1 through the warp
+MIXED_STEP = dict(MONO_STEP, plane_sweep_fwd=1, plane_sweep_bwd=1, warp2d_fwd=2,
+                  warp2d_bwd=2)
 
 
 def bound(nbytes, flops):
@@ -239,8 +273,7 @@ def phase_slice(card, data=DataConfig(height=384, width=1280),
     launches = launch_counts()
     # each forward: the decoder's head epilogue, then its disp head
     n = launches["disp_head_fwd"]
-    if n < 1 or launches != {**{k: 0 for k in launches}, "disp_head_fwd": n,
-                             "head_epilogue_fwd": n}:
+    if n < 1 or launches != only(disp_head_fwd=n, head_epilogue_fwd=n):
         raise AssertionError(f"inference launches {launches}")
     if disps.shape != (4, height, width) or not np.isfinite(disps).all():
         raise AssertionError(f"bad disparities: shape {disps.shape}")
@@ -423,12 +456,21 @@ def launch_counts():
             "plane_sweep_bwd": plane_sweep.bwd_launches,
             "row_shift_fwd": row_shift.launches,
             "head_epilogue_fwd": head_epilogue.fwd_launches,
-            "head_epilogue_bwd": head_epilogue.bwd_launches}
+            "head_epilogue_bwd": head_epilogue.bwd_launches,
+            "disp_head_bwd": disp_head.bwd_launches,
+            "warp2d_fwd": warp2d.fwd_launches,
+            "warp2d_bwd": warp2d.bwd_launches}
+
+
+def only(**counts):
+    """Launch counts that are 0 but for ``counts``."""
+    return {**{k: 0 for k in launch_counts()}, **counts}
 
 
 def reset_launch_counts():
     disp_head.launches = plane_sweep.fwd_launches = plane_sweep.bwd_launches = 0
     row_shift.launches = head_epilogue.fwd_launches = head_epilogue.bwd_launches = 0
+    disp_head.bwd_launches = warp2d.fwd_launches = warp2d.bwd_launches = 0
 
 
 class PeakByOp(TorchDispatchMode):
@@ -497,7 +539,7 @@ def phase_train(card, dev=torch.device("cuda"), warmup=3, steps=10):
     free_cache()
     cfg = stage1_config()
     bundle = ModelBundle(cfg, dev)
-    optimizer, scheduler = make_optimizer(cfg, bundle.model.parameters(), 1000)
+    optimizer, scheduler = make_optimizer(cfg, bundle.parameters(), 1000)
     train_step = make_train_step(bundle, optimizer, scheduler)
     batch = batch_to_tensors(make_stereo_batch(cfg.per_step_batch, cfg.data.height,
                                                cfg.data.width, seed=0), dev)
@@ -513,8 +555,8 @@ def phase_train(card, dev=torch.device("cuda"), warmup=3, steps=10):
         times.append(time.perf_counter() - t0)
     launches = launch_counts()
     n = warmup + steps
-    want = {"disp_head_fwd": 0, "plane_sweep_fwd": n, "plane_sweep_bwd": n,
-            "row_shift_fwd": 0, "head_epilogue_fwd": n, "head_epilogue_bwd": n}
+    want = only(plane_sweep_fwd=n, plane_sweep_bwd=n, head_epilogue_fwd=n,
+                head_epilogue_bwd=n)
     if launches != want:
         raise AssertionError(f"training launches {launches}, want {want}")
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
@@ -562,17 +604,31 @@ def distinct_teacher(bundle, seed):
     return True
 
 
+def step_batch(cfg, seed):
+    """A synthetic batch for one step of ``cfg``, with its temporal frames.
+    Under a 2-D warp the stereo pose is turned slightly off the pure
+    x-translation, whose integer y coordinates make the bilinear y-gradient
+    a subgradient that two devices may take on either side."""
+    batch = make_stereo_batch(cfg.per_step_batch, cfg.data.height, cfg.data.width,
+                              seed=seed, novel_frame_ids=cfg.novel_frame_ids)
+    if cfg.warp_type != "disp_warp":
+        jitter = transformation_from_parameters(torch.tensor([[[0.002, -0.001, 0.003]]]),
+                                                torch.tensor([[[0.001, 0.004, 0.002]]]))
+        batch["Rt_r"] = (torch.from_numpy(batch["Rt_r"]) @ jitter).numpy()
+    return batch
+
+
 def check_step_against_cpu(cfg, dev, seed=1):
     """One training step of ``cfg`` on the card and on the CPU (plain twin)
     from the same weights, batch and dropout masks; returns the worst errors.
 
     - losses at rtol 1e-3;
-    - gradients, each leaf against the float64 gradient of the same step on
-      the CPU: relative L2 error <= 0.1.  Float32 rounding through train-mode
-      BatchNorm over few pixels is amplified (the CPU's own float32 error is
-      printed beside the card's), and cuDNN's convolutions round differently
-      again, so the bound is one an error of the method, not of rounding,
-      would exceed;
+    - gradients, each leaf of the depth model and the pose nets against the
+      float64 gradient of the same step on the CPU: relative L2 error <= 0.1.
+      Float32 rounding through train-mode BatchNorm over few pixels is
+      amplified (the CPU's own float32 error is printed beside the card's),
+      and cuDNN's convolutions round differently again, so the bound is one
+      an error of the method, not of rounding, would exceed;
     - post-Adam parameters at atol 1e-4 wherever the step's direction is
       fixed: the first Adam step is ~lr * sign(g), so elements whose float64
       gradient is under the card's and the CPU's largest float32 error on
@@ -583,15 +639,14 @@ def check_step_against_cpu(cfg, dev, seed=1):
     own (seed + 1), so the step is held with a teacher that is not the
     student.
     """
-    batch = make_stereo_batch(cfg.per_step_batch, cfg.data.height, cfg.data.width,
-                              seed=seed)
+    batch = step_batch(cfg, seed)
     cpu_dev = torch.device("cpu")
     bundles = (ModelBundle(cfg, dev), ModelBundle(cfg, cpu_dev))
     for bundle in bundles:
         distinct_teacher(bundle, cfg.seed + 1)
     losses = []
     for bundle in bundles:
-        opt, sched = make_optimizer(cfg, bundle.model.parameters(), 1000)
+        opt, sched = make_optimizer(cfg, bundle.parameters(), 1000)
         losses.append(make_train_step(bundle, opt, sched)(
             batch_to_tensors(batch, bundle.device)))
     for k, v in losses[1].items():
@@ -599,18 +654,20 @@ def check_step_against_cpu(cfg, dev, seed=1):
             raise AssertionError(f"{k}: card {losses[0][k]} vs CPU {v}")
 
     ref = ModelBundle(cfg, cpu_dev)               # float64, same first-step masks
-    ref.model.double().train()
+    for net in ref.nets().values():
+        net.double()
     if ref.pc is not None:
         ref.pc.double()
     if distinct_teacher(ref, cfg.seed + 1):
         ref.teacher.double()
-    out = process_batch(ref, {k: v.double() for k, v in
-                              batch_to_tensors(batch, cpu_dev).items()},
+    out = process_batch(ref.train(), {k: v.double() for k, v in
+                                      batch_to_tensors(batch, cpu_dev).items()},
                         torch.Generator().manual_seed(cfg.seed << 32))
     out["loss/total_loss"].backward()
-    g64 = {k: p.grad for k, p in ref.model.named_parameters()}
-    card, cpu = (dict(b.model.named_parameters()) for b in bundles)
-    after = [{k: v.double().cpu() for k, v in b.model.state_dict().items()} for b in bundles]
+    g64 = {k: p.grad for k, p in ref.named_parameters()}
+    card, cpu = (dict(b.named_parameters()) for b in bundles)
+    after = [{k: v.detach().double().cpu() for k, v in b.named_parameters()}
+             for b in bundles]
     lr = cfg.optim.learning_rate
     worst = {"grad_l2_rel_card": 0.0, "grad_l2_rel_cpu": 0.0, "param_err": 0.0}
     checked = total = 0
@@ -762,16 +819,19 @@ def phase_shift(card, shape=SHIFT_SHAPE, dev=torch.device("cuda")):
 
 class SyntheticStereo:
     """Unbatched synthetic stereo samples in the trainer's dataset protocol
-    (``__len__``, ``getitem(index, epoch)``) at one size."""
+    (``__len__``, ``getitem(index, epoch)``) at one size, with the temporal
+    frames ``novel_frame_ids``."""
 
-    def __init__(self, n, height, width):
+    def __init__(self, n, height, width, novel_frame_ids=()):
         self.n, self.height, self.width = n, height, width
+        self.novel_frame_ids = novel_frame_ids
 
     def __len__(self):
         return self.n
 
     def getitem(self, index, epoch=0):
-        batch = make_stereo_batch(1, self.height, self.width, seed=index)
+        batch = make_stereo_batch(1, self.height, self.width, seed=index,
+                                  novel_frame_ids=self.novel_frame_ids)
         return {k: v[0] for k, v in batch.items()}
 
 
@@ -800,9 +860,8 @@ def phase_distill(card, dev=torch.device("cuda"), warmup=3, steps=10):
         stage2.train()
         stage2.close()
         s2_launches = launch_counts()
-        want = {"disp_head_fwd": 1, "plane_sweep_fwd": 2, "plane_sweep_bwd": 2,
-                "row_shift_fwd": 0, "head_epilogue_fwd": 3,
-                "head_epilogue_bwd": 2}                 # 2 steps + one val batch
+        want = only(disp_head_fwd=1, plane_sweep_fwd=2, plane_sweep_bwd=2,
+                    head_epilogue_fwd=3, head_epilogue_bwd=2)   # 2 steps + one val batch
         if s2_launches != want:
             raise AssertionError(f"stage-2 launches {s2_launches}, want {want}")
         del stage2                      # its model, VGG and Adam leave the card
@@ -904,22 +963,334 @@ def phase_mom(card, dev=torch.device("cuda"), steps=2):
     """use_mom at the stage-1 size: 6 row-shift launches a step."""
     cfg = stage1_config(loss=LossConfig(use_mom=True))
     bundle = ModelBundle(cfg, dev)
-    optimizer, scheduler = make_optimizer(cfg, bundle.model.parameters(), 1000)
+    optimizer, scheduler = make_optimizer(cfg, bundle.parameters(), 1000)
     train_step = make_train_step(bundle, optimizer, scheduler)
     batch = batch_to_tensors(make_stereo_batch(cfg.per_step_batch, cfg.data.height,
                                                cfg.data.width, seed=0), dev)
     reset_launch_counts()
     losses = [train_step(batch) for _ in range(steps)]
     launches = launch_counts()
-    want = {"disp_head_fwd": 0, "plane_sweep_fwd": steps, "plane_sweep_bwd": steps,
-            "row_shift_fwd": 6 * steps, "head_epilogue_fwd": steps,
-            "head_epilogue_bwd": steps}
+    want = only(plane_sweep_fwd=steps, plane_sweep_bwd=steps, row_shift_fwd=6 * steps,
+                head_epilogue_fwd=steps, head_epilogue_bwd=steps)
     if launches != want:
         raise AssertionError(f"use_mom launches {launches}, want {want}")
     check_losses(losses, cfg)
     print(f"[mom] stage1_config use_mom at {cfg.data.width}x{cfg.data.height}, batch "
           f"{cfg.per_step_batch} flipped to {cfg.effective_batch}: {steps} steps, launches "
           f"{launches}, losses {json.dumps(losses[-1])} | {card}")
+
+
+def seeded_warp_inputs(shape, seed, dev, degenerate=False):
+    """2-D warp operands like a mono step's: per plane a zoom about the
+    image centre (up to ~30 px at the edges, the near planes under forward
+    motion) plus a shift and sub-pixel noise, so that samples leave the
+    image on both sides and run boundary-partial; with ``degenerate`` 5% of
+    the samples at 1e12 / -3e9 and a row of NaN, as a near-singular
+    homography gives them.  logits and sigma require grad, as do dx, dy."""
+    B, N, H, W = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rand = lambda *size: torch.rand(size, generator=g, device=dev)
+    xs = torch.linspace(-1.0, 1.0, W, device=dev)
+    ys = torch.linspace(-1.0, 1.0, H, device=dev)[:, None]
+    zoom = 30.0 * rand(B, N, 1, 1) ** 2
+    dx = zoom * xs + 8.0 * (rand(B, N, 1, 1) - 0.5) + 0.5 * rand(B, N, H, W)
+    dy = 0.3 * zoom * ys + 2.0 * (rand(B, N, 1, 1) - 0.5) + 0.5 * rand(B, N, H, W)
+    if degenerate:
+        blow = rand(B, N, H, W) < 0.05
+        dx = torch.where(blow, torch.full_like(dx, 1e12), dx)
+        dy = torch.where(blow, torch.full_like(dy, -3e9), dy)
+        dx[0, 0, H // 2] = float("nan")
+    mask = (rand(B, N, H, W) > 0.1).float()
+    src = rand(B, 3, H, W)
+    logits = 2.0 * torch.randn((B, N, H, W), generator=g, device=dev)
+    sigma = 0.01 + 0.99 * rand(B, N, H, W)
+    return [src, logits.requires_grad_(), sigma.requires_grad_(),
+            dx.contiguous().requires_grad_(), dy.contiguous().requires_grad_(), mask]
+
+
+class Held:
+    """The worst errors of a kernel pair against its plain version over
+    every shape it was held at: the forward's max abs error, and per
+    gradient the max abs error and that error over the gradient's largest
+    magnitude."""
+
+    def __init__(self):
+        self.fwd, self.abs, self.rel = 0.0, {}, {}
+
+    def hold(self, kernel_out, plain_out, inputs, diff, names, seed):
+        """Forward outputs at TOL; the gradients of ``inputs[i] for i in
+        diff`` under seeded cotangents at GRAD_TOL of each gradient's
+        largest magnitude.  Consumes both autograd graphs."""
+        for a, b in zip(kernel_out, plain_out):
+            if not bool(torch.isfinite(a).all()):
+                raise AssertionError(f"non-finite output at {tuple(a.shape)}")
+            torch.testing.assert_close(a, b, **TOL)
+            self.fwd = max(self.fwd, (a - b).abs().max().item())
+        g = torch.Generator(device=a.device).manual_seed(seed)
+        cts = [torch.randn(o.shape, generator=g, device=o.device) for o in kernel_out]
+        wrt = [inputs[i] for i in diff]
+        d_got = torch.autograd.grad(kernel_out, wrt, cts)
+        torch.cuda.synchronize()
+        d_want = torch.autograd.grad(plain_out, wrt, cts)
+        for name, a, b in zip(names, d_got, d_want):
+            if not bool(torch.isfinite(a).all()):
+                raise AssertionError(f"{name}: non-finite gradient at {tuple(a.shape)}")
+            scale = b.abs().max().item()
+            err = (a - b).abs().max().item()
+            if err > GRAD_TOL * scale:
+                raise AssertionError(f"{name} at {tuple(a.shape)}: max err {err:.3e} > "
+                                     f"{GRAD_TOL} x {scale:.3e}")
+            self.abs[name] = max(err, self.abs.get(name, 0.0))
+            self.rel[name] = max(err / max(scale, 1e-30), self.rel.get(name, 0.0))
+
+    def bwd_fields(self):
+        return {"max_abs_err": max(self.abs.values()), "max_rel_err": max(self.rel.values())}
+
+    def describe(self):
+        fmt = lambda d: json.dumps({k: float(f"{v:.3e}") for k, v in d.items()})
+        return (f"forward max_abs_err {self.fwd:.3e} (rtol {TOL['rtol']}, atol {TOL['atol']}); "
+                f"grads max_abs_err {fmt(self.abs)}, over max |value| {fmt(self.rel)} "
+                f"(<= {GRAD_TOL})")
+
+
+def launch_ms(fn, tensors, *sizes):
+    """CUDA-event time of the library entry point ``fn`` alone, on
+    ``tensors`` and ``sizes`` as its wrapper passes them: no allocation, no
+    autograd, no launch count."""
+    ptrs = [t.data_ptr() for t in tensors]
+    return cuda_ms(lambda: _build.launch(fn, *ptrs, *sizes))
+
+
+def phase_warp2d(card, shape=SWEEP_SHAPE, dev=torch.device("cuda")):
+    """The 2-D warp kernels against their twin on small odd shapes and at
+    the mono step's shape, then timed there; returns the JSON fields of
+    both."""
+    held = Held()
+    names = ("d_logits", "d_sigma", "d_dx", "d_dy")
+    # W not a multiple of the 128-thread block, a row narrower than it
+    smalls = ((2, 5, 7, 200), (1, 3, 16, 130), (2, 4, 9, 64))
+    for i, small in enumerate(smalls):
+        for degenerate in (False, True):
+            inputs = seeded_warp_inputs(small, 10 + i, dev, degenerate)
+            held.hold(warp2d(*inputs), warp2d_plain(*inputs), inputs, (1, 2, 3, 4), names, i)
+    # the main path's shape, where the atomic scatter meets the most contention
+    inputs = seeded_warp_inputs(shape, 20, dev)
+    held.hold(warp2d(*inputs), warp2d_plain(*inputs), inputs, (1, 2, 3, 4), names, 3)
+    free_cache()
+
+    B, N, H, W = shape
+    src, logits, sigma, dx, dy, mask = inputs
+    out = warp2d(*inputs)
+    cts = [torch.randn_like(o) for o in out]
+    diff = inputs[1:5]
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: warp2d(*inputs))
+        plain_fwd_ms = cuda_ms(lambda: warp2d_plain(*inputs), warmup=1, reps=3)
+        # the backward kernel alone, on buffers zeroed once (its atomics add
+        # into them; the values do not change the time)
+        d_bufs = [torch.zeros_like(t) for t in (logits, sigma, dx, dy)]
+        bwd_ms = launch_ms("pdt_warp2d_bwd", (*inputs, *cts, *d_bufs), B, N, H, W)
+        del d_bufs
+    # the wrapper's backward through autograd: the kernel, the zeroing of
+    # the two scatter buffers and autograd's own work
+    autograd_bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, diff, cts, retain_graph=True))
+    plain_ms = cuda_ms(lambda: torch.autograd.grad(warp2d_plain(*inputs), diff, cts),
+                       warmup=1, reps=3)
+    fwd_bytes = nbytes(src, logits, sigma, dx, dy, mask, *out)
+    bwd_bytes = nbytes(src, logits, sigma, dx, dy, mask, *cts, logits, sigma, dx, dy)
+    fwd_bound = bound(fwd_bytes, 60 * dx.numel())
+    bwd_bound = bound(bwd_bytes, 100 * dx.numel())
+    del out, cts
+
+    # the library call: F.grid_sample on (B*N, 5, H, W) [rgb | logit | sigma]
+    # with a prebuilt normalised grid, both built outside the timed region;
+    # its backward also computes the rgb input's gradient, which the
+    # kernel skips
+    with torch.no_grad():
+        x = torch.arange(W, device=dev, dtype=torch.float32)
+        y = torch.arange(H, device=dev, dtype=torch.float32)[:, None]
+        grid = torch.stack([(dx + x) * (2.0 / (W - 1)) - 1.0,
+                            (dy + y) * (2.0 / (H - 1)) - 1.0], -1).view(B * N, H, W, 2)
+        stack = torch.cat([src[:, None].expand(B, N, 3, H, W), logits[:, :, None],
+                           sigma[:, :, None]], 2).view(B * N, 5, H, W)
+    grid.requires_grad_()
+    stack.requires_grad_()
+    sample = lambda: F.grid_sample(stack, grid, mode="bilinear", padding_mode="zeros",
+                                   align_corners=True)
+    with torch.no_grad():
+        lib_fwd_ms = cuda_ms(sample)
+    lib_out = sample()
+    lib_ct = torch.randn_like(lib_out)
+    lib_ms = cuda_ms(lambda: torch.autograd.grad(sample(), (stack, grid), lib_ct))
+    del grid, stack, lib_out, lib_ct, inputs
+    free_cache()
+    print(f"[warp2d] warp2d vs plain on {', '.join(map(str, smalls))}, each with and "
+          f"without degenerate coordinates, and at {shape}: {held.describe()}; d_logits "
+          f"and d_sigma sum by atomics in no fixed order | {card}")
+    print(f"[warp2d] at {shape}: forward kernel {fwd_ms:.4f} ms ({fwd_bytes / fwd_ms / 1e9:.2f} "
+          f"TB/s of {fwd_bytes / 1e6:.0f} MB, {fwd_bound[0] / fwd_ms:.1%} of the bound "
+          f"{fwd_bound[0]:.4f} ms), backward kernel alone {bwd_ms:.4f} ms ("
+          f"{bwd_bytes / bwd_ms / 1e9:.2f} TB/s of {bwd_bytes / 1e6:.0f} MB, "
+          f"{bwd_bound[0] / bwd_ms:.1%} of the bound {bwd_bound[0]:.4f} ms), backward "
+          f"through autograd {autograd_bwd_ms:.4f} ms (with zeroing d_logits and d_sigma); "
+          f"twin forward {plain_fwd_ms:.2f} ms, forward+backward {plain_ms:.2f} ms; "
+          f"F.grid_sample on (B*N, 5, H, W) forward {lib_fwd_ms:.4f} ms, forward+backward "
+          f"{lib_ms:.4f} ms (its backward also computes the rgb input's gradient) | {card}")
+    return {
+        "warp2d_fwd": {"max_abs_err": held.fwd, "ms": fwd_ms, "plain_ms": plain_fwd_ms,
+                       "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
+                       "library_ms": lib_fwd_ms},
+        "warp2d_bwd": {**held.bwd_fields(), "ms": bwd_ms, "autograd_ms": autograd_bwd_ms,
+                       # the twin's and the library's backward: forward+backward less forward
+                       "plain_ms": plain_ms - plain_fwd_ms,
+                       "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1],
+                       "library_ms": lib_ms - lib_fwd_ms},
+    }
+
+
+def phase_disp_head_bwd(card, shape=SWEEP_SHAPE, dev=torch.device("cuda")):
+    """The disp-head backward kernel against autograd through the plain
+    head on small shapes and at the mono step's shape, then timed there;
+    returns its JSON fields."""
+    held = Held()
+    names = ("d_logits", "d_sigma", "d_disp_rows")
+    smalls = ((2, 63, 8, 200), (1, 7, 6, 1280), (1, 94, 7, 129))
+    # the main path's shape last, where each row's d_disp_rows sums 640 terms
+    for i, at in enumerate((*smalls, shape)):
+        logits, sigma, rows, mask = seeded_head_inputs(at, 30 + i, dev)
+        inputs = [logits.requires_grad_(), sigma.requires_grad_(), rows.requires_grad_(),
+                  mask]
+        held.hold((disp_head(*inputs),), (disp_head_plain(*inputs),), inputs, (0, 1, 2),
+                  names, i)
+        d = torch.autograd.grad(disp_head(*inputs), inputs[:3],
+                                torch.ones((at[0], 1, at[2], at[3]), device=dev))
+        if any(bool((t[:, :, 5] != 0).any()) for t in d[:2]) or bool((d[2][:, 5] != 0).any()):
+            raise AssertionError("a fully masked row must get zero adjoints")
+        del d
+    free_cache()
+
+    B, N, H, W = shape
+    out = disp_head(*inputs)
+    ct = torch.randn_like(out)
+    with torch.no_grad():
+        grads = [torch.empty_like(t) for t in inputs[:3]]
+        ms = launch_ms("pdt_disp_head_bwd", (*inputs, ct, *grads), B, N, H, W)
+        plain_fwd_ms = cuda_ms(lambda: disp_head_plain(*inputs))
+        del grads
+    autograd_ms = cuda_ms(lambda: torch.autograd.grad(out, inputs[:3], ct, retain_graph=True))
+    plain_ms = cuda_ms(lambda: torch.autograd.grad(disp_head_plain(*inputs), inputs[:3], ct))
+    moved = nbytes(logits, sigma, rows, mask, ct, logits, sigma, rows)
+    bound_ms, bound_by = bound(moved, 30 * logits.numel())
+    del out, ct, inputs, logits, sigma, rows, mask
+    free_cache()
+    print(f"[disp_head_bwd] backward kernel vs autograd through the plain head on "
+          f"{', '.join(map(str, smalls))} and {shape}, row 5 fully masked: "
+          f"{held.describe()} | {card}")
+    print(f"[disp_head_bwd] at {shape}: kernel alone {ms:.4f} ms ({moved / ms / 1e9:.2f} TB/s "
+          f"of {moved / 1e6:.0f} MB, {bound_ms / ms:.1%} of the bound {bound_ms:.4f} ms, "
+          f"{bound_by}), through autograd {autograd_ms:.4f} ms; twin backward "
+          f"(forward+backward {plain_ms:.3f} less forward {plain_fwd_ms:.3f}) "
+          f"{plain_ms - plain_fwd_ms:.3f} ms; no single PyTorch call computes it | {card}")
+    return {"disp_head_bwd": {**held.bwd_fields(), "ms": ms, "autograd_ms": autograd_ms,
+                              "plain_ms": plain_ms - plain_fwd_ms, "bound_ms": bound_ms,
+                              "bound_by": bound_by, "library_ms": None}}
+
+
+def phase_mono(card, dev=torch.device("cuda"), warmup=3, steps=10):
+    """The monocular homography recipe through the Trainer at full width,
+    then 2 mixed disp_warp steps; returns the launch counts of the mono run."""
+    free_cache()
+    with tempfile.TemporaryDirectory(prefix="pdt_chip_smoke_") as log_dir:
+        cfg = mono_config(log_dir=log_dir, optim=dataclasses.replace(
+            mono_config().optim, num_epochs=1))
+        b, h, w = cfg.per_step_batch, cfg.data.height, cfg.data.width
+        novel = cfg.novel_frame_ids
+        trainer = Trainer(cfg, datasets=(SyntheticStereo(b * (warmup + steps), h, w, novel),
+                                         SyntheticStereo(b, h, w, novel)), device=dev)
+        start = {k: p.detach().clone() for k, p in trainer.bundle.named_parameters()}
+        times, losses, val = [], [], {}
+        step_fn, val_fn = trainer.train_step, trainer.val
+
+        def timed_step(batch):
+            if len(times) == warmup:
+                torch.cuda.reset_peak_memory_stats(dev)
+            before = launch_counts()
+            t0 = time.perf_counter()
+            out = step_fn(batch)                  # floats: the step has synchronised
+            times.append(time.perf_counter() - t0)
+            delta = {k: v - before[k] for k, v in launch_counts().items()}
+            if delta != MONO_STEP:
+                raise AssertionError(f"mono step launches {delta}, want {MONO_STEP}")
+            losses.append(out)
+            return out
+
+        trainer.train_step = timed_step
+        trainer.val = lambda epoch: val.setdefault("metrics", val_fn(epoch))
+        reset_launch_counts()
+        trainer.train()
+        launches = launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        reserved_gb = torch.cuda.max_memory_reserved(dev) / 1e9
+        trainer.close()
+        n = warmup + steps
+        want = {k: v * n for k, v in MONO_STEP.items()}
+        want["disp_head_fwd"] += 1                      # the validation batch
+        want["head_epilogue_fwd"] += 1
+        if launches != want or len(times) != n:
+            raise AssertionError(f"mono run launches {launches} in {len(times)} steps, "
+                                 f"want {want} in {n}")
+        check_losses(losses, cfg)
+        if not val.get("metrics") or not all(math.isfinite(v) for v in val["metrics"].values()):
+            raise AssertionError(f"validation metrics {val}")
+        moved = {}
+        for k, p in trainer.bundle.named_parameters():
+            net = k.split(".", 1)[0]
+            moved.setdefault(net, [0, 0])
+            moved[net][0] += int(not torch.equal(p.detach(), start[k]))
+            moved[net][1] += 1
+        if any(m < t // 2 for m, t in moved.values()):
+            raise AssertionError(f"parameter tensors moved per network: {moved}")
+        batch = batch_to_tensors(step_batch(cfg, 0), dev)
+        memory = memory_by_op(lambda: step_fn(batch), dev)
+        del trainer, start, batch
+        free_cache()
+    step_ms = statistics.median(times[warmup:]) * 1e3
+    cpu = check_step_against_cpu(mono_config(data=DataConfig(height=64, width=128),
+                                             batch_size=4), dev)
+    print(f"[mono] mono_config ResNet-{cfg.model.num_layers} DenseASPP "
+          f"{cfg.model.planes.disp_levels}+{cfg.model.planes.xz_levels} planes, pose "
+          f"ResNet-{cfg.model.pose_num_layers} + PoseDecoder (PE {cfg.model.pose_num_ep}), "
+          f"{cfg.warp_type} to sides {cfg.target_sides}, automask, VGG19 alpha_pc "
+          f"{cfg.loss.alpha_pc}, {w}x{h}, batch {b}: {warmup}+{steps} steps through Trainer, "
+          f"launches {launches} (per step {MONO_STEP}, + 1 disp head and 1 head epilogue "
+          f"for validation); parameter tensors moved per network {json.dumps(moved)}; "
+          f"first/last losses {json.dumps(losses[0])} {json.dumps(losses[-1])}")
+    print(f"[mono] validation metrics {json.dumps(val['metrics'])}")
+    print(f"[mono] card vs CPU at 64x128 (batch 4, one step): {json.dumps(cpu)}")
+    print(f"[mono] step {step_ms:.2f} ms median of {steps} (host clock around synchronised "
+          f"steps, after {warmup} warm-up), {b / step_ms * 1e3:.2f} imgs/s, peak device "
+          f"memory {peak_gb:.2f} GB allocated, {reserved_gb:.2f} GB reserved; float32, TF32 "
+          f"off | {card}")
+    print(f"[mono] memory of one more step by aten op: {json.dumps(memory)} | {card}")
+
+    mixed = mono_config(warp_type="disp_warp")
+    bundle = ModelBundle(mixed, dev)
+    optimizer, scheduler = make_optimizer(mixed, bundle.parameters(), 1000)
+    train_step = make_train_step(bundle, optimizer, scheduler)
+    batch = batch_to_tensors(step_batch(mixed, 0), dev)
+    reset_launch_counts()
+    mixed_losses = [train_step(batch) for _ in range(2)]
+    mixed_launches = launch_counts()
+    want = {k: 2 * v for k, v in MIXED_STEP.items()}
+    if mixed_launches != want:
+        raise AssertionError(f"mixed launches {mixed_launches}, want {want}")
+    check_losses(mixed_losses, mixed)
+    del bundle, optimizer, batch
+    free_cache()
+    print(f"[mono] mixed disp_warp (side r through the sweep, -1 and 1 through the 2-D "
+          f"warp) at {w}x{h}, batch {b}: 2 steps, launches {mixed_launches}, losses "
+          f"{json.dumps(mixed_losses[-1])} | {card}")
+    return launches
 
 
 def main():
@@ -937,6 +1308,10 @@ def main():
     launches.update({k: distill[k] for k in
                      ("row_shift_fwd", "head_epilogue_fwd", "head_epilogue_bwd")})
     phase_mom(card)
+    fields.update(phase_warp2d(card))
+    fields.update(phase_disp_head_bwd(card))
+    mono = phase_mono(card)
+    launches.update({k: mono[k] for k in ("disp_head_bwd", "warp2d_fwd", "warp2d_bwd")})
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": launches[name], **fields[name]}

@@ -2,8 +2,9 @@
 
 Same names and defaults as the JAX package's ``PlaneConfig``, ``ModelConfig``,
 ``LossConfig``, ``OptimConfig`` and the fields of ``TrainConfig`` that the
-stereo training step and the trainer read, the ``height``/``width`` and
-``num_workers`` of its ``DataConfig``, the three stage presets and the
+training steps and the trainer read, the ``height``/``width``,
+``use_colmap`` and ``num_workers`` of its ``DataConfig``, the three stage
+presets, the monocular recipe of the JAX package's ``bench.py`` and the
 ``to_json``/``from_dict`` round trip (``from_dict`` skips the JAX package's
 fields that have no counterpart here, so it reads the JAX ``opt.json``
 too).  The fields that choose a TPU layout
@@ -11,8 +12,9 @@ or a TPU memory trade (``s2d_tail``, ``s2d_stem``, ``fused_head``,
 ``fused_head_bf16``, ``remat``, ``sweep_rows``, ``sweep_gp_taps*``,
 ``sweep_quad*``, ``pc_s2d``, ``warp2d_*``, ``mesh_shape``, ``remat_warp``,
 ``rowshift_warp``, ``warp_sample_bf16``) have no counterpart: the kernels run
-whenever their tensors lie on the card.  ``bf16`` is not ported: the port
-trains in float32.
+whenever their tensors lie on the card, and the 2-D warp kernel samples
+every plane exactly, so the TPU's tap budget (``warp2d_plan``) has no use.
+``bf16`` is not ported: the port trains in float32.
 """
 from __future__ import annotations
 
@@ -66,15 +68,21 @@ class ModelConfig:
     # then stops at the plane heads in training and the sweep computes disp
     fused_sweep_loss: bool = False
     planes: PlaneConfig = field(default_factory=PlaneConfig)
+    # pose networks, built when novel_frame_ids is non-empty and not colmap
+    # (reference trainer.py:92-94)
+    pose_num_layers: int = 18
+    pose_num_ep: int = 8
 
 
 @dataclass(frozen=True)
 class DataConfig:
-    """Network input size and loader threads (reference: options.py:27-60,
-    217-220)."""
+    """Network input size, the COLMAP pose switch and loader threads
+    (reference: options.py:27-60, 113-115, 217-220)."""
 
     height: int = 192
     width: int = 640
+    # temporal poses from the batch's Rt_{f} (COLMAP) instead of the pose nets
+    use_colmap: bool = False
     num_workers: int = 12           # loader threads (data/loader.py)
 
     def __post_init__(self):
@@ -113,7 +121,7 @@ class OptimConfig:
 @dataclass(frozen=True)
 class TrainConfig:
     """Training configuration: the fields of the JAX ``TrainConfig`` that the
-    stereo step and the trainer read, with the same defaults."""
+    training steps and the trainer read, with the same defaults."""
 
     model_name: str = "planedepth"
     log_dir: str = "./log"
@@ -165,6 +173,11 @@ class TrainConfig:
         (reference trainer.py:85-88)."""
         sides = () if self.no_stereo else ("r",)
         return sides + tuple(self.novel_frame_ids)
+
+    @property
+    def use_pose_net(self) -> bool:
+        """The pose networks predict the temporal poses."""
+        return len(self.novel_frame_ids) > 0 and not self.data.use_colmap
 
     def replace(self, **kw) -> "TrainConfig":
         return dataclasses.replace(self, **kw)
@@ -249,6 +262,25 @@ def self_distillation_config(**overrides) -> TrainConfig:
         data=DataConfig(height=384, width=1280),
         optim=OptimConfig(learning_rate=2e-5, num_epochs=10, milestones=(5,)),
         models_to_load=("encoder", "depth"),
+    )
+    return cfg.replace(**overrides) if overrides else cfg
+
+
+def mono_config(**overrides) -> TrainConfig:
+    """The monocular homography recipe at the stage-1 size (the JAX
+    package's ``bench.py`` mono rung, reference options.py:94-112): the
+    pose networks predict the motion to the temporal neighbours -1 and 1,
+    each plane is warped by its homography to the sides ("r", -1, 1), with
+    the automask, 640x192, batch 8 without flip doubling."""
+    cfg = TrainConfig(
+        model_name="mono",
+        fused_sweep=True,
+        batch_size=8,
+        warp_type="homography_warp",
+        novel_frame_ids=(-1, 1),
+        loss=LossConfig(automask=True),
+        data=DataConfig(height=192, width=640),
+        optim=OptimConfig(learning_rate=1e-4),
     )
     return cfg.replace(**overrides) if overrides else cfg
 

@@ -15,8 +15,11 @@ arithmetic of the TPU's relayout kernels.
 
 With ``fused_sweep_loss`` in training mode the decoder stops at the plane
 heads, as the JAX decoder does (``depth_decoder.py:380-386``): the fused
-plane sweep computes ``disp`` from its own centre samples, and nothing reads
-the probability volume, whose passes eager PyTorch would not drop.
+plane sweep computes ``disp`` from its own centre samples.  In other
+training (the 2-D warp and mixed recipes) ``disp`` comes from the disp head
+with its backward, and ``pi`` and the probability volume are not built: no
+training loss reads them, and eager PyTorch, unlike XLA, would keep them
+alive through the backward.
 """
 from __future__ import annotations
 
@@ -132,8 +135,8 @@ class DepthDecoder(nn.Module):
         residual_levels = None
         if self.plane_residual:
             r = c["residualconv"](x)                              # (B, N, 1, 1)
-            residual_levels = torch.sigmoid(r.float())[:, :, 0, 0] - 0.5
-        vol = build_plane_volume(grid.float(), cfg, W, residual_levels)
+            residual_levels = torch.sigmoid(r)[:, :, 0, 0] - 0.5
+        vol = build_plane_volume(grid, cfg, W, residual_levels)
         out = {"disp_layered": vol.disp_layered, "padding_mask": vol.padding_mask,
                "distance": vol.distance, "norm": vol.normal}
         row_constant = cfg.yz_levels == 0
@@ -141,21 +144,24 @@ class DepthDecoder(nn.Module):
             out["disp_rows"] = vol.disp_layered[..., 0].transpose(1, 2).contiguous()
 
         logits, sigma = head_epilogue(
-            c["dispconv"](x).float(),
-            c["sigmaconv"](x).float() if self.use_mixture_loss else None,
+            c["dispconv"](x),
+            c["sigmaconv"](x) if self.use_mixture_loss else None,
             vol.padding_mask)
         out["logits"] = logits
         if self.use_mixture_loss:
             out["sigma"] = sigma
         if self.fused_sweep_loss and self.training:
             return out
-        probability = torch.softmax(logits, dim=1)
-        if self.use_mixture_loss:
-            out["pi"] = probability
-            probability = mixture_reweight(probability, sigma, vol.padding_mask)
-        out["probability"] = probability
+        use_head = self.use_mixture_loss and row_constant
+        if not (use_head and self.training):
+            # no training loss reads pi or the probability volume
+            probability = torch.softmax(logits, dim=1)
+            if self.use_mixture_loss:
+                out["pi"] = probability
+                probability = mixture_reweight(probability, sigma, vol.padding_mask)
+            out["probability"] = probability
 
-        if self.use_mixture_loss and row_constant:
+        if use_head:
             mask_rows = vol.padding_mask[..., 0].transpose(1, 2).contiguous()
             out["disp"] = disp_head(logits, sigma, out["disp_rows"], mask_rows)
         else:

@@ -82,13 +82,14 @@ class Bottleneck(nn.Module):
 
 
 class ResNetTrunk(nn.Module):
-    """conv1 .. layer4, returning the 5 feature maps [relu1, layer1..layer4]."""
+    """conv1 .. layer4, returning the 5 feature maps [relu1, layer1..layer4];
+    ``in_ch`` input channels (6 for the pose encoder's frame pairs)."""
 
-    def __init__(self, num_layers: int = 50):
+    def __init__(self, num_layers: int = 50, in_ch: int = 3):
         super().__init__()
         kind, blocks = RESNET_SPECS[num_layers]
         block = BasicBlock if kind == "basic" else Bottleneck
-        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
+        self.conv1 = nn.Conv2d(in_ch, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = nn.BatchNorm2d(64)
         in_ch = 64
         for stage, (width, n) in enumerate(zip((64, 128, 256, 512), blocks)):
@@ -113,10 +114,20 @@ class ResnetEncoder(nn.Module):
     """Depth encoder (reference networks/resnet_encoder.py:18-55): input
     normalisation ``(x - 0.45) / 0.225``, then the trunk."""
 
-    def __init__(self, num_layers: int = 50):
+    def __init__(self, num_layers: int = 50, in_ch: int = 3):
         super().__init__()
         self.num_ch_enc = encoder_channels(num_layers)
-        self.encoder = ResNetTrunk(num_layers)
+        self.encoder = ResNetTrunk(num_layers, in_ch)
 
     def forward(self, image: torch.Tensor) -> List[torch.Tensor]:
         return self.encoder((image - 0.45) / 0.225)
+
+
+class ResnetPoseEncoder(ResnetEncoder):
+    """Pose encoder on ``num_input_images`` frames stacked on channels
+    (reference pose_net.py:19-97): the same normalisation and trunk with a
+    ``3 * num_input_images``-channel ``conv1``; a reference
+    ``pose_encoder.pth`` loads as it is."""
+
+    def __init__(self, num_layers: int = 18, num_input_images: int = 2):
+        super().__init__(num_layers, in_ch=3 * num_input_images)

@@ -99,6 +99,14 @@ def load_library() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.pdt_disp_head_fwd.argtypes = [p, p, p, p, p, i, i, i, i, p]
     lib.pdt_disp_head_fwd.restype = i
+    lib.pdt_disp_head_bwd.argtypes = [p] * 8 + [i, i, i, i, p]
+    lib.pdt_disp_head_bwd.restype = i
+    lib.pdt_disp_head_bwd_max_planes.argtypes = []
+    lib.pdt_disp_head_bwd_max_planes.restype = i
+    lib.pdt_warp2d_fwd.argtypes = [p] * 9 + [i, i, i, i, p]
+    lib.pdt_warp2d_fwd.restype = i
+    lib.pdt_warp2d_bwd.argtypes = [p] * 13 + [i, i, i, i, p]
+    lib.pdt_warp2d_bwd.restype = i
     lib.pdt_plane_sweep_fwd.argtypes = [p] * 11 + [i, i, i, i, f, i, i, p]
     lib.pdt_plane_sweep_fwd.restype = i
     lib.pdt_plane_sweep_bwd.argtypes = [p] * 14 + [i, i, i, i, f, i, p]
@@ -110,3 +118,14 @@ def load_library() -> ctypes.CDLL:
     lib.pdt_head_epilogue_bwd.argtypes = [p] * 6 + [i] * 5 + [p]
     lib.pdt_head_epilogue_bwd.restype = i
     return lib
+
+
+def launch(fn: str, *args) -> None:
+    """Call the library's entry point ``fn`` with ``args`` and PyTorch's
+    current CUDA stream; raise when the launch failed (the entry point
+    returns the launch's ``cudaGetLastError``)."""
+    import torch
+
+    rc = getattr(load_library(), fn)(*args, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn} kernel launch failed: CUDA error {rc}")

@@ -1,14 +1,19 @@
-"""Expected-disparity head (``planedepth_tpu/ops/pallas_disp.py:disp_head``, forward).
+"""Expected-disparity head (``planedepth_tpu/ops/pallas_disp.py:disp_head``).
 
 Per pixel over the N planes: ``p = softmax(l)``, ``u = p * m / s``,
 ``U = sum u``, ``disp = sum(u * d) / U``, and 0 where ``U <= 1e-7`` (the
-guarded reciprocal of ``mixture_reweight``).  ``disp_head`` launches the CUDA
-kernel of ``csrc/disp_head.cu`` on CUDA tensors and takes ``disp_head_plain``
-on CPU tensors.  The backward is not ported yet (ROADMAP B3).
+guarded reciprocal of ``mixture_reweight``).  ``disp_head`` launches the
+forward kernel of ``csrc/disp_head.cu`` on CUDA tensors, and its backward
+kernel when autograd reaches it (``disp_head.launches`` and
+``disp_head.bwd_launches`` count the launches); on CPU tensors it takes
+``disp_head_plain``, differentiated by autograd.  The gradient reaches the
+logits, sigma and the row disparities; the mask is a constant.
 """
 from __future__ import annotations
 
 import torch
+
+from planedepth_tpu_torch.ops._build import launch, load_library
 
 EPS = 1e-7
 
@@ -21,10 +26,10 @@ def disp_head_plain(logits: torch.Tensor, sigma: torch.Tensor,
     mask_rows: ``(B, H, N)`` row-constant plane disparities and 0/1 mask.
     Returns disp ``(B, 1, H, W)``.
     """
-    p = torch.softmax(logits.float(), dim=1)
+    p = torch.softmax(logits, dim=1)
     m = mask_rows.transpose(1, 2)[..., None]                  # (B, N, H, 1)
     d = disp_rows.transpose(1, 2)[..., None]
-    u = p * m / sigma.float()
+    u = p * m / sigma
     U = u.sum(dim=1, keepdim=True)
     D = (u * d).sum(dim=1, keepdim=True)
     inv = torch.where(U > EPS, 1.0 / torch.clamp_min(U, EPS), torch.zeros_like(U))
@@ -48,36 +53,59 @@ def _check(logits, sigma, disp_rows, mask_rows):
             raise ValueError(f"{name} must be contiguous")
     if 2 * N * 4 > 48 * 1024:
         raise ValueError(f"N={N} planes exceed the kernel's shared-memory rows")
+    if mask_rows.requires_grad:
+        raise NotImplementedError("disp_head: the kernels take no gradient through "
+                                  "the mask")
+    if any(t.requires_grad for t in (logits, sigma, disp_rows)):
+        most = load_library().pdt_disp_head_bwd_max_planes()
+        if N > most:
+            raise ValueError(f"N={N} planes exceed the backward kernel's shared memory "
+                             f"(at most {most})")
+
+
+class _DispHead(torch.autograd.Function):
+    """The forward and backward kernels joined by autograd."""
+
+    @staticmethod
+    def forward(ctx, logits, sigma, disp_rows, mask_rows):
+        B, N, H, W = logits.shape
+        out = torch.empty((B, 1, H, W), dtype=torch.float32, device=logits.device)
+        launch("pdt_disp_head_fwd", logits.data_ptr(), sigma.data_ptr(),
+               disp_rows.data_ptr(), mask_rows.data_ptr(), out.data_ptr(), B, N, H, W)
+        disp_head.launches += 1
+        ctx.save_for_backward(logits, sigma, disp_rows, mask_rows)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, sigma, disp_rows, mask_rows = ctx.saved_tensors
+        B, N, H, W = logits.shape
+        g = g.contiguous()
+        d_logits, d_sigma = torch.empty_like(logits), torch.empty_like(sigma)
+        d_rows = torch.empty_like(disp_rows)
+        launch("pdt_disp_head_bwd", *(t.data_ptr() for t in (
+            logits, sigma, disp_rows, mask_rows, g, d_logits, d_sigma, d_rows)),
+            B, N, H, W)
+        disp_head.bwd_launches += 1
+        return d_logits, d_sigma, d_rows, None
 
 
 def disp_head(logits: torch.Tensor, sigma: torch.Tensor,
               disp_rows: torch.Tensor, mask_rows: torch.Tensor) -> torch.Tensor:
     """Expected disparity ``(B, 1, H, W)`` from the plane heads.
 
-    CPU tensors take :func:`disp_head_plain`.  CUDA tensors launch the kernel
-    (``disp_head.launches`` counts each launch) or raise.
+    CPU tensors take :func:`disp_head_plain`.  CUDA tensors launch the
+    forward kernel, and the backward kernel when autograd reaches it, or
+    raise.
     """
     if logits.device.type == "cpu":
         return disp_head_plain(logits, sigma, disp_rows, mask_rows)
     if logits.device.type != "cuda":
         raise NotImplementedError(f"disp_head: no kernel for {logits.device}")
-    if any(t.requires_grad for t in (logits, sigma, disp_rows, mask_rows)):
-        raise NotImplementedError(
-            "disp_head: the CUDA backward is not ported yet (ROADMAP B3)")
     _check(logits, sigma, disp_rows, mask_rows)
-    from planedepth_tpu_torch.ops._build import load_library
-
-    B, N, H, W = logits.shape
-    out = torch.empty((B, 1, H, W), dtype=torch.float32, device=logits.device)
     with torch.cuda.device(logits.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = load_library().pdt_disp_head_fwd(
-            logits.data_ptr(), sigma.data_ptr(), disp_rows.data_ptr(),
-            mask_rows.data_ptr(), out.data_ptr(), B, N, H, W, stream)
-    if rc != 0:
-        raise RuntimeError(f"disp_head kernel launch failed: CUDA error {rc}")
-    disp_head.launches += 1
-    return out
+        return _DispHead.apply(logits, sigma, disp_rows, mask_rows)
 
 
 disp_head.launches = 0
+disp_head.bwd_launches = 0

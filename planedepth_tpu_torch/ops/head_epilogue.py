@@ -19,6 +19,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from planedepth_tpu_torch.ops._build import launch
+
 
 def head_epilogue_plain(raw_logits: torch.Tensor, raw_sigma: Optional[torch.Tensor],
                         padding_mask: torch.Tensor
@@ -57,14 +59,6 @@ def _check(raw_logits, raw_sigma, padding_mask):
             raise TypeError(f"{name}: dtype {t.dtype}, the kernels take float32")
 
 
-def _launch(fn, *args):
-    from planedepth_tpu_torch.ops._build import load_library
-
-    rc = getattr(load_library(), fn)(*args, torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{fn} kernel launch failed: CUDA error {rc}")
-
-
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
@@ -81,8 +75,8 @@ class _HeadEpilogue(torch.autograd.Function):
         full = int(mask.shape[-1] == W and W != 1)
         logits = torch.empty_like(raw_logits)
         sigma = None if raw_sigma is None else torch.empty_like(raw_sigma)
-        _launch("pdt_head_epilogue_fwd", *map(_ptr, (raw_logits, raw_sigma, mask, logits,
-                                                     sigma)), B, N, H, W, full)
+        launch("pdt_head_epilogue_fwd", *map(_ptr, (raw_logits, raw_sigma, mask, logits,
+                                                    sigma)), B, N, H, W, full)
         head_epilogue.fwd_launches += 1
         ctx.save_for_backward(sigma, mask)
         ctx.full = full
@@ -96,9 +90,9 @@ class _HeadEpilogue(torch.autograd.Function):
         g_sigma = None if sigma is None else g_sigma.contiguous()
         d_logits = torch.empty_like(g_logits)
         d_sigma = None if sigma is None else torch.empty_like(sigma)
-        _launch("pdt_head_epilogue_bwd", *map(_ptr, (g_logits, g_sigma, sigma, mask,
-                                                     d_logits, d_sigma)),
-                B, N, H, W, ctx.full)
+        launch("pdt_head_epilogue_bwd", *map(_ptr, (g_logits, g_sigma, sigma, mask,
+                                                    d_logits, d_sigma)),
+               B, N, H, W, ctx.full)
         head_epilogue.bwd_launches += 1
         return d_logits, d_sigma, None
 

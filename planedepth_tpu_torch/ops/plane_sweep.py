@@ -19,6 +19,8 @@ from __future__ import annotations
 
 import torch
 
+from planedepth_tpu_torch.ops._build import launch
+
 EPS = 1e-7
 
 
@@ -112,14 +114,6 @@ def _check(src, tgt, logits, sigma, shift, mask):
         raise ValueError(f"(N, W) = ({N}, {W}) exceed the kernels' shared-memory row")
 
 
-def _launch(fn, *args):
-    from planedepth_tpu_torch.ops._build import load_library
-
-    rc = getattr(load_library(), fn)(*args, torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{fn} kernel launch failed: CUDA error {rc}")
-
-
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
@@ -138,7 +132,7 @@ class _PlaneSweep(torch.autograd.Function):
         nll_auto = new(B, H, W) if with_auto else None
         disp = new(B, H, W) if with_disp else None
         stats = new(B, 7 if with_disp else 4, H, W)
-        _launch("pdt_plane_sweep_fwd", *map(_ptr, (
+        launch("pdt_plane_sweep_fwd", *map(_ptr, (
             src, tgt, logits, sigma, shift, mask, rgb, nll, nll_auto, disp, stats)),
             B, N, H, W, shift_max(pad), int(with_auto), int(with_disp))
         plane_sweep.fwd_launches += 1
@@ -154,7 +148,7 @@ class _PlaneSweep(torch.autograd.Function):
         g_disp = rest[-1].contiguous() if ctx.with_disp else None
         d_logits, d_sigma = torch.empty_like(logits), torch.empty_like(sigma)
         d_shift = torch.empty_like(shift)
-        _launch("pdt_plane_sweep_bwd", *map(_ptr, (
+        launch("pdt_plane_sweep_bwd", *map(_ptr, (
             src, tgt, logits, sigma, shift, mask, stats, rgb, g_rgb.contiguous(),
             g_nll.contiguous(), g_disp, d_logits, d_sigma, d_shift)),
             B, N, H, W, shift_max(ctx.pad), int(ctx.with_disp))

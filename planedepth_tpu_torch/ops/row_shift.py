@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import torch
 
+from planedepth_tpu_torch.ops._build import launch
+
 
 def shift_limit(pad: int) -> float:
     """The shift clip: the TPU kernel's lane-rounded pad less 2."""
@@ -72,17 +74,12 @@ def row_shift(maps: torch.Tensor, shift: torch.Tensor, pad: int) -> torch.Tensor
     if torch.is_grad_enabled() and (maps.requires_grad or shift.requires_grad):
         raise NotImplementedError("row_shift: the kernel is forward only")
     _check(maps, shift)
-    from planedepth_tpu_torch.ops._build import load_library
-
     B, N, H, W = maps.shape
     maps, shift = maps.contiguous(), shift.contiguous()
     out = torch.empty_like(maps)
     with torch.cuda.device(maps.device):
-        rc = load_library().pdt_row_shift_fwd(
-            maps.data_ptr(), shift.data_ptr(), out.data_ptr(), B, N, H, W,
-            shift_limit(pad), torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"row_shift kernel launch failed: CUDA error {rc}")
+        launch("pdt_row_shift_fwd", maps.data_ptr(), shift.data_ptr(), out.data_ptr(),
+               B, N, H, W, shift_limit(pad))
     row_shift.launches += 1
     return out
 

@@ -4,8 +4,9 @@ The epoch loop around ``make_train_step``: batches from the deterministic
 sampler, throughput and scalar logging, validation with the best
 ``de/abs_rel`` kept, per-epoch checkpoints (``last_models``, ``best_models``),
 the ``models_to_load`` restore that chains the three-stage recipe, and the
-frozen self-distillation teacher, built from the student after the restore.
-One card, one process; image panels are not ported (ROADMAP A7).
+frozen self-distillation teacher, built from the student after the restore;
+in the temporal recipes the pose networks train, save and restore beside the
+depth model.  One card, one process; image panels are not ported (ROADMAP A7).
 """
 from __future__ import annotations
 
@@ -74,13 +75,16 @@ class Trainer:
         self.steps_per_epoch = self.train_loader.sampler.steps_per_epoch()
 
         # models, optimizer, restore, teacher --------------------------------
+        # Adam over the depth and pose networks together, as the JAX
+        # package's one params tree holds them
         self.bundle = ModelBundle(cfg, self.device)
         self.optimizer, self.scheduler = make_optimizer(
-            cfg, self.bundle.model.parameters(), self.steps_per_epoch)
+            cfg, self.bundle.parameters(), self.steps_per_epoch)
         if cfg.load_weights_folder is not None:
             restore_submodules(self.bundle.model, load_checkpoint(cfg.load_weights_folder),
                                cfg.models_to_load, self.optimizer,
-                               restore_optimizer=cfg.restore_optimizer)
+                               restore_optimizer=cfg.restore_optimizer,
+                               pose_nets=self.pose_nets())
         if cfg.loss.self_distillation > 0:
             # the frozen teacher is the (just restored) student
             # (reference trainer.py:109-112)
@@ -149,10 +153,18 @@ class Trainer:
         return metrics
 
     # --- state --------------------------------------------------------------
+    def pose_nets(self) -> Dict[str, torch.nn.Module]:
+        """The pose networks by checkpoint name (none without temporal
+        frames or under ``use_colmap``)."""
+        return {k: v for k, v in self.bundle.nets().items() if k != "model"}
+
     def _save_provenance(self) -> None:
-        """Run provenance: the package version and, in a git checkout, the
-        commit (the reference snapshots its source files, trainer.py:57-67)."""
-        info = {"version": planedepth_tpu_torch.__version__}
+        """Run provenance: the package version, the trained networks with
+        their parameter counts and, in a git checkout, the commit (the
+        reference snapshots its source files, trainer.py:57-67)."""
+        info = {"version": planedepth_tpu_torch.__version__,
+                "networks": {name: sum(p.numel() for p in net.parameters())
+                             for name, net in self.bundle.nets().items()}}
         try:
             git = subprocess.run(["git", "rev-parse", "HEAD"], capture_output=True,
                                  text=True, cwd=REPO_DIR, timeout=30)
@@ -167,7 +179,7 @@ class Trainer:
         return save_checkpoint(self.log_path, tag, self.bundle.model, self.optimizer,
                                config_json=self.cfg.to_json(),
                                height=self.cfg.data.height, width=self.cfg.data.width,
-                               step=self.step_count)
+                               step=self.step_count, pose_nets=self.pose_nets())
 
     def close(self) -> None:
         self.logger.close()

@@ -2,29 +2,36 @@
 
 Layout of one save, the reference's: ``<log_dir>/<tag>/encoder.pth`` (the
 encoder's state dict with the training ``height`` and ``width``),
-``depth.pth`` (the decoder's) and ``adam.pth`` (the optimizer's), plus, as
+``depth.pth`` (the decoder's), with the pose networks ``pose_encoder.pth``
+and ``pose.pth``, and ``adam.pth`` (the optimizer's), plus, as
 the JAX package writes them, ``<log_dir>/<tag>.meta.json`` (resolution,
 step and config) and ``<log_dir>/opt.json`` (the config).  ``last_models``
 and ``best_models`` are the reference's tags.  ``utils/weights.py:
 load_reference_state_dicts`` reads the ``.pth`` pair.
 
 ``restore_submodules`` is the reference's ``--models_to_load`` restore: the
-named submodules of ``DepthModel`` (``encoder``, ``depth``) are loaded whole,
-every key present and every shape equal, and a restore that would load
-nothing raises.
+named networks (``encoder``, ``depth`` of the ``DepthModel``; ``pose_encoder``
+and ``pose`` when the run has pose networks) are loaded whole, every key
+present and every shape equal, and a restore that would load nothing raises.
 """
 from __future__ import annotations
 
 import json
 import os
 import shutil
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 
-SUBMODULES = ("encoder", "depth")
 _META_KEYS = ("height", "width", "use_stereo")
+
+
+def _networks(model: nn.Module, pose_nets: Optional[Mapping[str, nn.Module]]
+              ) -> Dict[str, nn.Module]:
+    """Checkpoint name -> network: the ``DepthModel``'s ``encoder`` and
+    ``depth``, then ``pose_nets`` (``pose_encoder``, ``pose``)."""
+    return {"encoder": model.encoder, "depth": model.depth, **(pose_nets or {})}
 
 
 def _cpu_state(module: nn.Module) -> Dict[str, torch.Tensor]:
@@ -35,19 +42,21 @@ def save_checkpoint(log_dir: str, tag: str, model: nn.Module,
                     optimizer: Optional[torch.optim.Optimizer] = None,
                     config_json: Optional[str] = None,
                     height: Optional[int] = None, width: Optional[int] = None,
-                    step: Optional[int] = None) -> str:
-    """Save ``model`` (a ``DepthModel``) and ``optimizer`` under
-    ``<log_dir>/<tag>``; returns that path."""
+                    step: Optional[int] = None,
+                    pose_nets: Optional[Mapping[str, nn.Module]] = None) -> str:
+    """Save ``model`` (a ``DepthModel``), the ``pose_nets`` by name and
+    ``optimizer`` under ``<log_dir>/<tag>``; returns that path."""
     path = os.path.abspath(os.path.join(log_dir, tag))
     if os.path.exists(path):
         shutil.rmtree(path)
     os.makedirs(path)
-    encoder = _cpu_state(model.encoder)
-    # the reference embeds the train resolution in encoder.pth
-    # (trainer.py:879-882) so the evaluator can run at the right size
-    encoder.update(height=height, width=width, use_stereo=True)
-    torch.save(encoder, os.path.join(path, "encoder.pth"))
-    torch.save(_cpu_state(model.depth), os.path.join(path, "depth.pth"))
+    for name, net in _networks(model, pose_nets).items():
+        state = _cpu_state(net)
+        if name == "encoder":
+            # the reference embeds the train resolution in encoder.pth
+            # (trainer.py:879-882) so the evaluator can run at the right size
+            state.update(height=height, width=width, use_stereo=True)
+        torch.save(state, os.path.join(path, f"{name}.pth"))
     if optimizer is not None:
         torch.save(optimizer.state_dict(), os.path.join(path, "adam.pth"))
     meta: Dict[str, Any] = {"height": height, "width": width, "step": step}
@@ -103,30 +112,34 @@ def _adam_shapes_match(optimizer: torch.optim.Optimizer, saved: Dict) -> bool:
 def restore_submodules(model: nn.Module, payload: Dict[str, Dict],
                        models_to_load: Sequence[str],
                        optimizer: Optional[torch.optim.Optimizer] = None,
-                       restore_optimizer: bool = False) -> Tuple[str, ...]:
+                       restore_optimizer: bool = False,
+                       pose_nets: Optional[Mapping[str, nn.Module]] = None
+                       ) -> Tuple[str, ...]:
     """Filtered restore (reference trainer.py:888-913): load the named
-    submodules of ``model`` from ``payload`` (:func:`load_checkpoint`) and,
+    networks of ``model`` (a ``DepthModel``) and ``pose_nets`` from
+    ``payload`` (:func:`load_checkpoint`) and,
     with ``restore_optimizer``, the Adam moments and step counts when their
     shapes match the optimizer's parameters (else Adam starts afresh, as in
     the JAX package).  The optimizer keeps this run's LR and betas, as the
     JAX package's schedule does.  Returns the names loaded.
 
-    Raises on an unknown or unported submodule name, on a named submodule
+    Raises on a name that is not one of these networks, on a named network
     missing from the checkpoint or whose keys or shapes differ from the
     model's, and when ``models_to_load`` is empty.
     """
     if not models_to_load:
         raise ValueError("restore_submodules: models_to_load is empty; nothing "
                          "would be loaded")
+    nets = _networks(model, pose_nets)
     for name in models_to_load:
-        if name not in SUBMODULES:
-            raise ValueError(f"restore_submodules: no submodule {name!r} in the "
-                             f"port (has {SUBMODULES}; pose nets: ROADMAP A10)")
+        if name not in nets:
+            raise ValueError(f"restore_submodules: no network {name!r} here "
+                             f"(has {tuple(nets)})")
         if name not in payload:
             raise KeyError(f"restore_submodules: the checkpoint has no {name}.pth "
                            f"(has {sorted(payload)})")
     for name in models_to_load:
-        sub = getattr(model, name)
+        sub = nets[name]
         saved = {k: v for k, v in payload[name].items() if k not in _META_KEYS}
         want = sub.state_dict()
         missing = sorted(set(want) - set(saved))

@@ -5,7 +5,9 @@ a JAX ``DepthModel`` tree (``{"encoder": {"encoder": trunk}, "depth": decoder}``
 as numpy) goes into the port's ``state_dict``.  Conv kernels are transposed
 HWIO -> OIHW; BatchNorm ``scale``/``bias`` (params) and ``mean``/``var``
 (batch stats) become ``weight``/``bias``/``running_mean``/``running_var``.
-``load_jax_pc_params`` does the same for the frozen perceptual VGG.
+``load_jax_pose_params`` does the same for the pose networks (the names of
+``convert_resnet_encoder(num_input_images=2)`` and ``convert_pose_decoder``),
+``load_jax_pc_params`` for the frozen perceptual VGG.
 """
 from __future__ import annotations
 
@@ -48,16 +50,30 @@ def _decoder_path(names, parts) -> Tuple[str, ...]:
     return (name,) + tuple(sub)       # upconv: conv.conv, dispconv: conv
 
 
-def _jax_key(model: nn.Module, key: str) -> Tuple[str, Tuple[str, ...], str]:
-    """Port ``state_dict`` key -> (collection, JAX module path, leaf name)."""
-    parts = key.split(".")
-    leaf = parts[-1]
+# the pose decoder's ``net`` ModuleList in the reference's order, without and
+# with the positional encoding (``convert_pose_decoder``)
+_POSE_NAMES = {False: ("squeeze_0", "pose_0", "pose_1", "pose_2"),
+               True: ("squeeze_0", "epconv", "pose_0", "pose_1", "pose_2")}
+
+
+def _pose_path(num_ep: int, parts) -> Tuple[str, ...]:
+    """``{idx}[.<0|2>]`` of the pose decoder's ``net`` -> JAX module path."""
+    name = _POSE_NAMES[num_ep > 0][int(parts[0])]
+    if name == "epconv":
+        return ("epconv", "conv0" if parts[1] == "0" else "conv1")
+    return (name,)
+
+
+def _depth_model_path(model: nn.Module, parts) -> Tuple[str, ...]:
     if parts[0] == "encoder":
-        path = ("encoder", "encoder") + _encoder_path(parts[2:-1])
-    elif parts[0] == "depth":
-        path = ("depth",) + _decoder_path(list(model.depth.convs), parts[2:-1])
-    else:
-        raise KeyError(key)
+        return ("encoder", "encoder") + _encoder_path(parts[2:])
+    if parts[0] == "depth":
+        return ("depth",) + _decoder_path(list(model.depth.convs), parts[2:])
+    raise KeyError(".".join(parts))
+
+
+def _leaf(path: Tuple[str, ...], leaf: str) -> Tuple[str, Tuple[str, ...], str]:
+    """(collection, JAX module path, leaf name) of a port leaf at ``path``."""
     if re.fullmatch(r"(bn\d|norm\d|downsample_bn)", path[-1]):
         collection, jleaf = _BN_LEAF[leaf]
         return collection, path + ("bn",), jleaf
@@ -65,17 +81,17 @@ def _jax_key(model: nn.Module, key: str) -> Tuple[str, Tuple[str, ...], str]:
 
 
 @torch.no_grad()
-def load_jax_params(model: nn.Module, params: Mapping, batch_stats: Mapping) -> None:
-    """Copy a JAX ``DepthModel``'s variables (numpy leaves) into ``model``.
-
-    Every parameter and running statistic of the port must be found in the
-    trees; BatchNorm's ``num_batches_tracked`` has no JAX counterpart.
-    """
-    trees = {"params": params, "batch_stats": batch_stats}
-    for key, tensor in model.state_dict().items():
+def _copy_leaves(module: nn.Module, trees: Mapping, module_path) -> None:
+    """Copy every parameter and running statistic of ``module`` from the JAX
+    ``trees`` (``{"params": ..., "batch_stats": ...}``, numpy leaves);
+    ``module_path(parts)`` maps a ``state_dict`` key's module parts to the
+    JAX module path.  BatchNorm's ``num_batches_tracked`` has no JAX
+    counterpart."""
+    for key, tensor in module.state_dict().items():
         if key.endswith("num_batches_tracked"):
             continue
-        collection, path, leaf = _jax_key(model, key)
+        parts = key.split(".")
+        collection, path, leaf = _leaf(module_path(parts[:-1]), parts[-1])
         node = trees[collection]
         for p in path:
             node = node[p]
@@ -85,6 +101,25 @@ def load_jax_params(model: nn.Module, params: Mapping, batch_stats: Mapping) -> 
         if tuple(value.shape) != tuple(tensor.shape):
             raise ValueError(f"{key}: JAX {value.shape} vs port {tuple(tensor.shape)}")
         tensor.copy_(torch.from_numpy(np.array(value)))
+
+
+def load_jax_params(model: nn.Module, params: Mapping, batch_stats: Mapping) -> None:
+    """Copy a JAX ``DepthModel``'s variables (numpy leaves) into ``model``;
+    every parameter and running statistic of the port must be found."""
+    _copy_leaves(model, {"params": params, "batch_stats": batch_stats},
+                 lambda parts: _depth_model_path(model, parts))
+
+
+def load_jax_pose_params(pose_encoder: nn.Module, pose: nn.Module, params: Mapping,
+                         batch_stats: Mapping) -> None:
+    """Copy the JAX ``params["pose_encoder"]``, ``batch_stats["pose_encoder"]``
+    and ``params["pose"]`` (the trees of the JAX ``ModelBundle``, numpy
+    leaves) into the port's ``ResnetPoseEncoder`` and ``PoseDecoder``."""
+    _copy_leaves(pose_encoder, {"params": params["pose_encoder"],
+                                "batch_stats": batch_stats["pose_encoder"]},
+                 lambda parts: ("encoder",) + _encoder_path(parts[1:]))
+    _copy_leaves(pose, {"params": params["pose"]},
+                 lambda parts: _pose_path(pose.num_ep, parts[1:]))
 
 
 def load_reference_state_dicts(model: nn.Module, encoder_sd: Dict,

@@ -1,20 +1,24 @@
 """Where the time of the port's training step goes on one NVIDIA GPU.
 
-    python scripts/profile_torch_step.py [--recipe stage1|stage3] [--steps 3]
+    python scripts/profile_torch_step.py [--recipe stage1|stage3|mono] [--steps 3]
 
 Runs one recipe's step with seeded random weights, float32, TF32 off:
 ``stage1`` is ``stage1_config()`` (ResNet-50, DenseASPP, 49+14 planes, VGG19
 perceptual loss, Adam; 8 images at 640x192), ``stage3`` is
 ``self_distillation_config()`` (the same model and loss at 1280x384, batch 4,
-plus the frozen teacher on 8 images).  Prints, each beside the card's name
-and power limit:
+plus the frozen teacher on 8 images), ``mono`` is ``mono_config()`` (the
+same model with the pose nets, the homography warp to the sides r, -1, 1,
+automask and the perceptual loss per side; 8 images at 640x192).  Prints,
+each beside the card's name and power limit:
   - the device time of a few steps under ``torch.profiler``, split by kernel
     class (the port's kernels, convolutions, BatchNorm, the rest) and the
     device's idle share of the profiled wall time;
-  - the step time with and without one part, host clock around synchronised
-    steps, median of 5, in turns: the perceptual loss (``alpha_pc`` 0.1 and
-    0) for stage 1, the teacher (``self_distillation`` 1 and 0) for stage 3;
-    the difference is what that part costs.
+  - the step time with and without each of the recipe's parts, host clock
+    around synchronised steps, median of 5, in turns: the perceptual loss
+    (``alpha_pc`` 0.1 and 0) for stage 1 and mono, the teacher
+    (``self_distillation`` 1 and 0) for stage 3, the pose nets for mono
+    (``use_colmap``: the batch's poses instead); the difference is what
+    that part costs.
 The summary is one JSON line on standard output.  Needs CUDA.
 """
 from __future__ import annotations
@@ -32,7 +36,9 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from planedepth_tpu_torch.config import (  # noqa: E402
+    DataConfig,
     LossConfig,
+    mono_config,
     self_distillation_config,
     stage1_config,
 )
@@ -48,17 +54,21 @@ from planedepth_tpu_torch.train.step import (  # noqa: E402
 CLASSES = (
     ("plane_sweep", ("sweep_fwd_kernel", "sweep_bwd_kernel")),
     ("row_shift", ("row_shift_fwd_kernel",)),
-    ("disp_head", ("disp_head_fwd_kernel",)),
+    ("disp_head", ("disp_head_fwd_kernel", "disp_head_bwd_kernel")),
+    ("head_epilogue", ("head_epilogue_fwd_kernel", "head_epilogue_bwd_kernel")),
+    ("warp2d", ("warp2d_fwd_kernel", "warp2d_bwd_kernel")),
     ("batchnorm", ("batch_norm", "batchnorm", "bn_fw", "bn_bw", "::bn_")),
     ("convolution", ("conv", "cudnn", "gemm", "xmma", "implicit", "fft", "winograd",
                      "wgrad", "dgrad", "pointwise_mult_and_sum_complex", "cutlass")),
 )
 
 
-# recipe -> (its config, the config without one part, that part's name)
+# recipe -> (its config, {part: the overrides that take that part out})
 RECIPES = {
-    "stage1": (stage1_config, dict(loss=LossConfig(alpha_pc=0.0)), "vgg"),
-    "stage3": (self_distillation_config, dict(loss=LossConfig()), "teacher"),
+    "stage1": (stage1_config, {"vgg": dict(loss=LossConfig(alpha_pc=0.0))}),
+    "stage3": (self_distillation_config, {"teacher": dict(loss=LossConfig())}),
+    "mono": (mono_config, {"vgg": dict(loss=LossConfig(alpha_pc=0.0, automask=True)),
+                           "pose_nets": dict(data=DataConfig(use_colmap=True))}),
 }
 
 
@@ -74,9 +84,10 @@ def make_step(cfg, device):
     bundle = ModelBundle(cfg, device)
     if cfg.loss.self_distillation > 0:
         bundle.freeze_teacher()
-    optimizer, scheduler = make_optimizer(cfg, bundle.model.parameters(), 1000)
+    optimizer, scheduler = make_optimizer(cfg, bundle.parameters(), 1000)
     batch = batch_to_tensors(make_stereo_batch(cfg.per_step_batch, cfg.data.height,
-                                               cfg.data.width, seed=0), device)
+                                               cfg.data.width, seed=0,
+                                               novel_frame_ids=cfg.novel_frame_ids), device)
     step = make_train_step(bundle, optimizer, scheduler)
     return lambda: step(batch)
 
@@ -104,10 +115,10 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device("cuda")
 
-    preset, without, part = RECIPES[args.recipe]
+    preset, parts = RECIPES[args.recipe]
     full = make_step(preset(), device)
-    reduced = make_step(preset(**without), device)
-    for step in (full, reduced):
+    reduced = {part: make_step(preset(**kw), device) for part, kw in parts.items()}
+    for step in (full, *reduced.values()):
         timed(step, 3)                      # warm-up: cuDNN picks its algorithms
 
     from torch.profiler import ProfilerActivity, profile
@@ -126,10 +137,12 @@ def main():
     device_ms = sum(by_class.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
 
-    with_part, without_part = [], []
-    for _ in range(5):                      # in turns, so drift hits both alike
-        with_part += timed(full, 1)
-        without_part += timed(reduced, 1)
+    runs = {"full": []} | {f"without_{part}": [] for part in parts}
+    for _ in range(5):                      # in turns, so drift hits all alike
+        runs["full"] += timed(full, 1)
+        for part, step in reduced.items():
+            runs[f"without_{part}"] += timed(step, 1)
+    step_ms = statistics.median(runs["full"])
     summary = {
         "card": card,
         "recipe": args.recipe,
@@ -139,12 +152,11 @@ def main():
         "idle_share": 1.0 - device_ms * args.steps / wall_ms if wall_ms else None,
         "device_ms_by_class": by_class,
         "top_kernels_ms": dict(top),
-        f"step_ms_with_{part}": statistics.median(with_part),
-        f"step_ms_without_{part}": statistics.median(without_part),
-        "step_ms_runs": {f"with_{part}": with_part, f"without_{part}": without_part},
+        "step_ms": step_ms,
+        "step_ms_runs": runs,
     }
-    summary[f"{part}_ms"] = (summary[f"step_ms_with_{part}"]
-                             - summary[f"step_ms_without_{part}"])
+    for part in parts:
+        summary[f"{part}_ms"] = step_ms - statistics.median(runs[f"without_{part}"])
     print(json.dumps(summary))
 
 

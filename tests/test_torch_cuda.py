@@ -1,6 +1,6 @@
 """The port's CUDA kernels on the card, each held to its plain PyTorch version,
-and one stage-1 and one stage-3 training step on the card held to the same
-step on the CPU.
+and one stage-1, one stage-3 and one mono training step on the card held to
+the same step on the CPU.
 
 These tests need an NVIDIA GPU with nvcc (a CUDA kernel has no CPU mode) and
 skip without one.  They import neither JAX nor the JAX package, so they run
@@ -17,6 +17,7 @@ from planedepth_tpu_torch.config import (
     LossConfig,
     ModelConfig,
     PlaneConfig,
+    mono_config,
     self_distillation_config,
     stage1_config,
 )
@@ -25,6 +26,7 @@ from planedepth_tpu_torch.ops.disp_head import disp_head, disp_head_plain
 from planedepth_tpu_torch.ops.head_epilogue import head_epilogue, head_epilogue_plain
 from planedepth_tpu_torch.ops.plane_sweep import plane_sweep, plane_sweep_plain
 from planedepth_tpu_torch.ops.row_shift import row_shift, row_shift_plain, shift_limit
+from planedepth_tpu_torch.ops.warp2d import warp2d, warp2d_plain
 
 pytestmark = pytest.mark.cuda
 TOL = dict(rtol=1e-5, atol=1e-5)     # only the f32 summation order differs
@@ -66,8 +68,11 @@ def test_disp_head_kernel_matches_plain(cuda, shape):
 
 def test_disp_head_rejects_what_the_kernel_does_not_take(cuda):
     logits, sigma, disp_rows, mask = _head_inputs((1, 4, 3, 16), 0, cuda)
-    with pytest.raises(NotImplementedError, match="backward"):
-        disp_head(logits.clone().requires_grad_(), sigma, disp_rows, mask)
+    with pytest.raises(NotImplementedError, match="mask"):
+        disp_head(logits, sigma, disp_rows, mask.clone().requires_grad_())
+    wide = _head_inputs((1, 95, 3, 16), 0, cuda)
+    with pytest.raises(ValueError, match="backward"):
+        disp_head(wide[0].requires_grad_(), *wide[1:])
     with pytest.raises(ValueError, match="contiguous"):
         disp_head(logits.transpose(2, 3).contiguous().transpose(2, 3),
                   sigma, disp_rows, mask)
@@ -269,3 +274,77 @@ def test_head_epilogue_kernels_match_plain(cuda, shape, full_mask):
     logits, sigma = head_epilogue(raw_l, None, mask)             # no sigma head
     assert sigma is None
     torch.testing.assert_close(logits, raw_l * mask, rtol=0, atol=0)
+
+
+# the recipe's N = 63; W not a multiple of the block width; N at the
+# backward's shared-memory limit
+@pytest.mark.parametrize("shape", [(2, 63, 8, 200), (1, 7, 5, 1280), (1, 94, 3, 129)])
+def test_disp_head_backward_kernel_matches_plain(cuda, shape):
+    """d_logits, d_sigma and d_disp_rows against autograd through
+    ``disp_head_plain`` at 1e-5 of each gradient's largest magnitude (the
+    per-row sum over W runs in another order); the fully masked row 2 gets
+    zero adjoints."""
+    inputs = list(_head_inputs(shape, sum(shape), cuda))
+    for t in inputs[:3]:
+        t.requires_grad_()
+    g = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (shape[0], 1, shape[2], shape[3])).astype(np.float32)).to(cuda)
+    fwd, bwd = disp_head.launches, disp_head.bwd_launches
+    d_got = torch.autograd.grad(disp_head(*inputs), inputs[:3], g)
+    torch.cuda.synchronize()
+    assert (disp_head.launches, disp_head.bwd_launches) == (fwd + 1, bwd + 1)
+    d_want = torch.autograd.grad(disp_head_plain(*inputs), inputs[:3], g)
+    for a, b in zip(d_got, d_want):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * float(b.abs().max()))
+    assert (d_got[0][:, :, 2] == 0).all() and (d_got[2][:, 2] == 0).all()
+
+
+# W below, at and not a multiple of the 128-thread block
+@pytest.mark.parametrize("shape", [(2, 5, 7, 200), (1, 3, 16, 128), (2, 4, 9, 64)])
+@pytest.mark.parametrize("degenerate", [False, True])
+def test_warp2d_kernels_match_plain(cuda, shape, degenerate):
+    """rgb, logit and sigma at atol = rtol = 1e-5; d_logits, d_sigma (summed
+    by atomics in no fixed order), d_dx and d_dy at 1e-4 of each gradient's
+    largest magnitude; nothing non-finite from degenerate coordinates."""
+    from chip_smoke import seeded_warp_inputs
+
+    inputs = seeded_warp_inputs(shape, sum(shape) + degenerate, cuda, degenerate)
+    fwd, bwd = warp2d.fwd_launches, warp2d.bwd_launches
+    got = warp2d(*inputs)
+    want = warp2d_plain(*inputs)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    cts = [torch.randn(o.shape, generator=gen, device=cuda) for o in got]
+    d_got = torch.autograd.grad(got, inputs[1:5], cts)
+    d_want = torch.autograd.grad(want, inputs[1:5], cts)
+    torch.cuda.synchronize()
+    assert (warp2d.fwd_launches, warp2d.bwd_launches) == (fwd + 1, bwd + 1)
+    for g, w in zip(d_got, d_want):
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-4 * float(w.abs().max()))
+
+
+def test_mono_step_on_cuda_matches_cpu(cuda):
+    """One homography step (pose nets, sides r, -1, 1) on the card and on the
+    CPU, held as chip_smoke.py holds the full-size model: 3 warps and 1 disp
+    head forward and backward on the card."""
+    from chip_smoke import check_step_against_cpu
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = mono_config(
+        model=ModelConfig(num_layers=18, planes=PlaneConfig(disp_levels=7, disp_max=24,
+                                                            xz_levels=3)),
+        data=DataConfig(64, 128), batch_size=2)
+
+    def counts():
+        return (warp2d.fwd_launches, warp2d.bwd_launches, disp_head.launches,
+                disp_head.bwd_launches, plane_sweep.fwd_launches)
+
+    before = counts()
+    worst = check_step_against_cpu(cfg, cuda)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(counts(), before)) == (3, 3, 1, 1, 0)
+    assert worst["share_of_weights_held_at_atol"] > 0.5

@@ -71,3 +71,40 @@ def test_wrapper_takes_plain_on_cpu_without_counting():
     np.testing.assert_array_equal(disp_head(*inputs).numpy(),
                                   disp_head_plain(*inputs).numpy())
     assert disp_head.launches == before
+
+
+@pytest.mark.parametrize("zero_row", [False, True])
+def test_plain_backward_matches_pallas_interpret_and_jax_vjp(zero_row):
+    """Autograd through ``disp_head_plain`` (the backward kernel's oracle)
+    against ``disp_head_bwd(interpret=True)`` and against ``jax.vjp`` of
+    ``disp_head`` (its custom VJP), with a seeded cotangent; row 2 of the
+    zero-row case has U <= 1e-7, where every adjoint is 0.  d_logits and
+    d_sigma at atol = rtol = 1e-5 of their largest magnitude, d_disp_rows
+    (a sum over W) at 1e-5 of its own."""
+    import jax
+
+    from planedepth_tpu.ops.pallas_disp import disp_head_bwd
+
+    inputs = _inputs(29, zero_row)
+    g = np.random.default_rng(3).standard_normal((B, H, W, 1)).astype(np.float32)
+    jin = tuple(jnp.asarray(a) for a in inputs)
+    kernel = disp_head_bwd(*jin, jnp.asarray(g), interpret=True)
+    _, vjp = jax.vjp(lambda l, s, d: jax_disp_head(l, s, d, jin[3], True), *jin[:3])
+    via_vjp = vjp(jnp.asarray(g))
+
+    logits, sigma, rows, mask = _to_port(*inputs)
+    for t in (logits, sigma, rows):
+        t.requires_grad_()
+    disp = disp_head_plain(logits, sigma, rows, mask)
+    got = torch.autograd.grad(disp, (logits, sigma, rows),
+                              torch.from_numpy(np.moveaxis(g, -1, 1).copy()))
+    got = [np.moveaxis(got[0].numpy(), 1, -1), np.moveaxis(got[1].numpy(), 1, -1),
+           got[2].numpy()]
+    for want in (kernel, via_vjp):
+        for name, a, b in zip(("d_logits", "d_sigma", "d_disp_rows"), got, want):
+            b = np.asarray(b)
+            np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5 * np.abs(b).max(),
+                                       err_msg=name)
+    if zero_row:
+        assert (got[0][:, 2] == 0).all() and (got[1][:, 2] == 0).all()
+        assert (got[2][:, 2] == 0).all()

@@ -309,10 +309,13 @@ def test_lr_schedule_matches_optax():
 
 
 @pytest.mark.parametrize("override,item", [
-    (dict(novel_frame_ids=(-1, 1)), "A10"),
+    (dict(novel_frame_ids=(-1, 1), loss=tcfg.LossConfig(use_mom=True)), "A10"),
     (dict(loss=tcfg.LossConfig(alpha_self=0.1)), "C1"),
     (dict(model=tcfg.ModelConfig(use_mixture_loss=False)), "B1'"),
     (dict(fused_sweep=False), "A4"),
+    (dict(model=tcfg.ModelConfig(render_probability=True)), "A3"),
+    (dict(warp_type="homography_warp", novel_frame_ids=(-1, 1),
+          model=tcfg.ModelConfig(planes=tcfg.PlaneConfig(yz_levels=4))), "A10"),
 ])
 def test_unported_recipes_name_their_roadmap_item(override, item):
     cfg = tcfg.stage1_config(**override)

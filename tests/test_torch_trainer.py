@@ -83,6 +83,20 @@ def test_epoch_sampler_order_equals_jax(n, batch, shuffle, drop_last):
         np.testing.assert_array_equal(got.batches(epoch), want.host_batches(epoch))
 
 
+def test_mono_config_json_round_trip():
+    """The pose-net and COLMAP fields survive the round trip, and a JAX
+    ``opt.json`` with them reads as the same port config."""
+    cfg = tcfg.mono_config(model=tcfg.ModelConfig(pose_num_layers=34, pose_num_ep=0),
+                           data=tcfg.DataConfig(use_colmap=True), log_dir="/x")
+    assert tcfg.TrainConfig.from_dict(json.loads(cfg.to_json())) == cfg
+    ref = jcfg.TrainConfig(model=jcfg.ModelConfig(pose_num_layers=34, pose_num_ep=0),
+                           data=jcfg.DataConfig(use_colmap=True), log_dir="/x",
+                           model_name="mono", fused_sweep=True, batch_size=8,
+                           warp_type="homography_warp", novel_frame_ids=(-1, 1),
+                           loss=jcfg.LossConfig(automask=True))
+    assert tcfg.TrainConfig.from_dict(json.loads(ref.to_json())) == cfg
+
+
 class FlakyDataset:
     """Samples ``{"x": [index, epoch]}``; indices 1 and 4 fail to load."""
 
@@ -246,16 +260,18 @@ def test_adam_is_restored_only_when_shapes_match(saved, capsys):
 # --- the trainer ----------------------------------------------------------------
 
 class SyntheticDataset:
-    """Unbatched synthetic stereo samples (``__len__``, ``getitem(index, epoch)``)."""
+    """Unbatched synthetic stereo samples (``__len__``, ``getitem(index, epoch)``)
+    with the temporal frames ``novel_frame_ids``."""
 
-    def __init__(self, n):
-        self.n = n
+    def __init__(self, n, novel_frame_ids=()):
+        self.n, self.novel_frame_ids = n, novel_frame_ids
 
     def __len__(self):
         return self.n
 
     def getitem(self, index, epoch=0):
-        return {k: v[0] for k, v in make_stereo_batch(1, H, W, seed=index).items()}
+        batch = make_stereo_batch(1, H, W, seed=index, novel_frame_ids=self.novel_frame_ids)
+        return {k: v[0] for k, v in batch.items()}
 
 
 def _stage(preset, tmp_path, **kw):
@@ -319,3 +335,42 @@ def test_stage2_to_stage3_hand_off(tmp_path):
         assert os.path.exists(os.path.join(run, name)), name
     assert load_checkpoint_meta(os.path.join(run, "last_models"))["step"] == 2
     assert json.load(open(os.path.join(run, "opt.json")))["loss"]["self_distillation"] == 1.0
+
+
+def test_mono_trainer_saves_and_restores_the_pose_nets(tmp_path):
+    """The homography recipe through the Trainer: two steps move the depth
+    and pose networks, ``last_models`` holds ``pose_encoder.pth`` and
+    ``pose.pth`` beside the depth pair, and a second Trainer restores only
+    the networks ``models_to_load`` names."""
+    def cfg(**kw):
+        return _stage(tcfg.mono_config, tmp_path, batch_size=2, **kw)
+
+    data = (SyntheticDataset(4, (-1, 1)), SyntheticDataset(2, (-1, 1)))
+    first = Trainer(cfg(), datasets=data, device=CPU)
+    nets = first.bundle.nets()
+    assert set(nets) == {"model", "pose_encoder", "pose"}
+    start = {name: {k: v.clone() for k, v in net.state_dict().items()}
+             for name, net in nets.items()}
+    n_params = sum(1 for _ in first.bundle.parameters())
+    assert len(first.optimizer.param_groups[0]["params"]) == n_params
+    first.train()
+    first.close()
+    assert first.step_count == 2
+    for name, net in nets.items():
+        moved = [k for k, v in net.state_dict().items() if not torch.equal(v, start[name][k])]
+        assert len(moved) > len(start[name]) // 2, name
+    ckpt = os.path.join(str(tmp_path), "mono", "last_models")
+    assert sorted(os.listdir(ckpt)) == ["adam.pth", "depth.pth", "encoder.pth",
+                                        "pose.pth", "pose_encoder.pth"]
+    provenance = json.load(open(os.path.join(str(tmp_path), "mono", "provenance.json")))
+    assert set(provenance["networks"]) == {"model", "pose_encoder", "pose"}
+
+    second = Trainer(cfg(load_weights_folder=ckpt, models_to_load=("pose_encoder", "pose"),
+                         model_name="mono_restored"), datasets=data, device=CPU)
+    for name in ("pose_encoder", "pose"):
+        assert _states_equal(second.bundle.nets()[name].state_dict(),
+                             nets[name].state_dict()), name
+    assert _states_equal(second.bundle.model.state_dict(), start["model"])
+    # the Adam moments of all three networks come back with the pose nets
+    assert second.optimizer.state_dict()["state"][0]["step"] == 2
+    second.close()
