@@ -1,4 +1,4 @@
-"""Drive the PyTorch/CUDA port's inference path, stage-1 step, stage-2 -> stage-3 trainer and mono trainer on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's inference path, stage-1 step, stage-2 -> stage-3 trainer, mono trainer, FalNet and PladeNet trainers and no-mixture recipes on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -64,9 +64,32 @@ Phases, each printing a line:
      step's launch counts read, one validation batch, the memory of one
      more step by aten op, every network's parameters moved, one step on
      the card held to the CPU at 64x128; then 2 steps of the mixed
-     disp_warp recipe for their launch counts.
-Then one JSON line of the kernels and, last, the ok line.  TF32 is off for
-convolutions and matmuls so that the card computes in float32 throughout.
+     disp_warp recipe for their launch counts;
+ 13. sweep_nomix: the no-mixture sweep kernels (sigma=None, B1') against
+     plane_sweep_plain(sigma=None) on odd shapes (W not a
+     multiple of 32, below and above a block's 512 threads, a fully masked
+     row, shifts past the W edge and the clip), at FalNet's (8, 49, 192,
+     640) without the centre disparity and at the ResNet ablation's (8, 63,
+     192, 640) with it (there nll gets no cotangent, as in training):
+     forward, d_logits and d_shift; then timed at both
+     (the backward kernel alone, and through autograd) with their twin;
+ 14. warp2d_nosigma: phase 10 for the warp without sigma, with F.grid_sample
+     on (B*N, 4, H, W);
+ 15. falnet: stage1_config() with FalNet (49 fronto-parallel planes, no
+     mixture, VGG19) through Trainer at 640x192, batch 4 flipped to 8: 3
+     warm-up and 10 timed steps, each held to exactly one no-mixture sweep
+     each way, one validation batch, the memory of one more step by aten
+     op, every parameter moved, fal.pth saved, one step on the card held to
+     the CPU at 64x192;
+ 16. pladenet: the same for PladeNet (49+14 planes, mixture, 8-channel PE,
+     plane residuals; one mixture sweep each way a step; plade.pth);
+ 17. nomix: 2 steps each of the ResNet-50 stage-1 ablation, mono_config and
+     its mixed disp_warp variant with use_mixture_loss=False, each step held
+     to its launch counts, and one no-mixture mono step on the card held to
+     the CPU at 64x128.
+Each phase prints its wall time.  Then one JSON line of the kernels and,
+last, the ok line.  TF32 is off for convolutions and matmuls so that the
+card computes in float32 throughout.
 """
 from __future__ import annotations
 
@@ -91,6 +114,7 @@ from planedepth_tpu_torch.config import (
     DataConfig,
     LossConfig,
     ModelConfig,
+    PlaneConfig,
     hr_finetune_config,
     mono_config,
     self_distillation_config,
@@ -104,7 +128,7 @@ from planedepth_tpu_torch.models.factory import DepthModel, init_weights_
 from planedepth_tpu_torch.ops import _build
 from planedepth_tpu_torch.ops.disp_head import disp_head, disp_head_plain
 from planedepth_tpu_torch.ops.head_epilogue import head_epilogue, head_epilogue_plain
-from planedepth_tpu_torch.ops.plane_sweep import plane_sweep, plane_sweep_plain
+from planedepth_tpu_torch.ops.plane_sweep import plane_sweep, plane_sweep_plain, shift_max
 from planedepth_tpu_torch.ops.row_shift import row_shift, row_shift_plain, shift_limit
 from planedepth_tpu_torch.ops.warp2d import warp2d, warp2d_plain
 from planedepth_tpu_torch.train.distill import generate_post_process_disp
@@ -123,6 +147,7 @@ from planedepth_tpu_torch.utils.checkpoint import load_checkpoint
 SHAPE = (8, 63, 384, 1280)            # (B, N, H, W): eval batch 4, doubled
 SWEEP_SHAPE = (8, 63, 192, 640)       # stage-1 batch 4, flipped to 8
 SHIFT_SHAPE = (4, 63, 384, 1280)      # stage 3: batch 4, the teacher's half
+FALNET_SHAPE = (8, 49, 192, 640)      # FalNet: stage-1 batch 4 flipped to 8, 49 planes
 TOL = dict(rtol=1e-5, atol=1e-5)      # only the f32 summation order differs
 # gradients: d_shift sums W terms in another order; relative to max |value|
 GRAD_TOL = 1e-4
@@ -151,20 +176,52 @@ KERNELS = {
                    "planedepth_tpu/ops/pallas_warp2d.py:200"),
     "warp2d_bwd": ("planedepth_tpu_torch/csrc/warp2d.cu",
                    "planedepth_tpu/ops/pallas_warp2d.py:244"),
+    "plane_sweep_nomix_fwd": ("planedepth_tpu_torch/csrc/plane_sweep.cu",
+                              "planedepth_tpu/ops/pallas_sweep.py:376"),
+    "plane_sweep_nomix_bwd": ("planedepth_tpu_torch/csrc/plane_sweep.cu",
+                              "planedepth_tpu/ops/pallas_sweep.py:542"),
+    "warp2d_nosigma_fwd": ("planedepth_tpu_torch/csrc/warp2d.cu",
+                           "planedepth_tpu/ops/pallas_warp2d.py:200"),
+    "warp2d_nosigma_bwd": ("planedepth_tpu_torch/csrc/warp2d.cu",
+                           "planedepth_tpu/ops/pallas_warp2d.py:244"),
 }
+
+
+def only(**counts):
+    """Launch counts that are 0 but for ``counts``."""
+    unknown = set(counts) - set(KERNELS)
+    if unknown:
+        raise KeyError(f"no kernel {sorted(unknown)}")
+    return {**{k: 0 for k in KERNELS}, **counts}
+
+
 # per stage-3 step: the teacher's 5 row shifts, disp head and head
 # epilogue; the student's head epilogue and sweep, forward and backward
-DISTILL_STEP = {"disp_head_fwd": 1, "plane_sweep_fwd": 1, "plane_sweep_bwd": 1,
-                "row_shift_fwd": 5, "head_epilogue_fwd": 2, "head_epilogue_bwd": 1,
-                "disp_head_bwd": 0, "warp2d_fwd": 0, "warp2d_bwd": 0}
+DISTILL_STEP = only(disp_head_fwd=1, plane_sweep_fwd=1, plane_sweep_bwd=1, row_shift_fwd=5,
+                    head_epilogue_fwd=2, head_epilogue_bwd=1)
 # per mono step: the 2-D warp of each of the sides r, -1, 1 forward and
 # backward, the decoder's head epilogue and disp head forward and backward
-MONO_STEP = {"disp_head_fwd": 1, "plane_sweep_fwd": 0, "plane_sweep_bwd": 0,
-             "row_shift_fwd": 0, "head_epilogue_fwd": 1, "head_epilogue_bwd": 1,
-             "disp_head_bwd": 1, "warp2d_fwd": 3, "warp2d_bwd": 3}
+MONO_STEP = only(disp_head_fwd=1, head_epilogue_fwd=1, head_epilogue_bwd=1,
+                 disp_head_bwd=1, warp2d_fwd=3, warp2d_bwd=3)
 # per mixed step: side r through the sweep, the sides -1, 1 through the warp
 MIXED_STEP = dict(MONO_STEP, plane_sweep_fwd=1, plane_sweep_bwd=1, warp2d_fwd=2,
                   warp2d_bwd=2)
+# per FalNet step: the no-mixture sweep each way, nothing else (no head
+# epilogue, no disp head: FalNet's plane head is a plain 1x1 conv)
+FALNET_STEP = only(plane_sweep_nomix_fwd=1, plane_sweep_nomix_bwd=1)
+# per PladeNet step: the mixture sweep each way (its sigma clip and mixture
+# reweight are plain tensor code)
+PLADENET_STEP = only(plane_sweep_fwd=1, plane_sweep_bwd=1)
+# per step of the ResNet ablation without the mixture: the head epilogue
+# (logits only) and the no-mixture sweep with the centre disparity
+NOMIX_STEREO_STEP = only(head_epilogue_fwd=1, head_epilogue_bwd=1,
+                         plane_sweep_nomix_fwd=1, plane_sweep_nomix_bwd=1)
+# per mono step without the mixture: the sigma-less warp of the sides r, -1,
+# 1; the decoder's disp is a plain expectation (no disp head)
+NOMIX_MONO_STEP = only(head_epilogue_fwd=1, head_epilogue_bwd=1, warp2d_nosigma_fwd=3,
+                       warp2d_nosigma_bwd=3)
+NOMIX_MIXED_STEP = dict(NOMIX_MONO_STEP, plane_sweep_nomix_fwd=1, plane_sweep_nomix_bwd=1,
+                        warp2d_nosigma_fwd=2, warp2d_nosigma_bwd=2)
 
 
 def bound(nbytes, flops):
@@ -175,7 +232,7 @@ def bound(nbytes, flops):
 
 
 def nbytes(*tensors):
-    return sum(t.numel() * t.element_size() for t in tensors)
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
 def cuda_ms(fn, warmup=3, reps=10):
@@ -425,6 +482,10 @@ def phase_sweep(card, shape=SWEEP_SHAPE, dev=torch.device("cuda"),
     hr_cts = [torch.ones_like(o) for o in hr_out]
     hr_bwd_ms = cuda_ms(lambda: torch.autograd.grad(hr_out, hr[2:5], hr_cts,
                                                     retain_graph=True))
+    # the twin's backward there: its forward+backward less its forward
+    hr_plain_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+        plane_sweep_plain(*hr, pad, False, True), hr[2:5], hr_cts),
+        warmup=1, reps=3) - hr_plain_ms
     (_, hr_fwd_bound), (_, hr_bwd_bound) = sweep_bounds(hr)
     del hr, hr_out, hr_cts
     print(f"[sweep] plane_sweep vs plain at {shape}, pad {pad}: forward max_abs_err "
@@ -438,7 +499,8 @@ def phase_sweep(card, shape=SWEEP_SHAPE, dev=torch.device("cuda"),
           f"single PyTorch call computes either | {card}")
     print(f"[sweep] at the stage-3 shape {hr_shape}: forward kernel {hr_fwd_ms:.4f} ms "
           f"(bound {hr_fwd_bound[0]:.4f} ms), backward kernel {hr_bwd_ms:.4f} ms (bound "
-          f"{hr_bwd_bound[0]:.4f} ms); twin forward {hr_plain_ms:.2f} ms | {card}")
+          f"{hr_bwd_bound[0]:.4f} ms); twin forward {hr_plain_ms:.2f} ms, backward "
+          f"{hr_plain_bwd_ms:.2f} ms | {card}")
     return {
         "plane_sweep_fwd": {"library_ms": None, "max_abs_err": fwd_err, "ms": fwd_ms,
                             "plain_ms": plain_fwd_ms, "bound_ms": fwd_bound[0],
@@ -450,27 +512,29 @@ def phase_sweep(card, shape=SWEEP_SHAPE, dev=torch.device("cuda"),
     }
 
 
+# each kernel's counter: (the wrapper that counts, its attribute)
+COUNTERS = {"disp_head_fwd": (disp_head, "launches"),
+            "plane_sweep_fwd": (plane_sweep, "fwd_launches"),
+            "plane_sweep_bwd": (plane_sweep, "bwd_launches"),
+            "row_shift_fwd": (row_shift, "launches"),
+            "head_epilogue_fwd": (head_epilogue, "fwd_launches"),
+            "head_epilogue_bwd": (head_epilogue, "bwd_launches"),
+            "disp_head_bwd": (disp_head, "bwd_launches"),
+            "warp2d_fwd": (warp2d, "fwd_launches"),
+            "warp2d_bwd": (warp2d, "bwd_launches"),
+            "plane_sweep_nomix_fwd": (plane_sweep, "nomix_fwd_launches"),
+            "plane_sweep_nomix_bwd": (plane_sweep, "nomix_bwd_launches"),
+            "warp2d_nosigma_fwd": (warp2d, "nosigma_fwd_launches"),
+            "warp2d_nosigma_bwd": (warp2d, "nosigma_bwd_launches")}
+
+
 def launch_counts():
-    return {"disp_head_fwd": disp_head.launches,
-            "plane_sweep_fwd": plane_sweep.fwd_launches,
-            "plane_sweep_bwd": plane_sweep.bwd_launches,
-            "row_shift_fwd": row_shift.launches,
-            "head_epilogue_fwd": head_epilogue.fwd_launches,
-            "head_epilogue_bwd": head_epilogue.bwd_launches,
-            "disp_head_bwd": disp_head.bwd_launches,
-            "warp2d_fwd": warp2d.fwd_launches,
-            "warp2d_bwd": warp2d.bwd_launches}
-
-
-def only(**counts):
-    """Launch counts that are 0 but for ``counts``."""
-    return {**{k: 0 for k in launch_counts()}, **counts}
+    return {name: getattr(fn, attr) for name, (fn, attr) in COUNTERS.items()}
 
 
 def reset_launch_counts():
-    disp_head.launches = plane_sweep.fwd_launches = plane_sweep.bwd_launches = 0
-    row_shift.launches = head_epilogue.fwd_launches = head_epilogue.bwd_launches = 0
-    disp_head.bwd_launches = warp2d.fwd_launches = warp2d.bwd_launches = 0
+    for fn, attr in COUNTERS.values():
+        setattr(fn, attr, 0)
 
 
 class PeakByOp(TorchDispatchMode):
@@ -1017,10 +1081,11 @@ class Held:
     def __init__(self):
         self.fwd, self.abs, self.rel = 0.0, {}, {}
 
-    def hold(self, kernel_out, plain_out, inputs, diff, names, seed):
+    def hold(self, kernel_out, plain_out, inputs, diff, names, seed, no_cotangent=()):
         """Forward outputs at TOL; the gradients of ``inputs[i] for i in
-        diff`` under seeded cotangents at GRAD_TOL of each gradient's
-        largest magnitude.  Consumes both autograd graphs."""
+        diff`` under seeded cotangents (zero on the outputs ``no_cotangent``)
+        at GRAD_TOL of each gradient's largest magnitude.  Consumes both
+        autograd graphs."""
         for a, b in zip(kernel_out, plain_out):
             if not bool(torch.isfinite(a).all()):
                 raise AssertionError(f"non-finite output at {tuple(a.shape)}")
@@ -1028,6 +1093,8 @@ class Held:
             self.fwd = max(self.fwd, (a - b).abs().max().item())
         g = torch.Generator(device=a.device).manual_seed(seed)
         cts = [torch.randn(o.shape, generator=g, device=o.device) for o in kernel_out]
+        for i in no_cotangent:
+            cts[i].zero_()
         wrt = [inputs[i] for i in diff]
         d_got = torch.autograd.grad(kernel_out, wrt, cts)
         torch.cuda.synchronize()
@@ -1057,62 +1124,76 @@ def launch_ms(fn, tensors, *sizes):
     """CUDA-event time of the library entry point ``fn`` alone, on
     ``tensors`` and ``sizes`` as its wrapper passes them: no allocation, no
     autograd, no launch count."""
-    ptrs = [t.data_ptr() for t in tensors]
+    ptrs = [None if t is None else t.data_ptr() for t in tensors]
     return cuda_ms(lambda: _build.launch(fn, *ptrs, *sizes))
 
 
-def phase_warp2d(card, shape=SWEEP_SHAPE, dev=torch.device("cuda")):
+def phase_warp2d(card, shape=SWEEP_SHAPE, dev=torch.device("cuda"), with_sigma=True):
     """The 2-D warp kernels against their twin on small odd shapes and at
     the mono step's shape, then timed there; returns the JSON fields of
-    both."""
+    both.  ``with_sigma=False`` holds and times the instances without sigma
+    (the recipes without the mixture)."""
     held = Held()
-    names = ("d_logits", "d_sigma", "d_dx", "d_dy")
+    # the gradients held: of logits, sigma, dx, dy (inputs 1-4), or without sigma
+    diff = (1, 2, 3, 4) if with_sigma else (1, 3, 4)
+    names = ("d_logits", "d_sigma", "d_dx", "d_dy") if with_sigma else ("d_logits", "d_dx", "d_dy")
+
+    def warp_inputs(at, seed, degenerate=False):
+        inputs = seeded_warp_inputs(at, seed, dev, degenerate)
+        if not with_sigma:
+            inputs[2] = None
+        return inputs
+
     # W not a multiple of the 128-thread block, a row narrower than it
     smalls = ((2, 5, 7, 200), (1, 3, 16, 130), (2, 4, 9, 64))
     for i, small in enumerate(smalls):
         for degenerate in (False, True):
-            inputs = seeded_warp_inputs(small, 10 + i, dev, degenerate)
-            held.hold(warp2d(*inputs), warp2d_plain(*inputs), inputs, (1, 2, 3, 4), names, i)
+            inputs = warp_inputs(small, 10 + i, degenerate)
+            held.hold(warp2d(*inputs), warp2d_plain(*inputs), inputs, diff, names, i)
     # the main path's shape, where the atomic scatter meets the most contention
-    inputs = seeded_warp_inputs(shape, 20, dev)
-    held.hold(warp2d(*inputs), warp2d_plain(*inputs), inputs, (1, 2, 3, 4), names, 3)
+    inputs = warp_inputs(shape, 20)
+    held.hold(warp2d(*inputs), warp2d_plain(*inputs), inputs, diff, names, 3)
     free_cache()
 
     B, N, H, W = shape
     src, logits, sigma, dx, dy, mask = inputs
     out = warp2d(*inputs)
     cts = [torch.randn_like(o) for o in out]
-    diff = inputs[1:5]
+    wrt = [inputs[i] for i in diff]
     with torch.no_grad():
         fwd_ms = cuda_ms(lambda: warp2d(*inputs))
         plain_fwd_ms = cuda_ms(lambda: warp2d_plain(*inputs), warmup=1, reps=3)
         # the backward kernel alone, on buffers zeroed once (its atomics add
         # into them; the values do not change the time)
-        d_bufs = [torch.zeros_like(t) for t in (logits, sigma, dx, dy)]
-        bwd_ms = launch_ms("pdt_warp2d_bwd", (*inputs, *cts, *d_bufs), B, N, H, W)
-        del d_bufs
+        d_bufs = [None if t is None else torch.zeros_like(t) for t in (logits, sigma, dx, dy)]
+        g_sigma = cts[2] if with_sigma else None
+        bwd_ms = launch_ms("pdt_warp2d_bwd", (*inputs, cts[0], cts[1], g_sigma, *d_bufs),
+                           B, N, H, W, int(with_sigma))
+        del d_bufs, g_sigma
     # the wrapper's backward through autograd: the kernel, the zeroing of
-    # the two scatter buffers and autograd's own work
-    autograd_bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, diff, cts, retain_graph=True))
-    plain_ms = cuda_ms(lambda: torch.autograd.grad(warp2d_plain(*inputs), diff, cts),
+    # the scatter buffers and autograd's own work
+    autograd_bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, wrt, cts, retain_graph=True))
+    plain_ms = cuda_ms(lambda: torch.autograd.grad(warp2d_plain(*inputs), wrt, cts),
                        warmup=1, reps=3)
-    fwd_bytes = nbytes(src, logits, sigma, dx, dy, mask, *out)
-    bwd_bytes = nbytes(src, logits, sigma, dx, dy, mask, *cts, logits, sigma, dx, dy)
+    fwd_bytes = nbytes(*inputs, *out)
+    bwd_bytes = nbytes(*inputs, *cts, *wrt)
     fwd_bound = bound(fwd_bytes, 60 * dx.numel())
     bwd_bound = bound(bwd_bytes, 100 * dx.numel())
     del out, cts
 
-    # the library call: F.grid_sample on (B*N, 5, H, W) [rgb | logit | sigma]
+    # the library call: F.grid_sample on (B*N, C, H, W) [rgb | logit (| sigma)]
     # with a prebuilt normalised grid, both built outside the timed region;
     # its backward also computes the rgb input's gradient, which the
     # kernel skips
+    heads = [logits] + ([sigma] if with_sigma else [])
+    channels = 3 + len(heads)
     with torch.no_grad():
         x = torch.arange(W, device=dev, dtype=torch.float32)
         y = torch.arange(H, device=dev, dtype=torch.float32)[:, None]
         grid = torch.stack([(dx + x) * (2.0 / (W - 1)) - 1.0,
                             (dy + y) * (2.0 / (H - 1)) - 1.0], -1).view(B * N, H, W, 2)
-        stack = torch.cat([src[:, None].expand(B, N, 3, H, W), logits[:, :, None],
-                           sigma[:, :, None]], 2).view(B * N, 5, H, W)
+        stack = torch.cat([src[:, None].expand(B, N, 3, H, W),
+                           *(t[:, :, None] for t in heads)], 2).view(B * N, channels, H, W)
     grid.requires_grad_()
     stack.requires_grad_()
     sample = lambda: F.grid_sample(stack, grid, mode="bilinear", padding_mode="zeros",
@@ -1122,25 +1203,28 @@ def phase_warp2d(card, shape=SWEEP_SHAPE, dev=torch.device("cuda")):
     lib_out = sample()
     lib_ct = torch.randn_like(lib_out)
     lib_ms = cuda_ms(lambda: torch.autograd.grad(sample(), (stack, grid), lib_ct))
-    del grid, stack, lib_out, lib_ct, inputs
+    del grid, stack, lib_out, lib_ct, inputs, wrt, heads
     free_cache()
-    print(f"[warp2d] warp2d vs plain on {', '.join(map(str, smalls))}, each with and "
-          f"without degenerate coordinates, and at {shape}: {held.describe()}; d_logits "
-          f"and d_sigma sum by atomics in no fixed order | {card}")
-    print(f"[warp2d] at {shape}: forward kernel {fwd_ms:.4f} ms ({fwd_bytes / fwd_ms / 1e9:.2f} "
+    tag = "warp2d" if with_sigma else "warp2d_nosigma"
+    print(f"[{tag}] warp2d vs plain on {', '.join(map(str, smalls))}, each with and "
+          f"without degenerate coordinates, and at {shape}: {held.describe()}; "
+          f"{'d_logits and d_sigma sum' if with_sigma else 'd_logits sums'} by atomics in "
+          f"no fixed order | {card}")
+    print(f"[{tag}] at {shape}: forward kernel {fwd_ms:.4f} ms ({fwd_bytes / fwd_ms / 1e9:.2f} "
           f"TB/s of {fwd_bytes / 1e6:.0f} MB, {fwd_bound[0] / fwd_ms:.1%} of the bound "
           f"{fwd_bound[0]:.4f} ms), backward kernel alone {bwd_ms:.4f} ms ("
           f"{bwd_bytes / bwd_ms / 1e9:.2f} TB/s of {bwd_bytes / 1e6:.0f} MB, "
           f"{bwd_bound[0] / bwd_ms:.1%} of the bound {bwd_bound[0]:.4f} ms), backward "
-          f"through autograd {autograd_bwd_ms:.4f} ms (with zeroing d_logits and d_sigma); "
+          f"through autograd {autograd_bwd_ms:.4f} ms (with zeroing the scatter buffers); "
           f"twin forward {plain_fwd_ms:.2f} ms, forward+backward {plain_ms:.2f} ms; "
-          f"F.grid_sample on (B*N, 5, H, W) forward {lib_fwd_ms:.4f} ms, forward+backward "
-          f"{lib_ms:.4f} ms (its backward also computes the rgb input's gradient) | {card}")
+          f"F.grid_sample on (B*N, {channels}, H, W) forward {lib_fwd_ms:.4f} ms, "
+          f"forward+backward {lib_ms:.4f} ms (its backward also computes the rgb input's "
+          f"gradient) | {card}")
     return {
-        "warp2d_fwd": {"max_abs_err": held.fwd, "ms": fwd_ms, "plain_ms": plain_fwd_ms,
+        f"{tag}_fwd": {"max_abs_err": held.fwd, "ms": fwd_ms, "plain_ms": plain_fwd_ms,
                        "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
                        "library_ms": lib_fwd_ms},
-        "warp2d_bwd": {**held.bwd_fields(), "ms": bwd_ms, "autograd_ms": autograd_bwd_ms,
+        f"{tag}_bwd": {**held.bwd_fields(), "ms": bwd_ms, "autograd_ms": autograd_bwd_ms,
                        # the twin's and the library's backward: forward+backward less forward
                        "plain_ms": plain_ms - plain_fwd_ms,
                        "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1],
@@ -1196,13 +1280,142 @@ def phase_disp_head_bwd(card, shape=SWEEP_SHAPE, dev=torch.device("cuda")):
                               "bound_by": bound_by, "library_ms": None}}
 
 
-def phase_mono(card, dev=torch.device("cuda"), warmup=3, steps=10):
-    """The monocular homography recipe through the Trainer at full width,
-    then 2 mixed disp_warp steps; returns the launch counts of the mono run."""
-    free_cache()
+def seeded_nomix_inputs(shape, seed, dev):
+    """:func:`seeded_sweep_inputs` without the sigma operand."""
+    inputs = seeded_sweep_inputs(shape, seed, dev)
+    inputs[3] = None
+    return inputs
+
+
+def sweep_nomix_bounds(inputs, with_disp):
+    """(bytes, bound) of the no-mixture forward and backward: each input read
+    once, each output written once (stats: 4 maps, 7 with disp); ~40 flops a
+    pixel-plane forward, ~70 backward."""
+    src, tgt, logits, _, shift, mask = inputs
+    B, N, H, W = logits.shape
+    row = B * H * W * 4
+    nst = 7 if with_disp else 4
+    ins = nbytes(src, tgt, logits, shift, mask)
+    fwd_bytes = ins + row * (3 + 1 + with_disp + nst)
+    bwd_bytes = ins + row * (nst + 3 + 3 + 1 + with_disp) + nbytes(logits, shift)
+    return ((fwd_bytes, bound(fwd_bytes, 40 * logits.numel())),
+            (bwd_bytes, bound(bwd_bytes, 70 * logits.numel())))
+
+
+def time_sweep_nomix(inputs, pad, with_disp):
+    """Kernel, twin and bound times of the no-mixture sweep on ``inputs``."""
+    src, tgt, logits, _, shift, mask = inputs
+    B, N, H, W = logits.shape
+    run = lambda: plane_sweep(*inputs, pad, False, with_disp)
+    plain = lambda: plane_sweep_plain(*inputs, pad, False, with_disp)
+    with torch.no_grad():
+        fwd_ms = cuda_ms(run)
+        plain_fwd_ms = cuda_ms(plain, warmup=1, reps=3)
+        # the backward kernel alone, on the statistics and rgb of one direct
+        # forward launch (not counted: no wrapper runs)
+        new = lambda *size: torch.empty(size, device=logits.device)
+        rgb, nll, stats = new(B, 3, H, W), new(B, H, W), new(B, 7 if with_disp else 4, H, W)
+        disp = new(B, H, W) if with_disp else None
+        limit = shift_max(pad)
+        _build.launch("pdt_plane_sweep_fwd", src, tgt, logits, None, shift, mask, rgb, nll,
+                      None, disp, stats, B, N, H, W, limit, 0, int(with_disp), 0)
+        g = [torch.randn_like(t) for t in (rgb, nll)] + ([torch.randn_like(disp)]
+                                                         if with_disp else [None])
+        grads = (torch.empty_like(logits), None, torch.empty_like(shift))
+        bwd_ms = launch_ms("pdt_plane_sweep_bwd", (src, tgt, logits, None, shift, mask, stats,
+                                                   rgb, *g, *grads),
+                           B, N, H, W, limit, int(with_disp), 0)
+        del rgb, nll, stats, disp, g, grads
+    out = run()
+    cts = [torch.randn_like(o) for o in out]
+    heads = (logits, shift)
+    autograd_ms = cuda_ms(lambda: torch.autograd.grad(out, heads, cts, retain_graph=True))
+    plain_ms = cuda_ms(lambda: torch.autograd.grad(plain(), heads, cts), warmup=1, reps=3)
+    (fwd_bytes, fwd_bound), (bwd_bytes, bwd_bound) = sweep_nomix_bounds(inputs, with_disp)
+    return {"fwd_ms": fwd_ms, "plain_fwd_ms": plain_fwd_ms, "bwd_ms": bwd_ms,
+            "autograd_ms": autograd_ms, "plain_bwd_ms": plain_ms - plain_fwd_ms,
+            "fwd_bytes": fwd_bytes, "fwd_bound": fwd_bound, "bwd_bytes": bwd_bytes,
+            "bwd_bound": bwd_bound}
+
+
+def phase_sweep_nomix(card, dev=torch.device("cuda"), shape=FALNET_SHAPE,
+                      ablation_shape=SWEEP_SHAPE):
+    """The no-mixture sweep kernels (B1') against their twin on odd shapes,
+    at FalNet's shape without the centre disparity and at the ResNet
+    ablation's with it, then timed at both; returns the JSON fields.
+
+    On the odd shapes every output gets a seeded cotangent.  At the main
+    path's shapes nll gets none, as in the no-mixture recipes (their L1 is
+    taken from rgb outside the kernel): through nll's adjoint d_shift hinges
+    on sign(c - tgt) at the L1's kinks, which two float32 evaluations of the
+    samples may take on either side at a few of the 75k (row, plane) sums."""
+    held = Held()
+    pad = sweep_pad(stage1_config())
+    names = ("d_logits", "d_shift")
+
+    # W below, at and above the 512 threads of a block and not a multiple of
+    # 32; one row fully masked (row 5 where H > 5); shifts past the W edge,
+    # and at W = 1280 past the clip
+    smalls = ((2, 6, 8, 64), (1, 14, 6, 1280), (1, 5, 7, 100), (2, 7, 9, 513))
+    for i, small in enumerate(smalls):
+        for with_disp in (False, True):
+            inputs = seeded_nomix_inputs(small, 40 + i, dev)
+            held.hold(plane_sweep(*inputs, pad, False, with_disp),
+                      plane_sweep_plain(*inputs, pad, False, with_disp),
+                      inputs, (2, 4), names, i)
+    timed = {}
+    for at, with_disp in ((shape, False), (ablation_shape, True)):
+        inputs = seeded_nomix_inputs(at, 50, dev)
+        got = plane_sweep(*inputs, pad, False, with_disp)
+        if not bool((got[0][:, :, 5] == 0).all()):
+            raise AssertionError("a fully masked row must composite to 0")
+        held.hold(got, plane_sweep_plain(*inputs, pad, False, with_disp), inputs, (2, 4),
+                  names, 9, no_cotangent=(1,))
+        del got
+        free_cache()
+        timed[at] = time_sweep_nomix(inputs, pad, with_disp)
+        del inputs
+        free_cache()
+    main, abl = timed[shape], timed[ablation_shape]
+    print(f"[sweep_nomix] no-mixture plane_sweep vs plain on {', '.join(map(str, smalls))} "
+          f"(each with and without disp), at {shape} without disp and {ablation_shape} with "
+          f"it (no nll cotangent there, as in training), pad {pad}: {held.describe()} "
+          f"| {card}")
+    for at, t in ((shape, main), (ablation_shape, abl)):
+        print(f"[sweep_nomix] at {at}: forward kernel {t['fwd_ms']:.4f} ms (bound "
+              f"{t['fwd_bound'][0]:.4f} ms, {t['fwd_bytes'] / 1e6:.0f} MB, "
+              f"{t['fwd_bound'][0] / t['fwd_ms']:.1%}), backward kernel alone "
+              f"{t['bwd_ms']:.4f} ms (bound {t['bwd_bound'][0]:.4f} ms, "
+              f"{t['bwd_bytes'] / 1e6:.0f} MB, {t['bwd_bound'][0] / t['bwd_ms']:.1%}), "
+              f"through autograd {t['autograd_ms']:.4f} ms; twin forward "
+              f"{t['plain_fwd_ms']:.2f} ms, backward {t['plain_bwd_ms']:.2f} ms; no single "
+              f"PyTorch call computes either | {card}")
+    ablation = lambda t, d: {"ablation_shape": list(ablation_shape),
+                             "ablation_ms": t[f"{d}_ms"],
+                             "ablation_bound_ms": t[f"{d}_bound"][0]}
+    return {
+        "plane_sweep_nomix_fwd": {"max_abs_err": held.fwd, "ms": main["fwd_ms"],
+                                  "plain_ms": main["plain_fwd_ms"],
+                                  "bound_ms": main["fwd_bound"][0],
+                                  "bound_by": main["fwd_bound"][1], "library_ms": None,
+                                  "shape": list(shape), **ablation(abl, "fwd")},
+        "plane_sweep_nomix_bwd": {**held.bwd_fields(), "ms": main["bwd_ms"],
+                                  "autograd_ms": main["autograd_ms"],
+                                  "plain_ms": main["plain_bwd_ms"],
+                                  "bound_ms": main["bwd_bound"][0],
+                                  "bound_by": main["bwd_bound"][1], "library_ms": None,
+                                  "shape": list(shape), **ablation(abl, "bwd")},
+    }
+
+
+def trainer_run(cfg, dev, warmup, steps, per_step, after_val):
+    """``cfg`` through the Trainer on synthetic samples: ``warmup + steps``
+    steps, each held to the launch counts ``per_step``, and one validation
+    pass, whose launches must be ``after_val``; then the memory of one more
+    step by aten op.  Returns what the phases print."""
     with tempfile.TemporaryDirectory(prefix="pdt_chip_smoke_") as log_dir:
-        cfg = mono_config(log_dir=log_dir, optim=dataclasses.replace(
-            mono_config().optim, num_epochs=1))
+        cfg = cfg.replace(log_dir=log_dir,
+                          optim=dataclasses.replace(cfg.optim, num_epochs=1))
         b, h, w = cfg.per_step_batch, cfg.data.height, cfg.data.width
         novel = cfg.novel_frame_ids
         trainer = Trainer(cfg, datasets=(SyntheticStereo(b * (warmup + steps), h, w, novel),
@@ -1219,8 +1432,8 @@ def phase_mono(card, dev=torch.device("cuda"), warmup=3, steps=10):
             out = step_fn(batch)                  # floats: the step has synchronised
             times.append(time.perf_counter() - t0)
             delta = {k: v - before[k] for k, v in launch_counts().items()}
-            if delta != MONO_STEP:
-                raise AssertionError(f"mono step launches {delta}, want {MONO_STEP}")
+            if delta != per_step:
+                raise AssertionError(f"{cfg.model_name} step launches {delta}, want {per_step}")
             losses.append(out)
             return out
 
@@ -1233,12 +1446,10 @@ def phase_mono(card, dev=torch.device("cuda"), warmup=3, steps=10):
         reserved_gb = torch.cuda.max_memory_reserved(dev) / 1e9
         trainer.close()
         n = warmup + steps
-        want = {k: v * n for k, v in MONO_STEP.items()}
-        want["disp_head_fwd"] += 1                      # the validation batch
-        want["head_epilogue_fwd"] += 1
+        want = {k: v * n + after_val.get(k, 0) for k, v in per_step.items()}
         if launches != want or len(times) != n:
-            raise AssertionError(f"mono run launches {launches} in {len(times)} steps, "
-                                 f"want {want} in {n}")
+            raise AssertionError(f"{cfg.model_name} run launches {launches} in {len(times)} "
+                                 f"steps, want {want} in {n}")
         check_losses(losses, cfg)
         if not val.get("metrics") or not all(math.isfinite(v) for v in val["metrics"].values()):
             raise AssertionError(f"validation metrics {val}")
@@ -1248,30 +1459,140 @@ def phase_mono(card, dev=torch.device("cuda"), warmup=3, steps=10):
             moved.setdefault(net, [0, 0])
             moved[net][0] += int(not torch.equal(p.detach(), start[k]))
             moved[net][1] += 1
-        if any(m < t // 2 for m, t in moved.values()):
-            raise AssertionError(f"parameter tensors moved per network: {moved}")
+        saved = sorted(os.listdir(os.path.join(log_dir, cfg.model_name, "last_models")))
         batch = batch_to_tensors(step_batch(cfg, 0), dev)
         memory = memory_by_op(lambda: step_fn(batch), dev)
         del trainer, start, batch
         free_cache()
-    step_ms = statistics.median(times[warmup:]) * 1e3
+    return {"cfg": cfg, "launches": launches, "losses": losses, "val": val["metrics"],
+            "moved": moved, "saved": saved, "memory": memory, "peak_gb": peak_gb,
+            "reserved_gb": reserved_gb, "step_ms": statistics.median(times[warmup:]) * 1e3,
+            "warmup": warmup, "steps": steps}
+
+
+def print_trainer_run(tag, what, run, cpu, cpu_shape, card):
+    cfg, b = run["cfg"], run["cfg"].per_step_batch
+    print(f"[{tag}] {what}, {cfg.data.width}x{cfg.data.height}, batch {b}"
+          f"{f' flipped to {cfg.effective_batch}' if cfg.flip_right else ''}: "
+          f"{run['warmup']}+{run['steps']} steps through Trainer, launches {run['launches']}; "
+          f"parameter tensors moved per network {json.dumps(run['moved'])}; saved "
+          f"{run['saved']}; first/last losses {json.dumps(run['losses'][0])} "
+          f"{json.dumps(run['losses'][-1])}")
+    print(f"[{tag}] validation metrics {json.dumps(run['val'])}")
+    print(f"[{tag}] card vs CPU at {cpu_shape} (one step): {json.dumps(cpu)}")
+    print(f"[{tag}] step {run['step_ms']:.2f} ms median of {run['steps']} (host clock around "
+          f"synchronised steps, after {run['warmup']} warm-up), "
+          f"{cfg.effective_batch / run['step_ms'] * 1e3:.2f} imgs/s, peak device memory "
+          f"{run['peak_gb']:.2f} GB allocated, {run['reserved_gb']:.2f} GB reserved; float32, "
+          f"TF32 off | {card}")
+    print(f"[{tag}] memory of one more step by aten op: {json.dumps(run['memory'])} | {card}")
+
+
+FALNET_MODEL = ModelConfig(net_type="FalNet", use_mixture_loss=False, plane_residual=False,
+                           planes=PlaneConfig(xz_levels=0))
+PLADENET_MODEL = ModelConfig(net_type="PladeNet", num_ep=8, use_mixture_loss=True,
+                             plane_residual=True)
+
+
+def phase_falnet(card, dev=torch.device("cuda"), warmup=3, steps=10):
+    """FalNet stereo training through the Trainer at full width: stage 1's
+    data, optimiser, flip and VGG19 loss, 49 fronto-parallel planes, the
+    no-mixture sweep; returns the launch counts of the run."""
+    free_cache()
+    cfg = stage1_config(model_name="falnet", model=FALNET_MODEL)
+    run = trainer_run(cfg, dev, warmup, steps, FALNET_STEP, {})
+    if any(m != t for m, t in run["moved"].values()):
+        raise AssertionError(f"every FalNet parameter must move: {run['moved']}")
+    if "fal.pth" not in run["saved"]:
+        raise AssertionError(f"no fal.pth in the checkpoint: {run['saved']}")
+    cpu = check_step_against_cpu(cfg.replace(data=DataConfig(height=64, width=192)), dev)
+    print_trainer_run("falnet", f"FalNet {cfg.model.planes.disp_levels} planes "
+                      f"({cfg.model.planes.disp_min}-{cfg.model.planes.disp_max} px), no "
+                      f"mixture, VGG19 alpha_pc {cfg.loss.alpha_pc}", run, cpu, "64x192", card)
+    return run["launches"]
+
+
+def phase_pladenet(card, dev=torch.device("cuda"), warmup=3, steps=10):
+    """PladeNet stereo training (mixture, 8-channel PE, plane residuals,
+    49+14 planes) through the Trainer at full width; returns the launch
+    counts of the run."""
+    free_cache()
+    cfg = stage1_config(model_name="pladenet", model=PLADENET_MODEL)
+    run = trainer_run(cfg, dev, warmup, steps, PLADENET_STEP, {})
+    if any(m != t for m, t in run["moved"].values()):
+        raise AssertionError(f"every PladeNet parameter must move: {run['moved']}")
+    if "plade.pth" not in run["saved"]:
+        raise AssertionError(f"no plade.pth in the checkpoint: {run['saved']}")
+    cpu = check_step_against_cpu(cfg.replace(data=DataConfig(height=64, width=192)), dev)
+    planes = cfg.model.planes
+    print_trainer_run("pladenet", f"PladeNet {planes.disp_levels}+{planes.xz_levels} planes, "
+                      f"mixture, PE {cfg.model.num_ep}, plane residual, VGG19 alpha_pc "
+                      f"{cfg.loss.alpha_pc}", run, cpu, "64x192", card)
+    return run["launches"]
+
+
+def phase_nomix(card, dev=torch.device("cuda"), steps=2):
+    """The recipes without the mixture: 2 steps each of the ResNet-50
+    ablation of stage1_config, of mono_config and of its mixed disp_warp
+    variant, each held to its per-step launch counts; one mono step on the
+    card held to the CPU.  Returns the launch counts of the three runs."""
+    nomix = ModelConfig(use_mixture_loss=False)
+    total = only()
+    lines = []
+    for name, cfg, per_step in (
+            ("stage1 ResNet-50 ablation", stage1_config(model=nomix), NOMIX_STEREO_STEP),
+            ("mono homography", mono_config(model=nomix), NOMIX_MONO_STEP),
+            ("mixed disp_warp", mono_config(warp_type="disp_warp", model=nomix),
+             NOMIX_MIXED_STEP)):
+        free_cache()
+        bundle = ModelBundle(cfg, dev)
+        optimizer, scheduler = make_optimizer(cfg, bundle.parameters(), 1000)
+        train_step = make_train_step(bundle, optimizer, scheduler)
+        batch = batch_to_tensors(step_batch(cfg, 0), dev)
+        losses = []
+        for _ in range(steps):
+            before = launch_counts()
+            losses.append(train_step(batch))
+            delta = {k: v - before[k] for k, v in launch_counts().items()}
+            if delta != per_step:
+                raise AssertionError(f"{name} step launches {delta}, want {per_step}")
+        check_losses(losses, cfg)
+        total = {k: v + steps * per_step[k] for k, v in total.items()}
+        nonzero = {k: v for k, v in per_step.items() if v}
+        lines.append(f"[nomix] {name} without the mixture at {cfg.data.width}x"
+                     f"{cfg.data.height}, batch {cfg.effective_batch}: {steps} steps, launches "
+                     f"per step {nonzero}, losses {json.dumps(losses[-1])} | {card}")
+        del bundle, optimizer, scheduler, train_step, batch
+    free_cache()
+    cpu = check_step_against_cpu(mono_config(model=nomix, batch_size=4,
+                                             data=DataConfig(height=64, width=128)), dev)
+    for line in lines:
+        print(line)
+    print(f"[nomix] card vs CPU, mono without the mixture at 64x128 (batch 4, one step): "
+          f"{json.dumps(cpu)}")
+    return total
+
+
+def phase_mono(card, dev=torch.device("cuda"), warmup=3, steps=10):
+    """The monocular homography recipe through the Trainer at full width,
+    then 2 mixed disp_warp steps; returns the launch counts of the mono run."""
+    free_cache()
+    cfg = mono_config()
+    # the validation batch: one disp head and one head epilogue
+    run = trainer_run(cfg, dev, warmup, steps, MONO_STEP,
+                      {"disp_head_fwd": 1, "head_epilogue_fwd": 1})
+    if any(m < t // 2 for m, t in run["moved"].values()):
+        raise AssertionError(f"parameter tensors moved per network: {run['moved']}")
     cpu = check_step_against_cpu(mono_config(data=DataConfig(height=64, width=128),
                                              batch_size=4), dev)
-    print(f"[mono] mono_config ResNet-{cfg.model.num_layers} DenseASPP "
-          f"{cfg.model.planes.disp_levels}+{cfg.model.planes.xz_levels} planes, pose "
-          f"ResNet-{cfg.model.pose_num_layers} + PoseDecoder (PE {cfg.model.pose_num_ep}), "
-          f"{cfg.warp_type} to sides {cfg.target_sides}, automask, VGG19 alpha_pc "
-          f"{cfg.loss.alpha_pc}, {w}x{h}, batch {b}: {warmup}+{steps} steps through Trainer, "
-          f"launches {launches} (per step {MONO_STEP}, + 1 disp head and 1 head epilogue "
-          f"for validation); parameter tensors moved per network {json.dumps(moved)}; "
-          f"first/last losses {json.dumps(losses[0])} {json.dumps(losses[-1])}")
-    print(f"[mono] validation metrics {json.dumps(val['metrics'])}")
-    print(f"[mono] card vs CPU at 64x128 (batch 4, one step): {json.dumps(cpu)}")
-    print(f"[mono] step {step_ms:.2f} ms median of {steps} (host clock around synchronised "
-          f"steps, after {warmup} warm-up), {b / step_ms * 1e3:.2f} imgs/s, peak device "
-          f"memory {peak_gb:.2f} GB allocated, {reserved_gb:.2f} GB reserved; float32, TF32 "
-          f"off | {card}")
-    print(f"[mono] memory of one more step by aten op: {json.dumps(memory)} | {card}")
+    print_trainer_run(
+        "mono", f"mono_config ResNet-{cfg.model.num_layers} DenseASPP "
+        f"{cfg.model.planes.disp_levels}+{cfg.model.planes.xz_levels} planes, pose "
+        f"ResNet-{cfg.model.pose_num_layers} + PoseDecoder (PE {cfg.model.pose_num_ep}), "
+        f"{cfg.warp_type} to sides {cfg.target_sides}, automask, VGG19 alpha_pc "
+        f"{cfg.loss.alpha_pc} (per step {MONO_STEP}, + 1 disp head and 1 head epilogue for "
+        f"validation)", run, cpu, "64x128 (batch 4)", card)
+    w, h, b = cfg.data.width, cfg.data.height, cfg.per_step_batch
 
     mixed = mono_config(warp_type="disp_warp")
     bundle = ModelBundle(mixed, dev)
@@ -1290,28 +1611,46 @@ def phase_mono(card, dev=torch.device("cuda"), warmup=3, steps=10):
     print(f"[mono] mixed disp_warp (side r through the sweep, -1 and 1 through the 2-D "
           f"warp) at {w}x{h}, batch {b}: 2 steps, launches {mixed_launches}, losses "
           f"{json.dumps(mixed_losses[-1])} | {card}")
-    return launches
+    return run["launches"]
 
 
 def main():
-    card = phase_device()
-    phase_build()
+    t_start = time.perf_counter()
+
+    def run(phase, *args, **kwargs):
+        """One phase, with its wall time."""
+        t0 = time.perf_counter()
+        out = phase(*args, **kwargs)
+        print(f"[time] {phase.__name__}{'' if not kwargs else kwargs}: "
+              f"{time.perf_counter() - t0:.1f} s")
+        return out
+
+    card = run(phase_device)
+    run(phase_build)
     # launches: each kernel's count on the path that brought it to the port
-    fields = {"disp_head_fwd": phase_kernel(card)}
-    launches = {"disp_head_fwd": phase_slice(card)["disp_head_fwd"]}
-    fields.update(phase_sweep(card))
-    train = phase_train(card)
+    fields = {"disp_head_fwd": run(phase_kernel, card)}
+    launches = {"disp_head_fwd": run(phase_slice, card)["disp_head_fwd"]}
+    fields.update(run(phase_sweep, card))
+    train = run(phase_train, card)
     launches.update({k: train[k] for k in ("plane_sweep_fwd", "plane_sweep_bwd")})
-    fields.update(phase_epilogue(card))
-    fields.update(phase_shift(card))
-    distill = phase_distill(card)
+    fields.update(run(phase_epilogue, card))
+    fields.update(run(phase_shift, card))
+    distill = run(phase_distill, card)
     launches.update({k: distill[k] for k in
                      ("row_shift_fwd", "head_epilogue_fwd", "head_epilogue_bwd")})
-    phase_mom(card)
-    fields.update(phase_warp2d(card))
-    fields.update(phase_disp_head_bwd(card))
-    mono = phase_mono(card)
+    run(phase_mom, card)
+    fields.update(run(phase_warp2d, card))
+    fields.update(run(phase_disp_head_bwd, card))
+    mono = run(phase_mono, card)
     launches.update({k: mono[k] for k in ("disp_head_bwd", "warp2d_fwd", "warp2d_bwd")})
+    fields.update(run(phase_sweep_nomix, card))
+    fields.update(run(phase_warp2d, card, with_sigma=False))
+    falnet = run(phase_falnet, card)
+    launches.update({k: falnet[k] for k in ("plane_sweep_nomix_fwd", "plane_sweep_nomix_bwd")})
+    run(phase_pladenet, card)
+    nomix = run(phase_nomix, card)
+    launches.update({k: nomix[k] for k in ("warp2d_nosigma_fwd", "warp2d_nosigma_bwd")})
+    print(f"[time] all phases: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": launches[name], **fields[name]}

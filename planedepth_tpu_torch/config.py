@@ -56,7 +56,7 @@ class PlaneConfig:
 class ModelConfig:
     """Network architecture selection (reference: options.py:99-163)."""
 
-    net_type: str = "ResNet"        # ResNet (PladeNet | FalNet: ROADMAP A11)
+    net_type: str = "ResNet"        # ResNet | PladeNet | FalNet
     num_layers: int = 50            # resnet depth: 18/34/50/101/152
     num_ep: int = 8                 # positional-encoding channels
     pe_type: str = "neural"         # neural | frequency

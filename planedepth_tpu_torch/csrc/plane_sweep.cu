@@ -3,12 +3,15 @@
 // (backward), for the stereo training step.
 //
 // Replaces planedepth_tpu/ops/pallas_sweep.py:_fwd_kernel and _bwd_kernel
-// (v1 unpacked layout, nonneg shifts, image_grads=False).  Per pixel
-// (b, h, x) and plane n, with s = clip(shift[b,h,n], 0, shift_max),
-// k = floor(s), f = s - k, m = mask[b,h,n] and every sample zero outside
-// [0, W):
+// (v1 unpacked layout, nonneg shifts, image_grads=False), in both of their
+// modes: with_mixture=True (the mixture recipes) and with_mixture=False
+// (B1', fused_plane_sweep_nomix: FalNet and use_mixture_loss=False), one
+// template instance each.  Per pixel (b, h, x) and plane n, with
+// s = clip(shift[b,h,n], 0, shift_max), k = floor(s), f = s - k,
+// m = mask[b,h,n] and every sample zero outside [0, W):
 //   l_n = ((1-f) L[x+k] + f L[x+k+1]) m
-//   s_n = clip(((1-f) S[x+k] + f S[x+k+1]) m, 0.01, 1)
+//   s_n = clip(((1-f) S[x+k] + f S[x+k+1]) m, 0.01, 1)    (mixture)
+//   s_n = 1                                               (no mixture)
 //   c_n = ((1-f) src[x+k] + f src[x+k+1]) m          (3 channels)
 //   pi = softmax_n(l), u_n = pi_n / s_n, U = sum u
 //   rgb = sum u c / U (0 where U <= 1e-7)
@@ -18,6 +21,12 @@
 //         doubling as the plane disparity.  The output's guard uses the
 //         MASKED normaliser (sum e0 m), the saved stats the unmasked one,
 //         exactly as the TPU kernel writes them (pallas_sweep.py:487-537).
+//         Without the mixture it is the plain softmax expectation over
+//         l0 = L[x] m, with no mask or sigma in the weights (:480-489).
+// The no-mixture operand holds logits only: sigma is the literal 1, never
+// loaded, so the composite is exact at the borders, where a warped all-ones
+// map would shrink under the zero padding (pallas_sweep.py:1703-1709); its
+// backward writes no d_sigma.
 // The backward consumes the forward's 7 per-pixel statistics and its rgb
 // output (A = U * (G . rgb)), so every plane's adjoint is local; the
 // cotangent of a sample at x+k lands back on the source row by a reverse
@@ -28,6 +37,8 @@
 //   and stats 47 MB) -> ~0.17 ms at 3.35 TB/s;
 //   backward ~1.07 GB (reads 578 MB, writes d_logits + d_sigma 495 MB)
 //   -> ~0.32 ms.  ~3 exps per pixel-plane is far below the SFU rate.
+//   Without the mixture the sigma map drops out of both: ~248 MB forward,
+//   ~453 MB backward at FalNet's (8, 49, 192, 640).
 // Design: one block per (b, h) image row, threads along W (PX pixels a
 // thread), all N planes looped in registers.  The row's clipped shifts,
 // masks and source pixels sit in shared memory; every plane read of
@@ -84,7 +95,9 @@ __device__ __forceinline__ void load_row(const float* shift, const float* mask,
   }
 }
 
-template <int PX>
+// MIX: the mixture mode (sigma operand, clipped sigma); without it sigma is
+// the literal 1 and the sigma pointer is not read.
+template <int PX, bool MIX>
 __global__ void __launch_bounds__(kMaxThreads)
 sweep_fwd_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
                  const float* __restrict__ logits,
@@ -128,7 +141,7 @@ sweep_fwd_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
     const int k = (int)floorf(s);
     const float f = s - (float)k, w0 = 1.f - f, m = sh_mask[n];
     const float* lrow = logits + ((int64_t)b * N + n) * plane + pix_row;
-    const float* srow = sigma + ((int64_t)b * N + n) * plane + pix_row;
+    const float* srow = MIX ? sigma + ((int64_t)b * N + n) * plane + pix_row : nullptr;
 #pragma unroll
     for (int p = 0; p < PX; ++p) {
       const int x = (int)(threadIdx.x + p * blockDim.x);
@@ -137,10 +150,13 @@ sweep_fwd_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
       const bool v0 = i0 < W, v1 = i1 < W;
       const float lt0 = v0 ? __ldg(lrow + i0) : 0.f;
       const float lt1 = v1 ? __ldg(lrow + i1) : 0.f;
-      const float st0 = v0 ? __ldg(srow + i0) : 0.f;
-      const float st1 = v1 ? __ldg(srow + i1) : 0.f;
       const float l = (w0 * lt0 + f * lt1) * m;
-      const float sg = clip_sigma((w0 * st0 + f * st1) * m);
+      float sg = 1.f;
+      if (MIX) {
+        const float st0 = v0 ? __ldg(srow + i0) : 0.f;
+        const float st1 = v1 ? __ldg(srow + i1) : 0.f;
+        sg = clip_sigma((w0 * st0 + f * st1) * m);
+      }
       float c[3], err = 0.f;
 #pragma unroll
       for (int ch = 0; ch < 3; ++ch) {
@@ -152,7 +168,7 @@ sweep_fwd_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
       err /= 3.f;
       float corr, e;
       online(l, mx[p], &corr, &e);
-      const float r = 1.f / sg;
+      const float r = MIX ? 1.f / sg : 1.f;
       const float u = e * r;
 #pragma unroll
       for (int ch = 0; ch < 3; ++ch) acc[p][ch] = acc[p][ch] * corr + u * c[ch];
@@ -162,10 +178,11 @@ sweep_fwd_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
       if (with_auto) Ma[p] = Ma[p] * corr + e * 0.5f * expf(-e_auto[p] * r) * r;
       if (with_disp) {
         const float l0 = __ldg(lrow + x) * m;
-        const float s0 = clip_sigma(__ldg(srow + x));
+        const float s0 = MIX ? clip_sigma(__ldg(srow + x)) : 1.f;
         float corr0, e0;
         online(l0, mx0[p], &corr0, &e0);
-        const float u0 = e0 * m * (1.f / s0);
+        // no mixture: the plain softmax expectation, no mask in the weights
+        const float u0 = MIX ? e0 * m * (1.f / s0) : e0;
         se0[p] = se0[p] * corr0 + u0 * s0;      // masked normaliser
         us0[p] = us0[p] * corr0 + u0;
         ud0[p] = ud0[p] * corr0 + u0 * s;
@@ -206,7 +223,9 @@ sweep_fwd_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
   }
 }
 
-template <int PX>
+// MIX as in sweep_fwd_kernel; without it d_sigma is not written (and may be
+// null), and the sigma staging row is not used.
+template <int PX, bool MIX>
 __global__ void __launch_bounds__(kMaxThreads)
 sweep_bwd_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
                  const float* __restrict__ logits,
@@ -279,7 +298,7 @@ sweep_bwd_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
     const float f = s - (float)k, w0 = 1.f - f, m = sh_mask[n];
     const int64_t plane_off = ((int64_t)b * N + n) * plane + pix_row;
     const float* lrow = logits + plane_off;
-    const float* srow = sigma + plane_off;
+    const float* srow = MIX ? sigma + plane_off : nullptr;
     float dsh = 0.f, dl0[PX], ds0[PX];
 #pragma unroll
     for (int p = 0; p < PX; ++p) {
@@ -291,11 +310,15 @@ sweep_bwd_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
       const bool v0 = i0 < W, v1 = i1 < W;
       const float lt0 = v0 ? __ldg(lrow + i0) : 0.f;
       const float lt1 = v1 ? __ldg(lrow + i1) : 0.f;
-      const float st0 = v0 ? __ldg(srow + i0) : 0.f;
-      const float st1 = v1 ? __ldg(srow + i1) : 0.f;
       const float l = (w0 * lt0 + f * lt1) * m;
-      const float sg = clip_sigma((w0 * st0 + f * st1) * m);
-      const float ld = (lt1 - lt0) * m, sd = (st1 - st0) * m;
+      const float ld = (lt1 - lt0) * m;
+      float sg = 1.f, sd = 0.f;
+      if (MIX) {
+        const float st0 = v0 ? __ldg(srow + i0) : 0.f;
+        const float st1 = v1 ? __ldg(srow + i1) : 0.f;
+        sg = clip_sigma((w0 * st0 + f * st1) * m);
+        sd = (st1 - st0) * m;
+      }
       float c[3], cd[3], err = 0.f, dwgt = 0.f;
 #pragma unroll
       for (int ch = 0; ch < 3; ++ch) {
@@ -309,7 +332,7 @@ sweep_bwd_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
       err /= 3.f;
       // per-plane algebra of pallas_sweep.py:_bwd_kernel.plane_grads
       const float pi = expf(l - L[p]);
-      const float r = 1.f / sg;
+      const float r = MIX ? 1.f / sg : 1.f;
       const float lap = 0.5f * expf(-err * r) * r;
       const float wgt = pi * r * inv_u[p];
       const float du = dwgt * inv_u[p] + dU[p];
@@ -317,27 +340,35 @@ sweep_bwd_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
       const float dl = pi * (dpi - S[p]);
       const float dlap = dM[p] * pi;
       const float de = -dlap * lap * r;
+      // sigma is the constant 1 without the mixture: no gradient
       const float ds = (dlap * lap * (err - sg) - du * pi) * (r * r);
-      const float dsg = (sg > 0.01f && sg < 1.f) ? ds : 0.f;
+      const float dsg = (MIX && sg > 0.01f && sg < 1.f) ? ds : 0.f;
       float dc_cd = 0.f;
 #pragma unroll
       for (int ch = 0; ch < 3; ++ch)
         dc_cd += (G[p][ch] * wgt + sgn(c[ch] - t[p][ch]) * (de / 3.f)) * cd[ch];
       dsh += dl * ld + dsg * sd + dc_cd;
       if (with_disp) {
-        // centre disp head (pallas_sweep.py:731-749); the softmax
-        // coupling vanishes, the sigma gate is on the RAW centre sigma
+        // centre disp head (pallas_sweep.py:731-755); the softmax
+        // coupling vanishes, the sigma gate is on the RAW centre sigma.
+        // Without the mixture the weights carry neither mask nor sigma,
+        // but l0 = L m still chains the mask into d_logits.
         const float l0 = __ldg(lrow + x) * m;
-        const float s0raw = __ldg(srow + x);
         const float p0 = expf(l0 - L0[p]);
-        const float r0 = 1.f / clip_sigma(s0raw);
         const float du0 = gu0[p] * (s - disp0[p]);
-        dl0[p] = p0 * (du0 * m * r0);
-        ds0[p] = (s0raw > 0.01f && s0raw < 1.f) ? -du0 * p0 * m * (r0 * r0) : 0.f;
-        dsh += gu0[p] * p0 * m * r0;
+        if (MIX) {
+          const float s0raw = __ldg(srow + x);
+          const float r0 = 1.f / clip_sigma(s0raw);
+          dl0[p] = p0 * (du0 * m * r0);
+          ds0[p] = (s0raw > 0.01f && s0raw < 1.f) ? -du0 * p0 * m * (r0 * r0) : 0.f;
+          dsh += gu0[p] * p0 * m * r0;
+        } else {
+          dl0[p] = p0 * du0 * m;
+          dsh += gu0[p] * p0;
+        }
       }
       sh_gl[x] = dl * m;
-      sh_gs[x] = dsg * m;
+      if (MIX) sh_gs[x] = dsg * m;
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
@@ -351,10 +382,10 @@ sweep_bwd_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
       if (x >= W) continue;
       const int j0 = x - k, j1 = j0 - 1;       // j0 < W since k >= 0
       float gl = 0.f, gs = 0.f;
-      if (j0 >= 0) { gl += w0 * sh_gl[j0]; gs += w0 * sh_gs[j0]; }
-      if (j1 >= 0) { gl += f * sh_gl[j1]; gs += f * sh_gs[j1]; }
+      if (j0 >= 0) { gl += w0 * sh_gl[j0]; if (MIX) gs += w0 * sh_gs[j0]; }
+      if (j1 >= 0) { gl += f * sh_gl[j1]; if (MIX) gs += f * sh_gs[j1]; }
       d_logits[plane_off + x] = gl + dl0[p];
-      d_sigma[plane_off + x] = gs + ds0[p];
+      if (MIX) d_sigma[plane_off + x] = gs + ds0[p];
     }
     if (threadIdx.x == 0) {
       float sum = 0.f;
@@ -379,8 +410,9 @@ dim3 block_for(int W, int px) {
 // Shapes (all f32, contiguous): src, tgt (B, 3, H, W); logits, sigma
 // (B, N, H, W); shift, mask (B, H, N), shift UNclipped (clipped here to
 // [0, shift_max]); outputs rgb (B, 3, H, W), nll, nll_auto, disp (B, H, W),
-// stats (B, 7 or 4, H, W).  nll_auto/disp may be null when their flag is 0.
-// W <= 4 * 512.  Launches on `stream`, allocates nothing, does not
+// stats (B, 7 or 4, H, W).  nll_auto/disp may be null when their flag is 0;
+// with_mixture 0 is the no-mixture mode (sigma may be null, with_auto must
+// be 0).  W <= 4 * 512.  Launches on `stream`, allocates nothing, does not
 // synchronise; returns cudaGetLastError() of the launch.
 extern "C" int pdt_plane_sweep_fwd(const float* src, const float* tgt,
                                    const float* logits, const float* sigma,
@@ -388,16 +420,21 @@ extern "C" int pdt_plane_sweep_fwd(const float* src, const float* tgt,
                                    float* rgb, float* nll, float* nll_auto,
                                    float* disp, float* stats, int B, int N,
                                    int H, int W, float shift_max, int with_auto,
-                                   int with_disp, void* stream) {
+                                   int with_disp, int with_mixture, void* stream) {
+  if (!with_mixture && with_auto) return (int)cudaErrorInvalidValue;
   const int px = pixels_per_thread(W);
   const dim3 grid(H, B), block = block_for(W, px);
   const size_t smem = (2 * (size_t)N + 3 * (size_t)W) * sizeof(float);
   cudaStream_t st = (cudaStream_t)stream;
-#define PDT_FWD(P)                                                          \
-  sweep_fwd_kernel<P><<<grid, block, smem, st>>>(                           \
+#define PDT_FWD(P, MIX)                                                     \
+  sweep_fwd_kernel<P, MIX><<<grid, block, smem, st>>>(                      \
       src, tgt, logits, sigma, shift, mask, rgb, nll, nll_auto, disp, stats, \
       N, H, W, shift_max, with_auto, with_disp)
-  if (px == 1) PDT_FWD(1); else if (px == 2) PDT_FWD(2); else PDT_FWD(4);
+  if (with_mixture) {
+    if (px == 1) PDT_FWD(1, true); else if (px == 2) PDT_FWD(2, true); else PDT_FWD(4, true);
+  } else {
+    if (px == 1) PDT_FWD(1, false); else if (px == 2) PDT_FWD(2, false); else PDT_FWD(4, false);
+  }
 #undef PDT_FWD
   return (int)cudaGetLastError();
 }
@@ -405,7 +442,8 @@ extern "C" int pdt_plane_sweep_fwd(const float* src, const float* tgt,
 // Adjoint of pdt_plane_sweep_fwd for the head operands: d_logits, d_sigma
 // (B, N, H, W) and d_shift (B, H, N), each element written once.  stats and
 // rgb are the forward's; g_rgb (B, 3, H, W), g_nll, g_disp (B, H, W) the
-// cotangents (g_disp may be null when with_disp is 0).
+// cotangents (g_disp may be null when with_disp is 0).  With with_mixture 0
+// sigma and d_sigma may be null; d_sigma is not written.
 extern "C" int pdt_plane_sweep_bwd(const float* src, const float* tgt,
                                    const float* logits, const float* sigma,
                                    const float* shift, const float* mask,
@@ -414,16 +452,20 @@ extern "C" int pdt_plane_sweep_bwd(const float* src, const float* tgt,
                                    const float* g_disp, float* d_logits,
                                    float* d_sigma, float* d_shift, int B, int N,
                                    int H, int W, float shift_max, int with_disp,
-                                   void* stream) {
+                                   int with_mixture, void* stream) {
   const int px = pixels_per_thread(W);
   const dim3 grid(H, B), block = block_for(W, px);
   const size_t smem = (2 * (size_t)N + 5 * (size_t)W + 32) * sizeof(float);
   cudaStream_t st = (cudaStream_t)stream;
-#define PDT_BWD(P)                                                          \
-  sweep_bwd_kernel<P><<<grid, block, smem, st>>>(                           \
+#define PDT_BWD(P, MIX)                                                     \
+  sweep_bwd_kernel<P, MIX><<<grid, block, smem, st>>>(                      \
       src, tgt, logits, sigma, shift, mask, stats, rgb, g_rgb, g_nll,       \
       g_disp, d_logits, d_sigma, d_shift, N, H, W, shift_max, with_disp)
-  if (px == 1) PDT_BWD(1); else if (px == 2) PDT_BWD(2); else PDT_BWD(4);
+  if (with_mixture) {
+    if (px == 1) PDT_BWD(1, true); else if (px == 2) PDT_BWD(2, true); else PDT_BWD(4, true);
+  } else {
+    if (px == 1) PDT_BWD(1, false); else if (px == 2) PDT_BWD(2, false); else PDT_BWD(4, false);
+  }
 #undef PDT_BWD
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,10 @@
 // Per-plane 2-D bilinear warp of [rgb | logit | sigma], and its adjoint.
 //
 // Replaces planedepth_tpu/ops/pallas_warp2d.py:_fwd_kernel (forward, behind
-// warp2d_sample's _fwd_call) and _bwd_kernel (backward, behind _bwd_call).
+// warp2d_sample's _fwd_call) and _bwd_kernel (backward, behind _bwd_call),
+// in both of their modes: with_sigma=True (the mixture recipes) and
+// with_sigma=False (use_mixture_loss=False: [rgb | logit] only, no sigma
+// load, store or scatter), one template instance each.
 // For output element (b, n, y, x), with xs = x + dx, ys = y + dy:
 //   valid = xs > -1 && xs < W && ys > -1 && ys < H   (false for NaN)
 //   m     = mask * valid
@@ -29,7 +32,9 @@
 //
 // Bound: device memory.  Forward: dx, dy, mask, logits, sigma read and 5
 // maps written, ~2.49 GB at (8, 63, 192, 640), ~0.74 ms at 3.35 TB/s.
-// Backward: 10 maps read and 4 written, ~3.47 GB, ~1.04 ms.  Design: one
+// Backward: 10 maps read and 4 written, ~3.47 GB, ~1.04 ms.  Without sigma:
+// 8 maps forward (~1.99 GB, ~0.60 ms), 11 backward (~2.74 GB, ~0.82 ms).
+// Design: one
 // thread per output element, threads along W, so the loads of dx, dy, mask
 // and the cotangents and every store are coalesced; the taps of a smooth
 // warp are neighbours of the neighbouring threads' taps, and src (11.8 MB)
@@ -83,6 +88,8 @@ __device__ __forceinline__ void add_coord_grads(const float v[4], float gc, cons
   gy += gc * ((1.f - t.fx) * (v[2] - v[0]) + t.fx * (v[3] - v[1]));
 }
 
+// SIGMA: the mixture mode; without it the sigma pointers are not touched.
+template <bool SIGMA>
 __global__ void warp2d_fwd_kernel(const float* __restrict__ src,
                                   const float* __restrict__ logits,
                                   const float* __restrict__ sigma,
@@ -115,14 +122,17 @@ __global__ void warp2d_fwd_kernel(const float* __restrict__ src,
     }
     corners(logits + bn * plane, t, v);
     out[3] = m * lerp2(v, t.fx, t.fy);
-    corners(sigma + bn * plane, t, v);
-    out[4] = m * lerp2(v, t.fx, t.fy);
+    if (SIGMA) {
+      corners(sigma + bn * plane, t, v);
+      out[4] = m * lerp2(v, t.fx, t.fy);
+    }
   }
   for (int c = 0; c < 3; ++c) rgb[(bn * 3 + c) * plane + at] = out[c];
   logit_out[pix] = out[3];
-  sigma_out[pix] = out[4];
+  if (SIGMA) sigma_out[pix] = out[4];
 }
 
+template <bool SIGMA>
 __global__ void warp2d_bwd_kernel(const float* __restrict__ src,
                                   const float* __restrict__ logits,
                                   const float* __restrict__ sigma,
@@ -162,13 +172,16 @@ __global__ void warp2d_bwd_kernel(const float* __restrict__ src,
     const float gl = m * g_logit[pix];
     corners(logits + bn * plane, t, v);
     add_coord_grads(v, gl, t, gx, gy);
-    const float gs = m * g_sigma[pix];
-    corners(sigma + bn * plane, t, v);
-    add_coord_grads(v, gs, t, gx, gy);
+    float gs = 0.f;
+    if (SIGMA) {
+      gs = m * g_sigma[pix];
+      corners(sigma + bn * plane, t, v);
+      add_coord_grads(v, gs, t, gx, gy);
+    }
     for (int k = 0; k < 4; ++k) {
       if (!t.in[k]) continue;
       atomicAdd(d_logits + bn * plane + t.off[k], w[k] * gl);
-      atomicAdd(d_sigma + bn * plane + t.off[k], w[k] * gs);
+      if (SIGMA) atomicAdd(d_sigma + bn * plane + t.off[k], w[k] * gs);
     }
   }
   d_dx[pix] = gx;
@@ -179,31 +192,42 @@ __global__ void warp2d_bwd_kernel(const float* __restrict__ src,
 
 // src: (B, 3, H, W); logits, sigma, dx, dy, mask: (B, N, H, W); outputs rgb:
 // (B, N, 3, H, W), logit_out, sigma_out: (B, N, H, W); all f32 contiguous,
-// every output element written.  Launches on `stream`, allocates nothing,
+// every output element written.  With with_sigma 0, sigma and sigma_out may
+// be null and are not touched.  Launches on `stream`, allocates nothing,
 // does not synchronise; returns cudaGetLastError() of the launch.
 extern "C" int pdt_warp2d_fwd(const float* src, const float* logits, const float* sigma,
                               const float* dx, const float* dy, const float* mask,
                               float* rgb, float* logit_out, float* sigma_out,
-                              int B, int N, int H, int W, void* stream) {
+                              int B, int N, int H, int W, int with_sigma, void* stream) {
   const dim3 grid((W + kThreads - 1) / kThreads, H, B * N);
-  warp2d_fwd_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      src, logits, sigma, dx, dy, mask, rgb, logit_out, sigma_out, N, H, W);
+  if (with_sigma)
+    warp2d_fwd_kernel<true><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        src, logits, sigma, dx, dy, mask, rgb, logit_out, sigma_out, N, H, W);
+  else
+    warp2d_fwd_kernel<false><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        src, logits, nullptr, dx, dy, mask, rgb, logit_out, nullptr, N, H, W);
   return (int)cudaGetLastError();
 }
 
 // Inputs as pdt_warp2d_fwd's plus the cotangents g_rgb: (B, N, 3, H, W),
 // g_logit, g_sigma: (B, N, H, W).  d_logits and d_sigma (B, N, H, W) must be
 // zeroed by the caller (the kernel adds into them); d_dx, d_dy (B, N, H, W)
-// are written.  Launches on `stream`; returns cudaGetLastError().
+// are written.  With with_sigma 0, sigma, g_sigma and d_sigma may be null
+// and are not touched.  Launches on `stream`; returns cudaGetLastError().
 extern "C" int pdt_warp2d_bwd(const float* src, const float* logits, const float* sigma,
                               const float* dx, const float* dy, const float* mask,
                               const float* g_rgb, const float* g_logit,
                               const float* g_sigma, float* d_logits, float* d_sigma,
                               float* d_dx, float* d_dy, int B, int N, int H, int W,
-                              void* stream) {
+                              int with_sigma, void* stream) {
   const dim3 grid((W + kThreads - 1) / kThreads, H, B * N);
-  warp2d_bwd_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      src, logits, sigma, dx, dy, mask, g_rgb, g_logit, g_sigma, d_logits, d_sigma,
-      d_dx, d_dy, N, H, W);
+  if (with_sigma)
+    warp2d_bwd_kernel<true><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        src, logits, sigma, dx, dy, mask, g_rgb, g_logit, g_sigma, d_logits, d_sigma,
+        d_dx, d_dy, N, H, W);
+  else
+    warp2d_bwd_kernel<false><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+        src, logits, nullptr, dx, dy, mask, g_rgb, g_logit, nullptr, d_logits, nullptr,
+        d_dx, d_dy, N, H, W);
   return (int)cudaGetLastError();
 }

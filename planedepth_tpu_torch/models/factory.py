@@ -9,23 +9,42 @@ import torch.nn as nn
 
 from planedepth_tpu_torch.config import ModelConfig
 from planedepth_tpu_torch.models.depth_decoder import DepthDecoder
+from planedepth_tpu_torch.models.fal_net import FalNet
+from planedepth_tpu_torch.models.plade_net import PladeNet
 from planedepth_tpu_torch.models.resnet import ResnetEncoder
+
+NET_TYPES = ("ResNet", "PladeNet", "FalNet")
 
 
 class DepthModel(nn.Module):
-    """ResNet encoder + plane ``DepthDecoder``: ``(image, grid) -> outputs``.
+    """One depth network behind ``(image, grid) -> outputs``, by
+    ``cfg.net_type``: the ResNet encoder + plane ``DepthDecoder``
+    (submodules ``encoder`` and ``depth``, which take the reference's
+    ``encoder.pth`` and ``depth.pth`` state dicts), ``PladeNet`` (submodule
+    ``plade``) or ``FalNet`` (submodule ``fal``), the JAX package's names.
 
     ``image`` is ``(B, 3, H, W)`` in [0, 1], ``grid`` the ``(B, 2, H, W)``
-    augmentation grid.  Submodules ``encoder`` and ``depth`` take the
-    reference's ``encoder.pth`` and ``depth.pth`` state dicts.
+    augmentation grid.  ``fused_sweep_loss`` reaches only the ResNet
+    decoder; the other families always emit ``disp``.
     """
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.net_type != "ResNet":
-            raise NotImplementedError(
-                f"net_type {cfg.net_type!r} is not ported yet (ROADMAP A11)")
+        if cfg.net_type not in NET_TYPES:
+            raise ValueError(f"unknown net_type {cfg.net_type!r} (one of {NET_TYPES})")
         self.cfg = cfg
+        if cfg.net_type == "PladeNet":
+            self.plade = PladeNet(cfg.planes, num_ep=cfg.num_ep,
+                                  use_mixture_loss=cfg.use_mixture_loss,
+                                  render_probability=cfg.render_probability,
+                                  plane_residual=cfg.plane_residual)
+            return
+        if cfg.net_type == "FalNet":
+            if cfg.render_probability:
+                raise NotImplementedError(
+                    "FalNet with render_probability is not ported yet (ROADMAP A3)")
+            self.fal = FalNet(cfg.planes)
+            return
         self.encoder = ResnetEncoder(cfg.num_layers)
         self.depth = DepthDecoder(
             num_ch_enc=tuple(int(c) for c in self.encoder.num_ch_enc),
@@ -41,7 +60,12 @@ class DepthModel(nn.Module):
 
     def forward(self, image: torch.Tensor, grid: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
-        """``generator`` draws the decoder's dropout masks in training."""
+        """``generator`` draws the ResNet decoder's dropout masks in
+        training (PladeNet and FalNet have no dropout)."""
+        if self.cfg.net_type == "PladeNet":
+            return self.plade(image, grid)
+        if self.cfg.net_type == "FalNet":
+            return self.fal(image)
         return self.depth(self.encoder(image), grid, generator)
 
 

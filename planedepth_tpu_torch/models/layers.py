@@ -1,7 +1,10 @@
-"""Decoder building blocks, NCHW (``planedepth_tpu/models/layers.py`` and ``ops/resize.py``).
+"""Network building blocks, NCHW (``planedepth_tpu/models/layers.py`` and ``ops/resize.py``).
 
-Module attribute names follow the reference torch code, so a reference
-``state_dict`` loads as it is: ``Conv3x3.conv``, ``ConvBlock.conv.conv``.
+The ResNet decoder's blocks name their modules after the reference torch
+code, so a reference ``state_dict`` loads as it is: ``Conv3x3.conv``,
+``ConvBlock.conv.conv``.  The PladeNet/FalNet blocks (``ConvELU``,
+``ResidualBlock``, ``Deconv``) name theirs after the JAX modules
+(``conv``, ``conv1``, ``conv2``), the names ``utils/weights.py`` maps.
 """
 from __future__ import annotations
 
@@ -20,6 +23,15 @@ def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
 def resize_bilinear_align_corners(x: torch.Tensor, size: Sequence[int]) -> torch.Tensor:
     """Bilinear resize to ``size=(Ho, Wo)`` with ``align_corners=True``."""
     return F.interpolate(x, size=tuple(size), mode="bilinear", align_corners=True)
+
+
+def resize_nearest(x: torch.Tensor, size: Sequence[int]) -> torch.Tensor:
+    """Nearest resize to ``size=(Ho, Wo)``: source index ``floor(dst * in /
+    out)`` on each axis, torch's ``mode="nearest"`` rule, at any ratio (a
+    stride-2 stage maps 5 columns to 3, its deconv 3 back to 5)."""
+    if tuple(size) == tuple(x.shape[-2:]):
+        return x
+    return F.interpolate(x, size=tuple(size), mode="nearest")
 
 
 class Conv3x3(nn.Module):
@@ -70,3 +82,45 @@ def inject_grid(x: torch.Tensor, grid_ep: Optional[torch.Tensor]) -> torch.Tenso
         return x
     g = resize_bilinear_align_corners(grid_ep, x.shape[-2:])
     return torch.cat([x, g.to(x.dtype)], dim=1)
+
+
+class ConvELU(nn.Module):
+    """Conv with bias, then ELU: the PladeNet/FalNet stage conv (reference
+    plade_net.py:33-46).  ``ModelConfig`` never turns its BatchNorm on, and
+    the port does not build one."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3, stride: int = 1,
+                 pad: int = 1, batch_norm: bool = False):
+        super().__init__()
+        if batch_norm:
+            raise NotImplementedError("ConvELU with BatchNorm: no ModelConfig builds it")
+        self.conv = nn.Conv2d(in_ch, out_ch, kernel_size, stride=stride, padding=pad)
+
+    def forward(self, x):
+        return F.elu(self.conv(x))
+
+
+class ResidualBlock(nn.Module):
+    """Two bias-free 3x3 convs, ``elu(conv2(elu(conv1(x))) + x)`` (reference
+    plade_net.py:61-72)."""
+
+    def __init__(self, ch: int, kernel_size: int = 3):
+        super().__init__()
+        p = (kernel_size - 1) // 2
+        self.conv1 = nn.Conv2d(ch, ch, kernel_size, padding=p, bias=False)
+        self.conv2 = nn.Conv2d(ch, ch, kernel_size, padding=p, bias=False)
+
+    def forward(self, x):
+        return F.elu(self.conv2(F.elu(self.conv1(x))) + x)
+
+
+class Deconv(nn.Module):
+    """Nearest resize to a reference size, a bias-free 3x3 conv, ELU
+    (reference plade_net.py:49-58)."""
+
+    def __init__(self, in_ch: int, out_ch: int):
+        super().__init__()
+        self.conv1 = nn.Conv2d(in_ch, out_ch, 3, padding=1, bias=False)
+
+    def forward(self, x, size: Sequence[int]):
+        return F.elu(self.conv1(resize_nearest(x, size)))

@@ -103,13 +103,13 @@ def load_library() -> ctypes.CDLL:
     lib.pdt_disp_head_bwd.restype = i
     lib.pdt_disp_head_bwd_max_planes.argtypes = []
     lib.pdt_disp_head_bwd_max_planes.restype = i
-    lib.pdt_warp2d_fwd.argtypes = [p] * 9 + [i, i, i, i, p]
+    lib.pdt_warp2d_fwd.argtypes = [p] * 9 + [i] * 5 + [p]
     lib.pdt_warp2d_fwd.restype = i
-    lib.pdt_warp2d_bwd.argtypes = [p] * 13 + [i, i, i, i, p]
+    lib.pdt_warp2d_bwd.argtypes = [p] * 13 + [i] * 5 + [p]
     lib.pdt_warp2d_bwd.restype = i
-    lib.pdt_plane_sweep_fwd.argtypes = [p] * 11 + [i, i, i, i, f, i, i, p]
+    lib.pdt_plane_sweep_fwd.argtypes = [p] * 11 + [i, i, i, i, f, i, i, i, p]
     lib.pdt_plane_sweep_fwd.restype = i
-    lib.pdt_plane_sweep_bwd.argtypes = [p] * 14 + [i, i, i, i, f, i, p]
+    lib.pdt_plane_sweep_bwd.argtypes = [p] * 14 + [i, i, i, i, f, i, i, p]
     lib.pdt_plane_sweep_bwd.restype = i
     lib.pdt_row_shift_fwd.argtypes = [p, p, p, i, i, i, i, f, p]
     lib.pdt_row_shift_fwd.restype = i
@@ -121,11 +121,14 @@ def load_library() -> ctypes.CDLL:
 
 
 def launch(fn: str, *args) -> None:
-    """Call the library's entry point ``fn`` with ``args`` and PyTorch's
+    """Call the library's entry point ``fn`` with ``args`` (a tensor is
+    passed as its data pointer, None as a null pointer) and PyTorch's
     current CUDA stream; raise when the launch failed (the entry point
     returns the launch's ``cudaGetLastError``)."""
     import torch
 
-    rc = getattr(load_library(), fn)(*args, torch.cuda.current_stream().cuda_stream)
+    # ``args`` keeps every tensor (a temporary copy too) alive through the call
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    rc = getattr(load_library(), fn)(*ptrs, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{fn} kernel launch failed: CUDA error {rc}")

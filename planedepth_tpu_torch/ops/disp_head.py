@@ -70,8 +70,7 @@ class _DispHead(torch.autograd.Function):
     def forward(ctx, logits, sigma, disp_rows, mask_rows):
         B, N, H, W = logits.shape
         out = torch.empty((B, 1, H, W), dtype=torch.float32, device=logits.device)
-        launch("pdt_disp_head_fwd", logits.data_ptr(), sigma.data_ptr(),
-               disp_rows.data_ptr(), mask_rows.data_ptr(), out.data_ptr(), B, N, H, W)
+        launch("pdt_disp_head_fwd", logits, sigma, disp_rows, mask_rows, out, B, N, H, W)
         disp_head.launches += 1
         ctx.save_for_backward(logits, sigma, disp_rows, mask_rows)
         return out
@@ -83,9 +82,8 @@ class _DispHead(torch.autograd.Function):
         g = g.contiguous()
         d_logits, d_sigma = torch.empty_like(logits), torch.empty_like(sigma)
         d_rows = torch.empty_like(disp_rows)
-        launch("pdt_disp_head_bwd", *(t.data_ptr() for t in (
-            logits, sigma, disp_rows, mask_rows, g, d_logits, d_sigma, d_rows)),
-            B, N, H, W)
+        launch("pdt_disp_head_bwd", logits, sigma, disp_rows, mask_rows, g, d_logits,
+               d_sigma, d_rows, B, N, H, W)
         disp_head.bwd_launches += 1
         return d_logits, d_sigma, d_rows, None
 

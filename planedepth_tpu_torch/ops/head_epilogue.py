@@ -59,10 +59,6 @@ def _check(raw_logits, raw_sigma, padding_mask):
             raise TypeError(f"{name}: dtype {t.dtype}, the kernels take float32")
 
 
-def _ptr(t):
-    return None if t is None else t.data_ptr()
-
-
 class _HeadEpilogue(torch.autograd.Function):
     """The two CUDA kernels joined as forward and backward."""
 
@@ -75,8 +71,8 @@ class _HeadEpilogue(torch.autograd.Function):
         full = int(mask.shape[-1] == W and W != 1)
         logits = torch.empty_like(raw_logits)
         sigma = None if raw_sigma is None else torch.empty_like(raw_sigma)
-        launch("pdt_head_epilogue_fwd", *map(_ptr, (raw_logits, raw_sigma, mask, logits,
-                                                    sigma)), B, N, H, W, full)
+        launch("pdt_head_epilogue_fwd", raw_logits, raw_sigma, mask, logits, sigma,
+               B, N, H, W, full)
         head_epilogue.fwd_launches += 1
         ctx.save_for_backward(sigma, mask)
         ctx.full = full
@@ -90,8 +86,7 @@ class _HeadEpilogue(torch.autograd.Function):
         g_sigma = None if sigma is None else g_sigma.contiguous()
         d_logits = torch.empty_like(g_logits)
         d_sigma = None if sigma is None else torch.empty_like(sigma)
-        launch("pdt_head_epilogue_bwd", *map(_ptr, (g_logits, g_sigma, sigma, mask,
-                                                    d_logits, d_sigma)),
+        launch("pdt_head_epilogue_bwd", g_logits, g_sigma, sigma, mask, d_logits, d_sigma,
                B, N, H, W, ctx.full)
         head_epilogue.bwd_launches += 1
         return d_logits, d_sigma, None

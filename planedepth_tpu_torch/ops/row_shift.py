@@ -78,8 +78,7 @@ def row_shift(maps: torch.Tensor, shift: torch.Tensor, pad: int) -> torch.Tensor
     maps, shift = maps.contiguous(), shift.contiguous()
     out = torch.empty_like(maps)
     with torch.cuda.device(maps.device):
-        launch("pdt_row_shift_fwd", maps.data_ptr(), shift.data_ptr(), out.data_ptr(),
-               B, N, H, W, shift_limit(pad))
+        launch("pdt_row_shift_fwd", maps, shift, out, B, N, H, W, shift_limit(pad))
     row_shift.launches += 1
     return out
 

@@ -7,8 +7,12 @@ by ``ops/warp2d.py`` (the CUDA kernels on the card, the plain version on the
 CPU) and the losses are assembled plane-first ``(B, N, H, W)``, the twin of
 the JAX package's ``fused_warp2d_losses``: the sum over sides, the automask
 minimum with pi and sigma held constant, ``mask_novel``, the perceptual loss
-per side, and the distillation term added once per side.  The warp samples
-exactly, so the TPU's tap plan (``warp2d_plan``) has no counterpart.
+per side, and the distillation term added once per side.  Without the
+mixture (``use_mixture_loss=False``) the warp takes the logits alone, the
+composite weights are the softmax of the warped logits, and the photometric
+term is the L1 of the composite with the ``mask_novel`` blend and the
+automask minimum.  The warp samples exactly, so the TPU's tap plan
+(``warp2d_plan``) has no counterpart.
 """
 from __future__ import annotations
 
@@ -81,7 +85,9 @@ def fused_warp2d_losses(bundle, outputs: Dict[str, torch.Tensor],
     color = "color_aug" if cfg.loss.match_aug else "color"
     source = batch[f"{color}_l"]                                     # (B, 3, H, W)
     B, _, H, W = source.shape
-    logits, sigma = outputs["logits"], outputs["sigma"]              # (B, N, H, W)
+    mix = cfg.model.use_mixture_loss
+    logits = outputs["logits"]                                       # (B, N, H, W)
+    sigma = outputs["sigma"] if mix else None
     mask_novel = outputs.get("mask_novel")                           # (B, 1, H, W)
 
     zero = torch.zeros((), dtype=source.dtype, device=source.device)
@@ -90,22 +96,35 @@ def fused_warp2d_losses(bundle, outputs: Dict[str, torch.Tensor],
         target = batch[f"{color}_{side}"]
         dx, dy, pmask = _side_coords(cfg, outputs, side, poses, batch["K"],
                                      batch["inv_K"], H, W)
-        rgb_l, logit_rec, sigma_rec = warp2d(source, logits, sigma, dx, dy, pmask)
+        warped = warp2d(source, logits, sigma, dx, dy, pmask)
+        rgb_l, logit_rec = warped[:2]
         pi = torch.softmax(logit_rec, dim=1)
-        sigma_rec = torch.clamp(sigma_rec, 0.01, 1.0)
-        u = pi / sigma_rec
-        U = u.sum(1, keepdim=True)
-        weights = u * torch.where(U > 1e-7, 1.0 / torch.clamp_min(U, 1e-7),
-                                  torch.zeros_like(U))
+        if mix:
+            sigma_rec = torch.clamp(warped[2], 0.01, 1.0)
+            u = pi / sigma_rec
+            U = u.sum(1, keepdim=True)
+            weights = u * torch.where(U > 1e-7, 1.0 / torch.clamp_min(U, 1e-7),
+                                      torch.zeros_like(U))
+        else:
+            weights = pi
         rgb_rec = (rgb_l * weights[:, :, None]).sum(1)               # (B, 3, H, W)
 
-        err = (rgb_l - target[:, None]).abs().mean(2)                # (B, N, H, W)
-        ph = _laplace_nll(err, pi, sigma_rec)                        # (B, H, W)
-        if cfg.loss.automask:
-            err_a = (source - target).abs().mean(1, keepdim=True)   # (B, 1, H, W)
-            ph = torch.minimum(ph, _laplace_nll(err_a, pi.detach(), sigma_rec.detach()))
-        if mask_novel is not None:
-            ph = ph * mask_novel[:, 0]
+        if mix:
+            err = (rgb_l - target[:, None]).abs().mean(2)            # (B, N, H, W)
+            ph = _laplace_nll(err, pi, sigma_rec)                    # (B, H, W)
+            if cfg.loss.automask:
+                err_a = (source - target).abs().mean(1, keepdim=True)   # (B, 1, H, W)
+                ph = torch.minimum(ph, _laplace_nll(err_a, pi.detach(),
+                                                    sigma_rec.detach()))
+            if mask_novel is not None:
+                ph = ph * mask_novel[:, 0]
+        else:
+            pred = rgb_rec
+            if mask_novel is not None:
+                pred = pred * mask_novel + target * (1.0 - mask_novel)
+            ph = (pred - target).abs().mean(1)                       # (B, H, W)
+            if cfg.loss.automask:
+                ph = torch.minimum(ph, (source - target).abs().mean(1))
         ph_loss = ph.mean()
         losses["loss/ph_loss"] = losses["loss/ph_loss"] + ph_loss
         total = ph_loss

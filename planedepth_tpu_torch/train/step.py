@@ -82,9 +82,6 @@ def _check_ported(cfg: TrainConfig) -> None:
     ROADMAP item."""
     if cfg.loss.alpha_self > 0:
         raise NotImplementedError("alpha_self is not ported yet (ROADMAP C1)")
-    if not cfg.model.use_mixture_loss:
-        raise NotImplementedError("the no-mixture sweep is not ported yet "
-                                  "(ROADMAP B1')")
     if cfg.model.render_probability:
         raise NotImplementedError("render_probability is not ported yet (ROADMAP A3)")
     if cfg.novel_frame_ids and cfg.loss.use_mom:
@@ -122,7 +119,10 @@ class ModelBundle:
         _check_ported(cfg)
         self.cfg = cfg
         self.device = torch.device(device)
-        model_cfg = dataclasses.replace(cfg.model, fused_sweep_loss=fused_sweep_ok(cfg))
+        # the ResNet decoder stops at its plane heads under the fused sweep;
+        # PladeNet and FalNet always emit disp, as in the JAX package
+        model_cfg = dataclasses.replace(
+            cfg.model, fused_sweep_loss=fused_sweep_ok(cfg) and cfg.model.net_type == "ResNet")
         g = torch.Generator().manual_seed(cfg.seed)
         self.model = init_weights_(DepthModel(model_cfg), g).to(self.device)
         self.pc = (init_weights_(Vgg19Features(), g).to(self.device)
@@ -205,28 +205,40 @@ def batch_to_tensors(batch: Mapping[str, np.ndarray],
 
 def fused_stereo_losses(bundle: ModelBundle, outputs: Dict[str, torch.Tensor],
                         batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """The stereo loss of the mixture recipes through the fused plane sweep:
-    mixture NLL (with the automask minimum, times ``mask_novel`` when the
-    outputs hold one), perceptual loss on the composited reconstruction
-    (blended with the target by ``mask_novel``), the distillation L1 to the
-    teacher's ``disp_pp``, edge-aware smoothness on the right 80% of columns
-    (``planedepth_tpu/train/step.py:fused_stereo_losses``).  The sweep
-    computes ``disp`` from its centre samples unless the decoder did."""
+    """The stereo loss through the fused plane sweep
+    (``planedepth_tpu/train/step.py:fused_stereo_losses``).  With the
+    mixture: the mixture NLL (with the automask minimum, times
+    ``mask_novel`` when the outputs hold one).  Without it (FalNet,
+    ``use_mixture_loss=False``): the sweep's no-mixture mode, and the L1 of
+    the softmax composite, blended with the target by ``mask_novel``, with
+    the automask minimum against ``mean |source - target|``.  Then the
+    perceptual loss on the composite (blended by ``mask_novel``), the
+    distillation L1 to the teacher's ``disp_pp``, edge-aware smoothness on
+    the right 80% of columns.  The sweep computes ``disp`` from its centre
+    samples unless the model did."""
     cfg = bundle.cfg
     color = "color_aug" if cfg.loss.match_aug else "color"
     source, target = batch[f"{color}_l"], batch[f"{color}_r"]
     mask_rows = outputs["padding_mask"][..., 0].transpose(1, 2).contiguous()
-    with_auto = cfg.loss.automask
+    mix = cfg.model.use_mixture_loss
+    # without the mixture the automask is the L1's, taken outside the kernel
+    with_auto = cfg.loss.automask and mix
     with_disp = "disp" not in outputs
-    sweep = plane_sweep(source, target, outputs["logits"], outputs["sigma"],
+    sweep = plane_sweep(source, target, outputs["logits"], outputs["sigma"] if mix else None,
                         outputs["disp_rows"], mask_rows, sweep_pad(cfg),
                         with_auto, with_disp)
-    rgb, nll = sweep[:2]
-    ph = torch.minimum(nll, sweep[2]) if with_auto else nll
+    rgb = sweep[0]
     disp = sweep[-1][:, None] if with_disp else outputs["disp"]
     mask_novel = outputs.get("mask_novel")                    # (B, 1, H, W)
-    if mask_novel is not None:
-        ph = ph * mask_novel[:, 0]
+    if mix:
+        ph = torch.minimum(sweep[1], sweep[2]) if with_auto else sweep[1]
+        if mask_novel is not None:
+            ph = ph * mask_novel[:, 0]
+    else:
+        pred = rgb if mask_novel is None else rgb * mask_novel + target * (1.0 - mask_novel)
+        ph = (pred - target).abs().mean(1)
+        if cfg.loss.automask:
+            ph = torch.minimum(ph, (source - target).abs().mean(1))
 
     ph_loss = ph.mean()
     losses = {"loss/ph_loss": ph_loss, "loss/pc_loss": torch.zeros_like(ph_loss)}
@@ -236,7 +248,7 @@ def fused_stereo_losses(bundle: ModelBundle, outputs: Dict[str, torch.Tensor],
         if mask_novel is not None:
             pred = rgb * mask_novel + target * (1.0 - mask_novel)
         pc = perceptual_loss(bundle.pc, pred, target,
-                             source if with_auto else None, remat=cfg.pc_remat)
+                             source if cfg.loss.automask else None, remat=cfg.pc_remat)
         losses["loss/pc_loss"] = pc
         total = total + cfg.loss.alpha_pc * pc
     if cfg.loss.self_distillation > 0 and "disp_pp" in outputs:

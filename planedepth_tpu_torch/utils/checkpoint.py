@@ -2,17 +2,19 @@
 
 Layout of one save, the reference's: ``<log_dir>/<tag>/encoder.pth`` (the
 encoder's state dict with the training ``height`` and ``width``),
-``depth.pth`` (the decoder's), with the pose networks ``pose_encoder.pth``
-and ``pose.pth``, and ``adam.pth`` (the optimizer's), plus, as
+``depth.pth`` (the decoder's), or one ``plade.pth`` / ``fal.pth`` for
+PladeNet and FalNet (with the resolution), with the pose networks
+``pose_encoder.pth`` and ``pose.pth``, and ``adam.pth`` (the optimizer's), plus, as
 the JAX package writes them, ``<log_dir>/<tag>.meta.json`` (resolution,
 step and config) and ``<log_dir>/opt.json`` (the config).  ``last_models``
 and ``best_models`` are the reference's tags.  ``utils/weights.py:
 load_reference_state_dicts`` reads the ``.pth`` pair.
 
 ``restore_submodules`` is the reference's ``--models_to_load`` restore: the
-named networks (``encoder``, ``depth`` of the ``DepthModel``; ``pose_encoder``
-and ``pose`` when the run has pose networks) are loaded whole, every key
-present and every shape equal, and a restore that would load nothing raises.
+named networks (``encoder``, ``depth`` of a ResNet ``DepthModel``, ``plade``
+or ``fal`` of the other families; ``pose_encoder`` and ``pose`` when the run
+has pose networks) are loaded whole, every key present and every shape
+equal, and a restore that would load nothing raises.
 """
 from __future__ import annotations
 
@@ -30,8 +32,11 @@ _META_KEYS = ("height", "width", "use_stereo")
 def _networks(model: nn.Module, pose_nets: Optional[Mapping[str, nn.Module]]
               ) -> Dict[str, nn.Module]:
     """Checkpoint name -> network: the ``DepthModel``'s ``encoder`` and
-    ``depth``, then ``pose_nets`` (``pose_encoder``, ``pose``)."""
-    return {"encoder": model.encoder, "depth": model.depth, **(pose_nets or {})}
+    ``depth`` (or its ``plade`` / ``fal``, the JAX package's names), then
+    ``pose_nets`` (``pose_encoder``, ``pose``)."""
+    depth = {name: getattr(model, name) for name in ("encoder", "depth", "plade", "fal")
+             if hasattr(model, name)}
+    return {**depth, **(pose_nets or {})}
 
 
 def _cpu_state(module: nn.Module) -> Dict[str, torch.Tensor]:
@@ -50,11 +55,12 @@ def save_checkpoint(log_dir: str, tag: str, model: nn.Module,
     if os.path.exists(path):
         shutil.rmtree(path)
     os.makedirs(path)
-    for name, net in _networks(model, pose_nets).items():
+    for i, (name, net) in enumerate(_networks(model, pose_nets).items()):
         state = _cpu_state(net)
-        if name == "encoder":
-            # the reference embeds the train resolution in encoder.pth
-            # (trainer.py:879-882) so the evaluator can run at the right size
+        if i == 0:
+            # the reference embeds the train resolution in the first network's
+            # file, encoder.pth (trainer.py:879-882), so the evaluator can run
+            # at the right size
             state.update(height=height, width=width, use_stereo=True)
         torch.save(state, os.path.join(path, f"{name}.pth"))
     if optimizer is not None:

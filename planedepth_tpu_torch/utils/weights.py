@@ -2,7 +2,9 @@
 
 ``load_jax_params`` is the inverse of ``planedepth_tpu/utils/torch_convert.py``:
 a JAX ``DepthModel`` tree (``{"encoder": {"encoder": trunk}, "depth": decoder}``,
-as numpy) goes into the port's ``state_dict``.  Conv kernels are transposed
+or ``{"plade": ...}`` / ``{"fal": ...}`` for PladeNet and FalNet, as numpy)
+goes into the port's ``state_dict``; the PladeNet/FalNet modules carry the
+JAX module names, so their paths map one to one.  Conv kernels are transposed
 HWIO -> OIHW; BatchNorm ``scale``/``bias`` (params) and ``mean``/``var``
 (batch stats) become ``weight``/``bias``/``running_mean``/``running_var``.
 ``load_jax_pose_params`` does the same for the pose networks (the names of
@@ -65,6 +67,8 @@ def _pose_path(num_ep: int, parts) -> Tuple[str, ...]:
 
 
 def _depth_model_path(model: nn.Module, parts) -> Tuple[str, ...]:
+    if parts[0] in ("plade", "fal"):
+        return tuple(parts)
     if parts[0] == "encoder":
         return ("encoder", "encoder") + _encoder_path(parts[2:])
     if parts[0] == "depth":
@@ -124,11 +128,14 @@ def load_jax_pose_params(pose_encoder: nn.Module, pose: nn.Module, params: Mappi
 
 def load_reference_state_dicts(model: nn.Module, encoder_sd: Dict,
                                depth_sd: Dict) -> None:
-    """Load the reference's ``encoder.pth`` and ``depth.pth`` state dicts.
+    """Load the reference's ``encoder.pth`` and ``depth.pth`` state dicts
+    into a ResNet ``DepthModel``.
 
     ``encoder.pth`` also holds torchvision's unused ``fc`` head and the
     ``height``/``width``/``use_stereo`` metadata; only the trunk's keys are
-    taken, and each of them must be present.
+    taken, and each of them must be present.  The reference's ``plade.pth``
+    and ``fal.pth`` key layouts are not known here (no copy of the
+    reference code); PladeNet and FalNet load from the JAX trees only.
     """
     enc_keys = model.encoder.state_dict().keys()
     model.encoder.load_state_dict({k: torch.as_tensor(encoder_sd[k]) for k in enc_keys})

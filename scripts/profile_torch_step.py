@@ -1,6 +1,6 @@
 """Where the time of the port's training step goes on one NVIDIA GPU.
 
-    python scripts/profile_torch_step.py [--recipe stage1|stage3|mono] [--steps 3]
+    python scripts/profile_torch_step.py [--recipe stage1|stage3|mono|falnet|pladenet] [--steps 3]
 
 Runs one recipe's step with seeded random weights, float32, TF32 off:
 ``stage1`` is ``stage1_config()`` (ResNet-50, DenseASPP, 49+14 planes, VGG19
@@ -8,14 +8,17 @@ perceptual loss, Adam; 8 images at 640x192), ``stage3`` is
 ``self_distillation_config()`` (the same model and loss at 1280x384, batch 4,
 plus the frozen teacher on 8 images), ``mono`` is ``mono_config()`` (the
 same model with the pose nets, the homography warp to the sides r, -1, 1,
-automask and the perceptual loss per side; 8 images at 640x192).  Prints,
+automask and the perceptual loss per side; 8 images at 640x192), ``falnet``
+is stage 1 with FalNet (49 fronto-parallel planes, no mixture: the
+no-mixture sweep) and ``pladenet`` stage 1 with PladeNet (49+14 planes,
+mixture, 8-channel PE, plane residuals).  Prints,
 each beside the card's name and power limit:
   - the device time of a few steps under ``torch.profiler``, split by kernel
     class (the port's kernels, convolutions, BatchNorm, the rest) and the
     device's idle share of the profiled wall time;
   - the step time with and without each of the recipe's parts, host clock
     around synchronised steps, median of 5, in turns: the perceptual loss
-    (``alpha_pc`` 0.1 and 0) for stage 1 and mono, the teacher
+    (``alpha_pc`` 0.1 and 0) for stage 1, FalNet, PladeNet and mono, the teacher
     (``self_distillation`` 1 and 0) for stage 3, the pose nets for mono
     (``use_colmap``: the batch's poses instead); the difference is what
     that part costs.
@@ -38,6 +41,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from planedepth_tpu_torch.config import (  # noqa: E402
     DataConfig,
     LossConfig,
+    ModelConfig,
+    PlaneConfig,
     mono_config,
     self_distillation_config,
     stage1_config,
@@ -63,9 +68,17 @@ CLASSES = (
 )
 
 
+FALNET = ModelConfig(net_type="FalNet", use_mixture_loss=False, plane_residual=False,
+                     planes=PlaneConfig(xz_levels=0))
+PLADENET = ModelConfig(net_type="PladeNet", num_ep=8, use_mixture_loss=True, plane_residual=True)
+
 # recipe -> (its config, {part: the overrides that take that part out})
 RECIPES = {
     "stage1": (stage1_config, {"vgg": dict(loss=LossConfig(alpha_pc=0.0))}),
+    "falnet": (lambda **kw: stage1_config(model=FALNET, **kw),
+               {"vgg": dict(loss=LossConfig(alpha_pc=0.0))}),
+    "pladenet": (lambda **kw: stage1_config(model=PLADENET, **kw),
+                 {"vgg": dict(loss=LossConfig(alpha_pc=0.0))}),
     "stage3": (self_distillation_config, {"teacher": dict(loss=LossConfig())}),
     "mono": (mono_config, {"vgg": dict(loss=LossConfig(alpha_pc=0.0, automask=True)),
                            "pose_nets": dict(data=DataConfig(use_colmap=True))}),

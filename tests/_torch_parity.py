@@ -18,7 +18,7 @@ from planedepth_tpu_torch import config as tcfg
 from planedepth_tpu_torch.models.factory import DepthModel
 from planedepth_tpu_torch.utils.weights import load_jax_params
 
-MODEL_FIELDS = ("num_layers", "num_ep", "pe_type", "use_denseaspp",
+MODEL_FIELDS = ("net_type", "num_layers", "num_ep", "pe_type", "use_denseaspp",
                 "use_mixture_loss", "plane_residual")
 
 
@@ -53,7 +53,8 @@ def make_models(height, width, fused_head="off", seed=0, **model_kw):
         bf16=False,
     )
     bundle = ModelBundle(cfg)
-    params, stats, _ = bundle.init(jax.random.PRNGKey(seed), height, width)
+    params, stats, _ = jax.jit(bundle.init, static_argnums=(1, 2))(
+        jax.random.PRNGKey(seed), height, width)
     rng = np.random.default_rng(seed)
     params_np = _perturb(jax.tree.map(np.asarray, params["model"]), rng, _param_rule)
     stats_np = _perturb(jax.tree.map(np.asarray, stats["model"]), rng, _stats_rule)
@@ -90,7 +91,7 @@ def bn_sizes(model):
     return sizes
 
 
-def assert_step_matches(model, want, before, sizes, lr):
+def assert_step_matches(model, want, before, sizes, lr, min_share=0.3):
     """Post-Adam parameters of ``model`` against the JAX step's (``want``, a
     port state dict) at atol 5e-5 wherever the step's direction is
     determined; BatchNorm statistics with torch's unbiased variance.
@@ -100,7 +101,8 @@ def assert_step_matches(model, want, before, sizes, lr):
     gradients of these weights off by about a percent of a leaf's largest
     |g| (ROADMAP C4), so where |g| is under 5% of the leaf's largest the
     sign, and with it the step, is not fixed: there the two may differ by
-    one step each way, 2 * lr.  Returns the number of weights held at 5e-5.
+    one step each way, 2 * lr.  At least ``min_share`` of the weights must
+    be held at 5e-5.  Returns their number.
     """
     got = model.state_dict()
     grads = {k: p.grad for k, p in model.named_parameters()}
@@ -126,8 +128,57 @@ def assert_step_matches(model, want, before, sizes, lr):
             moved += int(fixed.sum())
         else:
             assert float(err.max()) <= 5e-5, key                 # running_mean
-    assert moved > 0.3 * sum(g.numel() for g in grads.values())
+    assert moved > min_share * sum(g.numel() for g in grads.values())
     return moved
+
+
+def stereo_step_pair(jc, tc, height, width, seed=0):
+    """One stereo training step of each package from the same perturbed
+    weights (depth model and VGG) on ``make_stereo_batch(1, ..., seed=4)``:
+    the JAX package's ``make_train_step`` under ``jax.jit`` (its Pallas
+    kernels in interpret mode) and the port's on the CPU (the kernels'
+    plain versions).  Returns the two loss dicts, the stepped port bundle,
+    its weights before the step, its BatchNorm input sizes and the JAX
+    step's weights as a port state dict."""
+    from planedepth_tpu.data.synthetic import make_stereo_batch
+    from planedepth_tpu.train import create_train_state
+    from planedepth_tpu.train import make_optimizer as jax_make_optimizer
+    from planedepth_tpu.train import make_train_step as jax_make_train_step
+    from planedepth_tpu_torch.train.state import make_optimizer
+    from planedepth_tpu_torch.train.step import ModelBundle as PortBundle
+    from planedepth_tpu_torch.train.step import batch_to_tensors, make_train_step
+    from planedepth_tpu_torch.utils.weights import load_jax_pc_params
+
+    bundle = ModelBundle(jc)
+    params, stats, pc = jax.jit(bundle.init, static_argnums=(1, 2))(
+        jax.random.PRNGKey(seed), height, width)
+    rng = np.random.default_rng(seed + 3)
+    params_np = {"model": _perturb(jax.tree.map(np.asarray, params["model"]), rng, _param_rule)}
+    stats_np = {"model": _perturb(jax.tree.map(np.asarray, stats["model"]), rng, _stats_rule)}
+    pc_np = _perturb(jax.tree.map(np.asarray, pc), rng, _param_rule) if pc else None
+    tx = jax_make_optimizer(jc, 10)
+    state = create_train_state(
+        jax.tree.map(jnp.asarray, params_np), jax.tree.map(jnp.asarray, stats_np), tx,
+        pc_params=None if pc_np is None else jax.tree.map(jnp.asarray, pc_np))
+    batch = make_stereo_batch(1, height, width, seed=4)
+    new_state, metrics = jax.jit(jax_make_train_step(bundle, tx))(
+        state, {k: jnp.asarray(v) for k, v in batch.items()}, jax.random.PRNGKey(0))
+
+    cpu = torch.device("cpu")
+    port = PortBundle(tc, cpu)
+    load_jax_params(port.model, params_np["model"], stats_np["model"])
+    if pc_np is not None:
+        load_jax_pc_params(port.pc, pc_np)
+    before = {k: v.clone() for k, v in port.model.state_dict().items()}
+    sizes = bn_sizes(port.model)
+    optimizer, scheduler = make_optimizer(tc, port.model.parameters(), 10)
+    losses = make_train_step(port, optimizer, scheduler)(batch_to_tensors(batch, cpu))
+    want = DepthModel(port.model.cfg)
+    load_jax_params(want, jax.tree.map(np.asarray, new_state.params["model"]),
+                    jax.tree.map(np.asarray, new_state.batch_stats["model"]))
+    return {"losses": losses, "metrics": {k: float(v) for k, v in metrics.items()},
+            "port": port, "before": before, "sizes": sizes, "want": want.state_dict(),
+            "batch": batch}
 
 
 def nchw(a: np.ndarray) -> torch.Tensor:

@@ -1,6 +1,7 @@
-"""The port's CUDA kernels on the card, each held to its plain PyTorch version,
-and one stage-1, one stage-3 and one mono training step on the card held to
-the same step on the CPU.
+"""The port's CUDA kernels on the card, each held to its plain PyTorch version
+(the plane sweep and the 2-D warp in both of their modes), and one stage-1,
+one stage-3, one mono and one FalNet training step on the card held to the
+same step on the CPU.
 
 These tests need an NVIDIA GPU with nvcc (a CUDA kernel has no CPU mode) and
 skip without one.  They import neither JAX nor the JAX package, so they run
@@ -347,4 +348,88 @@ def test_mono_step_on_cuda_matches_cpu(cuda):
     worst = check_step_against_cpu(cfg, cuda)
     torch.cuda.synchronize()
     assert tuple(a - b for a, b in zip(counts(), before)) == (3, 3, 1, 1, 0)
+    assert worst["share_of_weights_held_at_atol"] > 0.5
+
+
+@pytest.mark.parametrize("shape,with_disp", [((2, 6, 8, 64), True), ((2, 49, 4, 640), False),
+                                             ((1, 14, 3, 1280), True), ((1, 5, 3, 100), True)])
+def test_plane_sweep_nomix_kernels_match_plain(cuda, shape, with_disp):
+    """The no-mixture instances (sigma=None): forward at atol = rtol = 1e-5,
+    d_logits and d_shift at 1e-4 of their largest magnitude; they count
+    apart from the mixture kernels."""
+    inputs = sweep_inputs(shape, sum(shape) + 1, cuda)
+    inputs[3] = None                                         # no sigma operand
+    counts = lambda: (plane_sweep.fwd_launches, plane_sweep.bwd_launches,
+                      plane_sweep.nomix_fwd_launches, plane_sweep.nomix_bwd_launches)
+    before = counts()
+    got = plane_sweep(*inputs, 328, False, with_disp)
+    want = plane_sweep_plain(*inputs, 328, False, with_disp)
+    assert len(got) == 2 + with_disp
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    cts = [torch.randn(o.shape, generator=gen, device=cuda) for o in got]
+    heads = (inputs[2], inputs[4])
+    d_got = torch.autograd.grad(sum((o * c).sum() for o, c in zip(got, cts)), heads)
+    d_want = torch.autograd.grad(sum((o * c).sum() for o, c in zip(want, cts)), heads)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(counts(), before)) == (0, 0, 1, 1)
+    for g, w in zip(d_got, d_want):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-4 * float(w.abs().max()))
+    with pytest.raises(ValueError, match="automask"):
+        plane_sweep(*inputs, 328, True, with_disp)
+
+
+@pytest.mark.parametrize("shape", [(2, 5, 7, 200), (1, 3, 16, 128), (2, 4, 9, 64)])
+@pytest.mark.parametrize("degenerate", [False, True])
+def test_warp2d_nosigma_kernels_match_plain(cuda, shape, degenerate):
+    """The instances without sigma: rgb and logit at atol = rtol = 1e-5,
+    d_logits, d_dx, d_dy at 1e-4 of their largest magnitude; they count
+    apart from the sigma kernels."""
+    from chip_smoke import seeded_warp_inputs
+
+    inputs = seeded_warp_inputs(shape, sum(shape) + 7 + degenerate, cuda, degenerate)
+    inputs[2] = None
+    counts = lambda: (warp2d.fwd_launches, warp2d.bwd_launches,
+                      warp2d.nosigma_fwd_launches, warp2d.nosigma_bwd_launches)
+    before = counts()
+    got = warp2d(*inputs)
+    want = warp2d_plain(*inputs)
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    cts = [torch.randn(o.shape, generator=gen, device=cuda) for o in got]
+    wrt = (inputs[1], inputs[3], inputs[4])
+    d_got = torch.autograd.grad(got, wrt, cts)
+    d_want = torch.autograd.grad(want, wrt, cts)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(counts(), before)) == (0, 0, 1, 1)
+    for g, w in zip(d_got, d_want):
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-4 * float(w.abs().max()))
+
+
+def test_falnet_step_on_cuda_matches_cpu(cuda):
+    """One FalNet stereo step (the no-mixture sweep, VGG19) on the card and
+    on the CPU, held as chip_smoke.py holds the full-size model: one
+    no-mixture sweep each way on the card, no other kernel."""
+    from chip_smoke import check_step_against_cpu
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = stage1_config(
+        model=ModelConfig(net_type="FalNet", use_mixture_loss=False, plane_residual=False,
+                          planes=PlaneConfig(disp_levels=7, disp_max=24, xz_levels=0)),
+        loss=LossConfig(automask=True), data=DataConfig(64, 96), batch_size=2)
+
+    def counts():
+        return (plane_sweep.nomix_fwd_launches, plane_sweep.nomix_bwd_launches,
+                plane_sweep.fwd_launches, disp_head.launches, head_epilogue.fwd_launches)
+
+    before = counts()
+    worst = check_step_against_cpu(cfg, cuda)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(counts(), before)) == (1, 1, 0, 0, 0)
     assert worst["share_of_weights_held_at_atol"] > 0.5

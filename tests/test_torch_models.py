@@ -86,9 +86,18 @@ def test_frequency_embed_matches_jax(num_ep):
 
 
 def test_other_net_types_name_the_roadmap():
-    from planedepth_tpu_torch.config import ModelConfig
+    """PladeNet and FalNet are built (tests/test_torch_fal_plade.py); what
+    they leave out raises, naming its ROADMAP item, and an unknown family
+    is refused."""
+    from planedepth_tpu_torch.config import ModelConfig, PlaneConfig
     from planedepth_tpu_torch.models.factory import DepthModel
 
     for net in ("PladeNet", "FalNet"):
-        with pytest.raises(NotImplementedError, match="A11"):
-            DepthModel(ModelConfig(net_type=net))
+        assert hasattr(DepthModel(ModelConfig(net_type=net, planes=PlaneConfig(
+            disp_levels=3, xz_levels=0))), {"PladeNet": "plade", "FalNet": "fal"}[net])
+        with pytest.raises(NotImplementedError, match="A3"):
+            DepthModel(ModelConfig(net_type=net, render_probability=True))
+    with pytest.raises(NotImplementedError, match="A10"):
+        DepthModel(ModelConfig(net_type="PladeNet", planes=PlaneConfig(yz_levels=4)))
+    with pytest.raises(ValueError, match="unknown net_type"):
+        DepthModel(ModelConfig(net_type="Monodepth2"))

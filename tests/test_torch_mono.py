@@ -30,7 +30,9 @@ coordinates make the bilinear y-gradient a subgradient.
   statistics with both of the step's updates, as the reference makes them
   (the JAX package keeps the last one), each with torch's unbiased variance.
 
-The ``depth_warp`` and ``no_stereo`` variants are held by their losses.
+tests/test_torch_mono_nomix.py runs the same three checks on the
+homography recipe without the mixture.  The ``depth_warp`` and
+``no_stereo`` variants are held by their losses.
 """
 import dataclasses
 
@@ -80,9 +82,9 @@ LOSS_KEYS = ("loss/ph_loss", "loss/pc_loss", "loss/smooth_loss", "loss/total_los
 BN_NETS = ("model.encoder.", "pose_encoder.")         # the nets with BatchNorm
 
 
-def _configs(warp_type="homography_warp", no_stereo=False, alpha_pc=0.1):
+def _configs(warp_type="homography_warp", no_stereo=False, alpha_pc=0.1, mixture=True):
     planes = dict(disp_levels=7, disp_min=2, disp_max=16, xz_levels=3, yz_levels=0)
-    model = dict(num_layers=18, use_denseaspp=False, use_mixture_loss=True,
+    model = dict(num_layers=18, use_denseaspp=False, use_mixture_loss=mixture,
                  plane_residual=True, num_ep=0, pose_num_layers=18, pose_num_ep=8)
     common = dict(batch_size=2, flip_right=False, warp_type=warp_type,
                   novel_frame_ids=(-1, 1), no_stereo=no_stereo)
@@ -147,7 +149,12 @@ def _as_port(jc, tree, stats):
                 ids=["homography", "mixed"])
 def steps(request):
     """One step of each package from the same perturbed weights."""
-    jc, tc = _configs(request.param)
+    return step_pair(*_configs(request.param))
+
+
+def step_pair(jc, tc):
+    """One step of the JAX package's oracle and of the port from the same
+    perturbed weights, and the port's step in float64 (see the docstring)."""
     bundle, params, stats, pc, batch = _jax_setup(jc)
     tx = jax_make_optimizer(jc, 10)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
@@ -177,9 +184,11 @@ def steps(request):
               for name, net in port.nets().items()}
     sizes = {name: bn_sizes(net) for name, net in port.nets().items()}
     optimizer, scheduler = make_optimizer(tc, port.parameters(), 10)
-    launches = (warp2d.fwd_launches, warp2d.bwd_launches)
+    counts = lambda: (warp2d.fwd_launches, warp2d.bwd_launches,
+                      warp2d.nosigma_fwd_launches, warp2d.nosigma_bwd_launches)
+    launches = counts()
     losses = make_train_step(port, optimizer, scheduler)(batch_to_tensors(batch, CPU))
-    assert (warp2d.fwd_launches, warp2d.bwd_launches) == launches
+    assert counts() == launches
     # the same step in float64, to tell float32 rounding from a fault
     ref = _port(tc, params, stats, pc)
     for net in (*ref.nets().values(), ref.pc):
@@ -207,8 +216,13 @@ def test_step_losses_match_jax(steps):
 def test_step_gradients_match_jax(steps):
     """Every gradient leaf, the pose nets' included: the max-error rule at
     1e-3, or relative L2 <= 1e-2 on a leaf whose gap float32 rounding
-    explains (see the module docstring)."""
+    explains (see the module docstring).  Without the mixture the loss is an
+    L1 with an automask minimum, whose kinks float32 and float64 may take on
+    different sides: there the float64 step is no referee, so such a leaf's
+    two float32 gradients are held to each other at relative L2 <= 1e-3 and
+    must stand equally far (within 1e-3) from the float64 one."""
     port = steps["port"]
+    mixture = steps["jc"].model.use_mixture_loss
     got = dict(port.named_parameters())
     want = {f"{name}.{k}": torch.as_tensor(sd[k]) for name, sd in steps["grads"].items()
             for k in dict(port.nets()[name].named_parameters())}
@@ -225,9 +239,12 @@ def test_step_gradients_match_jax(steps):
         # encoders), where float32 rounding is as large (see above)
         rounding = max(float((g - g64).abs().max()), float((w - g64).abs().max())) / scale
         assert k.startswith(BN_NETS) and rounding > 1e-3, (k, err, rounding)
-        for a, b in ((g, w), (w, g64)):
-            rel = float((a - b).norm() / max(float(b.norm()), 1e-12))
-            assert rel <= 1e-2, (k, rel)
+        rel = lambda a, b: float((a - b).norm() / max(float(b.norm()), 1e-12))
+        if mixture:
+            assert rel(g, w) <= 1e-2 and rel(w, g64) <= 1e-2, (k, rel(g, w), rel(w, g64))
+        else:
+            assert rel(g, w) <= 1e-3, (k, rel(g, w))
+            assert abs(rel(g, g64) - rel(w, g64)) <= 1e-3, (k, rel(g, g64), rel(w, g64))
     # apply_rc: the temporal poses lose their translation, so only the
     # axis-angle half of the pose head's output layer learns
     pose_out = got["pose.net.4.weight"].grad

@@ -91,7 +91,8 @@ def steps(request):
     """One step of each package from the same perturbed weights."""
     jc, tc = _configs(request.param)
     bundle = JaxBundle(jc)
-    params, stats, pc_params = bundle.init(jax.random.PRNGKey(0), H, W)
+    params, stats, pc_params = jax.jit(bundle.init, static_argnums=(1, 2))(
+        jax.random.PRNGKey(0), H, W)
     rng = np.random.default_rng(3)
     params_np = {"model": _perturb(jax.tree.map(np.asarray, params["model"]), rng, _param_rule)}
     stats_np = {"model": _perturb(jax.tree.map(np.asarray, stats["model"]), rng, _stats_rule)}
@@ -171,7 +172,7 @@ def vgg_pair():
     from planedepth_tpu.models.perceptual import Vgg19Features as JaxVgg
 
     net = JaxVgg()
-    tree = net.init(jax.random.PRNGKey(1), jnp.zeros((1, 32, 48, 3)))
+    tree = jax.jit(net.init)(jax.random.PRNGKey(1), jnp.zeros((1, 32, 48, 3)))
     tree = _perturb(jax.tree.map(np.asarray, tree), np.random.default_rng(4), _param_rule)
     vgg = Vgg19Features()
     load_jax_pc_params(vgg, tree)
@@ -233,7 +234,8 @@ def test_denseaspp_train_mode_matches_jax():
     rng = np.random.default_rng(9)
     x = rng.standard_normal((2, 6, 10, 16)).astype(np.float32)
     net = JaxDenseAspp(dropout0=0.0)
-    variables = net.init(jax.random.PRNGKey(2), jnp.asarray(x), train=False)
+    variables = jax.jit(lambda key: net.init(key, jnp.asarray(x), train=False))(
+        jax.random.PRNGKey(2))
     params = _perturb(jax.tree.map(np.asarray, variables["params"]), rng, _param_rule)
     stats = _perturb(jax.tree.map(np.asarray, variables["batch_stats"]), rng, _stats_rule)
     out, mut = net.apply({"params": params, "batch_stats": stats}, jnp.asarray(x),
@@ -311,7 +313,7 @@ def test_lr_schedule_matches_optax():
 @pytest.mark.parametrize("override,item", [
     (dict(novel_frame_ids=(-1, 1), loss=tcfg.LossConfig(use_mom=True)), "A10"),
     (dict(loss=tcfg.LossConfig(alpha_self=0.1)), "C1"),
-    (dict(model=tcfg.ModelConfig(use_mixture_loss=False)), "B1'"),
+    (dict(model=tcfg.ModelConfig(net_type="PladeNet", render_probability=True)), "A3"),
     (dict(fused_sweep=False), "A4"),
     (dict(model=tcfg.ModelConfig(render_probability=True)), "A3"),
     (dict(warp_type="homography_warp", novel_frame_ids=(-1, 1),

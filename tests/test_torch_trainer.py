@@ -374,3 +374,35 @@ def test_mono_trainer_saves_and_restores_the_pose_nets(tmp_path):
     # the Adam moments of all three networks come back with the pose nets
     assert second.optimizer.state_dict()["state"][0]["step"] == 2
     second.close()
+
+
+def test_falnet_trainer_saves_and_restores_fal(tmp_path):
+    """A FalNet stereo run saves its one network as ``fal.pth`` (with the
+    train resolution); a second Trainer restores it by
+    ``models_to_load=("fal",)``; a name FalNet lacks is refused."""
+    def cfg(**kw):
+        return _stage(tcfg.stage1_config, tmp_path, batch_size=4, **kw).replace(
+            model=tcfg.ModelConfig(net_type="FalNet", use_mixture_loss=False,
+                                   plane_residual=False, planes=tcfg.PlaneConfig(
+                                       disp_levels=7, disp_max=24, xz_levels=0)))
+
+    data = (SyntheticDataset(4), SyntheticDataset(2))
+    first = Trainer(cfg(), datasets=data, device=CPU)
+    start = {k: v.clone() for k, v in first.bundle.model.state_dict().items()}
+    first.train()
+    first.close()
+    assert first.step_count == 2
+    ckpt = os.path.join(str(tmp_path), "stage1", "last_models")
+    assert sorted(os.listdir(ckpt)) == ["adam.pth", "fal.pth"]
+    payload = load_checkpoint(ckpt)
+    assert (payload["fal"]["height"], payload["fal"]["width"]) == (H, W)
+    trained = first.bundle.model.fal.state_dict()
+    assert not _states_equal(trained, {k[len("fal."):]: v for k, v in start.items()})
+
+    second = Trainer(cfg(load_weights_folder=ckpt, models_to_load=("fal",),
+                         model_name="fal_restored"), datasets=data, device=CPU)
+    assert _states_equal(second.bundle.model.fal.state_dict(), trained)
+    second.close()
+    with pytest.raises(ValueError, match="no network 'encoder'"):
+        Trainer(cfg(load_weights_folder=ckpt, models_to_load=("encoder",),
+                    model_name="fal_refused"), datasets=data, device=CPU)
