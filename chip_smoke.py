@@ -18,12 +18,17 @@ Phases, each printing a line:
      forward against the CPU's on a small input, and disp is scored with
      evaluate_disparities; forward and kernel times by CUDA events;
   5. sweep: the plane-sweep forward and backward kernels against
-     plane_sweep_plain at the stage-1 shape (8, 63, 192, 640) on seeded
-     step-like inputs (row-constant vertical shifts up to ~320, per-row
-     ground shifts, a fully masked row, shifts beyond the clip):
-     forward outputs, then d_logits, d_sigma, d_shift from autograd with
-     seeded cotangents; kernel and twin times by CUDA events, and the
-     kernels' times at the stage-3 shape (4, 63, 384, 1280);
+     plane_sweep_plain on odd shapes (W not a multiple of 4 nor of a warp,
+     narrower than a warp, 1280 and 2048; N not a multiple of the planes a
+     barrier; a fully masked row; shifts past the W edge and the clip), each
+     with and without with_auto and with_disp, then at the stage-1 shape
+     (8, 63, 192, 640) and the stage-3 student's (4, 63, 384, 1280) on
+     seeded step-like inputs (row-constant vertical shifts up to ~320,
+     per-row ground shifts): forward outputs, then d_logits, d_sigma, d_shift
+     from autograd with seeded cotangents; two backward runs must be
+     bit-identical; kernel (the backward alone and through autograd) and
+     twin times by CUDA events at both shapes, with each kernel's bound,
+     share of it, MUFU floor, registers and occupancy;
   6. train: stage1_config() (ResNet-50, DenseASPP, 49+14 planes, VGG19
      perceptual loss, Adam) at 640x192 with seeded random weights on
      make_stereo_batch(4, 192, 640) flipped to 8: 3 warm-up and 10 timed
@@ -66,13 +71,11 @@ Phases, each printing a line:
      the card held to the CPU at 64x128; then 2 steps of the mixed
      disp_warp recipe for their launch counts;
  13. sweep_nomix: the no-mixture sweep kernels (sigma=None, B1') against
-     plane_sweep_plain(sigma=None) on odd shapes (W not a
-     multiple of 32, below and above a block's 512 threads, a fully masked
-     row, shifts past the W edge and the clip), at FalNet's (8, 49, 192,
-     640) without the centre disparity and at the ResNet ablation's (8, 63,
-     192, 640) with it (there nll gets no cotangent, as in training):
-     forward, d_logits and d_shift; then timed at both
-     (the backward kernel alone, and through autograd) with their twin;
+     plane_sweep_plain(sigma=None) on phase 5's odd shapes, with and without
+     the centre disparity, at FalNet's (8, 49, 192, 640) without it and at
+     the ResNet ablation's (8, 63, 192, 640) with it (there nll gets no
+     cotangent, as in training): forward, d_logits and d_shift; two backward
+     runs bit-identical; then timed at both as in phase 5;
  14. warp2d_nosigma: phase 10 for the warp without sigma, with F.grid_sample
      on (B*N, 4, H, W);
  15. falnet: stage1_config() with FalNet (49 fronto-parallel planes, no
@@ -94,6 +97,7 @@ card computes in float32 throughout.
 from __future__ import annotations
 
 import copy
+import ctypes
 import dataclasses
 import gc
 import json
@@ -224,6 +228,37 @@ NOMIX_MIXED_STEP = dict(NOMIX_MONO_STEP, plane_sweep_nomix_fwd=1, plane_sweep_no
                         warp2d_nosigma_fwd=2, warp2d_nosigma_bwd=2)
 
 
+# the special-function unit (ex2, rcp): 16 operations a clock on each of the
+# H100 SXM's 132 SMs at its 1.98 GHz boost clock (NVIDIA's Hopper white paper)
+MUFU_OPS_PER_S = 16 * 132 * 1.98e9
+
+
+def sweep_mufu(mix, with_disp, direction, with_auto=False):
+    """MUFU operations a pixel-plane of the sweep kernels: forward, the
+    online-softmax exp, 1/sigma, the Laplacian's exp (and the automask's),
+    the centre disp head's exp and 1/sigma; backward, pi's exp, 1/sigma,
+    the Laplacian's exp, the centre's exp and 1/sigma."""
+    ops = 2 + int(mix) + int(with_auto and direction == "fwd")
+    return ops + (1 + int(mix) if with_disp else 0)
+
+
+def mufu_floor_ms(pixel_planes, ops):
+    """Least time in ms for ``ops`` MUFU operations on each of
+    ``pixel_planes``: the sweep kernels' second floor, under the bytes."""
+    return pixel_planes * ops / MUFU_OPS_PER_S * 1e3
+
+
+def sweep_kernel_info(backward, mix, N, W):
+    """The compiler's and the occupancy calculator's view of the sweep
+    kernel instance that a launch at (N, W) takes."""
+    out = (ctypes.c_int * 5)()
+    rc = _build.load_library().pdt_plane_sweep_kernel_info(int(backward), int(mix), N, W, out)
+    if rc != 0:
+        raise RuntimeError(f"pdt_plane_sweep_kernel_info: CUDA error {rc}")
+    return dict(zip(("registers", "spill_bytes", "threads", "blocks_per_sm", "smem_bytes"),
+                    out))
+
+
 def bound(nbytes, flops):
     """Least time in ms for moving ``nbytes`` and doing ``flops`` on the card,
     and which of the two bounds it."""
@@ -272,7 +307,7 @@ def phase_build():
     info = _build.build()
     _build.load_library()
     ptxas = [ln.strip() for ln in info["log"].splitlines()
-             if "registers" in ln or "spill" in ln]
+             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
     print(f"[build] nvcc sm_90a {info['seconds']:.1f} s "
           f"(cached={info['cached']}) -> {info['path']}")
     for ln in ptxas:
@@ -427,89 +462,104 @@ def sweep_bounds(inputs):
             (bwd_bytes, bound(bwd_bytes, 100 * logits.numel())))
 
 
+# odd shapes for the sweep kernels: W not a multiple of 4 (4-byte copies)
+# nor of a warp, narrower than a warp, at 1280 (2 pixels a thread) and 2048
+# (4); N not a multiple of the 2 planes a barrier (5, 7, 9, 63); row 5 fully
+# masked; shifts past the W edge and, where W + 40 exceeds it, past the clip
+SWEEP_SMALLS = ((2, 7, 8, 37), (1, 9, 6, 1501), (1, 5, 7, 18), (2, 63, 6, 100),
+                (1, 14, 6, 1280), (1, 3, 6, 2048))
+# (with_auto, with_disp); the mixture mode takes all four
+SWEEP_FLAGS = ((False, True), (True, True), (True, False), (False, False))
+
+
+def sweep_info(mix, N, W):
+    """Registers, spills, block and occupancy of the forward/backward pair."""
+    f, b = (sweep_kernel_info(d, mix, N, W) for d in (0, 1))
+    return (f"registers {f['registers']}/{b['registers']} (spills {f['spill_bytes']}/"
+            f"{b['spill_bytes']} B), {f['threads']} threads a block, {f['blocks_per_sm']}/"
+            f"{b['blocks_per_sm']} blocks an SM, {f['smem_bytes']}/{b['smem_bytes']} B shared")
+
+
+def backward_is_deterministic(inputs, pad, with_disp):
+    """Two backward runs through autograd on the same forward and
+    cotangents give bit-identical gradients."""
+    outs = plane_sweep(*inputs, pad, False, with_disp)
+    heads = [t for t in inputs[2:5] if t is not None]
+    cts = [torch.randn_like(o) for o in outs]
+    first = torch.autograd.grad(outs, heads, cts, retain_graph=True)
+    second = torch.autograd.grad(outs, heads, cts)
+    return all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def print_sweep_times(tag, at, t, card):
+    share = lambda d: t[f"{d}_bound"][0] / t[f"{d}_ms"]
+    print(f"[{tag}] at {at}: forward kernel alone {t['fwd_ms']:.4f} ms (bound "
+          f"{t['fwd_bound'][0]:.4f} ms of {t['fwd_bytes'] / 1e6:.0f} MB, {share('fwd'):.1%} of "
+          f"it; MUFU floor {t['fwd_mufu_ms']:.4f} ms; through the wrapper "
+          f"{t['wrapper_ms']:.4f} ms), backward kernel alone "
+          f"{t['bwd_ms']:.4f} ms (bound {t['bwd_bound'][0]:.4f} ms of "
+          f"{t['bwd_bytes'] / 1e6:.0f} MB, {share('bwd'):.1%} of it; MUFU floor "
+          f"{t['bwd_mufu_ms']:.4f} ms), through autograd {t['autograd_ms']:.4f} ms; twin "
+          f"forward {t['plain_fwd_ms']:.2f} ms, backward {t['plain_bwd_ms']:.2f} ms; "
+          f"{t['info']}; no single PyTorch call computes either | {card}")
+
+
+def sweep_fields(held, main, extra):
+    """The kernels line's entries of a sweep pair, timed at ``main``; the
+    times at ``extra`` (shape -> times) beside them."""
+    more = lambda d: {"at": [{"shape": list(at), "ms": t[f"{d}_ms"],
+                              "bound_ms": t[f"{d}_bound"][0], "mufu_floor_ms": t[f"{d}_mufu_ms"]}
+                             for at, t in extra.items()]}
+    return ({"max_abs_err": held.fwd, "ms": main["fwd_ms"], "wrapper_ms": main["wrapper_ms"],
+             "plain_ms": main["plain_fwd_ms"],
+             "bound_ms": main["fwd_bound"][0], "bound_by": main["fwd_bound"][1],
+             "library_ms": None, "mufu_floor_ms": main["fwd_mufu_ms"], **more("fwd")},
+            {**held.bwd_fields(), "ms": main["bwd_ms"], "autograd_ms": main["autograd_ms"],
+             "plain_ms": main["plain_bwd_ms"], "bound_ms": main["bwd_bound"][0],
+             "bound_by": main["bwd_bound"][1], "library_ms": None,
+             "mufu_floor_ms": main["bwd_mufu_ms"], "bit_identical": True, **more("bwd")})
+
+
 def phase_sweep(card, shape=SWEEP_SHAPE, dev=torch.device("cuda"),
-                hr_shape=SHIFT_SHAPE):
-    """The sweep kernels against their twin; returns the JSON fields of both."""
-    inputs = seeded_sweep_inputs(shape, 1, dev)
-    heads = inputs[2:5]
+                hr_shape=SHIFT_SHAPE, smalls=SWEEP_SMALLS):
+    """The mixture sweep kernels against their twin on odd shapes with every
+    flag, at the stage-1 shape and at the stage-3 student's (where the TPU
+    runs its quad kernels, ops/pallas_sweep_quad.py), with seeded
+    cotangents on every output; two backward runs bit-identical; then timed
+    at both shapes.  Returns the JSON fields of both kernels."""
+    held = Held()
     pad = sweep_pad(stage1_config())
-    fwd_err = 0.0
-    for with_auto in (False, True):
-        got = plane_sweep(*inputs, pad, with_auto, True)
-        torch.cuda.synchronize(dev)
-        want = plane_sweep_plain(*inputs, pad, with_auto, True)
-        names = ("rgb", "nll") + (("nll_auto",) if with_auto else ()) + ("disp",)
-        for name, a, b in zip(names, got, want):
-            torch.testing.assert_close(a, b, msg=name, **TOL)
-            fwd_err = max(fwd_err, (a - b).abs().max().item())
-    if not bool((got[-1][:, 5] == 0).all()):
-        raise AssertionError("fully masked row must give disp 0")
-
-    # the step's configuration: no automask; seeded cotangents on every output
-    got = plane_sweep(*inputs, pad, False, True)
-    want = plane_sweep_plain(*inputs, pad, False, True)
-    g = torch.Generator(device=dev).manual_seed(2)
-    cts = [torch.randn(o.shape, generator=g, device=dev) for o in got]
-    d_got = torch.autograd.grad(got, heads, cts, retain_graph=True)
-    torch.cuda.synchronize(dev)
-    d_want = torch.autograd.grad(want, heads, cts)
-    bwd_err, rel = 0.0, {}
-    for name, a, b in zip(("d_logits", "d_sigma", "d_shift"), d_got, d_want):
-        scale = b.abs().max().item()
-        err = (a - b).abs().max().item()
-        rel[name] = err / scale
-        if err > GRAD_TOL * scale:
-            raise AssertionError(f"{name}: max err {err:.3e} > {GRAD_TOL} x {scale:.3e}")
-        bwd_err = max(bwd_err, err)
-
-    with torch.no_grad():
-        fwd_ms = cuda_ms(lambda: plane_sweep(*inputs, pad, False, True))
-        plain_fwd_ms = cuda_ms(lambda: plane_sweep_plain(*inputs, pad, False, True))
-    bwd_ms = cuda_ms(lambda: torch.autograd.grad(got, heads, cts, retain_graph=True))
-    plain_ms = cuda_ms(lambda: torch.autograd.grad(
-        plane_sweep_plain(*inputs, pad, False, True), heads, cts), warmup=1, reps=3)
-    (fwd_bytes, fwd_bound), (bwd_bytes, bwd_bound) = sweep_bounds(inputs)
-    del got, want, cts, d_got, d_want, inputs, heads
-
-    # the same kernels at the stage-3 student's shape, where the TPU runs
-    # its quad kernels (ops/pallas_sweep_quad.py) instead
-    hr = seeded_sweep_inputs(hr_shape, 4, dev)
-    with torch.no_grad():
-        hr_fwd_ms = cuda_ms(lambda: plane_sweep(*hr, pad, False, True))
-        hr_plain_ms = cuda_ms(lambda: plane_sweep_plain(*hr, pad, False, True),
-                              warmup=1, reps=3)
-    hr_out = plane_sweep(*hr, pad, False, True)
-    hr_cts = [torch.ones_like(o) for o in hr_out]
-    hr_bwd_ms = cuda_ms(lambda: torch.autograd.grad(hr_out, hr[2:5], hr_cts,
-                                                    retain_graph=True))
-    # the twin's backward there: its forward+backward less its forward
-    hr_plain_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
-        plane_sweep_plain(*hr, pad, False, True), hr[2:5], hr_cts),
-        warmup=1, reps=3) - hr_plain_ms
-    (_, hr_fwd_bound), (_, hr_bwd_bound) = sweep_bounds(hr)
-    del hr, hr_out, hr_cts
-    print(f"[sweep] plane_sweep vs plain at {shape}, pad {pad}: forward max_abs_err "
-          f"{fwd_err:.3e} (rtol {TOL['rtol']}, atol {TOL['atol']}); grads max err / "
-          f"max |value| {json.dumps({k: float(f'{v:.3e}') for k, v in rel.items()})} "
-          f"(<= {GRAD_TOL}) | {card}")
-    print(f"[sweep] forward kernel {fwd_ms:.4f} ms (bound {fwd_bound[0]:.4f} ms, "
-          f"{fwd_bytes / 1e6:.0f} MB), backward kernel {bwd_ms:.4f} ms (bound "
-          f"{bwd_bound[0]:.4f} ms, {bwd_bytes / 1e6:.0f} MB); twin forward "
-          f"{plain_fwd_ms:.2f} ms, twin forward+backward {plain_ms:.2f} ms; no "
-          f"single PyTorch call computes either | {card}")
-    print(f"[sweep] at the stage-3 shape {hr_shape}: forward kernel {hr_fwd_ms:.4f} ms "
-          f"(bound {hr_fwd_bound[0]:.4f} ms), backward kernel {hr_bwd_ms:.4f} ms (bound "
-          f"{hr_bwd_bound[0]:.4f} ms); twin forward {hr_plain_ms:.2f} ms, backward "
-          f"{hr_plain_bwd_ms:.2f} ms | {card}")
-    return {
-        "plane_sweep_fwd": {"library_ms": None, "max_abs_err": fwd_err, "ms": fwd_ms,
-                            "plain_ms": plain_fwd_ms, "bound_ms": fwd_bound[0],
-                            "bound_by": fwd_bound[1]},
-        "plane_sweep_bwd": {"library_ms": None, "max_abs_err": bwd_err, "ms": bwd_ms,
-                            # the twin's backward: its forward+backward less its forward
-                            "plain_ms": plain_ms - plain_fwd_ms,
-                            "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1]},
-    }
+    names = ("d_logits", "d_sigma", "d_shift")
+    for i, small in enumerate(smalls):
+        for with_auto, with_disp in SWEEP_FLAGS:
+            inputs = seeded_sweep_inputs(small, 60 + i, dev)
+            held.hold(plane_sweep(*inputs, pad, with_auto, with_disp),
+                      plane_sweep_plain(*inputs, pad, with_auto, with_disp),
+                      inputs, (2, 3, 4), names, i)
+    timed = {}
+    for at, seed in ((shape, 1), (hr_shape, 4)):
+        inputs = seeded_sweep_inputs(at, seed, dev)
+        for with_auto in (True, False):
+            got = plane_sweep(*inputs, pad, with_auto, True)
+            if not bool((got[-1][:, 5] == 0).all()):
+                raise AssertionError("a fully masked row must give disp 0")
+            held.hold(got, plane_sweep_plain(*inputs, pad, with_auto, True), inputs,
+                      (2, 3, 4), names, 9)
+            del got
+            free_cache()
+        if not backward_is_deterministic(inputs, pad, True):
+            raise AssertionError(f"two backward runs at {at} differ")
+        timed[at] = time_sweep(inputs, pad, True)
+        del inputs
+        free_cache()
+    print(f"[sweep] plane_sweep vs plain on {', '.join(map(str, smalls))} (each with "
+          f"(with_auto, with_disp) in {SWEEP_FLAGS}), at {shape} and {hr_shape} (with and "
+          f"without automask), pad {pad}: {held.describe()}; two backward runs bit-identical "
+          f"at both | {card}")
+    for at, t in timed.items():
+        print_sweep_times("sweep", at, t, card)
+    fwd, bwd = sweep_fields(held, timed[shape], {hr_shape: timed[hr_shape]})
+    return {"plane_sweep_fwd": fwd, "plane_sweep_bwd": bwd}
 
 
 # each kernel's counter: (the wrapper that counts, its attribute)
@@ -601,7 +651,7 @@ def free_cache():
 def phase_train(card, dev=torch.device("cuda"), warmup=3, steps=10):
     """The stage-1 step on the card; returns the launch counts of its run."""
     free_cache()
-    cfg = stage1_config()
+    cfg = stage1_config(allow_random_pc=True)       # seeded random VGG19
     bundle = ModelBundle(cfg, dev)
     optimizer, scheduler = make_optimizer(cfg, bundle.parameters(), 1000)
     train_step = make_train_step(bundle, optimizer, scheduler)
@@ -915,7 +965,7 @@ def phase_distill(card, dev=torch.device("cuda"), warmup=3, steps=10):
     launch counts of the stage-3 run."""
     free_cache()
     with tempfile.TemporaryDirectory(prefix="pdt_chip_smoke_") as log_dir:
-        cfg2 = hr_finetune_config(log_dir=log_dir)
+        cfg2 = hr_finetune_config(log_dir=log_dir, allow_random_pc=True)
         h, w = cfg2.data.height, cfg2.data.width
         stage2 = Trainer(cfg2, datasets=(SyntheticStereo(2 * cfg2.per_step_batch, h, w),
                                          SyntheticStereo(cfg2.per_step_batch, h, w)),
@@ -936,7 +986,7 @@ def phase_distill(card, dev=torch.device("cuda"), warmup=3, steps=10):
                  for k, v in payload[name].items() if torch.is_tensor(v)}
 
         cfg = self_distillation_config(log_dir=log_dir, load_weights_folder=ckpt,
-                                       optim=dataclasses.replace(
+                                       allow_random_pc=True, optim=dataclasses.replace(
                                            self_distillation_config().optim, num_epochs=1))
         b = cfg.per_step_batch
         trainer = Trainer(cfg, datasets=(SyntheticStereo(b * (warmup + steps), h, w),
@@ -1096,9 +1146,12 @@ class Held:
         for i in no_cotangent:
             cts[i].zero_()
         wrt = [inputs[i] for i in diff]
-        d_got = torch.autograd.grad(kernel_out, wrt, cts)
+        # outputs with no gradient (the sweep's automask NLL) take none
+        live = [i for i, o in enumerate(kernel_out) if o.requires_grad]
+        pick = lambda seq: [seq[i] for i in live]
+        d_got = torch.autograd.grad(pick(kernel_out), wrt, pick(cts))
         torch.cuda.synchronize()
-        d_want = torch.autograd.grad(plain_out, wrt, cts)
+        d_want = torch.autograd.grad(pick(plain_out), wrt, pick(cts))
         for name, a, b in zip(names, d_got, d_want):
             if not bool(torch.isfinite(a).all()):
                 raise AssertionError(f"{name}: non-finite gradient at {tuple(a.shape)}")
@@ -1302,47 +1355,58 @@ def sweep_nomix_bounds(inputs, with_disp):
             (bwd_bytes, bound(bwd_bytes, 70 * logits.numel())))
 
 
-def time_sweep_nomix(inputs, pad, with_disp):
-    """Kernel, twin and bound times of the no-mixture sweep on ``inputs``."""
-    src, tgt, logits, _, shift, mask = inputs
+def time_sweep(inputs, pad, with_disp):
+    """Kernel, twin, bound and MUFU-floor times of the sweep on ``inputs``
+    (the no-mixture mode where sigma is None), with the kernels' registers
+    and occupancy."""
+    src, tgt, logits, sigma, shift, mask = inputs
     B, N, H, W = logits.shape
+    mix = sigma is not None
     run = lambda: plane_sweep(*inputs, pad, False, with_disp)
     plain = lambda: plane_sweep_plain(*inputs, pad, False, with_disp)
     with torch.no_grad():
-        fwd_ms = cuda_ms(run)
+        wrapper_ms = cuda_ms(run)
         plain_fwd_ms = cuda_ms(plain, warmup=1, reps=3)
-        # the backward kernel alone, on the statistics and rgb of one direct
-        # forward launch (not counted: no wrapper runs)
+        # each kernel alone, the backward on the statistics and rgb of the
+        # forward's direct launches (not counted: no wrapper runs)
         new = lambda *size: torch.empty(size, device=logits.device)
         rgb, nll, stats = new(B, 3, H, W), new(B, H, W), new(B, 7 if with_disp else 4, H, W)
         disp = new(B, H, W) if with_disp else None
         limit = shift_max(pad)
-        _build.launch("pdt_plane_sweep_fwd", src, tgt, logits, None, shift, mask, rgb, nll,
-                      None, disp, stats, B, N, H, W, limit, 0, int(with_disp), 0)
+        fwd_ms = launch_ms("pdt_plane_sweep_fwd", (src, tgt, logits, sigma, shift, mask, rgb,
+                                                   nll, None, disp, stats),
+                           B, N, H, W, limit, 0, int(with_disp), int(mix))
         g = [torch.randn_like(t) for t in (rgb, nll)] + ([torch.randn_like(disp)]
                                                          if with_disp else [None])
-        grads = (torch.empty_like(logits), None, torch.empty_like(shift))
-        bwd_ms = launch_ms("pdt_plane_sweep_bwd", (src, tgt, logits, None, shift, mask, stats,
+        grads = (torch.empty_like(logits), torch.empty_like(logits) if mix else None,
+                 torch.empty_like(shift))
+        bwd_ms = launch_ms("pdt_plane_sweep_bwd", (src, tgt, logits, sigma, shift, mask, stats,
                                                    rgb, *g, *grads),
-                           B, N, H, W, limit, int(with_disp), 0)
+                           B, N, H, W, limit, int(with_disp), int(mix))
         del rgb, nll, stats, disp, g, grads
     out = run()
     cts = [torch.randn_like(o) for o in out]
-    heads = (logits, shift)
+    heads = [t for t in (logits, sigma, shift) if t is not None]
     autograd_ms = cuda_ms(lambda: torch.autograd.grad(out, heads, cts, retain_graph=True))
     plain_ms = cuda_ms(lambda: torch.autograd.grad(plain(), heads, cts), warmup=1, reps=3)
-    (fwd_bytes, fwd_bound), (bwd_bytes, bwd_bound) = sweep_nomix_bounds(inputs, with_disp)
-    return {"fwd_ms": fwd_ms, "plain_fwd_ms": plain_fwd_ms, "bwd_ms": bwd_ms,
+    (fwd_bytes, fwd_bound), (bwd_bytes, bwd_bound) = (
+        sweep_bounds(inputs) if mix else sweep_nomix_bounds(inputs, with_disp))
+    mufu = {d: mufu_floor_ms(logits.numel(), sweep_mufu(mix, with_disp, d))
+            for d in ("fwd", "bwd")}
+    return {"fwd_ms": fwd_ms, "wrapper_ms": wrapper_ms, "plain_fwd_ms": plain_fwd_ms,
+            "bwd_ms": bwd_ms,
             "autograd_ms": autograd_ms, "plain_bwd_ms": plain_ms - plain_fwd_ms,
             "fwd_bytes": fwd_bytes, "fwd_bound": fwd_bound, "bwd_bytes": bwd_bytes,
-            "bwd_bound": bwd_bound}
+            "bwd_bound": bwd_bound, "fwd_mufu_ms": mufu["fwd"], "bwd_mufu_ms": mufu["bwd"],
+            "info": sweep_info(mix, N, W)}
 
 
 def phase_sweep_nomix(card, dev=torch.device("cuda"), shape=FALNET_SHAPE,
-                      ablation_shape=SWEEP_SHAPE):
-    """The no-mixture sweep kernels (B1') against their twin on odd shapes,
-    at FalNet's shape without the centre disparity and at the ResNet
-    ablation's with it, then timed at both; returns the JSON fields.
+                      ablation_shape=SWEEP_SHAPE, smalls=SWEEP_SMALLS):
+    """The no-mixture sweep kernels (B1') against their twin on the odd
+    shapes of phase 5, at FalNet's shape without the centre disparity and
+    at the ResNet ablation's with it; two backward runs bit-identical; then
+    timed at both; returns the JSON fields.
 
     On the odd shapes every output gets a seeded cotangent.  At the main
     path's shapes nll gets none, as in the no-mixture recipes (their L1 is
@@ -1352,11 +1416,6 @@ def phase_sweep_nomix(card, dev=torch.device("cuda"), shape=FALNET_SHAPE,
     held = Held()
     pad = sweep_pad(stage1_config())
     names = ("d_logits", "d_shift")
-
-    # W below, at and above the 512 threads of a block and not a multiple of
-    # 32; one row fully masked (row 5 where H > 5); shifts past the W edge,
-    # and at W = 1280 past the clip
-    smalls = ((2, 6, 8, 64), (1, 14, 6, 1280), (1, 5, 7, 100), (2, 7, 9, 513))
     for i, small in enumerate(smalls):
         for with_disp in (False, True):
             inputs = seeded_nomix_inputs(small, 40 + i, dev)
@@ -1373,39 +1432,20 @@ def phase_sweep_nomix(card, dev=torch.device("cuda"), shape=FALNET_SHAPE,
                   names, 9, no_cotangent=(1,))
         del got
         free_cache()
-        timed[at] = time_sweep_nomix(inputs, pad, with_disp)
+        if not backward_is_deterministic(inputs, pad, with_disp):
+            raise AssertionError(f"two no-mixture backward runs at {at} differ")
+        timed[at] = time_sweep(inputs, pad, with_disp)
         del inputs
         free_cache()
-    main, abl = timed[shape], timed[ablation_shape]
     print(f"[sweep_nomix] no-mixture plane_sweep vs plain on {', '.join(map(str, smalls))} "
           f"(each with and without disp), at {shape} without disp and {ablation_shape} with "
-          f"it (no nll cotangent there, as in training), pad {pad}: {held.describe()} "
-          f"| {card}")
-    for at, t in ((shape, main), (ablation_shape, abl)):
-        print(f"[sweep_nomix] at {at}: forward kernel {t['fwd_ms']:.4f} ms (bound "
-              f"{t['fwd_bound'][0]:.4f} ms, {t['fwd_bytes'] / 1e6:.0f} MB, "
-              f"{t['fwd_bound'][0] / t['fwd_ms']:.1%}), backward kernel alone "
-              f"{t['bwd_ms']:.4f} ms (bound {t['bwd_bound'][0]:.4f} ms, "
-              f"{t['bwd_bytes'] / 1e6:.0f} MB, {t['bwd_bound'][0] / t['bwd_ms']:.1%}), "
-              f"through autograd {t['autograd_ms']:.4f} ms; twin forward "
-              f"{t['plain_fwd_ms']:.2f} ms, backward {t['plain_bwd_ms']:.2f} ms; no single "
-              f"PyTorch call computes either | {card}")
-    ablation = lambda t, d: {"ablation_shape": list(ablation_shape),
-                             "ablation_ms": t[f"{d}_ms"],
-                             "ablation_bound_ms": t[f"{d}_bound"][0]}
-    return {
-        "plane_sweep_nomix_fwd": {"max_abs_err": held.fwd, "ms": main["fwd_ms"],
-                                  "plain_ms": main["plain_fwd_ms"],
-                                  "bound_ms": main["fwd_bound"][0],
-                                  "bound_by": main["fwd_bound"][1], "library_ms": None,
-                                  "shape": list(shape), **ablation(abl, "fwd")},
-        "plane_sweep_nomix_bwd": {**held.bwd_fields(), "ms": main["bwd_ms"],
-                                  "autograd_ms": main["autograd_ms"],
-                                  "plain_ms": main["plain_bwd_ms"],
-                                  "bound_ms": main["bwd_bound"][0],
-                                  "bound_by": main["bwd_bound"][1], "library_ms": None,
-                                  "shape": list(shape), **ablation(abl, "bwd")},
-    }
+          f"it (no nll cotangent there, as in training), pad {pad}: {held.describe()}; two "
+          f"backward runs bit-identical at both | {card}")
+    for at, t in timed.items():
+        print_sweep_times("sweep_nomix", at, t, card)
+    fwd, bwd = sweep_fields(held, timed[shape], {ablation_shape: timed[ablation_shape]})
+    return {"plane_sweep_nomix_fwd": {**fwd, "shape": list(shape)},
+            "plane_sweep_nomix_bwd": {**bwd, "shape": list(shape)}}
 
 
 def trainer_run(cfg, dev, warmup, steps, per_step, after_val):
@@ -1414,7 +1454,8 @@ def trainer_run(cfg, dev, warmup, steps, per_step, after_val):
     pass, whose launches must be ``after_val``; then the memory of one more
     step by aten op.  Returns what the phases print."""
     with tempfile.TemporaryDirectory(prefix="pdt_chip_smoke_") as log_dir:
-        cfg = cfg.replace(log_dir=log_dir,
+        # seeded random weights throughout: no ImageNet files in the checkout
+        cfg = cfg.replace(log_dir=log_dir, allow_random_pc=True,
                           optim=dataclasses.replace(cfg.optim, num_epochs=1))
         b, h, w = cfg.per_step_batch, cfg.data.height, cfg.data.width
         novel = cfg.novel_frame_ids
@@ -1537,12 +1578,13 @@ def phase_nomix(card, dev=torch.device("cuda"), steps=2):
     variant, each held to its per-step launch counts; one mono step on the
     card held to the CPU.  Returns the launch counts of the three runs."""
     nomix = ModelConfig(use_mixture_loss=False)
+    random_pc = dict(model=nomix, allow_random_pc=True)
     total = only()
     lines = []
     for name, cfg, per_step in (
-            ("stage1 ResNet-50 ablation", stage1_config(model=nomix), NOMIX_STEREO_STEP),
-            ("mono homography", mono_config(model=nomix), NOMIX_MONO_STEP),
-            ("mixed disp_warp", mono_config(warp_type="disp_warp", model=nomix),
+            ("stage1 ResNet-50 ablation", stage1_config(**random_pc), NOMIX_STEREO_STEP),
+            ("mono homography", mono_config(**random_pc), NOMIX_MONO_STEP),
+            ("mixed disp_warp", mono_config(warp_type="disp_warp", **random_pc),
              NOMIX_MIXED_STEP)):
         free_cache()
         bundle = ModelBundle(cfg, dev)

@@ -143,6 +143,13 @@ class TrainConfig:
     # restore the Adam state saved with the checkpoint when its shapes match
     # (reference trainer.py:905-913 restores adam.pth when present)
     restore_optimizer: bool = True
+    # converted ImageNet weights (utils/pretrained.py): resnet{num_layers}.npz
+    # for the encoder(s), vgg19.npz for the perceptual net (reference
+    # resnet_encoder.py:35, layers.py:381)
+    weights_dir: Optional[str] = None
+    # explicitly allow training with a RANDOM perceptual net when alpha_pc > 0
+    # (tests and ablations only; the reference always uses ImageNet features)
+    allow_random_pc: bool = False
     log_frequency: int = 500
     log_img_frequency: int = 250
     # checkpoint the perceptual net's pred-branch forward (same numbers)

@@ -19,15 +19,18 @@ softmax expectation over the masked centre logits (``oracle_softmax``).
 ``plane_sweep.bwd_launches`` count the mixture mode's launches,
 ``nomix_fwd_launches`` and ``nomix_bwd_launches`` the no-mixture mode's)
 and takes ``plane_sweep_plain``, differentiated by autograd, on CPU
-tensors.  The images get no gradient (the train step never differentiates
-them); the automask NLL treats pi and sigma as constants, as the reference
-does.
+tensors.  The kernels give the images no gradient (the train step never
+differentiates them; the ``image_grads=True`` mode of the TPU backward is
+not ported, ROADMAP B), so on CUDA an ``src`` or ``tgt`` that requires grad
+raises rather than lose its gradient; the CPU path differentiates them, as
+the JAX default does.  The automask NLL treats pi and sigma as constants, as
+the reference does.
 """
 from __future__ import annotations
 
 import torch
 
-from planedepth_tpu_torch.ops._build import launch
+from planedepth_tpu_torch.ops._build import launch, load_library
 
 EPS = 1e-7
 
@@ -137,8 +140,15 @@ def _check(src, tgt, logits, sigma, shift, mask):
             raise ValueError(f"{name} on {t.device}, logits on {logits.device}")
         if t.dtype != torch.float32:
             raise TypeError(f"{name}: dtype {t.dtype}, the kernels take float32")
-    if W > 2048 or (2 * N + 5 * W + 32) * 4 > 48 * 1024:
-        raise ValueError(f"(N, W) = ({N}, {W}) exceed the kernels' shared-memory row")
+    lib = load_library()
+    mix = int(sigma is not None)
+    need = [lib.pdt_plane_sweep_smem_bytes(bwd, mix, N, W) for bwd in (0, 1)]
+    if min(need) < 0:
+        raise ValueError(f"W = {W}: wider than the kernels' rows")
+    need, limit = max(need), lib.pdt_plane_sweep_smem_limit()
+    if need > limit:
+        raise ValueError(f"(N, W) = ({N}, {W}): the kernels' rows need {need} bytes of "
+                         f"shared memory a block, the card allows {limit}")
 
 
 class _PlaneSweep(torch.autograd.Function):
@@ -195,7 +205,8 @@ def plane_sweep(src, tgt, logits, sigma, shift, mask, pad: int,
 
     CPU tensors take :func:`plane_sweep_plain`.  CUDA tensors run the
     forward kernel, and the backward kernel when autograd reaches it, of
-    the mode ``sigma`` selects; any other device raises.
+    the mode ``sigma`` selects; images that require grad raise there, as
+    does any other device.
     """
     _check_mode(sigma, with_auto)
     if logits.device.type == "cpu":
@@ -203,8 +214,13 @@ def plane_sweep(src, tgt, logits, sigma, shift, mask, pad: int,
                                  with_auto, with_disp)
     if logits.device.type != "cuda":
         raise NotImplementedError(f"plane_sweep: no kernel for {logits.device}")
-    _check(src, tgt, logits, sigma, shift, mask)
+    if torch.is_grad_enabled() and (src.requires_grad or tgt.requires_grad):
+        raise NotImplementedError(
+            "plane_sweep: the CUDA kernels compute no gradient for src or tgt (the "
+            "image_grads=True mode of pallas_sweep.py:_bwd_kernel is not ported yet, "
+            "ROADMAP B); detach the images")
     with torch.cuda.device(logits.device):
+        _check(src, tgt, logits, sigma, shift, mask)
         return _PlaneSweep.apply(src, tgt, logits, sigma, shift, mask, pad,
                                  with_auto, with_disp)
 

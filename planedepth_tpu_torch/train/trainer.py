@@ -3,7 +3,9 @@
 The epoch loop around ``make_train_step``: batches from the deterministic
 sampler, throughput and scalar logging, validation with the best
 ``de/abs_rel`` kept, per-epoch checkpoints (``last_models``, ``best_models``),
-the ``models_to_load`` restore that chains the three-stage recipe, and the
+the converted ImageNet weights (``utils/pretrained.py``: a perceptual loss
+on a random VGG raises unless ``allow_random_pc``), the ``models_to_load``
+restore that chains the three-stage recipe, and the
 frozen self-distillation teacher, built from the student after the restore;
 in the temporal recipes the pose networks train, save and restore beside the
 depth model.  One card, one process; image panels are not ported (ROADMAP A7).
@@ -34,6 +36,7 @@ from planedepth_tpu_torch.utils.checkpoint import (
     save_checkpoint,
 )
 from planedepth_tpu_torch.utils.logging import Logger, ThroughputMeter
+from planedepth_tpu_torch.utils.pretrained import apply_pretrained, check_perceptual_weights
 
 REPO_DIR = os.path.dirname(os.path.dirname(os.path.abspath(planedepth_tpu_torch.__file__)))
 
@@ -78,6 +81,12 @@ class Trainer:
         # Adam over the depth and pose networks together, as the JAX
         # package's one params tree holds them
         self.bundle = ModelBundle(cfg, self.device)
+        # ImageNet-pretrained encoders and the frozen perceptual net
+        # (reference resnet_encoder.py:35, layers.py:381), before the restore
+        loaded = apply_pretrained(cfg, self.bundle)
+        check_perceptual_weights(cfg, loaded)
+        if loaded:
+            print(f"[pretrained] loaded: {', '.join(loaded)}")
         self.optimizer, self.scheduler = make_optimizer(
             cfg, self.bundle.parameters(), self.steps_per_epoch)
         if cfg.load_weights_folder is not None:

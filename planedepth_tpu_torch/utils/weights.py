@@ -9,7 +9,10 @@ HWIO -> OIHW; BatchNorm ``scale``/``bias`` (params) and ``mean``/``var``
 (batch stats) become ``weight``/``bias``/``running_mean``/``running_var``.
 ``load_jax_pose_params`` does the same for the pose networks (the names of
 ``convert_resnet_encoder(num_input_images=2)`` and ``convert_pose_decoder``),
-``load_jax_pc_params`` for the frozen perceptual VGG.
+``load_jax_pc_params`` for the frozen perceptual VGG, and
+``load_jax_encoder_params`` for one ResNet trunk alone (the converted ImageNet
+files of ``utils/pretrained.py``).  ``jax_leaf_shapes`` lists the JAX leaves a
+module takes, with their JAX shapes.
 """
 from __future__ import annotations
 
@@ -66,6 +69,11 @@ def _pose_path(num_ep: int, parts) -> Tuple[str, ...]:
     return (name,)
 
 
+def _trunk_path(parts) -> Tuple[str, ...]:
+    """``encoder.<trunk path>`` inside a ``ResnetEncoder`` -> JAX module path."""
+    return ("encoder",) + _encoder_path(parts[1:])
+
+
 def _depth_model_path(model: nn.Module, parts) -> Tuple[str, ...]:
     if parts[0] in ("plade", "fal"):
         return tuple(parts)
@@ -84,6 +92,30 @@ def _leaf(path: Tuple[str, ...], leaf: str) -> Tuple[str, Tuple[str, ...], str]:
     return "params", path, _CONV_LEAF[leaf]
 
 
+def _leaves(module: nn.Module, module_path):
+    """``(state_dict key, tensor, collection, JAX module path, JAX leaf)`` of
+    every parameter and running statistic of ``module``; BatchNorm's
+    ``num_batches_tracked`` has no JAX counterpart."""
+    for key, tensor in module.state_dict().items():
+        if key.endswith("num_batches_tracked"):
+            continue
+        parts = key.split(".")
+        yield (key, tensor) + _leaf(module_path(parts[:-1]), parts[-1])
+
+
+def jax_leaf_shapes(module: nn.Module, module_path=_trunk_path) -> Dict[str, Tuple[int, ...]]:
+    """The ``/``-joined JAX key (``params/encoder/conv1/kernel``) and the JAX
+    shape (HWIO kernels) of every leaf ``module`` takes; ``module_path`` as
+    in :func:`_copy_leaves`, a ``ResnetEncoder``'s by default."""
+    shapes = {}
+    for _, tensor, collection, path, leaf in _leaves(module, module_path):
+        shape = tuple(tensor.shape)
+        if len(shape) == 4:
+            shape = (shape[2], shape[3], shape[1], shape[0])            # OIHW -> HWIO
+        shapes["/".join((collection,) + path + (leaf,))] = shape
+    return shapes
+
+
 @torch.no_grad()
 def _copy_leaves(module: nn.Module, trees: Mapping, module_path) -> None:
     """Copy every parameter and running statistic of ``module`` from the JAX
@@ -91,11 +123,7 @@ def _copy_leaves(module: nn.Module, trees: Mapping, module_path) -> None:
     ``module_path(parts)`` maps a ``state_dict`` key's module parts to the
     JAX module path.  BatchNorm's ``num_batches_tracked`` has no JAX
     counterpart."""
-    for key, tensor in module.state_dict().items():
-        if key.endswith("num_batches_tracked"):
-            continue
-        parts = key.split(".")
-        collection, path, leaf = _leaf(module_path(parts[:-1]), parts[-1])
+    for key, tensor, collection, path, leaf in _leaves(module, module_path):
         node = trees[collection]
         for p in path:
             node = node[p]
@@ -119,11 +147,17 @@ def load_jax_pose_params(pose_encoder: nn.Module, pose: nn.Module, params: Mappi
     """Copy the JAX ``params["pose_encoder"]``, ``batch_stats["pose_encoder"]``
     and ``params["pose"]`` (the trees of the JAX ``ModelBundle``, numpy
     leaves) into the port's ``ResnetPoseEncoder`` and ``PoseDecoder``."""
-    _copy_leaves(pose_encoder, {"params": params["pose_encoder"],
-                                "batch_stats": batch_stats["pose_encoder"]},
-                 lambda parts: ("encoder",) + _encoder_path(parts[1:]))
+    load_jax_encoder_params(pose_encoder, params["pose_encoder"], batch_stats["pose_encoder"])
     _copy_leaves(pose, {"params": params["pose"]},
                  lambda parts: _pose_path(pose.num_ep, parts[1:]))
+
+
+def load_jax_encoder_params(encoder: nn.Module, params: Mapping,
+                            batch_stats: Mapping) -> None:
+    """Copy one JAX ``ResnetEncoder``'s variables (``{"encoder": trunk}``
+    each, numpy leaves) into the port's ``ResnetEncoder`` or
+    ``ResnetPoseEncoder``."""
+    _copy_leaves(encoder, {"params": params, "batch_stats": batch_stats}, _trunk_path)
 
 
 def load_reference_state_dicts(model: nn.Module, encoder_sd: Dict,

@@ -129,8 +129,10 @@ def main():
     device = torch.device("cuda")
 
     preset, parts = RECIPES[args.recipe]
-    full = make_step(preset(), device)
-    reduced = {part: make_step(preset(**kw), device) for part, kw in parts.items()}
+    # seeded random weights: no converted ImageNet files in the checkout
+    full = make_step(preset(allow_random_pc=True), device)
+    reduced = {part: make_step(preset(allow_random_pc=True, **kw), device)
+               for part, kw in parts.items()}
     for step in (full, *reduced.values()):
         timed(step, 3)                      # warm-up: cuDNN picks its algorithms
 

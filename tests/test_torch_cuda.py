@@ -127,11 +127,17 @@ def sweep_inputs(shape, seed, device):
             for i, a in enumerate(arrays)]
 
 
-# W below, at and above the 512 threads of a block; N = 63 (the recipe)
+# one, two and four pixels a thread (W up to 1024, 1280, 2048); N = 63 (the
+# recipe) and N odd (not a multiple of the planes a barrier); W not a
+# multiple of 4 (4-byte copies) and below one warp
 @pytest.mark.parametrize("shape,with_auto", [((2, 6, 8, 64), True),
                                              ((2, 63, 4, 640), False),
                                              ((1, 14, 3, 1280), True),
-                                             ((1, 5, 3, 100), False)])
+                                             ((1, 5, 3, 100), False),
+                                             ((1, 9, 3, 1501), True),
+                                             ((2, 7, 3, 37), False),
+                                             ((1, 63, 2, 2048), False),
+                                             ((1, 3, 4, 18), True)])
 def test_plane_sweep_kernels_match_plain(cuda, shape, with_auto):
     """Forward outputs at atol = rtol = 1e-5; d_logits, d_sigma, d_shift at
     1e-4 of each gradient's largest magnitude (d_shift sums W terms in
@@ -152,6 +158,48 @@ def test_plane_sweep_kernels_match_plain(cuda, shape, with_auto):
     assert plane_sweep.bwd_launches == bwd + 1
     for g, w in zip(d_got, d_want):
         torch.testing.assert_close(g, w, rtol=0, atol=1e-4 * float(w.abs().max()))
+
+
+@pytest.mark.parametrize("mixture", [True, False])
+def test_plane_sweep_backward_is_deterministic(cuda, mixture):
+    """No atomics and fixed-order d_shift sums: two backward runs are
+    bit-identical; a row wider than the kernels take raises."""
+    inputs = sweep_inputs((2, 63, 4, 1280), 3, cuda)
+    if not mixture:
+        inputs[3] = None
+    heads = [t for t in inputs[2:5] if t is not None]
+    outs = plane_sweep(*inputs, 328, False, True)
+    cts = [torch.randn_like(o) for o in outs]
+    first = torch.autograd.grad(outs, heads, cts, retain_graph=True)
+    second = torch.autograd.grad(outs, heads, cts)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    wide = sweep_inputs((1, 3, 2, 2052), 3, cuda)
+    with pytest.raises(ValueError, match="wider"):
+        plane_sweep(*wide, 328, False, True)
+
+
+@pytest.mark.parametrize("image", ["src", "tgt"])
+@pytest.mark.parametrize("mixture", [True, False])
+def test_plane_sweep_refuses_image_gradients(cuda, image, mixture):
+    """The kernels compute no image gradient: an image that requires grad
+    raises, naming the unported image_grads mode, before any launch (the
+    CPU path differentiates it); under no_grad nothing is lost."""
+    inputs = sweep_inputs((1, 5, 3, 100), 7, cuda)
+    if not mixture:
+        inputs[3] = None
+    inputs[("src", "tgt").index(image)].requires_grad_()
+    launches = (plane_sweep.fwd_launches, plane_sweep.nomix_fwd_launches)
+    with pytest.raises(NotImplementedError, match="image_grads"):
+        plane_sweep(*inputs, 16, False, True)
+    assert (plane_sweep.fwd_launches, plane_sweep.nomix_fwd_launches) == launches
+    with torch.no_grad():
+        plane_sweep(*inputs, 16, False, True)
+    cpu = [None if t is None else t.detach().cpu().requires_grad_(t.requires_grad)
+           for t in inputs]
+    outs = plane_sweep(*cpu, 16, False, True)
+    grad = torch.autograd.grad(sum(o.sum() for o in outs),
+                               cpu[("src", "tgt").index(image)])[0]
+    assert grad.abs().sum() > 0
 
 
 def test_train_step_on_cuda_matches_cpu(cuda):
@@ -352,7 +400,8 @@ def test_mono_step_on_cuda_matches_cpu(cuda):
 
 
 @pytest.mark.parametrize("shape,with_disp", [((2, 6, 8, 64), True), ((2, 49, 4, 640), False),
-                                             ((1, 14, 3, 1280), True), ((1, 5, 3, 100), True)])
+                                             ((1, 14, 3, 1280), True), ((1, 5, 3, 100), True),
+                                             ((1, 9, 3, 1501), False), ((2, 7, 3, 37), True)])
 def test_plane_sweep_nomix_kernels_match_plain(cuda, shape, with_disp):
     """The no-mixture instances (sigma=None): forward at atol = rtol = 1e-5,
     d_logits and d_shift at 1e-4 of their largest magnitude; they count

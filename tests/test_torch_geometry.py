@@ -76,10 +76,16 @@ def _assert_shared_fields_equal(port, ref):
                                   "stage1_config", "hr_finetune_config"])
 def test_config_copies_match_jax_defaults(name):
     """Every field the port keeps has the JAX package's name and default,
-    in the stage presets too."""
+    in the stage presets too, and the port keeps the JAX order (the
+    pretrained-weight fields of TrainConfig among them)."""
     port = getattr(tcfg, name)()
     ref = getattr(jcfg, name)()
     _assert_shared_fields_equal(port, ref)
+    ref_order = [f.name for f in dataclasses.fields(ref)]
+    at = [ref_order.index(f.name) for f in dataclasses.fields(port)]
+    assert at == sorted(at)
+    if name == "TrainConfig":
+        assert (port.weights_dir, port.allow_random_pc) == (None, False)
     if name == "PlaneConfig":
         assert port.all_levels == ref.all_levels == 63
     if name.endswith("config"):
