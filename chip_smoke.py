@@ -56,12 +56,16 @@ Phases, each printing a line:
      steps of stage1_config (6 row-shift launches a step);
  10. warp2d: the 2-D warp forward and backward kernels against warp2d_plain
      on odd shapes (W not a multiple of the block, boundary-partial and
-     degenerate coordinates) and at the mono step's (8, 63, 192, 640), then
-     timed there (the backward kernel alone, and through autograd) with
-     their twin and F.grid_sample on (B*N, 5, H, W);
+     degenerate coordinates), at zooms up to 200 px, with planes of only
+     degenerate samples, with B * N > 65535, and at the mono step's (8, 63,
+     192, 640), then timed there (the backward kernel alone, and through
+     autograd) with their twin and F.grid_sample on (B*N, 5, H, W);
+     the backward kernel's registers and occupancy;
  11. disp_head_bwd: the disp-head backward kernel against autograd through
-     disp_head_plain (row 5 fully masked) on odd shapes and at (8, 63, 192,
-     640), then timed there;
+     disp_head_plain (row 5 fully masked) on odd shapes (W not a multiple of
+     the tile, narrower than it; N = 94, 95, 127, 200) and at (8, 63, 192,
+     640); two backward runs bit-identical; then timed there, with its
+     registers, shared memory and occupancy;
  12. mono: mono_config() (ResNet-50, DenseASPP, 49+14 planes, ResNet-18 pose
      encoder + PoseDecoder, homography warp to the sides r, -1, 1, automask,
      VGG19 per side) through Trainer at 640x192, batch 8, on synthetic
@@ -284,6 +288,21 @@ def cuda_ms(fn, warmup=3, reps=10):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def loop_ms(fn, reps=20):
+    """Mean CUDA-event time of ``reps`` back-to-back calls after one warm-up:
+    the host's work for one call overlaps the device's for the one before,
+    so a call's host overhead shows only where it exceeds its device time."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def phase_device():
@@ -1094,19 +1113,22 @@ def phase_mom(card, dev=torch.device("cuda"), steps=2):
           f"{launches}, losses {json.dumps(losses[-1])} | {card}")
 
 
-def seeded_warp_inputs(shape, seed, dev, degenerate=False):
+def seeded_warp_inputs(shape, seed, dev, degenerate=False, zoom=30.0, dead_plane=False):
     """2-D warp operands like a mono step's: per plane a zoom about the
-    image centre (up to ~30 px at the edges, the near planes under forward
-    motion) plus a shift and sub-pixel noise, so that samples leave the
-    image on both sides and run boundary-partial; with ``degenerate`` 5% of
-    the samples at 1e12 / -3e9 and a row of NaN, as a near-singular
-    homography gives them.  logits and sigma require grad, as do dx, dy."""
+    image centre (up to ``zoom`` px at the edges: ~30, the near planes under
+    forward motion) plus a shift and sub-pixel noise, so that samples leave
+    the image on both sides and run boundary-partial; with ``degenerate`` 5%
+    of the samples at 1e12 / -3e9 and a row of NaN, as a near-singular
+    homography gives them; with ``dead_plane`` the last plane of the first
+    image wholly at 1e12 and the first half of the rows of the last plane
+    of the last image NaN (bands of only degenerate samples).  logits and
+    sigma require grad, as do dx, dy."""
     B, N, H, W = shape
     g = torch.Generator(device=dev).manual_seed(seed)
     rand = lambda *size: torch.rand(size, generator=g, device=dev)
     xs = torch.linspace(-1.0, 1.0, W, device=dev)
     ys = torch.linspace(-1.0, 1.0, H, device=dev)[:, None]
-    zoom = 30.0 * rand(B, N, 1, 1) ** 2
+    zoom = zoom * rand(B, N, 1, 1) ** 2
     dx = zoom * xs + 8.0 * (rand(B, N, 1, 1) - 0.5) + 0.5 * rand(B, N, H, W)
     dy = 0.3 * zoom * ys + 2.0 * (rand(B, N, 1, 1) - 0.5) + 0.5 * rand(B, N, H, W)
     if degenerate:
@@ -1114,6 +1136,9 @@ def seeded_warp_inputs(shape, seed, dev, degenerate=False):
         dx = torch.where(blow, torch.full_like(dx, 1e12), dx)
         dy = torch.where(blow, torch.full_like(dy, -3e9), dy)
         dx[0, 0, H // 2] = float("nan")
+    if dead_plane:
+        dx[0, N - 1] = 1e12
+        dy[B - 1, N - 1, : (H + 1) // 2] = float("nan")
     mask = (rand(B, N, H, W) > 0.1).float()
     src = rand(B, 3, H, W)
     logits = 2.0 * torch.randn((B, N, H, W), generator=g, device=dev)
@@ -1181,6 +1206,26 @@ def launch_ms(fn, tensors, *sizes):
     return cuda_ms(lambda: _build.launch(fn, *ptrs, *sizes))
 
 
+def warp_kernel_info(with_sigma):
+    """Registers, spills, block and occupancy of the warp backward kernel."""
+    out = (ctypes.c_int * 4)()
+    rc = _build.load_library().pdt_warp2d_bwd_kernel_info(int(with_sigma), out)
+    if rc != 0:
+        raise RuntimeError(f"pdt_warp2d_bwd_kernel_info: CUDA error {rc}")
+    return dict(zip(("registers", "spill_bytes", "threads", "blocks_per_sm"), out))
+
+
+def disp_kernel_info(N, W):
+    """Registers, spills, block, occupancy, shared memory and chunk of the
+    disp-head backward kernel at (N, W)."""
+    out = (ctypes.c_int * 6)()
+    rc = _build.load_library().pdt_disp_head_bwd_kernel_info(N, W, out)
+    if rc != 0:
+        raise RuntimeError(f"pdt_disp_head_bwd_kernel_info: CUDA error {rc}")
+    return dict(zip(("registers", "spill_bytes", "threads", "blocks_per_sm", "smem_bytes",
+                     "planes_a_chunk"), out))
+
+
 def phase_warp2d(card, shape=SWEEP_SHAPE, dev=torch.device("cuda"), with_sigma=True):
     """The 2-D warp kernels against their twin on small odd shapes and at
     the mono step's shape, then timed there; returns the JSON fields of
@@ -1191,8 +1236,8 @@ def phase_warp2d(card, shape=SWEEP_SHAPE, dev=torch.device("cuda"), with_sigma=T
     diff = (1, 2, 3, 4) if with_sigma else (1, 3, 4)
     names = ("d_logits", "d_sigma", "d_dx", "d_dy") if with_sigma else ("d_logits", "d_dx", "d_dy")
 
-    def warp_inputs(at, seed, degenerate=False):
-        inputs = seeded_warp_inputs(at, seed, dev, degenerate)
+    def warp_inputs(at, seed, degenerate=False, **kw):
+        inputs = seeded_warp_inputs(at, seed, dev, degenerate, **kw)
         if not with_sigma:
             inputs[2] = None
         return inputs
@@ -1203,6 +1248,17 @@ def phase_warp2d(card, shape=SWEEP_SHAPE, dev=torch.device("cuda"), with_sigma=T
         for degenerate in (False, True):
             inputs = warp_inputs(small, 10 + i, degenerate)
             held.hold(warp2d(*inputs), warp2d_plain(*inputs), inputs, diff, names, i)
+    # zooms up to 200 px at the edges (taps far from the sample's own row and
+    # column); planes and half-planes of only degenerate samples; more planes
+    # than the grid's z axis takes (B * N > 65535: launches of whole images)
+    extras = (((2, 3, 96, 330), dict(zoom=200.0)),
+              ((2, 3, 24, 100), dict(degenerate=True, dead_plane=True)),
+              ((2, 33000, 2, 5), {}))
+    for i, (small, kw) in enumerate(extras):
+        inputs = warp_inputs(small, 15 + i, **kw)
+        held.hold(warp2d(*inputs), warp2d_plain(*inputs), inputs, diff, names, 5 + i)
+    del inputs
+    free_cache()
     # the main path's shape, where the atomic scatter meets the most contention
     inputs = warp_inputs(shape, 20)
     held.hold(warp2d(*inputs), warp2d_plain(*inputs), inputs, diff, names, 3)
@@ -1226,6 +1282,7 @@ def phase_warp2d(card, shape=SWEEP_SHAPE, dev=torch.device("cuda"), with_sigma=T
     # the wrapper's backward through autograd: the kernel, the zeroing of
     # the scatter buffers and autograd's own work
     autograd_bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, wrt, cts, retain_graph=True))
+    autograd_loop_ms = loop_ms(lambda: torch.autograd.grad(out, wrt, cts, retain_graph=True))
     plain_ms = cuda_ms(lambda: torch.autograd.grad(warp2d_plain(*inputs), wrt, cts),
                        warmup=1, reps=3)
     fwd_bytes = nbytes(*inputs, *out)
@@ -1259,16 +1316,23 @@ def phase_warp2d(card, shape=SWEEP_SHAPE, dev=torch.device("cuda"), with_sigma=T
     del grid, stack, lib_out, lib_ct, inputs, wrt, heads
     free_cache()
     tag = "warp2d" if with_sigma else "warp2d_nosigma"
+    info = warp_kernel_info(with_sigma)
     print(f"[{tag}] warp2d vs plain on {', '.join(map(str, smalls))}, each with and "
-          f"without degenerate coordinates, and at {shape}: {held.describe()}; "
-          f"{'d_logits and d_sigma sum' if with_sigma else 'd_logits sums'} by atomics in "
-          f"no fixed order | {card}")
+          f"without degenerate coordinates, on {extras[0][0]} at zoom 200, {extras[1][0]} "
+          f"with degenerate planes, {extras[2][0]} (B * N > 65535), and at {shape}: "
+          f"{held.describe()}; {'d_logits and d_sigma sum' if with_sigma else 'd_logits sums'}"
+          f" by float atomics{' (neighbouring lanes combined)' if with_sigma else ''} in no "
+          f"fixed order | {card}")
+    print(f"[{tag}] backward kernel: {info['registers']} registers (spills "
+          f"{info['spill_bytes']} B), {info['threads']} threads a block, "
+          f"{info['blocks_per_sm']} blocks an SM, no shared memory | {card}")
     print(f"[{tag}] at {shape}: forward kernel {fwd_ms:.4f} ms ({fwd_bytes / fwd_ms / 1e9:.2f} "
           f"TB/s of {fwd_bytes / 1e6:.0f} MB, {fwd_bound[0] / fwd_ms:.1%} of the bound "
           f"{fwd_bound[0]:.4f} ms), backward kernel alone {bwd_ms:.4f} ms ("
           f"{bwd_bytes / bwd_ms / 1e9:.2f} TB/s of {bwd_bytes / 1e6:.0f} MB, "
           f"{bwd_bound[0] / bwd_ms:.1%} of the bound {bwd_bound[0]:.4f} ms), backward "
-          f"through autograd {autograd_bwd_ms:.4f} ms (with zeroing the scatter buffers); "
+          f"through autograd {autograd_bwd_ms:.4f} ms (with zeroing the scatter buffers; "
+          f"{autograd_loop_ms:.4f} ms a call in a run of 20); "
           f"twin forward {plain_fwd_ms:.2f} ms, forward+backward {plain_ms:.2f} ms; "
           f"F.grid_sample on (B*N, {channels}, H, W) forward {lib_fwd_ms:.4f} ms, "
           f"forward+backward {lib_ms:.4f} ms (its backward also computes the rgb input's "
@@ -1278,6 +1342,7 @@ def phase_warp2d(card, shape=SWEEP_SHAPE, dev=torch.device("cuda"), with_sigma=T
                        "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
                        "library_ms": lib_fwd_ms},
         f"{tag}_bwd": {**held.bwd_fields(), "ms": bwd_ms, "autograd_ms": autograd_bwd_ms,
+                       "autograd_loop_ms": autograd_loop_ms, "kernel_info": info,
                        # the twin's and the library's backward: forward+backward less forward
                        "plain_ms": plain_ms - plain_fwd_ms,
                        "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1],
@@ -1291,7 +1356,11 @@ def phase_disp_head_bwd(card, shape=SWEEP_SHAPE, dev=torch.device("cuda")):
     returns its JSON fields."""
     held = Held()
     names = ("d_logits", "d_sigma", "d_disp_rows")
-    smalls = ((2, 63, 8, 200), (1, 7, 6, 1280), (1, 94, 7, 129))
+    # W not a multiple of the 128-pixel tile, narrower than it and not a
+    # multiple of 4 (4-byte copies); N = 94, 95 (in one chunk of staged
+    # planes) and 127, 200 (two and three chunks)
+    smalls = ((2, 63, 8, 200), (1, 7, 6, 1280), (1, 94, 7, 129), (1, 95, 6, 300),
+              (1, 127, 6, 200), (2, 63, 6, 37), (1, 200, 6, 70))
     # the main path's shape last, where each row's d_disp_rows sums 640 terms
     for i, at in enumerate((*smalls, shape)):
         logits, sigma, rows, mask = seeded_head_inputs(at, 30 + i, dev)
@@ -1309,12 +1378,22 @@ def phase_disp_head_bwd(card, shape=SWEEP_SHAPE, dev=torch.device("cuda")):
     B, N, H, W = shape
     out = disp_head(*inputs)
     ct = torch.randn_like(out)
+    first = torch.autograd.grad(out, inputs[:3], ct, retain_graph=True)
+    second = torch.autograd.grad(out, inputs[:3], ct, retain_graph=True)
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        raise AssertionError(f"two disp-head backward runs at {shape} differ")
+    del first, second
+    info = disp_kernel_info(N, W)
     with torch.no_grad():
         grads = [torch.empty_like(t) for t in inputs[:3]]
-        ms = launch_ms("pdt_disp_head_bwd", (*inputs, ct, *grads), B, N, H, W)
+        scratch = torch.empty(_build.load_library().pdt_disp_head_bwd_scratch_floats(
+            B, N, H, W), device=dev)
+        ms = launch_ms("pdt_disp_head_bwd", (*inputs, ct, *grads, scratch), B, N, H, W)
         plain_fwd_ms = cuda_ms(lambda: disp_head_plain(*inputs))
-        del grads
+        del grads, scratch
     autograd_ms = cuda_ms(lambda: torch.autograd.grad(out, inputs[:3], ct, retain_graph=True))
+    autograd_loop_ms = loop_ms(lambda: torch.autograd.grad(out, inputs[:3], ct,
+                                                           retain_graph=True))
     plain_ms = cuda_ms(lambda: torch.autograd.grad(disp_head_plain(*inputs), inputs[:3], ct))
     moved = nbytes(logits, sigma, rows, mask, ct, logits, sigma, rows)
     bound_ms, bound_by = bound(moved, 30 * logits.numel())
@@ -1322,15 +1401,22 @@ def phase_disp_head_bwd(card, shape=SWEEP_SHAPE, dev=torch.device("cuda")):
     free_cache()
     print(f"[disp_head_bwd] backward kernel vs autograd through the plain head on "
           f"{', '.join(map(str, smalls))} and {shape}, row 5 fully masked: "
-          f"{held.describe()} | {card}")
+          f"{held.describe()}; two backward runs bit-identical at {shape} | {card}")
+    print(f"[disp_head_bwd] kernel at N={N}, W={W}: {info['registers']} registers (spills "
+          f"{info['spill_bytes']} B), {info['threads']} threads a block, "
+          f"{info['blocks_per_sm']} blocks an SM, {info['smem_bytes']} B shared, "
+          f"{info['planes_a_chunk']} planes a chunk | {card}")
     print(f"[disp_head_bwd] at {shape}: kernel alone {ms:.4f} ms ({moved / ms / 1e9:.2f} TB/s "
           f"of {moved / 1e6:.0f} MB, {bound_ms / ms:.1%} of the bound {bound_ms:.4f} ms, "
-          f"{bound_by}), through autograd {autograd_ms:.4f} ms; twin backward "
+          f"{bound_by}), through autograd {autograd_ms:.4f} ms ({autograd_loop_ms:.4f} ms a "
+          f"call in a run of 20); twin backward "
           f"(forward+backward {plain_ms:.3f} less forward {plain_fwd_ms:.3f}) "
           f"{plain_ms - plain_fwd_ms:.3f} ms; no single PyTorch call computes it | {card}")
     return {"disp_head_bwd": {**held.bwd_fields(), "ms": ms, "autograd_ms": autograd_ms,
+                              "autograd_loop_ms": autograd_loop_ms,
                               "plain_ms": plain_ms - plain_fwd_ms, "bound_ms": bound_ms,
-                              "bound_by": bound_by, "library_ms": None}}
+                              "bound_by": bound_by, "library_ms": None,
+                              "bit_identical": True, "kernel_info": info}}
 
 
 def seeded_nomix_inputs(shape, seed, dev):

@@ -99,14 +99,18 @@ def load_library() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.pdt_disp_head_fwd.argtypes = [p, p, p, p, p, i, i, i, i, p]
     lib.pdt_disp_head_fwd.restype = i
-    lib.pdt_disp_head_bwd.argtypes = [p] * 8 + [i, i, i, i, p]
+    lib.pdt_disp_head_bwd.argtypes = [p] * 9 + [i, i, i, i, p]
     lib.pdt_disp_head_bwd.restype = i
-    lib.pdt_disp_head_bwd_max_planes.argtypes = []
-    lib.pdt_disp_head_bwd_max_planes.restype = i
+    lib.pdt_disp_head_bwd_scratch_floats.argtypes = [i, i, i, i]
+    lib.pdt_disp_head_bwd_scratch_floats.restype = ctypes.c_longlong
+    lib.pdt_disp_head_bwd_kernel_info.argtypes = [i, i, p]
+    lib.pdt_disp_head_bwd_kernel_info.restype = i
     lib.pdt_warp2d_fwd.argtypes = [p] * 9 + [i] * 5 + [p]
     lib.pdt_warp2d_fwd.restype = i
     lib.pdt_warp2d_bwd.argtypes = [p] * 13 + [i] * 5 + [p]
     lib.pdt_warp2d_bwd.restype = i
+    lib.pdt_warp2d_bwd_kernel_info.argtypes = [i, p]
+    lib.pdt_warp2d_bwd_kernel_info.restype = i
     lib.pdt_plane_sweep_fwd.argtypes = [p] * 11 + [i, i, i, i, f, i, i, i, p]
     lib.pdt_plane_sweep_fwd.restype = i
     lib.pdt_plane_sweep_bwd.argtypes = [p] * 14 + [i, i, i, i, f, i, i, p]

@@ -56,11 +56,6 @@ def _check(logits, sigma, disp_rows, mask_rows):
     if mask_rows.requires_grad:
         raise NotImplementedError("disp_head: the kernels take no gradient through "
                                   "the mask")
-    if any(t.requires_grad for t in (logits, sigma, disp_rows)):
-        most = load_library().pdt_disp_head_bwd_max_planes()
-        if N > most:
-            raise ValueError(f"N={N} planes exceed the backward kernel's shared memory "
-                             f"(at most {most})")
 
 
 class _DispHead(torch.autograd.Function):
@@ -82,8 +77,11 @@ class _DispHead(torch.autograd.Function):
         g = g.contiguous()
         d_logits, d_sigma = torch.empty_like(logits), torch.empty_like(sigma)
         d_rows = torch.empty_like(disp_rows)
+        # the per-tile partial sums of d_rows, reduced in a fixed order
+        scratch = torch.empty(load_library().pdt_disp_head_bwd_scratch_floats(B, N, H, W),
+                              dtype=torch.float32, device=logits.device)
         launch("pdt_disp_head_bwd", logits, sigma, disp_rows, mask_rows, g, d_logits,
-               d_sigma, d_rows, B, N, H, W)
+               d_sigma, d_rows, scratch if scratch.numel() else None, B, N, H, W)
         disp_head.bwd_launches += 1
         return d_logits, d_sigma, d_rows, None
 

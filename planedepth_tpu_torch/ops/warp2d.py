@@ -87,8 +87,10 @@ def _check(src, logits, sigma, dx, dy, mask):
             raise ValueError(f"{name} on {t.device}, dx on {dx.device}")
         if t.dtype != torch.float32:
             raise TypeError(f"{name}: dtype {t.dtype}, the kernels take float32")
-    if B * N > 65535 or H > 65535:
-        raise ValueError(f"(B * N, H) = ({B * N}, {H}) exceed the kernels' grid")
+    if N > 65535 or H > 65535:
+        raise ValueError(f"(N, H) = ({N}, {H}) exceed the kernels' grid (65535)")
+    if (H + 1) * (W + 2) >= 2 ** 31:
+        raise ValueError(f"an ({H}, {W}) plane exceeds the backward's 32-bit offsets")
     if src.requires_grad or mask.requires_grad:
         raise NotImplementedError("warp2d: the kernels take no gradient through "
                                   "src or mask")

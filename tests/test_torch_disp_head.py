@@ -32,9 +32,8 @@ def xla_chain(logits, sigma, disp_rows, mask_rows):
     return jnp.sum(w * disp_rows[:, :, None, :], axis=-1, keepdims=True)
 
 
-def _inputs(seed, zero_row):
+def _inputs(seed, zero_row, b=B, h=H, w=W, n=N):
     """NHWC numpy inputs (the JAX layout); logits masked as the decoder does."""
-    b, h, w, n = B, H, W, N
     rng = np.random.default_rng(seed)
     mask = (rng.uniform(0, 1, (b, h, n)) > 0.3).astype(np.float32)
     if zero_row:
@@ -73,20 +72,16 @@ def test_wrapper_takes_plain_on_cpu_without_counting():
     assert disp_head.launches == before
 
 
-@pytest.mark.parametrize("zero_row", [False, True])
-def test_plain_backward_matches_pallas_interpret_and_jax_vjp(zero_row):
-    """Autograd through ``disp_head_plain`` (the backward kernel's oracle)
-    against ``disp_head_bwd(interpret=True)`` and against ``jax.vjp`` of
-    ``disp_head`` (its custom VJP), with a seeded cotangent; row 2 of the
-    zero-row case has U <= 1e-7, where every adjoint is 0.  d_logits and
-    d_sigma at atol = rtol = 1e-5 of their largest magnitude, d_disp_rows
-    (a sum over W) at 1e-5 of its own."""
+def _hold_backward(inputs, g):
+    """Autograd through ``disp_head_plain`` against ``disp_head_bwd(
+    interpret=True)`` and ``jax.vjp`` of ``disp_head`` (its custom VJP) on
+    NHWC ``inputs`` and cotangent ``g``: d_logits and d_sigma at atol = rtol
+    = 1e-5 of their largest magnitude, d_disp_rows (a sum over W) at 1e-5 of
+    its own.  Returns the port's adjoints in the JAX layout."""
     import jax
 
     from planedepth_tpu.ops.pallas_disp import disp_head_bwd
 
-    inputs = _inputs(29, zero_row)
-    g = np.random.default_rng(3).standard_normal((B, H, W, 1)).astype(np.float32)
     jin = tuple(jnp.asarray(a) for a in inputs)
     kernel = disp_head_bwd(*jin, jnp.asarray(g), interpret=True)
     _, vjp = jax.vjp(lambda l, s, d: jax_disp_head(l, s, d, jin[3], True), *jin[:3])
@@ -105,6 +100,26 @@ def test_plain_backward_matches_pallas_interpret_and_jax_vjp(zero_row):
             b = np.asarray(b)
             np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5 * np.abs(b).max(),
                                        err_msg=name)
+    return got
+
+
+@pytest.mark.parametrize("zero_row", [False, True])
+def test_plain_backward_matches_pallas_interpret_and_jax_vjp(zero_row):
+    """Autograd through ``disp_head_plain`` (the backward kernel's oracle)
+    against the Pallas backward and the custom VJP (``_hold_backward``),
+    with a seeded cotangent; row 2 of the zero-row case has U <= 1e-7, where
+    every adjoint is 0."""
+    g = np.random.default_rng(3).standard_normal((B, H, W, 1)).astype(np.float32)
+    got = _hold_backward(_inputs(29, zero_row), g)
     if zero_row:
         assert (got[0][:, 2] == 0).all() and (got[1][:, 2] == 0).all()
         assert (got[2][:, 2] == 0).all()
+
+
+def test_plain_backward_matches_pallas_interpret_and_jax_vjp_at_127_planes():
+    """The same at N = 127, more planes than the CUDA backward stages at once
+    (it takes them in chunks there), on (B, H, W) = (1, 8, 64); row 2 fully
+    masked."""
+    g = np.random.default_rng(4).standard_normal((1, 8, 64, 1)).astype(np.float32)
+    got = _hold_backward(_inputs(31, True, 1, 8, 64, 127), g)
+    assert (got[0][:, 2] == 0).all() and (got[2][:, 2] == 0).all()
