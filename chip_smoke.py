@@ -1,4 +1,4 @@
-"""Drive the PyTorch/CUDA port's inference path, stage-1 step, stage-2 -> stage-3 trainer, mono trainer, FalNet and PladeNet trainers and no-mixture recipes on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's inference path, stage-1 step, stage-2 -> stage-3 trainer, mono trainer, FalNet and PladeNet trainers, no-mixture recipes and KITTI entry points on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -93,7 +93,25 @@ Phases, each printing a line:
  17. nomix: 2 steps each of the ResNet-50 stage-1 ablation, mono_config and
      its mixed disp_warp variant with use_mixture_loss=False, each step held
      to its launch counts, and one no-mixture mono step on the card held to
-     the CPU at 64x128.
+     the CPU at 64x128;
+ 18. kitti: writes a KITTI-shaped raw tree under a temporary directory
+     (data/kitti_tree.py: the 697 frames of splits/eigen_raw/test_files.txt,
+     both cameras, at each date's KITTI size, a 10000-point velodyne scan
+     each, the dates' calibration files, and a 32-line train and 8-line val
+     split of other frames, val with scans; each PNG row filtered by Sub,
+     Up, Average or Paeth); times read_png on one of its frames and on the
+     same frame with filter 0 and with Paeth rows, and with the numpy
+     row unfilter in place of the compiled one; trains through
+     cli.train.main (--stage stage1 --png: ResNet-50, 49+14 planes, VGG19,
+     640x192, batch 4 flipped to 8) for 8 steps and one validation pass
+     under torch.profiler, with the loader's host time a batch, each step's
+     span (CUDA events), the device's busy time inside it (the trace) and
+     the wait between steps; exports the eigen_raw ground truth under the
+     tree; runs cli/evaluate.py's load (parse, checkpoint meta, restore) and
+     evaluate over the 697 frames with post-processing and the tree's
+     splits_dir (frames/s); the launch counts of both runs are held to what
+     the path runs, the disparities and the seven metrics must be finite and
+     the restored model's forward on the card is held to the CPU's.
 Each phase prints its wall time.  Then one JSON line of the kernels and,
 last, the ok line.  TF32 is off for convolutions and matmuls so that the
 card computes in float32 throughout.
@@ -128,8 +146,18 @@ from planedepth_tpu_torch.config import (
     self_distillation_config,
     stage1_config,
 )
+from planedepth_tpu_torch.cli import evaluate as cli_evaluate
+from planedepth_tpu_torch.cli import train as cli_train
+from planedepth_tpu_torch.data import native
+from planedepth_tpu_torch.data import image_io
+from planedepth_tpu_torch.data.image_io import png_decoder, read_png, write_png
+from planedepth_tpu_torch.data.kitti import readlines, split_path
+from planedepth_tpu_torch.data.kitti_tree import write_tree
+from planedepth_tpu_torch.data.loader import BatchLoader
 from planedepth_tpu_torch.data.synthetic import make_stereo_batch
+from planedepth_tpu_torch.eval import evaluator as evaluator_module
 from planedepth_tpu_torch.eval.evaluator import mirror_batch, predict_disparities
+from planedepth_tpu_torch.eval.export_gt import export_eigen_raw_gt
 from planedepth_tpu_torch.eval.metrics import evaluate_disparities
 from planedepth_tpu_torch.geometry.pose import transformation_from_parameters
 from planedepth_tpu_torch.models.factory import DepthModel, init_weights_
@@ -149,6 +177,7 @@ from planedepth_tpu_torch.train.step import (
     process_batch,
     sweep_pad,
 )
+from planedepth_tpu_torch.train import trainer as trainer_module
 from planedepth_tpu_torch.train.trainer import Trainer
 from planedepth_tpu_torch.utils.checkpoint import load_checkpoint
 
@@ -1742,6 +1771,237 @@ def phase_mono(card, dev=torch.device("cuda"), warmup=3, steps=10):
     return run["launches"]
 
 
+# the kitti phase's tree: the eigen_raw test frames with a scan each, and a
+# stereo train/val split of frames outside it (val with scans)
+KITTI_SCAN_POINTS = 10000             # a real scan has ~120k (PERF.md: the cut)
+KITTI_DRIVE = "2011_09_26/2011_09_26_drive_0001_sync"
+KITTI_TRAIN = [f"{KITTI_DRIVE} {i} l" for i in range(10000, 10032)]
+KITTI_VAL = [f"{KITTI_DRIVE} {i} l" for i in range(10100, 10108)]
+
+
+def decode_ms(path, reps=5, compiled=True):
+    """Median ms of ``read_png(path)`` on the host, with the row unfilter
+    that it runs or (``compiled=False``) its numpy version."""
+    unfilter = image_io.png_unfilter_library()
+    times = []
+    try:
+        if not compiled:
+            image_io._unfilter_state["fn"] = None
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            read_png(path)
+            times.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        image_io._unfilter_state["fn"] = unfilter
+    return statistics.median(times)
+
+
+KITTI_STEP = "kitti_train_step"        # the record_function range of a training step
+
+
+def step_device_busy(prof, label):
+    """For each ``record_function(label)`` range of a profiler trace: its
+    span on the host's clock and the time the device was busy inside it
+    (the union of the kernels and copies that start in it), both in ms."""
+    windows, device = [], []
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            if e.name != label:                  # not the range's own device annotation
+                device.append((e.time_range.start, e.time_range.end))
+        elif e.name == label:
+            windows.append((e.time_range.start, e.time_range.end))
+    device.sort()
+    out = []
+    for start, end in sorted(windows):
+        busy, reach = 0.0, start
+        for a, b in device:
+            if start <= a < end and b > reach:
+                busy += b - max(a, reach)
+                reach = b
+        out.append(((end - start) / 1e3, busy / 1e3))
+    return out
+
+
+def phase_kitti(card, dev=torch.device("cuda")):
+    """The KITTI entry points on a KITTI-shaped tree: ``cli.train.main``
+    (stage 1 at full width, 8 steps and one validation through the split's
+    reader), the eigen_raw ground truth, and the evaluate CLI's
+    config-and-restore part then ``evaluate`` over the 697 eigen_raw frames
+    with post-processing, the ground truth under the temporary tree; returns
+    the launch counts of the two runs."""
+    free_cache()
+    with tempfile.TemporaryDirectory(prefix="pdt_chip_smoke_kitti_") as tmp:
+        root, split = os.path.join(tmp, "kitti"), os.path.join(tmp, "split")
+        splits_dir, log_dir = os.path.join(tmp, "splits"), os.path.join(tmp, "log")
+        test_lines = readlines(split_path("eigen_raw", "test"))
+        t0 = time.perf_counter()
+        write_tree(root, test_lines + KITTI_VAL, scan_points=KITTI_SCAN_POINTS)
+        tree_bytes = write_tree(root, KITTI_TRAIN)
+        write_s = time.perf_counter() - t0
+        os.makedirs(split)
+        for name, lines in (("train", KITTI_TRAIN), ("val", KITTI_VAL)):
+            with open(os.path.join(split, f"{name}_files.txt"), "w") as f:
+                f.write("".join(f"{ln}\n" for ln in lines))
+        frame = os.path.join(root, KITTI_DRIVE, "image_02", "data", "0000010000.png")
+        pixels = read_png(frame)
+        decode = {"the tree's (Sub/Up/Average/Paeth rows)": decode_ms(frame),
+                  "the tree's, numpy unfilter": decode_ms(frame, compiled=False)}
+        for name, filters in (("filter 0", 0), ("Paeth", 4)):
+            write_png(os.path.join(tmp, "one.png"), pixels, filter_type=filters)
+            decode[name] = decode_ms(os.path.join(tmp, "one.png"))
+
+        # training through the CLI, its loader and steps timed
+        batch_s, steps = [], []
+        make_batch, make_step = BatchLoader._make_batch, trainer_module.make_train_step
+
+        def timed_batch(self, *args):
+            t = time.perf_counter()
+            out = make_batch(self, *args)
+            if self.dataset.is_train:
+                batch_s.append(time.perf_counter() - t)
+            return out
+
+        def timed_make_train_step(*args, **kwargs):
+            step = make_step(*args, **kwargs)
+
+            def timed(batch):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                    enable_timing=True)
+                t = time.perf_counter()
+                with torch.profiler.record_function(KITTI_STEP):
+                    start.record()
+                    out = step(batch)                 # floats: the step has synchronised
+                    end.record()
+                    end.synchronize()
+                steps.append((t, time.perf_counter(), start.elapsed_time(end), out))
+                return out
+            return timed
+
+        argv = ["--stage", "stage1", "--data_path", root, "--split", split, "--png",
+                "--allow_random_pc", "--num_epochs", "1", "--log_dir", log_dir,
+                "--model_name", "kitti"]
+        BatchLoader._make_batch = timed_batch
+        trainer_module.make_train_step = timed_make_train_step
+        activities = [torch.profiler.ProfilerActivity.CPU] + (
+            [torch.profiler.ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+        try:
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            with torch.profiler.profile(activities=activities) as prof:
+                trainer = cli_train.main(argv)
+            train_s = time.perf_counter() - t0
+            train_launches = launch_counts()
+        finally:
+            BatchLoader._make_batch, trainer_module.make_train_step = make_batch, make_step
+        cfg = trainer.cfg
+        n_steps, n_val = len(KITTI_TRAIN) // cfg.per_step_batch, -(-len(KITTI_VAL) // cfg.per_step_batch)
+        want = only(plane_sweep_fwd=n_steps, plane_sweep_bwd=n_steps,
+                    head_epilogue_fwd=n_steps + n_val, head_epilogue_bwd=n_steps,
+                    disp_head_fwd=n_val)
+        if train_launches != want or len(steps) != n_steps or trainer.step_count != n_steps:
+            raise AssertionError(f"kitti training: launches {train_launches} in {len(steps)} "
+                                 f"steps, want {want} in {n_steps}")
+        check_losses([s[3] for s in steps], cfg)
+        ckpt = os.path.join(log_dir, cfg.model_name, "last_models")
+        saved = sorted(os.listdir(ckpt))
+        if cfg.model_name != "kitti_ResNet" or saved != ["adam.pth", "depth.pth", "encoder.pth"]:
+            raise AssertionError(f"kitti checkpoint {cfg.model_name}: {saved}")
+        if not os.path.isdir(os.path.join(log_dir, cfg.model_name, "best_models")):
+            raise AssertionError("validation saved no best_models")
+        del trainer
+        free_cache()
+        step_ms = [s[2] for s in steps]
+        traced = step_device_busy(prof, KITTI_STEP)
+        del prof
+        if len(traced) != n_steps or (dev.type == "cuda" and not all(b for _, b in traced)):
+            raise AssertionError(f"kitti training: the trace has {traced} for {n_steps} steps")
+        # the card's idle over steps 2..n: inside the steps (the span less
+        # the device's busy time) and between them (waiting for the next batch)
+        waits = [steps[i][0] - steps[i - 1][1] for i in range(1, len(steps))]
+        wall = sum(waits) + sum(s[1] - s[0] for s in steps[1:])
+        idle_in = sum(span - busy for span, busy in traced[1:]) / 1e3 / wall
+        idle_between = sum(waits) / wall
+
+        # ground truth, then the evaluate CLI's first part and evaluate
+        os.makedirs(os.path.join(splits_dir, "eigen_raw"))
+        t0 = time.perf_counter()
+        gt_path = export_eigen_raw_gt(root, os.path.dirname(split_path("eigen_raw", "test")),
+                                      os.path.join(splits_dir, "eigen_raw", "gt_depths.npz"))
+        export_s = time.perf_counter() - t0
+        args, ecfg, model = cli_evaluate.load(
+            ["--eval_stereo", "--eval_split", "eigen_raw", "--post_process", "--png",
+             "--data_path", root, "--load_weights_folder", ckpt])
+        kwargs = dict(cli_evaluate.evaluate_kwargs(args), splits_dir=splits_dir,
+                      save_pred_disps=os.path.join(tmp, "disps.npy"))
+        predict = evaluator_module.predict_split_disparities
+        predict_s = []
+
+        def timed_predict(*a, **kw):
+            t = time.perf_counter()
+            out = predict(*a, **kw)
+            predict_s.append(time.perf_counter() - t)
+            return out
+
+        evaluator_module.predict_split_disparities = timed_predict
+        try:
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            metrics = evaluator_module.evaluate(ecfg, model, **kwargs)
+            eval_s = time.perf_counter() - t0
+            eval_launches = launch_counts()
+        finally:
+            evaluator_module.predict_split_disparities = predict
+        n_frames = len(test_lines)
+        n_batches = -(-n_frames // 4)
+        if eval_launches != only(disp_head_fwd=n_batches, head_epilogue_fwd=n_batches):
+            raise AssertionError(f"evaluate launches {eval_launches}, want {n_batches} each of "
+                                 f"the disp head and the head epilogue")
+        disps = np.load(kwargs["save_pred_disps"])
+        if disps.shape != (n_frames, ecfg.data.height, ecfg.data.width) \
+                or not np.isfinite(disps).all():
+            raise AssertionError(f"bad disparities {disps.shape}")
+        names = ("abs_rel", "sq_rel", "rmse", "rmse_log", "a1", "a2", "a3")
+        if sorted(metrics) != sorted(names) or not all(math.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"evaluate metrics {metrics}")
+        small_err = check_against_cpu(model, dev)
+        del model
+        free_cache()
+    print(f"[kitti] tree: {n_frames} eigen_raw frames (both cameras, a {KITTI_SCAN_POINTS}-point "
+          f"scan each) over {len(set(ln.split()[0] for ln in test_lines))} drives at each "
+          f"date's KITTI size, {len(KITTI_TRAIN)} train and {len(KITTI_VAL)} val lines (val "
+          f"with scans): {tree_bytes / 1e6:.1f} MB written in {write_s:.1f} s; native "
+          f"data library {'loaded' if native.available() else 'missing: numpy fallbacks ran'}; "
+          f"PNG row unfilter: {png_decoder()}")
+    print(f"[kitti] read_png of a {pixels.shape[1]}x{pixels.shape[0]} RGB frame on the host: "
+          f"{json.dumps({k: round(v, 2) for k, v in decode.items()})} ms (median of 5)")
+    print(f"[kitti] cli.train.main {' '.join(argv[:2])} (ResNet-{cfg.model.num_layers}, "
+          f"DenseASPP, {cfg.model.planes.disp_levels}+{cfg.model.planes.xz_levels} planes, "
+          f"VGG19, {cfg.data.width}x{cfg.data.height}, batch {cfg.per_step_batch} flipped to "
+          f"{cfg.effective_batch}): {n_steps} steps and {n_val} validation batches in "
+          f"{train_s:.1f} s, launches {train_launches} (want {want}); first/last losses "
+          f"{json.dumps(steps[0][3])} {json.dumps(steps[-1][3])}; saved {saved}")
+    print(f"[kitti] loader host ms per batch of {cfg.per_step_batch} (decode + resize + "
+          f"augmentation, {cfg.data.num_workers} threads): median "
+          f"{statistics.median(batch_s) * 1e3:.2f}, all {[round(b * 1e3, 1) for b in batch_s]}; "
+          f"under torch.profiler: step span ms (CUDA events around the synchronised step) "
+          f"median {statistics.median(step_ms):.2f}, all {[round(t, 1) for t in step_ms]}; "
+          f"device busy ms in each step (kernels and copies) median "
+          f"{statistics.median(b for _, b in traced):.2f}, all "
+          f"{[round(b, 1) for _, b in traced]}; wait for the next batch between steps median "
+          f"{statistics.median(waits) * 1e3:.2f} ms; the card's idle share of steps "
+          f"2-{n_steps}'s wall {idle_in + idle_between:.4f} = {idle_in:.4f} inside the steps "
+          f"+ {idle_between:.4f} between them | {card}")
+    print(f"[kitti] export_eigen_raw_gt: {n_frames} frames in {export_s:.1f} s -> {gt_path}")
+    print(f"[kitti] evaluate (cli.evaluate.load + evaluate, eigen_raw, post_process, batch 4 "
+          f"doubled to 8, {ecfg.data.width}x{ecfg.data.height}): {n_frames} frames in "
+          f"{eval_s:.2f} s = {n_frames / eval_s:.2f} frames/s, prediction alone "
+          f"{predict_s[0]:.2f} s = {n_frames / predict_s[0]:.2f} frames/s; launches "
+          f"{eval_launches}; card vs CPU forward at 64x192 max_abs_err {small_err:.3e} | {card}")
+    print(f"[kitti] eigen_raw metrics (random weights, shows the path runs): "
+          f"{json.dumps(metrics)}")
+    return {"train": train_launches, "evaluate": eval_launches}
+
+
 def main():
     t_start = time.perf_counter()
 
@@ -1778,6 +2038,7 @@ def main():
     run(phase_pladenet, card)
     nomix = run(phase_nomix, card)
     launches.update({k: nomix[k] for k in ("warp2d_nosigma_fwd", "warp2d_nosigma_bwd")})
+    run(phase_kitti, card)
     print(f"[time] all phases: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,

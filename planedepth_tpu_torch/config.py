@@ -1,9 +1,9 @@
 """Configuration (counterpart of ``planedepth_tpu/config.py``).
 
 Same names and defaults as the JAX package's ``PlaneConfig``, ``ModelConfig``,
-``LossConfig``, ``OptimConfig`` and the fields of ``TrainConfig`` that the
-training steps and the trainer read, the ``height``/``width``,
-``use_colmap`` and ``num_workers`` of its ``DataConfig``, the three stage
+``LossConfig``, ``DataConfig`` (the KITTI reader's paths, split, image
+format, crop and augmentation ranges), ``OptimConfig`` and the fields of
+``TrainConfig`` that the training steps and the trainer read, the three stage
 presets, the monocular recipe of the JAX package's ``bench.py`` and the
 ``to_json``/``from_dict`` round trip (``from_dict`` skips the JAX package's
 fields that have no counterpart here, so it reads the JAX ``opt.json``
@@ -14,7 +14,9 @@ or a TPU memory trade (``s2d_tail``, ``s2d_stem``, ``fused_head``,
 ``rowshift_warp``, ``warp_sample_bf16``) have no counterpart: the kernels run
 whenever their tensors lie on the card, and the 2-D warp kernel samples
 every plane exactly, so the TPU's tap budget (``warp2d_plan``) has no use.
-``bf16`` is not ported: the port trains in float32.
+``bf16`` is not ported: the port trains in float32.  Nor is ``use_ssim``,
+the SSIM term of ``alpha_self``'s reprojection loss (ROADMAP C1).
+``cli/options.py`` refuses the flags of those fields.
 """
 from __future__ import annotations
 
@@ -76,14 +78,25 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class DataConfig:
-    """Network input size, the COLMAP pose switch and loader threads
-    (reference: options.py:27-60, 113-115, 217-220)."""
+    """Dataset and augmentation (reference: options.py:27-60, 113-115,
+    156-158, 217-220)."""
 
+    data_path: str = "./kitti_data"
+    dataset: str = "kitti"          # kitti | kitti_odom | kitti_depth
+    split: str = "eigen_full_left"  # a name under splits/, or a directory
     height: int = 192
     width: int = 640
+    png: bool = False               # .png frames (else .jpg, decoded by PIL)
+    no_crop: bool = False           # disables RandomResizeCrop
     # temporal poses from the batch's Rt_{f} (COLMAP) instead of the pose nets
     use_colmap: bool = False
+    colmap_path: str = "./kitti_colmap"
     num_workers: int = 12           # loader threads (data/loader.py)
+    # aug ranges (reference: datasets/mono_dataset.py:77-87)
+    crop_factor: Tuple[float, float] = (0.75, 1.5)
+    gamma_range: Tuple[float, float] = (0.8, 1.2)
+    brightness_range: Tuple[float, float] = (0.5, 2.0)
+    color_range: Tuple[float, float] = (0.8, 1.2)
 
     def __post_init__(self):
         if self.height % 32 or self.width % 32:
@@ -247,7 +260,7 @@ def hr_finetune_config(**overrides) -> TrainConfig:
         fused_sweep=True,
         flip_right=True,
         batch_size=8,
-        data=DataConfig(height=384, width=1280),
+        data=DataConfig(height=384, width=1280, no_crop=True),
         optim=OptimConfig(learning_rate=2.5e-5, num_epochs=1, milestones=()),
         models_to_load=("encoder", "depth"),
     )
@@ -266,7 +279,7 @@ def self_distillation_config(**overrides) -> TrainConfig:
         fused_sweep=True,
         batch_size=4,
         loss=LossConfig(self_distillation=1.0),
-        data=DataConfig(height=384, width=1280),
+        data=DataConfig(height=384, width=1280, no_crop=True),
         optim=OptimConfig(learning_rate=2e-5, num_epochs=10, milestones=(5,)),
         models_to_load=("encoder", "depth"),
     )

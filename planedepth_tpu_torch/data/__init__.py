@@ -1,1 +1,1 @@
-"""Data of the port: synthetic stereo batches (the KITTI reader is not ported yet)."""
+"""Data of the port: the KITTI reader, its transforms and image files, the loader, synthetic stereo batches."""

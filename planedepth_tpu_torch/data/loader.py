@@ -8,17 +8,19 @@ Replaces the reference's DataLoader + rmnone_collate stack
     padded to whole batches, as a pure function of the epoch;
   * ``BatchLoader`` — a thread pool decodes/augments samples and a
     double-buffered prefetcher overlaps host work with device steps;
-  * samples that fail to load (the reference's ``rmnone_collate`` None-drop
-    for missing colmap poses) are resampled deterministically from the same
-    epoch permutation instead of shrinking the batch, so every step sees
-    the same batch shape.
+  * samples of a training set that fail to load (the reference's
+    ``rmnone_collate`` None-drop for missing colmap poses) are resampled
+    deterministically from the same epoch permutation instead of shrinking
+    the batch, so every step sees the same batch shape.  An evaluation set
+    (``dataset.is_train`` False) raises the failure instead: another frame
+    in its place would be scored against the missing frame's ground truth.
 """
 from __future__ import annotations
 
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterator, List, Optional, Sequence
+from typing import Dict, Iterator, List, Sequence
 
 import numpy as np
 
@@ -87,31 +89,40 @@ class BatchLoader:
         self.dataset = dataset
         self.sampler = sampler
         self.num_workers = max(1, num_workers)
+        # datasets without the attribute resample, as the JAX loader does
+        self.resample = getattr(dataset, "is_train", True)
 
-    def _load_one(self, idx: int, epoch: int) -> Optional[Dict]:
+    def _load_one(self, idx: int, epoch: int):
+        """The sample, or what stands for its failure where failures are
+        resampled: None (the dataset dropped it) or the exception raised."""
         try:
-            return self.dataset.getitem(int(idx), epoch=epoch)
-        except Exception:
-            return None
+            sample = self.dataset.getitem(int(idx), epoch=epoch)
+        except Exception as e:
+            if not self.resample:
+                raise
+            return e
+        if sample is None and not self.resample:
+            raise RuntimeError(f"sample {int(idx)} of an evaluation set has no data")
+        return sample
 
     def _make_batch(self, indices: np.ndarray, epoch: int, fallback: np.ndarray,
                     executor: ThreadPoolExecutor) -> Dict[str, np.ndarray]:
         # decode/augment the batch in parallel (the reference uses 12 worker
         # PROCESSES, options.py:217-220; PIL decode and np IO release the
         # GIL so threads suffice here and keep arrays zero-copy)
-        samples: List[Optional[Dict]] = list(
-            executor.map(lambda i: self._load_one(i, epoch), indices))
+        samples = list(executor.map(lambda i: self._load_one(i, epoch), indices))
         # deterministic resample of failures, in batch-position order, from
         # the epoch permutation (replaces the reference's rmnone_collate
         # None-drop — every step keeps the batch shape)
         fb = iter(fallback)
         out: List[Dict] = []
         for s in samples:
-            while s is None:
-                try:
-                    s = self._load_one(next(fb), epoch)
-                except StopIteration:
-                    raise RuntimeError("all fallback samples failed to load")
+            while s is None or isinstance(s, Exception):
+                idx = next(fb, None)
+                if idx is None:
+                    raise RuntimeError(f"all fallback samples failed to load; the last: "
+                                       f"{s!r}") from (s if isinstance(s, Exception) else None)
+                s = self._load_one(idx, epoch)
             out.append(s)
         return collate(out)
 
@@ -141,7 +152,8 @@ class BatchLoader:
                 b = q.get()
                 if b is None:
                     if failure:
-                        raise RuntimeError("BatchLoader producer failed") from failure[0]
+                        raise RuntimeError(
+                            f"BatchLoader producer failed: {failure[0]}") from failure[0]
                     break
                 yield b
         finally:

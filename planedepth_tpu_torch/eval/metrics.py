@@ -1,17 +1,17 @@
 """Eigen-protocol metrics (``planedepth_tpu/eval/metrics.py``, reference evaluate_depth_HR.py:27-59).
 
 A copy of the JAX package's numpy code, with one change: the resize of each
-prediction to the GT size is ``F.interpolate(mode="bilinear",
-align_corners=False)`` in place of ``cv2.resize`` (same half-pixel bilinear
-rule), because OpenCV is not a dependency of the port.
+prediction to the GT size is ``data/image_io.py:resize_bilinear``, a numpy
+copy of ``cv2.resize``'s bilinear rule, because OpenCV is not a dependency
+of the port.
 """
 from __future__ import annotations
 
 from typing import Dict, Tuple
 
 import numpy as np
-import torch
-import torch.nn.functional as F
+
+from planedepth_tpu_torch.data.image_io import resize_bilinear
 
 MIN_DEPTH = 1e-3
 MAX_DEPTH = 80.0
@@ -35,13 +35,6 @@ def compute_errors(gt: np.ndarray, pred: np.ndarray) -> Tuple[float, ...]:
 def batch_post_process_disparity(l_disp: np.ndarray, r_disp: np.ndarray) -> np.ndarray:
     """Flip post-processing: the plain mean (reference evaluate_depth_HR.py:51-59)."""
     return 0.5 * (l_disp + r_disp)
-
-
-def resize_bilinear(img: np.ndarray, height: int, width: int) -> np.ndarray:
-    """``(h, w)`` float32 -> ``(height, width)``, half-pixel bilinear."""
-    t = torch.from_numpy(np.ascontiguousarray(img, dtype=np.float32))[None, None]
-    out = F.interpolate(t, size=(height, width), mode="bilinear", align_corners=False)
-    return out[0, 0].numpy()
 
 
 def evaluate_disparities(

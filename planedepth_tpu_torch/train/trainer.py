@@ -1,6 +1,7 @@
 """Training orchestration (``planedepth_tpu/train/trainer.py``, reference trainer.py:45-913).
 
-The epoch loop around ``make_train_step``: batches from the deterministic
+The epoch loop around ``make_train_step``: the split's KITTI datasets
+(unless the caller hands in its own), batches from the deterministic
 sampler, throughput and scalar logging, validation with the best
 ``de/abs_rel`` kept, per-epoch checkpoints (``last_models``, ``best_models``),
 the converted ImageNet weights (``utils/pretrained.py``: a perceptual loss
@@ -22,6 +23,7 @@ import torch
 
 import planedepth_tpu_torch
 from planedepth_tpu_torch.config import TrainConfig
+from planedepth_tpu_torch.data.kitti import DATASETS, readlines, split_path
 from planedepth_tpu_torch.data.loader import BatchLoader, EpochSampler
 from planedepth_tpu_torch.train.state import fast_forward_schedule, make_optimizer
 from planedepth_tpu_torch.train.step import (
@@ -41,18 +43,38 @@ from planedepth_tpu_torch.utils.pretrained import apply_pretrained, check_percep
 REPO_DIR = os.path.dirname(os.path.dirname(os.path.abspath(planedepth_tpu_torch.__file__)))
 
 
+def split_datasets(cfg: TrainConfig):
+    """The train and val datasets of ``cfg.data.split``'s ``train_files.txt``
+    and ``val_files.txt`` (JAX ``train/trainer.py:72-92``): the train set
+    augmented (the crop unless ``no_crop``, the ranges of ``cfg.data``,
+    COLMAP poses under ``use_colmap``), the val set resized only."""
+    ds_cls = DATASETS[cfg.data.dataset]
+    img_ext = ".png" if cfg.data.png else ".jpg"
+    train_files = readlines(split_path(cfg.data.split, "train"))
+    val_files = readlines(split_path(cfg.data.split, "val"))
+    train = ds_cls(cfg.data.data_path, train_files, cfg.data.height, cfg.data.width,
+                   cfg.novel_frame_ids, is_train=True, use_crop=not cfg.data.no_crop,
+                   use_colmap=cfg.data.use_colmap, colmap_path=cfg.data.colmap_path,
+                   img_ext=img_ext, seed=cfg.seed, crop_factor=cfg.data.crop_factor,
+                   gamma_range=cfg.data.gamma_range,
+                   brightness_range=cfg.data.brightness_range,
+                   color_range=cfg.data.color_range)
+    val = ds_cls(cfg.data.data_path, val_files, cfg.data.height, cfg.data.width,
+                 cfg.novel_frame_ids, is_train=False, use_crop=False, use_colmap=False,
+                 img_ext=img_ext, seed=cfg.seed)
+    return train, val
+
+
 class Trainer:
-    """``Trainer(cfg, datasets=(train, val), device=None)``: ``train()`` runs
-    the epochs.  Datasets follow the JAX package's protocol (``__len__`` and
-    ``getitem(index, epoch)`` returning one NHWC numpy sample).  ``device``
-    is the card unless the caller names another."""
+    """``Trainer(cfg, datasets=None, device=None)``: ``train()`` runs the
+    epochs.  Without ``datasets`` it reads the split's KITTI frames
+    (:func:`split_datasets`); ``datasets=(train, val)`` follow the JAX
+    package's protocol (``__len__`` and ``getitem(index, epoch)`` returning
+    one NHWC numpy sample).  ``device`` is the card unless the caller names
+    another."""
 
     def __init__(self, cfg: TrainConfig, datasets=None,
                  device: Optional[torch.device] = None):
-        if datasets is None:
-            raise NotImplementedError(
-                "the KITTI reader is not ported yet (ROADMAP 'Next' 1: data/kitti.py); "
-                "pass datasets=(train, val)")
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError("Trainer: CUDA is not available; pass "
@@ -63,7 +85,7 @@ class Trainer:
         self.log_path = os.path.join(cfg.log_dir, cfg.model_name)
 
         # data ---------------------------------------------------------------
-        self.train_dataset, self.val_dataset = datasets
+        self.train_dataset, self.val_dataset = datasets or split_datasets(cfg)
         b = cfg.per_step_batch
         self.train_loader = BatchLoader(
             self.train_dataset,

@@ -39,6 +39,12 @@ def _networks(model: nn.Module, pose_nets: Optional[Mapping[str, nn.Module]]
     return {**depth, **(pose_nets or {})}
 
 
+def network_names(model: nn.Module) -> Tuple[str, ...]:
+    """The checkpoint names of a ``DepthModel``'s networks: ``encoder`` and
+    ``depth``, ``plade`` or ``fal``."""
+    return tuple(_networks(model, None))
+
+
 def _cpu_state(module: nn.Module) -> Dict[str, torch.Tensor]:
     return {k: v.detach().cpu() for k, v in module.state_dict().items()}
 

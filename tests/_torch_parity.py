@@ -44,6 +44,24 @@ def _stats_rule(name, v, rng):
     return rng.uniform(0.5, 1.5, v.shape).astype(np.float32)        # var
 
 
+_INITS = {}
+
+
+def jax_init(bundle, seed, height, width):
+    """``bundle.init`` under ``jax.jit``, as numpy trees, once a process for
+    each set of networks: the init depends only on the model, pose and
+    perceptual configs, the seed and the size, so configurations that
+    differ in their losses or warps share it."""
+    cfg = bundle.cfg
+    key = (cfg.model, cfg.use_pose_net, cfg.loss.alpha_pc > 0, cfg.loss.pc_net,
+           seed, height, width)
+    if key not in _INITS:
+        out = jax.jit(bundle.init, static_argnums=(1, 2))(
+            jax.random.PRNGKey(seed), height, width)
+        _INITS[key] = jax.tree.map(np.asarray, out)
+    return _INITS[key]
+
+
 def make_models(height, width, fused_head="off", seed=0, **model_kw):
     """-> (jax_forward, params_np, stats_np, port_model) for one config."""
     cfg = jcfg.TrainConfig(
@@ -150,8 +168,7 @@ def stereo_step_pair(jc, tc, height, width, seed=0):
     from planedepth_tpu_torch.utils.weights import load_jax_pc_params
 
     bundle = ModelBundle(jc)
-    params, stats, pc = jax.jit(bundle.init, static_argnums=(1, 2))(
-        jax.random.PRNGKey(seed), height, width)
+    params, stats, pc = jax_init(bundle, seed, height, width)
     rng = np.random.default_rng(seed + 3)
     params_np = {"model": _perturb(jax.tree.map(np.asarray, params["model"]), rng, _param_rule)}
     stats_np = {"model": _perturb(jax.tree.map(np.asarray, stats["model"]), rng, _stats_rule)}

@@ -92,16 +92,21 @@ def test_make_stereo_batch_bit_equal_to_jax(kw):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, chip_smoke.py and the port's profile script
-    import without JAX or the JAX package."""
+    """Every module of the port (the KITTI reader, the evaluator and the
+    CLIs among them), chip_smoke.py and the port's profile script import
+    without JAX or the JAX package, and without PIL or OpenCV."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import planedepth_tpu_torch as p\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for m in mods + ['chip_smoke', 'scripts.profile_torch_step']:\n"
         "    importlib.import_module(m)\n"
-        "assert len(mods) >= 28, mods\n"
-        "assert 'planedepth_tpu_torch.train.step' in mods, mods\n"
+        "assert len(mods) >= 39, mods\n"
+        "for m in ('train.step', 'cli.options', 'cli.train', 'cli.evaluate', 'data.kitti',\n"
+        "          'data.kitti_utils', 'data.transforms', 'data.native', 'data.image_io',\n"
+        "          'data.kitti_tree', 'eval.export_gt', 'eval.evaluator'):\n"
+        "    assert 'planedepth_tpu_torch.' + m in mods, (m, mods)\n"
+        "assert 'PIL' not in sys.modules and 'cv2' not in sys.modules\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax',"
         " 'planedepth_tpu')]\n"
         "assert not bad, bad\n"

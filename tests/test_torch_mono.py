@@ -71,6 +71,7 @@ from tests._torch_parity import (
     _stats_rule,
     assert_step_matches,
     bn_sizes,
+    jax_init,
 )
 
 pytestmark = pytest.mark.heavy
@@ -105,8 +106,7 @@ def _configs(warp_type="homography_warp", no_stereo=False, alpha_pc=0.1, mixture
 def _jax_setup(jc, seed=0):
     """Perturbed JAX variables (numpy) and the jittered batch."""
     bundle = JaxBundle(jc)
-    params, stats, pc = jax.jit(bundle.init, static_argnums=(1, 2))(
-        jax.random.PRNGKey(seed), H, W)
+    params, stats, pc = jax_init(bundle, seed, H, W)
     rng = np.random.default_rng(seed + 3)
     params = {k: _perturb(jax.tree.map(np.asarray, v), rng, _param_rule)
               for k, v in params.items()}

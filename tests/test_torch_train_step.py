@@ -56,6 +56,7 @@ from tests._torch_parity import (
     _stats_rule,
     assert_step_matches,
     bn_sizes,
+    jax_init,
     nchw,
 )
 
@@ -91,8 +92,7 @@ def steps(request):
     """One step of each package from the same perturbed weights."""
     jc, tc = _configs(request.param)
     bundle = JaxBundle(jc)
-    params, stats, pc_params = jax.jit(bundle.init, static_argnums=(1, 2))(
-        jax.random.PRNGKey(0), H, W)
+    params, stats, pc_params = jax_init(bundle, 0, H, W)
     rng = np.random.default_rng(3)
     params_np = {"model": _perturb(jax.tree.map(np.asarray, params["model"]), rng, _param_rule)}
     stats_np = {"model": _perturb(jax.tree.map(np.asarray, stats["model"]), rng, _stats_rule)}

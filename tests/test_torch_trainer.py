@@ -125,6 +125,35 @@ def test_batch_loader_equals_jax(workers):
     assert not any(np.isin(b[:, 0], (1, 4)).any() for b in batches[0])
 
 
+class FlakyEvalSet(FlakyDataset):
+    is_train = False
+
+
+class BrokenTrainSet(FlakyDataset):
+    is_train = True
+
+    def getitem(self, index, epoch=0):
+        raise OSError(f"sample {index} is missing")
+
+
+@pytest.mark.parametrize("dataset,message", [
+    (FlakyEvalSet(), "sample 1 is missing"),
+    (BrokenTrainSet(), "all fallback samples failed to load; the last: OSError"),
+], ids=["eval_set_raises", "train_set_all_fallbacks_fail"])
+def test_batch_loader_failure_reaches_the_caller(dataset, message):
+    """An evaluation set's failed sample is not swapped for another: the
+    epoch stops with its error; a training set with no loadable sample
+    stops with the last error chained."""
+    loader = tloader.BatchLoader(dataset, tloader.EpochSampler(9, 3, shuffle=False))
+    with pytest.raises(RuntimeError, match=message) as failure:
+        list(loader.epoch(0))
+    assert isinstance(failure.value.__cause__, Exception)
+    cause = failure.value.__cause__
+    while cause.__cause__ is not None:
+        cause = cause.__cause__
+    assert isinstance(cause, OSError)
+
+
 @pytest.mark.parametrize("step", [0, 7, 8, 15, 40])
 def test_fast_forward_gives_the_resumed_lr(step):
     """The LR after fast-forwarding to ``step`` is the schedule's at that
@@ -285,8 +314,12 @@ def _stage(preset, tmp_path, **kw):
 
 
 def test_trainer_needs_datasets_and_a_device(monkeypatch, tmp_path):
-    with pytest.raises(NotImplementedError, match="KITTI"):
-        Trainer(_stage(tcfg.stage1_config, tmp_path), device=CPU)
+    """Without datasets the Trainer reads the split's file lists, which must
+    exist; without a device it needs the card."""
+    cfg = _stage(tcfg.stage1_config, tmp_path)
+    missing = cfg.replace(data=dataclasses.replace(cfg.data, split=str(tmp_path / "none")))
+    with pytest.raises(FileNotFoundError, match="train_files.txt"):
+        Trainer(missing, device=CPU)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         Trainer(_stage(tcfg.stage1_config, tmp_path),
