@@ -1,4 +1,4 @@
-"""Drive the PyTorch/CUDA port's inference path, stage-1 step, stage-2 -> stage-3 trainer, mono trainer, FalNet and PladeNet trainers, no-mixture recipes and KITTI entry points on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's inference path, stage-1 step, stage-2 -> stage-3 trainer, mono trainer, FalNet and PladeNet trainers, no-mixture recipes, KITTI entry points, and the render_probability, yz-plane and alpha_self recipes on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -39,7 +39,10 @@ Phases, each printing a line:
   7. epilogue: the head-epilogue forward and backward kernels against
      head_epilogue_plain at the stage-3 student's shape (4, 63, 384, 1280)
      with a row-constant mask and raw sigmas past both ends of the clip;
-     kernel and twin times by CUDA events;
+     kernel and twin times by CUDA events; then their N - 1 mode
+     (render_probability: (8, 62, 192, 640) logits beside (8, 63, 192, 640)
+     sigma) against the twin, timed beside the N mode at that shape with
+     each one's byte bound;
   8. shift: the row-shift kernel against row_shift_plain at the stage-3
      shape (4, 63, 384, 1280) on seeded signed shifts (the teacher's +/-
      disparities, integers, beyond the clip at both ends); kernel, twin and
@@ -111,7 +114,32 @@ Phases, each printing a line:
      evaluate over the 697 frames with post-processing and the tree's
      splits_dir (frames/s); the launch counts of both runs are held to what
      the path runs, the disparities and the seven metrics must be finite and
-     the restored model's forward on the card is held to the CPU's.
+     the restored model's forward on the card is held to the CPU's;
+ 19. render: after stage1_config through Trainer as its baseline (13
+     steps), stage1_config with render_probability (ResNet-50, DenseASPP,
+     49+14 planes, 62 density planes, VGG19) through Trainer at 640x192,
+     batch 4 flipped to 8: 3 warm-up and 10 timed steps, each held to one
+     2-D warp (with sigma) and one head epilogue (its N - 1 mode) each way,
+     no sweep and no disp head; one validation batch; the step time beside
+     the baseline's; one step on the card held to the CPU at 64x192 on 49
+     vertical planes (with ground planes the NeRF compositing is ill-posed:
+     a plane of positive density at a negative distance from the one before
+     makes alpha = 1 - exp(-relu(l) d) unbounded, and two float32
+     evaluations part); the eval forward at 1280x384, batch 8, card against
+     CPU (the epilogue's output, sigma and dists against the CPU forward;
+     the compositing against a float64 recomputation from the card's own
+     inputs on the well-posed pixels, finite on all);
+ 20. yz: stage1_config with yz_levels 8 (N = 71; no published recipe sets
+     it, 8 is this script's choice) through Trainer as phase 19, the same
+     launch counts, one step on the card held to the CPU at 64x192;
+ 21. self: stage1_config with alpha_self 0.1 and use_ssim through Trainer
+     (13 steps, each one sweep and one head epilogue each way), its card
+     step held to the CPU at 64x192, then 2 steps of mono_config with the
+     same (each 3 warps, the disp head and the head epilogue each way);
+     loss/self_loss printed;
+ 22. pladenet_render: 2 stage-1 steps of PladeNet (49+14 planes, mixture,
+     PE 8, plane residuals) with render_probability, each one 2-D warp each
+     way.
 Each phase prints its wall time.  Then one JSON line of the kernels and,
 last, the ok line.  TF32 is off for convolutions and matmuls so that the
 card computes in float32 throughout.
@@ -160,6 +188,10 @@ from planedepth_tpu_torch.eval.evaluator import mirror_batch, predict_disparitie
 from planedepth_tpu_torch.eval.export_gt import export_eigen_raw_gt
 from planedepth_tpu_torch.eval.metrics import evaluate_disparities
 from planedepth_tpu_torch.geometry.pose import transformation_from_parameters
+from planedepth_tpu_torch.models.depth_decoder import (
+    mixture_reweight,
+    render_probability_from_logits,
+)
 from planedepth_tpu_torch.models.factory import DepthModel, init_weights_
 from planedepth_tpu_torch.ops import _build
 from planedepth_tpu_torch.ops.disp_head import disp_head, disp_head_plain
@@ -230,6 +262,11 @@ def only(**counts):
     if unknown:
         raise KeyError(f"no kernel {sorted(unknown)}")
     return {**{k: 0 for k in KERNELS}, **counts}
+
+
+def nonzero(counts):
+    """The launch counts that are not 0."""
+    return {k: v for k, v in counts.items() if v}
 
 
 # per stage-3 step: the teacher's 5 row shifts, disp head and head
@@ -584,9 +621,12 @@ def phase_sweep(card, shape=SWEEP_SHAPE, dev=torch.device("cuda"),
             held.hold(plane_sweep(*inputs, pad, with_auto, with_disp),
                       plane_sweep_plain(*inputs, pad, with_auto, with_disp),
                       inputs, (2, 3, 4), names, i)
-    timed = {}
+    timed, image_grads = {}, {}
     for at, seed in ((shape, 1), (hr_shape, 4)):
         inputs = seeded_sweep_inputs(at, seed, dev)
+        # the backward's image_grads=True mode also writes d_src and d_tgt
+        moved = sweep_bounds(inputs)[1][0] + nbytes(*inputs[:2])
+        image_grads[at] = (moved, *bound(moved, 100 * inputs[2].numel()))
         for with_auto in (True, False):
             got = plane_sweep(*inputs, pad, with_auto, True)
             if not bool((got[-1][:, 5] == 0).all()):
@@ -606,6 +646,9 @@ def phase_sweep(card, shape=SWEEP_SHAPE, dev=torch.device("cuda"),
           f"at both | {card}")
     for at, t in timed.items():
         print_sweep_times("sweep", at, t, card)
+    print("[sweep] the backward's image_grads=True mode (not ported; no path runs it): bound "
+          + ", ".join(f"{ms:.4f} ms ({by}) of {moved / 1e6:.1f} MB at {at}"
+                      for at, (moved, ms, by) in image_grads.items()))
     fwd, bwd = sweep_fields(held, timed[shape], {hr_shape: timed[hr_shape]})
     return {"plane_sweep_fwd": fwd, "plane_sweep_bwd": bwd}
 
@@ -895,6 +938,9 @@ def phase_epilogue(card, shape=SHIFT_SHAPE, dev=torch.device("cuda")):
     bwd_bytes = nbytes(*cts, got[1], mask, *d_got)
     fwd_bound = bound(fwd_bytes, 6 * raw_l.numel())
     bwd_bound = bound(bwd_bytes, 6 * raw_l.numel())
+    del heads, cts, got, want, d_got, d_want
+    free_cache()
+    trim = epilogue_n_minus_1(card, SWEEP_SHAPE, dev)
     print(f"[epilogue] head_epilogue vs plain at {shape}, row-constant mask: forward "
           f"max_abs_err {fwd_err:.3e}, backward {bwd_err:.3e} (rtol {TOL['rtol']}, atol "
           f"{TOL['atol']}) | {card}")
@@ -905,6 +951,7 @@ def phase_epilogue(card, shape=SHIFT_SHAPE, dev=torch.device("cuda")):
           f"{bwd_bound[0] / bwd_ms:.1%} of the bound {bwd_bound[0]:.4f} ms); twin "
           f"forward {plain_fwd_ms:.4f} ms, forward+backward {plain_ms:.4f} ms; no "
           f"single PyTorch call computes either | {card}")
+    print(f"[epilogue] render_probability's N - 1 logit planes: {json.dumps(trim)} | {card}")
     return {
         "head_epilogue_fwd": {"max_abs_err": fwd_err, "ms": fwd_ms, "plain_ms": plain_fwd_ms,
                               "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
@@ -915,6 +962,51 @@ def phase_epilogue(card, shape=SHIFT_SHAPE, dev=torch.device("cuda")):
                               "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1],
                               "library_ms": None},
     }
+
+
+def epilogue_n_minus_1(card, shape, dev):
+    """The head-epilogue kernels in their N - 1 mode (render_probability:
+    ``(B, N - 1, H, W)`` logits beside ``(B, N, H, W)`` sigma and the
+    row-constant mask) against their plain version at the render step's
+    ``shape``, then timed beside the N mode at the same shape with each
+    one's byte bound; returns what the phase prints."""
+    B, N, H, W = shape
+    g = torch.Generator(device=dev).manual_seed(6)
+    raw_l = 2.0 * torch.randn((B, N - 1, H, W), generator=g, device=dev)
+    raw_s = 16.0 * torch.rand(shape, generator=g, device=dev) - 8.0
+    raw_s[:, 0, :2] = 40.0
+    raw_s[:, 1, :2] = -40.0
+    mask = (torch.rand((B, N, H, 1), generator=g, device=dev) > 0.2).float()
+    heads = [raw_l.requires_grad_(), raw_s.requires_grad_()]
+    cts = [torch.randn(t.shape, generator=g, device=dev) for t in heads]
+    got = head_epilogue(*heads, mask)
+    want = head_epilogue_plain(*heads, mask)
+    torch.cuda.synchronize(dev)
+    out = {"shape": [B, N - 1, H, W], "sigma_shape": list(shape)}
+    out["fwd_max_abs_err"] = max((a - b).abs().max().item() for a, b in zip(got, want))
+    for name, a, b in zip(("logits", "sigma"), got, want):
+        torch.testing.assert_close(a, b, msg=name, **TOL)
+    d_got = torch.autograd.grad(got, heads, cts, retain_graph=True)
+    d_want = torch.autograd.grad(want, heads, cts, retain_graph=True)
+    torch.cuda.synchronize(dev)
+    out["bwd_max_abs_err"] = max((a - b).abs().max().item() for a, b in zip(d_got, d_want))
+    for name, a, b in zip(("d_raw_logits", "d_raw_sigma"), d_got, d_want):
+        torch.testing.assert_close(a, b, msg=name, **TOL)
+    full_l = torch.randn(shape, generator=g, device=dev).requires_grad_()
+    full_got = head_epilogue(full_l, heads[1], mask)
+    full_cts = [torch.randn(shape, generator=g, device=dev), cts[1]]
+    for mode, (heads_m, got_m, cts_m) in (("n_minus_1", (heads, got, cts)),
+                                           ("n", ([full_l, heads[1]], full_got, full_cts))):
+        with torch.no_grad():
+            out[f"{mode}_fwd_ms"] = cuda_ms(lambda: head_epilogue(*heads_m, mask))
+        out[f"{mode}_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(got_m, heads_m, cts_m,
+                                                                    retain_graph=True))
+        # each input read once, each output written once
+        out[f"{mode}_fwd_bound_ms"] = bound(nbytes(*heads_m, mask, *got_m), 0)[0]
+        out[f"{mode}_bwd_bound_ms"] = bound(nbytes(*cts_m, got_m[1], mask, *heads_m), 0)[0]
+    with torch.no_grad():
+        out["plain_fwd_ms"] = cuda_ms(lambda: head_epilogue_plain(*heads, mask))
+    return out
 
 
 def seeded_shift_inputs(shape, pad, seed, dev):
@@ -1003,7 +1095,10 @@ def check_losses(losses, cfg):
             raise AssertionError(f"non-finite loss: {ls}")
         total = (ls["loss/ph_loss"] + cfg.loss.alpha_pc * ls["loss/pc_loss"]
                  + cfg.loss.alpha_smooth * ls["loss/smooth_loss"]
+                 + cfg.loss.alpha_self * ls.get("loss/self_loss", 0.0)
                  + cfg.loss.self_distillation * ls.get("loss/disp_loss", 0.0))
+        if (cfg.loss.alpha_self > 0) != ("loss/self_loss" in ls):
+            raise AssertionError(f"loss/self_loss present iff alpha_self > 0: {ls}")
         if not math.isclose(ls["loss/total_loss"], total, rel_tol=1e-5, abs_tol=1e-6):
             raise AssertionError(f"total {ls['loss/total_loss']} != {total}")
 
@@ -1124,22 +1219,12 @@ def phase_distill(card, dev=torch.device("cuda"), warmup=3, steps=10):
 def phase_mom(card, dev=torch.device("cuda"), steps=2):
     """use_mom at the stage-1 size: 6 row-shift launches a step."""
     cfg = stage1_config(loss=LossConfig(use_mom=True))
-    bundle = ModelBundle(cfg, dev)
-    optimizer, scheduler = make_optimizer(cfg, bundle.parameters(), 1000)
-    train_step = make_train_step(bundle, optimizer, scheduler)
-    batch = batch_to_tensors(make_stereo_batch(cfg.per_step_batch, cfg.data.height,
-                                               cfg.data.width, seed=0), dev)
-    reset_launch_counts()
-    losses = [train_step(batch) for _ in range(steps)]
-    launches = launch_counts()
-    want = only(plane_sweep_fwd=steps, plane_sweep_bwd=steps, row_shift_fwd=6 * steps,
-                head_epilogue_fwd=steps, head_epilogue_bwd=steps)
-    if launches != want:
-        raise AssertionError(f"use_mom launches {launches}, want {want}")
-    check_losses(losses, cfg)
+    per_step = only(plane_sweep_fwd=1, plane_sweep_bwd=1, row_shift_fwd=6,
+                    head_epilogue_fwd=1, head_epilogue_bwd=1)
+    losses, _, _ = steps_held(cfg, per_step, dev, steps)
     print(f"[mom] stage1_config use_mom at {cfg.data.width}x{cfg.data.height}, batch "
           f"{cfg.per_step_batch} flipped to {cfg.effective_batch}: {steps} steps, launches "
-          f"{launches}, losses {json.dumps(losses[-1])} | {card}")
+          f"per step {nonzero(per_step)}, losses {json.dumps(losses[-1])} | {card}")
 
 
 def seeded_warp_inputs(shape, seed, dev, degenerate=False, zoom=30.0, dead_plane=False):
@@ -1577,16 +1662,21 @@ def trainer_run(cfg, dev, warmup, steps, per_step, after_val):
         trainer = Trainer(cfg, datasets=(SyntheticStereo(b * (warmup + steps), h, w, novel),
                                          SyntheticStereo(b, h, w, novel)), device=dev)
         start = {k: p.detach().clone() for k, p in trainer.bundle.named_parameters()}
-        times, losses, val = [], [], {}
+        times, event_ms, losses, val = [], [], [], {}
         step_fn, val_fn = trainer.train_step, trainer.val
 
         def timed_step(batch):
             if len(times) == warmup:
                 torch.cuda.reset_peak_memory_stats(dev)
             before = launch_counts()
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             t0 = time.perf_counter()
+            start.record()
             out = step_fn(batch)                  # floats: the step has synchronised
+            end.record()
+            end.synchronize()
             times.append(time.perf_counter() - t0)
+            event_ms.append(start.elapsed_time(end))
             delta = {k: v - before[k] for k, v in launch_counts().items()}
             if delta != per_step:
                 raise AssertionError(f"{cfg.model_name} step launches {delta}, want {per_step}")
@@ -1623,7 +1713,7 @@ def trainer_run(cfg, dev, warmup, steps, per_step, after_val):
     return {"cfg": cfg, "launches": launches, "losses": losses, "val": val["metrics"],
             "moved": moved, "saved": saved, "memory": memory, "peak_gb": peak_gb,
             "reserved_gb": reserved_gb, "step_ms": statistics.median(times[warmup:]) * 1e3,
-            "warmup": warmup, "steps": steps}
+            "event_ms": statistics.median(event_ms[warmup:]), "warmup": warmup, "steps": steps}
 
 
 def print_trainer_run(tag, what, run, cpu, cpu_shape, card):
@@ -1637,7 +1727,8 @@ def print_trainer_run(tag, what, run, cpu, cpu_shape, card):
     print(f"[{tag}] validation metrics {json.dumps(run['val'])}")
     print(f"[{tag}] card vs CPU at {cpu_shape} (one step): {json.dumps(cpu)}")
     print(f"[{tag}] step {run['step_ms']:.2f} ms median of {run['steps']} (host clock around "
-          f"synchronised steps, after {run['warmup']} warm-up), "
+          f"synchronised steps, after {run['warmup']} warm-up; CUDA events around them "
+          f"{run['event_ms']:.2f} ms), "
           f"{cfg.effective_batch / run['step_ms'] * 1e3:.2f} imgs/s, peak device memory "
           f"{run['peak_gb']:.2f} GB allocated, {run['reserved_gb']:.2f} GB reserved; float32, "
           f"TF32 off | {card}")
@@ -1702,24 +1793,11 @@ def phase_nomix(card, dev=torch.device("cuda"), steps=2):
             ("mixed disp_warp", mono_config(warp_type="disp_warp", **random_pc),
              NOMIX_MIXED_STEP)):
         free_cache()
-        bundle = ModelBundle(cfg, dev)
-        optimizer, scheduler = make_optimizer(cfg, bundle.parameters(), 1000)
-        train_step = make_train_step(bundle, optimizer, scheduler)
-        batch = batch_to_tensors(step_batch(cfg, 0), dev)
-        losses = []
-        for _ in range(steps):
-            before = launch_counts()
-            losses.append(train_step(batch))
-            delta = {k: v - before[k] for k, v in launch_counts().items()}
-            if delta != per_step:
-                raise AssertionError(f"{name} step launches {delta}, want {per_step}")
-        check_losses(losses, cfg)
+        losses, _, _ = steps_held(cfg, per_step, dev, steps)
         total = {k: v + steps * per_step[k] for k, v in total.items()}
-        nonzero = {k: v for k, v in per_step.items() if v}
         lines.append(f"[nomix] {name} without the mixture at {cfg.data.width}x"
                      f"{cfg.data.height}, batch {cfg.effective_batch}: {steps} steps, launches "
-                     f"per step {nonzero}, losses {json.dumps(losses[-1])} | {card}")
-        del bundle, optimizer, scheduler, train_step, batch
+                     f"per step {nonzero(per_step)}, losses {json.dumps(losses[-1])} | {card}")
     free_cache()
     cpu = check_step_against_cpu(mono_config(model=nomix, batch_size=4,
                                              data=DataConfig(height=64, width=128)), dev)
@@ -1752,23 +1830,238 @@ def phase_mono(card, dev=torch.device("cuda"), warmup=3, steps=10):
     w, h, b = cfg.data.width, cfg.data.height, cfg.per_step_batch
 
     mixed = mono_config(warp_type="disp_warp")
-    bundle = ModelBundle(mixed, dev)
-    optimizer, scheduler = make_optimizer(mixed, bundle.parameters(), 1000)
-    train_step = make_train_step(bundle, optimizer, scheduler)
-    batch = batch_to_tensors(step_batch(mixed, 0), dev)
-    reset_launch_counts()
-    mixed_losses = [train_step(batch) for _ in range(2)]
-    mixed_launches = launch_counts()
-    want = {k: 2 * v for k, v in MIXED_STEP.items()}
-    if mixed_launches != want:
-        raise AssertionError(f"mixed launches {mixed_launches}, want {want}")
-    check_losses(mixed_losses, mixed)
-    del bundle, optimizer, batch
-    free_cache()
+    mixed_losses, _, _ = steps_held(mixed, MIXED_STEP, dev)
     print(f"[mono] mixed disp_warp (side r through the sweep, -1 and 1 through the 2-D "
-          f"warp) at {w}x{h}, batch {b}: 2 steps, launches {mixed_launches}, losses "
-          f"{json.dumps(mixed_losses[-1])} | {card}")
+          f"warp) at {w}x{h}, batch {b}: 2 steps, launches per step {nonzero(MIXED_STEP)}, "
+          f"losses {json.dumps(mixed_losses[-1])} | {card}")
     return run["launches"]
+
+
+# per step of the disp_warp recipes that the 2-D warp rescues (render
+# probability, yz side planes): one warp with sigma each way and the head
+# epilogue each way (N - 1 logit planes under render_probability); no sweep,
+# no disp head (their probability is not the disp head's softmax)
+RESCUE_STEP = only(warp2d_fwd=1, warp2d_bwd=1, head_epilogue_fwd=1, head_epilogue_bwd=1)
+# per PladeNet step with render_probability: the warp each way, nothing else
+PLADENET_RENDER_STEP = only(warp2d_fwd=1, warp2d_bwd=1)
+RENDER_MODEL = ModelConfig(render_probability=True)
+# yz side planes: no published recipe sets yz_levels (the reference defaults
+# it to 0); 8 (two half-sets of 4, N = 71) is this script's choice
+YZ_MODEL = ModelConfig(planes=PlaneConfig(yz_levels=8))
+SELF_LOSS = LossConfig(alpha_self=0.1, use_ssim=True)
+
+
+def rescue_phase_line(tag, run, stage1):
+    """The step time and peak memory beside stage 1's sweep step through
+    the same Trainer (``stage1``: its trainer_run)."""
+    loss = run["losses"][-1].get("loss/self_loss")
+    return (f"[{tag}] step {run['event_ms']:.2f} ms (CUDA events, through Trainer) against "
+            f"stage 1's sweep step through Trainer {stage1['event_ms']:.2f} ms "
+            f"({run['event_ms'] / stage1['event_ms']:.2f}x), peak {run['peak_gb']:.2f} GB "
+            f"allocated against {stage1['peak_gb']:.2f} GB"
+            + (f", last loss/self_loss {loss:.6f}" if loss is not None else ""))
+
+
+STAGE1_STEP = only(plane_sweep_fwd=1, plane_sweep_bwd=1, head_epilogue_fwd=1,
+                   head_epilogue_bwd=1)
+
+
+def phase_stage1_trainer(card, dev=torch.device("cuda"), warmup=3, steps=10):
+    """stage1_config through the Trainer as phases 19-21 run their recipes:
+    the baseline their step times stand beside; returns its run."""
+    free_cache()
+    run = trainer_run(stage1_config(model_name="stage1"), dev, warmup, steps, STAGE1_STEP,
+                      {"disp_head_fwd": 1, "head_epilogue_fwd": 1})
+    print(f"[stage1_trainer] stage1_config through Trainer: {warmup}+{steps} steps, "
+          f"launches per step {nonzero(STAGE1_STEP)}, "
+          f"step {run['event_ms']:.2f} ms (CUDA events; {run['step_ms']:.2f} host clock), "
+          f"peak {run['peak_gb']:.2f} GB allocated | {card}")
+    return run
+
+
+def well_posed_pixels(logits, dists):
+    """Pixels whose NeRF alphas all lie in [0, 1]: no plane of positive
+    density at a negative distance from the plane before it.  Elsewhere
+    ``1 - exp(-relu(l) * d)`` grows without bound and the compositing and
+    the mixture's plane sum cancel, so two float32 evaluations part."""
+    N = logits.shape[1]
+    return (torch.relu(logits[:, :N - 1]) * dists >= 0).all(1, keepdim=True)
+
+
+def check_render_eval(dev, height=384, width=1280):
+    """The render_probability eval forward (ResNet-50, 49+14 planes) on a
+    mirrored batch of 8 at ``height`` x ``width`` on the card against the
+    CPU: the head epilogue's output, sigma and dists elementwise at
+    MODEL_TOL against the CPU's float32 forward; the compositing (pi,
+    probability, disp: plain tensor code on both) recomputed in float64 on
+    the CPU from the card's own logits, sigma and dists, held at MODEL_TOL
+    on the well-posed pixels (:func:`well_posed_pixels`) and finite on all.
+    Returns what the phase prints."""
+    model = init_weights_(DepthModel(RENDER_MODEL), torch.Generator().manual_seed(0))
+    model = model.to(dev).eval()
+    batch = make_stereo_batch(4, height, width, seed=0)
+    image, grid = mirror_batch(torch.from_numpy(batch["color_l"]).permute(0, 3, 1, 2),
+                               torch.from_numpy(batch["grid"]).permute(0, 3, 1, 2))
+    reset_launch_counts()
+    with torch.inference_mode():
+        out = model(image.to(dev), grid.to(dev))
+        torch.cuda.synchronize(dev)
+        launches = launch_counts()
+        if launches != only(head_epilogue_fwd=1):
+            raise AssertionError(f"render eval launches {launches}")
+        fwd_ms = cuda_ms(lambda: model(image.to(dev), grid.to(dev)), warmup=1, reps=5)
+    keys = ("logits", "sigma", "dists", "pi", "probability", "disp", "disp_layered",
+            "padding_mask")
+    got = {k: out[k].cpu() for k in keys}
+    del out
+    free_cache()
+    cpu_model = copy.deepcopy(model).cpu()
+    with torch.inference_mode():
+        want = cpu_model(image, grid)
+    report = {"forward_ms": fwd_ms, "launches": nonzero(launches)}
+    for key in ("logits", "sigma", "dists"):
+        torch.testing.assert_close(got[key], want[key], msg=key, **MODEL_TOL)
+        report[f"{key}_max_abs_err"] = (got[key] - want[key]).abs().max().item()
+    del want
+    d = {k: got[k].double() for k in keys}
+    N = d["logits"].shape[1]
+    pi = render_probability_from_logits(d["logits"][:, :N - 1], d["dists"])
+    prob = mixture_reweight(pi, d["sigma"], d["padding_mask"])
+    ref = {"pi": pi, "probability": prob,
+           "disp": (prob * d["disp_layered"]).sum(1, keepdim=True)}
+    ok = well_posed_pixels(d["logits"], d["dists"])
+    report["well_posed_share"] = ok.double().mean().item()
+    for key, r in ref.items():
+        g = d[key]
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"render eval: non-finite {key}")
+        sel = ok.expand_as(g)
+        torch.testing.assert_close(g[sel], r[sel], msg=key, **MODEL_TOL)
+        report[f"{key}_max_abs_err_well_posed"] = (g[sel] - r[sel]).abs().max().item()
+        report[f"{key}_max_abs"] = g.abs().max().item()
+    return report
+
+
+def phase_render(card, stage1, dev=torch.device("cuda"), warmup=3, steps=10):
+    """stage1_config with render_probability through the Trainer at full
+    width: every side through the 2-D warp (the disp_warp rescue); one card
+    step held to the CPU on the 49 vertical planes (with the recipe's ground
+    planes the compositing is ill-posed, :func:`well_posed_pixels`); the
+    eval forward at 1280x384, batch 8, card against CPU.  Returns the launch
+    counts of the run."""
+    free_cache()
+    cfg = stage1_config(model_name="render", model=RENDER_MODEL)
+    run = trainer_run(cfg, dev, warmup, steps, RESCUE_STEP, {"head_epilogue_fwd": 1})
+    if any(m < t // 2 for m, t in run["moved"].values()):
+        raise AssertionError(f"parameter tensors moved per network: {run['moved']}")
+    cpu = check_step_against_cpu(stage1_config(
+        model=dataclasses.replace(RENDER_MODEL, planes=PlaneConfig(xz_levels=0)),
+        data=DataConfig(height=64, width=192)), dev)
+    free_cache()
+    evaluation = check_render_eval(dev)
+    free_cache()
+    planes = cfg.model.planes
+    print_trainer_run("render", f"stage1_config with render_probability, ResNet-"
+                      f"{cfg.model.num_layers} DenseASPP {planes.disp_levels}+"
+                      f"{planes.xz_levels} planes ({planes.all_levels - 1} density planes), "
+                      f"VGG19 alpha_pc {cfg.loss.alpha_pc} (per step {RESCUE_STEP}, + 1 head "
+                      f"epilogue for validation)", run, cpu,
+                      "64x192, 49 vertical planes", card)
+    print(rescue_phase_line("render", run, stage1) + f" | {card}")
+    print(f"[render] eval forward at 1280x384, batch 8 (4 mirrored), card vs CPU: "
+          f"{json.dumps(evaluation)} | {card}")
+    return run["launches"]
+
+
+def phase_yz(card, stage1, dev=torch.device("cuda"), warmup=3, steps=10):
+    """stage1_config with yz side planes (yz_levels 8, N = 71) through the
+    Trainer at full width, every side through the 2-D warp; one card step
+    held to the CPU.  Returns the launch counts of the run."""
+    free_cache()
+    cfg = stage1_config(model_name="yz", model=YZ_MODEL)
+    run = trainer_run(cfg, dev, warmup, steps, RESCUE_STEP, {"head_epilogue_fwd": 1})
+    if any(m < t // 2 for m, t in run["moved"].values()):
+        raise AssertionError(f"parameter tensors moved per network: {run['moved']}")
+    cpu = check_step_against_cpu(stage1_config(model=YZ_MODEL,
+                                               data=DataConfig(height=64, width=192)), dev)
+    planes = cfg.model.planes
+    print_trainer_run("yz", f"stage1_config with yz_levels {planes.yz_levels} (our choice: "
+                      f"no published recipe sets it), ResNet-{cfg.model.num_layers} DenseASPP "
+                      f"{planes.disp_levels}+{planes.xz_levels}+{planes.yz_levels} planes, "
+                      f"VGG19 alpha_pc {cfg.loss.alpha_pc} (per step {RESCUE_STEP}, + 1 head "
+                      f"epilogue for validation)", run, cpu, "64x192", card)
+    print(rescue_phase_line("yz", run, stage1) + f" | {card}")
+    return run["launches"]
+
+
+def steps_held(cfg, per_step, dev, steps=2):
+    """``steps`` training steps of ``cfg`` outside the Trainer, each held to
+    the launch counts ``per_step``; returns the loss dicts and the event
+    times."""
+    bundle = ModelBundle(cfg, dev)
+    optimizer, scheduler = make_optimizer(cfg, bundle.parameters(), 1000)
+    train_step = make_train_step(bundle, optimizer, scheduler)
+    batch = batch_to_tensors(step_batch(cfg, 0), dev)
+    losses, event_ms = [], []
+    torch.cuda.reset_peak_memory_stats(dev)
+    for _ in range(steps):
+        before = launch_counts()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        losses.append(train_step(batch))
+        end.record()
+        end.synchronize()
+        event_ms.append(start.elapsed_time(end))
+        delta = {k: v - before[k] for k, v in launch_counts().items()}
+        if delta != per_step:
+            raise AssertionError(f"{cfg.model_name} step launches {delta}, want {per_step}")
+    check_losses(losses, cfg)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    del bundle, optimizer, scheduler, train_step, batch
+    free_cache()
+    return losses, event_ms, peak_gb
+
+
+def phase_self(card, stage1, dev=torch.device("cuda"), warmup=3, steps=10):
+    """alpha_self 0.1 with SSIM: stage1_config through the Trainer at full
+    width (the self-reconstruction reads the sweep's disparity), then 2
+    steps of mono_config (it reads the disp head's); returns the launch
+    counts of the Trainer run."""
+    free_cache()
+    cfg = stage1_config(model_name="self", loss=SELF_LOSS)
+    run = trainer_run(cfg, dev, warmup, steps, STAGE1_STEP,
+                      {"disp_head_fwd": 1, "head_epilogue_fwd": 1})
+    if any(m < t // 2 for m, t in run["moved"].values()):
+        raise AssertionError(f"parameter tensors moved per network: {run['moved']}")
+    cpu = check_step_against_cpu(stage1_config(loss=SELF_LOSS,
+                                               data=DataConfig(height=64, width=192)), dev)
+    print_trainer_run("self", f"stage1_config with alpha_self {cfg.loss.alpha_self}, "
+                      f"use_ssim (per step {STAGE1_STEP}, + 1 disp head and 1 head epilogue "
+                      f"for validation)", run, cpu, "64x192", card)
+    print(rescue_phase_line("self", run, stage1) + f" | {card}")
+    mono = mono_config(loss=dataclasses.replace(mono_config().loss, alpha_self=0.1,
+                                                use_ssim=True))
+    losses, event_ms, peak_gb = steps_held(mono, MONO_STEP, dev)
+    print(f"[self] mono_config with alpha_self 0.1, use_ssim at {mono.data.width}x"
+          f"{mono.data.height}, batch {mono.effective_batch}: 2 steps, launches per step "
+          f"{nonzero(MONO_STEP)}, last step {event_ms[-1]:.2f} ms "
+          f"(CUDA events), peak {peak_gb:.2f} GB allocated, losses {json.dumps(losses[-1])} "
+          f"| {card}")
+    return run["launches"]
+
+
+def phase_pladenet_render(card, dev=torch.device("cuda"), steps=2):
+    """PladeNet (49+14 planes, mixture, PE 8, plane residuals) with
+    render_probability: 2 stage-1 steps through the 2-D warp."""
+    free_cache()
+    cfg = stage1_config(model_name="pladenet_render", allow_random_pc=True,
+                        model=dataclasses.replace(PLADENET_MODEL, render_probability=True))
+    losses, event_ms, peak_gb = steps_held(cfg, PLADENET_RENDER_STEP, dev, steps)
+    print(f"[pladenet_render] PladeNet with render_probability at {cfg.data.width}x"
+          f"{cfg.data.height}, batch {cfg.effective_batch}: {steps} steps, launches per step "
+          f"{nonzero(PLADENET_RENDER_STEP)}, last step "
+          f"{event_ms[-1]:.2f} ms (CUDA events), peak {peak_gb:.2f} GB allocated, losses "
+          f"{json.dumps(losses[-1])} | {card}")
 
 
 # the kitti phase's tree: the eigen_raw test frames with a scan each, and a
@@ -2039,6 +2332,11 @@ def main():
     nomix = run(phase_nomix, card)
     launches.update({k: nomix[k] for k in ("warp2d_nosigma_fwd", "warp2d_nosigma_bwd")})
     run(phase_kitti, card)
+    stage1 = run(phase_stage1_trainer, card)
+    run(phase_render, card, stage1)
+    run(phase_yz, card, stage1)
+    run(phase_self, card, stage1)
+    run(phase_pladenet_render, card)
     print(f"[time] all phases: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,

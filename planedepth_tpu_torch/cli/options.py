@@ -10,10 +10,9 @@ parsed there but never read; --num_ep's help text is wrong).
 
 The JAX package's flags of TPU layout and memory trades (``--fused_head``,
 ``--s2d_tail``, ``--remat``, ``--remat_warp``, ``--rowshift_warp``,
-``--warp_sample_bf16``), ``--no_bf16`` and ``--use_ssim`` are not here, so
-argparse refuses them by name: the port has no such fields (``config.py``),
-computes in float32 and has no SSIM term (it belongs to ``alpha_self``'s
-reprojection loss, ROADMAP C1).
+``--warp_sample_bf16``) and ``--no_bf16`` are not here, so argparse refuses
+them by name: the port has no such fields (``config.py``) and computes in
+float32.
 """
 from __future__ import annotations
 
@@ -65,6 +64,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--alpha_self", type=float, default=0.0)
     p.add_argument("--self_distillation", type=float, default=0.0)
     p.add_argument("--automask", action="store_true")
+    p.add_argument("--use_ssim", action="store_true")
     p.add_argument("--match_aug", action="store_true")
     p.add_argument("--pc_net", type=str, default="vgg19",
                    choices=["vgg19", "resnet18"])
@@ -150,6 +150,7 @@ _FLAG_MAP = {
     "alpha_self": ("loss", "alpha_self", _IDENT),
     "self_distillation": ("loss", "self_distillation", _IDENT),
     "automask": ("loss", "automask", _IDENT),
+    "use_ssim": ("loss", "use_ssim", _IDENT),
     "match_aug": ("loss", "match_aug", _IDENT),
     "pc_net": ("loss", "pc_net", _IDENT),
     "use_mom": ("loss", "use_mom", _IDENT),

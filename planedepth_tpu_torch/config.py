@@ -14,9 +14,8 @@ or a TPU memory trade (``s2d_tail``, ``s2d_stem``, ``fused_head``,
 ``rowshift_warp``, ``warp_sample_bf16``) have no counterpart: the kernels run
 whenever their tensors lie on the card, and the 2-D warp kernel samples
 every plane exactly, so the TPU's tap budget (``warp2d_plan``) has no use.
-``bf16`` is not ported: the port trains in float32.  Nor is ``use_ssim``,
-the SSIM term of ``alpha_self``'s reprojection loss (ROADMAP C1).
-``cli/options.py`` refuses the flags of those fields.
+``bf16`` is not ported: the port trains in float32.  ``cli/options.py``
+refuses the flags of those fields.
 """
 from __future__ import annotations
 
@@ -113,6 +112,7 @@ class LossConfig:
     alpha_self: float = 0.0
     self_distillation: float = 0.0
     automask: bool = False
+    use_ssim: bool = False          # SSIM in alpha_self's reprojection loss
     match_aug: bool = False
     pc_net: str = "vgg19"           # vgg19 (resnet18: ROADMAP A4)
     use_mom: bool = False           # mirror occlusion mask

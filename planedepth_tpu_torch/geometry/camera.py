@@ -2,8 +2,9 @@
 
 Normalized KITTI intrinsics fx=0.58, fy=1.92, cx=cy=0.5 and
 ``depth = 0.1 * 0.58 * W / disp`` (baseline 0.1 model units), bit for bit;
-the pixel grids, backprojection and projection of the depth warp, in the
-JAX package's layouts.
+the pixel grids, the unit-depth camera rays of ``render_probability``'s plane
+distances, backprojection and projection of the depth warp and of the
+self-reconstruction, in the JAX package's layouts.
 """
 from __future__ import annotations
 
@@ -22,6 +23,14 @@ NORMALIZED_K = np.array(
 BASELINE = 0.1            # stereo baseline in model units
 FX_NORM = 0.58
 STEREO_SCALE_FACTOR = 5.4  # model units -> metres
+
+
+def pixel_intrinsics(width: int, height: int) -> np.ndarray:
+    """Normalized K scaled to pixel units."""
+    K = NORMALIZED_K.copy()
+    K[0, :] *= width
+    K[1, :] *= height
+    return K
 
 
 def disp_to_depth(disp, width: int):
@@ -45,6 +54,19 @@ def identity_norm_grid(height: int, width: int, dtype=torch.float32,
                             torch.linspace(-1.0, 1.0, width, dtype=dtype, device=device),
                             indexing="ij")
     return torch.stack([xs, ys], dim=-1)
+
+
+def create_camera_plane(height: int, width: int, dtype=torch.float32,
+                        device=None) -> torch.Tensor:
+    """Unit-depth camera rays ``K^-1 [x, y, 1]`` ``(H, W, 3)`` (reference
+    layers.py:468-492), K in pixel units; the inverse by numpy, as the JAX
+    package takes it, and the product written out term by term."""
+    K_inv = torch.from_numpy(np.linalg.inv(pixel_intrinsics(width, height))[:3, :3]
+                             ).to(dtype=dtype, device=device)
+    grid = pixel_grid(height, width, dtype, device)
+    x, y = grid[..., 0], grid[..., 1]
+    return torch.stack([K_inv[i, 0] * x + K_inv[i, 1] * y + K_inv[i, 2]
+                        for i in range(3)], dim=-1)
 
 
 def _homogeneous_pixels(height: int, width: int, like: torch.Tensor) -> torch.Tensor:

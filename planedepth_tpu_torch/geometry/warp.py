@@ -1,7 +1,7 @@
-"""Per-plane warp coordinates of the 2-D warp modes (``planedepth_tpu/geometry/warp.py``).
+"""Per-plane warp coordinates of the warp modes (``planedepth_tpu/geometry/warp.py``).
 
 Reference trainer.py:523-603 and layers.py:184-234 (``HomographyWarp``).
-Each function returns normalised [-1, 1] sampling coordinates
+Each ``*_coords`` function returns normalised [-1, 1] sampling coordinates
 (align_corners=True) ``(B, N, H, W, 2)``, plane axis second, as the JAX
 package does; the port's plane volume is plane-first, so ``disp_layered``
 comes in as ``(B, N, H, W_b)`` (``W_b`` 1 or W).  Everything is computed in
@@ -14,7 +14,32 @@ from typing import Tuple
 
 import torch
 
-from planedepth_tpu_torch.geometry.camera import backproject_depth, project_3d
+from planedepth_tpu_torch.geometry.camera import backproject_depth, pixel_grid, project_3d
+
+
+def disp_warp_shift(disp_layered: torch.Tensor, target_side) -> torch.Tensor:
+    """Signed horizontal source shift in pixels (trainer.py:545-548): the
+    right view samples the left image at ``x + disp``, the left view at
+    ``x - disp``.  ``disp_layered`` ``(B, N, H, W_b)``, returned in its
+    shape."""
+    if target_side == "l":
+        return -disp_layered
+    if target_side == "r":
+        return disp_layered
+    raise ValueError(f"disp_warp target must be a stereo side, got {target_side}")
+
+
+def disp_warp_coords(disp_layered: torch.Tensor, target_side, width: int,
+                     height: int) -> torch.Tensor:
+    """Stereo plane-sweep coordinates ``x_src = x -/+ disp`` (trainer.py:540-554):
+    ``disp_layered`` ``(B, N, H, W_b)`` -> ``(B, N, H, W, 2)``."""
+    B, N, H, _ = disp_layered.shape
+    shift = disp_warp_shift(disp_layered, target_side).expand(B, N, H, width)
+    base = pixel_grid(height, width, disp_layered.dtype, disp_layered.device)
+    x = base[..., 0] + shift
+    y = base[..., 1].expand(shift.shape)
+    return torch.stack([(x / (width - 1) - 0.5) * 2.0, (y / (height - 1) - 0.5) * 2.0],
+                       dim=-1)
 
 
 def depth_warp_coords(disp_layered: torch.Tensor, T: torch.Tensor, K: torch.Tensor,

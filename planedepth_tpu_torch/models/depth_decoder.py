@@ -20,6 +20,14 @@ training (the 2-D warp and mixed recipes) ``disp`` comes from the disp head
 with its backward, and ``pi`` and the probability volume are not built: no
 training loss reads them, and eager PyTorch, unlike XLA, would keep them
 alive through the backward.
+
+Under ``render_probability`` (reference depth_decoder.py:261-273) the
+``dispconv`` head has N - 1 density planes, masked by the first N - 1 planes
+of the padding mask in the head epilogue; the probability is the NeRF alpha
+compositing of those densities over the plane distances along each ray
+(``plane_dists``), in training too (``disp`` is its expectation: the disp
+head's softmax is not this mode's probability), and a plane of ones is
+appended to the logits for the warps that read them.
 """
 from __future__ import annotations
 
@@ -29,7 +37,7 @@ import torch
 import torch.nn as nn
 
 from planedepth_tpu_torch.config import PlaneConfig
-from planedepth_tpu_torch.geometry.camera import disp_to_depth
+from planedepth_tpu_torch.geometry.camera import create_camera_plane, disp_to_depth
 from planedepth_tpu_torch.geometry.planes import build_plane_volume
 from planedepth_tpu_torch.models.denseaspp import DenseAspp
 from planedepth_tpu_torch.models.layers import (
@@ -44,6 +52,31 @@ from planedepth_tpu_torch.ops.disp_head import disp_head
 from planedepth_tpu_torch.ops.head_epilogue import head_epilogue
 
 NUM_CH_DEC = (16, 32, 64, 128, 256)
+
+
+def render_probability_from_logits(logits: torch.Tensor, dists: torch.Tensor
+                                   ) -> torch.Tensor:
+    """NeRF alpha compositing over the plane axis (dim 1): ``alpha = 1 -
+    exp(-relu(logit) * dist)`` for the first N - 1 planes, alpha 1 for the
+    last, the transmittance a cumulative product with the reference's
+    +1e-10 guard.  logits, dists ``(B, N - 1, H, W)`` -> probability ``(B, N,
+    H, W)``."""
+    alpha = 1.0 - torch.exp(-torch.relu(logits) * dists)
+    ones = torch.ones_like(alpha[:, :1])
+    alpha = torch.cat([alpha, ones], dim=1)
+    trans = torch.cumprod(torch.cat([ones, 1.0 - alpha + 1e-10], dim=1), dim=1)[:, :-1]
+    return alpha * trans
+
+
+def plane_dists(disp_layered: torch.Tensor, width: int, height: int) -> torch.Tensor:
+    """Adjacent-plane metric distances along each pixel's camera ray
+    (reference depth_decoder.py:262-267): successive depth differences
+    scaled by ``|K^-1 [x, y, 1]|``.  disp_layered ``(B, N, H, W_b)`` ->
+    ``(B, N - 1, H, W)``."""
+    depth = disp_to_depth(disp_layered, width)
+    d = depth[:, 1:] - depth[:, :-1]
+    rays = create_camera_plane(height, width, d.dtype, d.device)
+    return d * torch.sqrt((rays * rays).sum(-1))
 
 
 def mixture_reweight(probability: torch.Tensor, sigma: torch.Tensor,
@@ -65,14 +98,12 @@ class DepthDecoder(nn.Module):
                  render_probability: bool = False, plane_residual: bool = True,
                  fused_sweep_loss: bool = False):
         super().__init__()
-        if render_probability:
-            raise NotImplementedError(
-                "render_probability is not ported yet (ROADMAP A3)")
         self.planes = planes
         self.num_ep = num_ep
         self.pe_type = pe_type
         self.use_denseaspp = use_denseaspp
         self.use_mixture_loss = use_mixture_loss
+        self.render_probability = render_probability
         self.plane_residual = plane_residual
         self.fused_sweep_loss = fused_sweep_loss
         n_planes = planes.all_levels
@@ -97,7 +128,8 @@ class DepthDecoder(nn.Module):
             self.convs[f"upconv_{i}_1"] = ConvBlock(cin, NUM_CH_DEC[i])
         if use_denseaspp:
             self.convs["denseaspp"] = DenseAspp(NUM_CH_DEC[4])
-        self.convs["dispconv"] = Conv3x3(NUM_CH_DEC[0], n_planes)
+        self.convs["dispconv"] = Conv3x3(NUM_CH_DEC[0],
+                                         n_planes - 1 if render_probability else n_planes)
         if use_mixture_loss:
             self.convs["sigmaconv"] = Conv3x3(NUM_CH_DEC[0], n_planes)
         if plane_residual:
@@ -114,7 +146,8 @@ class DepthDecoder(nn.Module):
         plane-first: logits, sigma, pi, probability ``(B, N, H, W)``, disp and
         depth ``(B, 1, H, W)``, disp_layered and padding_mask ``(B, N, H, 1)``
         without yz planes (``(B, N, H, W)`` with them), disp_rows ``(B, H, N)``
-        without yz planes, distance ``(B, N)``, norm ``(B, N, 3)``."""
+        without yz planes, distance ``(B, N)``, norm ``(B, N, 3)``, and under
+        ``render_probability`` dists ``(B, N - 1, H, W)``."""
         cfg, c = self.planes, self.convs
         grid_ep = None
         if self.num_ep > 0:
@@ -131,7 +164,7 @@ class DepthDecoder(nn.Module):
         x = upsample2x_nearest(c["upconv_0_0"](x))
         x = c["upconv_0_1"](x)
 
-        W = grid.shape[-1]
+        H, W = grid.shape[-2:]
         residual_levels = None
         if self.plane_residual:
             r = c["residualconv"](x)                              # (B, N, 1, 1)
@@ -147,15 +180,22 @@ class DepthDecoder(nn.Module):
             c["dispconv"](x),
             c["sigmaconv"](x) if self.use_mixture_loss else None,
             vol.padding_mask)
+        probability = None
+        if self.render_probability:
+            out["dists"] = plane_dists(vol.disp_layered, W, H)
+            probability = render_probability_from_logits(logits, out["dists"])
+            logits = torch.cat([logits, torch.ones_like(logits[:, :1])], dim=1)
         out["logits"] = logits
         if self.use_mixture_loss:
             out["sigma"] = sigma
         if self.fused_sweep_loss and self.training:
             return out
-        use_head = self.use_mixture_loss and row_constant
+        use_head = self.use_mixture_loss and row_constant and not self.render_probability
         if not (use_head and self.training):
-            # no training loss reads pi or the probability volume
-            probability = torch.softmax(logits, dim=1)
+            # without render_probability no training loss reads pi or the
+            # probability volume under the disp head
+            if probability is None:
+                probability = torch.softmax(logits, dim=1)
             if self.use_mixture_loss:
                 out["pi"] = probability
                 probability = mixture_reweight(probability, sigma, vol.padding_mask)

@@ -41,8 +41,11 @@ class DepthModel(nn.Module):
             return
         if cfg.net_type == "FalNet":
             if cfg.render_probability:
+                # the JAX factory drops the flag for FalNet, and its rescue
+                # step would then find no dists
                 raise NotImplementedError(
-                    "FalNet with render_probability is not ported yet (ROADMAP A3)")
+                    "FalNet has no render_probability head: the JAX FalNet builds "
+                    "none and its factory drops the flag")
             self.fal = FalNet(cfg.planes)
             return
         self.encoder = ResnetEncoder(cfg.num_layers)

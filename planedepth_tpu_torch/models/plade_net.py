@@ -8,6 +8,9 @@ decoder: the deconv/iconv ladder back to full resolution.  The plane head
 builds the vertical + ground plane volume of the ResNet decoder (no yz
 planes), keeps the logits unmasked, and reweights the mixture WITHOUT the
 padding-mask factor (``plade_net.py:224-234``, unlike the ResNet decoder).
+Under ``render_probability`` the head has N - 1 density planes, composited
+as the ResNet decoder composites them, but unmasked here too (the JAX
+module's ``plade_net.py:213-220``).
 Module names follow the JAX modules (``backbone.conv_ep1.conv``,
 ``conv_residual``, ``conv_sigma``), which ``utils/weights.py`` maps from a
 JAX ``{"plade": ...}`` tree.
@@ -22,6 +25,10 @@ import torch.nn as nn
 from planedepth_tpu_torch.config import PlaneConfig
 from planedepth_tpu_torch.geometry.camera import disp_to_depth
 from planedepth_tpu_torch.geometry.planes import build_plane_volume
+from planedepth_tpu_torch.models.depth_decoder import (
+    plane_dists,
+    render_probability_from_logits,
+)
 from planedepth_tpu_torch.models.fal_net import subtract_fal_mean
 from planedepth_tpu_torch.models.layers import (
     ConvELU,
@@ -96,24 +103,23 @@ class PladeBackBone(nn.Module):
 
 
 class PladeNet(nn.Module):
-    """(reference plade_net.py:199-343).  ``render_probability`` (A3) and yz
-    side planes (the JAX module asserts ``yz_levels == 0``) are not built."""
+    """(reference plade_net.py:199-343).  yz side planes are not built (the
+    JAX module asserts ``yz_levels == 0``)."""
 
     def __init__(self, planes: PlaneConfig, num_ep: int = 8, use_mixture_loss: bool = False,
                  render_probability: bool = False, plane_residual: bool = False):
         super().__init__()
-        if render_probability:
-            raise NotImplementedError(
-                "PladeNet with render_probability is not ported yet (ROADMAP A3)")
         if planes.yz_levels > 0:
             raise NotImplementedError(
                 "PladeNet with yz side planes is not ported (ROADMAP A10; the JAX "
                 "module asserts yz_levels == 0)")
         n = planes.disp_levels + planes.xz_levels
+        no_out = n - 1 if render_probability else n
         self.planes = planes
         self.use_mixture_loss = use_mixture_loss
-        self.backbone = PladeBackBone(n, num_ep)
-        self.conv0 = nn.Conv2d(n, n, 1)
+        self.render_probability = render_probability
+        self.backbone = PladeBackBone(no_out, num_ep)
+        self.conv0 = nn.Conv2d(no_out, no_out, 1)
         self.conv_residual = (nn.Conv2d(128, n, 3, padding=1, bias=False)
                               if plane_residual else None)
         self.conv_sigma = (nn.Conv2d(128, n, 3, padding=1, bias=False)
@@ -121,18 +127,23 @@ class PladeNet(nn.Module):
 
     def forward(self, image: torch.Tensor, grid: torch.Tensor) -> Dict[str, torch.Tensor]:
         dlog, features = self.backbone(subtract_fal_mean(image), grid)
-        W = dlog.shape[-1]
+        H, W = dlog.shape[-2:]
         residual_levels: Optional[torch.Tensor] = None
         if self.conv_residual is not None:
             # per image: the mean of the full-resolution residual map
             residual_levels = torch.sigmoid(self.conv_residual(features).mean(dim=(2, 3))) - 0.5
         vol = build_plane_volume(grid, self.planes, W, residual_levels)
         logits = self.conv0(dlog)                         # not masked
-        probability = torch.softmax(logits, dim=1)
         out = {"disp_layered": vol.disp_layered, "padding_mask": vol.padding_mask,
                "distance": vol.distance, "norm": vol.normal,
-               "disp_rows": vol.disp_layered[..., 0].transpose(1, 2).contiguous(),
-               "logits": logits}
+               "disp_rows": vol.disp_layered[..., 0].transpose(1, 2).contiguous()}
+        if self.render_probability:
+            out["dists"] = plane_dists(vol.disp_layered, W, H)
+            probability = render_probability_from_logits(logits, out["dists"])
+            logits = torch.cat([logits, torch.ones_like(logits[:, :1])], dim=1)
+        else:
+            probability = torch.softmax(logits, dim=1)
+        out["logits"] = logits
         if self.conv_sigma is not None:
             sigma = torch.clamp(torch.sigmoid(self.conv_sigma(features)), 0.01, 1.0)
             out["sigma"], out["pi"] = sigma, probability

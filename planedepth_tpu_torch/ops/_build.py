@@ -123,9 +123,9 @@ def load_library() -> ctypes.CDLL:
     lib.pdt_plane_sweep_kernel_info.restype = i
     lib.pdt_row_shift_fwd.argtypes = [p, p, p, i, i, i, i, f, p]
     lib.pdt_row_shift_fwd.restype = i
-    lib.pdt_head_epilogue_fwd.argtypes = [p] * 5 + [i] * 5 + [p]
+    lib.pdt_head_epilogue_fwd.argtypes = [p] * 5 + [i] * 6 + [p]
     lib.pdt_head_epilogue_fwd.restype = i
-    lib.pdt_head_epilogue_bwd.argtypes = [p] * 6 + [i] * 5 + [p]
+    lib.pdt_head_epilogue_bwd.argtypes = [p] * 6 + [i] * 6 + [p]
     lib.pdt_head_epilogue_bwd.restype = i
     return lib
 

@@ -10,10 +10,14 @@ package's repair of its undefined warp grids) and ``fused_mom_mask_novel``:
 ``mask_novel`` under ``use_mom`` from the student's plane heads on the fused
 path.
 
-Every warp is a per-plane horizontal shift by a row-constant disparity, so
+Every warp is a per-plane horizontal shift.  With a row-constant disparity
 each goes through :func:`ops.row_shift.row_shift` (the CUDA kernel on the
-card, its plain twin on the CPU).  Tensors are NCHW and plane-first: maps
-``(B, N, H, W)``, row shifts ``(B, H, N)`` (the decoder's ``disp_rows``).
+card, its plain twin on the CPU); with yz side planes, whose disparity
+varies along the row, the teacher's shifts are the per-pixel linear
+interpolation the JAX package runs in XLA there (``ops/sampling.py:
+shift_sample_x``, zero padding, no clip), plain tensor code here too.
+Tensors are NCHW and plane-first: maps ``(B, N, H, W)``, row shifts ``(B,
+H, N)`` (the decoder's ``disp_rows``), per-pixel shifts ``(B, N, H, W)``.
 Nothing here carries a gradient.
 """
 from __future__ import annotations
@@ -27,9 +31,31 @@ from planedepth_tpu_torch.ops.row_shift import row_shift
 from planedepth_tpu_torch.train.flip import flip_grid, flip_w
 
 
+def shift_per_pixel(maps: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
+    """Each plane's map sampled at ``x + shift`` by linear interpolation
+    along W, zero outside [0, W): maps and shift ``(B, N, H, W)``."""
+    W = maps.shape[-1]
+    xs = torch.arange(W, dtype=shift.dtype, device=shift.device) + shift
+    x0 = torch.floor(xs)
+    w1 = xs - x0
+    out = torch.zeros_like(maps)
+    for cx, wgt in ((x0, 1.0 - w1), (x0 + 1.0, w1)):
+        valid = (cx >= 0) & (cx <= W - 1)
+        ix = cx.clamp(0, W - 1).long()
+        out = out + torch.gather(maps, 3, ix) * torch.where(valid, wgt, torch.zeros_like(wgt))
+    return out
+
+
+def _shift(maps: torch.Tensor, shift: torch.Tensor, pad: int) -> torch.Tensor:
+    """``row_shift`` for row shifts ``(B, H, N)``, else :func:`shift_per_pixel`."""
+    if shift.shape == maps.shape:
+        return shift_per_pixel(maps, shift)
+    return row_shift(maps, shift, pad)
+
+
 def _coverage(maps: torch.Tensor, shift: torch.Tensor, pad: int) -> torch.Tensor:
     """Plane sum of the shifted maps ``(B, 1, H, W)``."""
-    return row_shift(maps, shift, pad).sum(1, keepdim=True)
+    return _shift(maps, shift, pad).sum(1, keepdim=True)
 
 
 @torch.no_grad()
@@ -45,17 +71,19 @@ def generate_post_process_disp(teacher: Callable, color_aug_l: torch.Tensor,
     images = torch.cat([color_aug_l, flip_w(color_aug_l)])
     grids = torch.cat([grid, flip_grid(grid)])
     out = teacher(images, grids)
-    prob, rows, logits, disp = (out[k] for k in
-                                ("probability", "disp_rows", "logits", "disp"))
+    prob, logits, disp = (out[k] for k in ("probability", "logits", "disp"))
+    # row shifts without yz planes; else the full volume, whose flipped half
+    # shifts the flipped logits unflipped, as the JAX package does
+    shifts = out["disp_rows"] if "disp_rows" in out else out["disp_layered"]
     B = prob.shape[0] // 2
-    shift_r = rows[:B]                     # sample at x + d (to the right view)
-    shift_l = -rows[B:]                    # sample at x - d of the flipped half
+    shift_r = shifts[:B]                   # sample at x + d (to the right view)
+    shift_l = -shifts[B:]                  # sample at x - d of the flipped half
 
     # o_l: left-view occlusion coverage (trainer.py:443-449)
-    plr = torch.softmax(row_shift(logits[:B], shift_r, pad), dim=1)
+    plr = torch.softmax(_shift(logits[:B], shift_r, pad), dim=1)
     o_l = _coverage(plr, shift_l, pad).clamp(max=1.0)
     # o_fr: flipped-right coverage (trainer.py:451-456)
-    pfrl = torch.softmax(row_shift(flip_w(logits[B:]), shift_l, pad), dim=1)
+    pfrl = torch.softmax(_shift(flip_w(logits[B:]), shift_l, pad), dim=1)
     o_fr = _coverage(pfrl, shift_r, pad).clamp(max=1.0)
 
     disp_fl = flip_w(disp[B:])

@@ -1,6 +1,6 @@
-"""Training losses, NCHW (``planedepth_tpu/train/losses.py``): the perceptual
-loss and the train-time depth metrics (reference trainer.py:672-685,
-775-810)."""
+"""Training losses, NCHW (``planedepth_tpu/train/losses.py``): the
+self-reconstruction's reprojection loss, the perceptual loss and the
+train-time depth metrics (reference trainer.py:672-699, 775-810)."""
 from __future__ import annotations
 
 from typing import Callable, Dict, Optional
@@ -9,6 +9,17 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from planedepth_tpu_torch.ops.losses import compute_depth_errors
+from planedepth_tpu_torch.ops.ssim import ssim
+
+
+def reprojection_loss(pred: torch.Tensor, target: torch.Tensor,
+                      use_ssim: bool) -> torch.Tensor:
+    """L1, or ``0.85 * SSIM + 0.15 * L1``, per pixel: ``(B, 3, H, W)`` ->
+    ``(B, 1, H, W)`` (reference trainer.py:687-699)."""
+    l1 = (target - pred).abs().mean(1, keepdim=True)
+    if use_ssim:
+        return 0.85 * ssim(pred, target).mean(1, keepdim=True) + 0.15 * l1
+    return l1
 
 
 def perceptual_loss(pc: Callable, pred: torch.Tensor, target: torch.Tensor,

@@ -13,6 +13,14 @@ composite weights are the softmax of the warped logits, and the photometric
 term is the L1 of the composite with the ``mask_novel`` blend and the
 automask minimum.  The warp samples exactly, so the TPU's tap plan
 (``warp2d_plan``) has no counterpart.
+
+The stereo ``disp_warp`` recipes that the plane sweep cannot take come here
+too (the JAX package's rescue): ``render_probability``, whose loss needs the
+per-plane warped logits, and yz side planes, whose disparity varies along
+the row.  A stereo side is the ``dx = -/+disp, dy = 0`` case of the warp,
+and under ``render_probability`` the composite weights are the NeRF
+compositing of the warped densities over the source view's ``dists``.
+Under ``alpha_self`` side 'r' adds the self-reconstruction loss.
 """
 from __future__ import annotations
 
@@ -21,19 +29,27 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from planedepth_tpu_torch.config import TrainConfig
-from planedepth_tpu_torch.geometry.warp import depth_warp_coords, homography_warp_coords
+from planedepth_tpu_torch.geometry.warp import (
+    depth_warp_coords,
+    disp_warp_shift,
+    homography_warp_coords,
+)
+from planedepth_tpu_torch.models.depth_decoder import render_probability_from_logits
 from planedepth_tpu_torch.ops.losses import smooth_loss_disp
 from planedepth_tpu_torch.ops.warp2d import warp2d
-from planedepth_tpu_torch.train.losses import perceptual_loss
+from planedepth_tpu_torch.train.losses import perceptual_loss, reprojection_loss
+from planedepth_tpu_torch.train.view_synthesis import pred_self_images
 
 
 def fused_warp2d_ok(cfg: TrainConfig) -> bool:
     """True when training routes every side through the 2-D warp: the
-    homography and depth warps, all target sides, without ``use_mom`` (the
-    JAX package sends that to its oracle).  The JAX package's rescue of
-    ``render_probability`` and yz planes under ``disp_warp`` is not ported
-    (ROADMAP A3, A10)."""
-    return (cfg.fused_sweep and cfg.warp_type in ("homography_warp", "depth_warp")
+    homography and depth warps, and the ``disp_warp`` recipes with
+    ``render_probability`` or yz side planes (the rescue), all target
+    sides, without ``use_mom`` (the JAX package sends that to its oracle)."""
+    rescue = cfg.warp_type == "disp_warp" and (
+        cfg.model.render_probability or cfg.model.planes.yz_levels > 0)
+    return (cfg.fused_sweep
+            and (cfg.warp_type in ("homography_warp", "depth_warp") or rescue)
             and not cfg.loss.use_mom)
 
 
@@ -50,9 +66,15 @@ def _coords_to_disp(coords: torch.Tensor, H: int, W: int
 
 def _side_coords(cfg: TrainConfig, outputs: Dict[str, torch.Tensor], side,
                  poses: Dict, K: torch.Tensor, inv_K: torch.Tensor, H: int, W: int):
-    """(dx, dy, mask) ``(B, N, H, W)`` of one target side: the homography
-    under ``homography_warp``, else the depth warp (``depth_warp``, and the
+    """(dx, dy, mask) ``(B, N, H, W)`` of one target side: the stereo shift
+    of a stereo side under ``disp_warp``, the homography under
+    ``homography_warp``, else the depth warp (``depth_warp``, and the
     temporal sides of the mixed ``disp_warp`` recipe)."""
+    if cfg.warp_type == "disp_warp" and side in ("l", "r"):
+        d = outputs["disp_layered"]
+        shape = d.shape[:3] + (W,)
+        dx = disp_warp_shift(d, side).expand(shape).contiguous()
+        return dx, torch.zeros_like(dx), outputs["padding_mask"].expand(shape).contiguous()
     if cfg.warp_type == "homography_warp":
         coords, mask = homography_warp_coords(outputs["distance"], outputs["norm"],
                                               poses[side], K, inv_K, H, W)
@@ -61,6 +83,17 @@ def _side_coords(cfg: TrainConfig, outputs: Dict[str, torch.Tensor], side,
         mask = outputs["padding_mask"].expand(coords.shape[:-1])
     dx, dy = _coords_to_disp(coords, H, W)
     return dx, dy, mask
+
+
+def self_reconstruction_loss(cfg: TrainConfig, disp: torch.Tensor,
+                             batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """``alpha_self``'s term (reference trainer.py:605-633): the mean
+    reprojection loss of the left view rebuilt from the right image at
+    ``disp`` ``(B, 1, H, W)``."""
+    color = "color_aug" if cfg.loss.match_aug else "color"
+    rec = pred_self_images(disp, batch[f"{color}_r"], batch["Rt_r"], batch["K"],
+                           batch["inv_K"])
+    return reprojection_loss(rec, batch[f"{color}_l"], cfg.loss.use_ssim).mean()
 
 
 def _laplace_nll(err: torch.Tensor, pi: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
@@ -86,7 +119,9 @@ def fused_warp2d_losses(bundle, outputs: Dict[str, torch.Tensor],
     source = batch[f"{color}_l"]                                     # (B, 3, H, W)
     B, _, H, W = source.shape
     mix = cfg.model.use_mixture_loss
+    render = cfg.model.render_probability
     logits = outputs["logits"]                                       # (B, N, H, W)
+    N = logits.shape[1]
     sigma = outputs["sigma"] if mix else None
     mask_novel = outputs.get("mask_novel")                           # (B, 1, H, W)
 
@@ -98,7 +133,12 @@ def fused_warp2d_losses(bundle, outputs: Dict[str, torch.Tensor],
                                      batch["inv_K"], H, W)
         warped = warp2d(source, logits, sigma, dx, dy, pmask)
         rgb_l, logit_rec = warped[:2]
-        pi = torch.softmax(logit_rec, dim=1)
+        if render:
+            # the source view's dists: the stereo pair shares the layered
+            # depths (reference trainer.py:584-591)
+            pi = render_probability_from_logits(logit_rec[:, :N - 1], outputs["dists"])
+        else:
+            pi = torch.softmax(logit_rec, dim=1)
         if mix:
             sigma_rec = torch.clamp(warped[2], 0.01, 1.0)
             u = pi / sigma_rec
@@ -137,6 +177,11 @@ def fused_warp2d_losses(bundle, outputs: Dict[str, torch.Tensor],
                                  source if cfg.loss.automask else None, remat=cfg.pc_remat)
             losses["loss/pc_loss"] = losses["loss/pc_loss"] + pc
             total = total + cfg.loss.alpha_pc * pc
+
+        if side == "r" and cfg.loss.alpha_self > 0:
+            self_loss = self_reconstruction_loss(cfg, outputs["disp"], batch)
+            losses["loss/self_loss"] = self_loss
+            total = total + cfg.loss.alpha_self * self_loss
 
         if cfg.loss.self_distillation > 0 and "disp_pp" in outputs:
             # added once per side, as the reference's side loop does

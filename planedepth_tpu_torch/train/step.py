@@ -9,9 +9,10 @@ the temporal neighbours, under ``self_distillation`` the frozen teacher's
 the losses, backward, and the Adam step.  The losses take one of three
 routes, as in the JAX package: the stereo recipes through the fused plane
 sweep against the right view (:func:`fused_stereo_losses`); the homography
-and depth warps through the 2-D warp for every side (``train/mono.py``); the
-mixed stereo + temporal ``disp_warp`` recipe through both, side 'r' in the
-sweep and the temporal sides in the 2-D warp.  Batches are dicts of NCHW
+and depth warps, and the ``disp_warp`` recipes with ``render_probability``
+or yz side planes, through the 2-D warp for every side (``train/mono.py``);
+the mixed stereo + temporal ``disp_warp`` recipe through both, side 'r' in
+the sweep and the temporal sides in the 2-D warp.  Batches are dicts of NCHW
 tensors (:func:`batch_to_tensors` converts the NHWC numpy batches of
 ``data/``).
 """
@@ -43,7 +44,11 @@ from planedepth_tpu_torch.train.distill import (
 )
 from planedepth_tpu_torch.train.flip import add_flip_right_inputs
 from planedepth_tpu_torch.train.losses import compute_depth_metrics, perceptual_loss
-from planedepth_tpu_torch.train.mono import fused_warp2d_losses, fused_warp2d_ok
+from planedepth_tpu_torch.train.mono import (
+    fused_warp2d_losses,
+    fused_warp2d_ok,
+    self_reconstruction_loss,
+)
 
 
 def sweep_pad(cfg: TrainConfig) -> int:
@@ -80,16 +85,9 @@ def fused_mixed_ok(cfg: TrainConfig) -> bool:
 def _check_ported(cfg: TrainConfig) -> None:
     """Raise for what the training step does not reach yet, naming its
     ROADMAP item."""
-    if cfg.loss.alpha_self > 0:
-        raise NotImplementedError("alpha_self is not ported yet (ROADMAP C1)")
-    if cfg.model.render_probability:
-        raise NotImplementedError("render_probability is not ported yet (ROADMAP A3)")
     if cfg.novel_frame_ids and cfg.loss.use_mom:
-        raise NotImplementedError("use_mom with temporal sides is not ported yet "
-                                  "(ROADMAP A10)")
-    if cfg.model.planes.yz_levels > 0:
-        raise NotImplementedError("training with yz side planes is not ported yet "
-                                  "(ROADMAP A10)")
+        raise NotImplementedError("use_mom with temporal sides runs on the oracle view "
+                                  "synthesis, which is not ported yet (ROADMAP A4)")
     if not (fused_sweep_ok(cfg) or fused_warp2d_ok(cfg) or fused_mixed_ok(cfg)):
         raise NotImplementedError("this recipe needs the non-fused view synthesis, "
                                   "which is not ported yet (ROADMAP A4)")
@@ -251,6 +249,10 @@ def fused_stereo_losses(bundle: ModelBundle, outputs: Dict[str, torch.Tensor],
                              source if cfg.loss.automask else None, remat=cfg.pc_remat)
         losses["loss/pc_loss"] = pc
         total = total + cfg.loss.alpha_pc * pc
+    if cfg.loss.alpha_self > 0:
+        self_loss = self_reconstruction_loss(cfg, disp, batch)
+        losses["loss/self_loss"] = self_loss
+        total = total + cfg.loss.alpha_self * self_loss
     if cfg.loss.self_distillation > 0 and "disp_pp" in outputs:
         disp_loss = (disp - outputs["disp_pp"]).abs().mean()
         losses["loss/disp_loss"] = disp_loss

@@ -1,6 +1,6 @@
 """Where the time of the port's training step goes on one NVIDIA GPU.
 
-    python scripts/profile_torch_step.py [--recipe stage1|stage3|mono|falnet|pladenet] [--steps 3]
+    python scripts/profile_torch_step.py [--recipe stage1|stage3|mono|falnet|pladenet|render|yz|self] [--steps 3]
 
 Runs one recipe's step with seeded random weights, float32, TF32 off:
 ``stage1`` is ``stage1_config()`` (ResNet-50, DenseASPP, 49+14 planes, VGG19
@@ -10,18 +10,22 @@ plus the frozen teacher on 8 images), ``mono`` is ``mono_config()`` (the
 same model with the pose nets, the homography warp to the sides r, -1, 1,
 automask and the perceptual loss per side; 8 images at 640x192), ``falnet``
 is stage 1 with FalNet (49 fronto-parallel planes, no mixture: the
-no-mixture sweep) and ``pladenet`` stage 1 with PladeNet (49+14 planes,
-mixture, 8-channel PE, plane residuals).  Prints,
+no-mixture sweep), ``pladenet`` stage 1 with PladeNet (49+14 planes,
+mixture, 8-channel PE, plane residuals), ``render`` stage 1 with
+render_probability and ``yz`` stage 1 with yz side planes (yz_levels 8),
+both through the 2-D warp, and ``self`` stage 1 with alpha_self 0.1 and
+SSIM.  Prints,
 each beside the card's name and power limit:
   - the device time of a few steps under ``torch.profiler``, split by kernel
     class (the port's kernels, convolutions, BatchNorm, the rest) and the
     device's idle share of the profiled wall time;
   - the step time with and without each of the recipe's parts, host clock
     around synchronised steps, median of 5, in turns: the perceptual loss
-    (``alpha_pc`` 0.1 and 0) for stage 1, FalNet, PladeNet and mono, the teacher
-    (``self_distillation`` 1 and 0) for stage 3, the pose nets for mono
-    (``use_colmap``: the batch's poses instead); the difference is what
-    that part costs.
+    (``alpha_pc`` 0.1 and 0) for stage 1, FalNet, PladeNet, mono, render
+    and yz, the teacher (``self_distillation`` 1 and 0) for stage 3, the pose
+    nets for mono (``use_colmap``: the batch's poses instead), the switch
+    itself for render, yz and self (stage 1 without it: render and yz then
+    take the plane sweep); the difference is what that part costs.
 The summary is one JSON line on standard output.  Needs CUDA.
 """
 from __future__ import annotations
@@ -71,6 +75,9 @@ CLASSES = (
 FALNET = ModelConfig(net_type="FalNet", use_mixture_loss=False, plane_residual=False,
                      planes=PlaneConfig(xz_levels=0))
 PLADENET = ModelConfig(net_type="PladeNet", num_ep=8, use_mixture_loss=True, plane_residual=True)
+RENDER = ModelConfig(render_probability=True)
+YZ = ModelConfig(planes=PlaneConfig(yz_levels=8))
+SELF = LossConfig(alpha_self=0.1, use_ssim=True)
 
 # recipe -> (its config, {part: the overrides that take that part out})
 RECIPES = {
@@ -82,6 +89,12 @@ RECIPES = {
     "stage3": (self_distillation_config, {"teacher": dict(loss=LossConfig())}),
     "mono": (mono_config, {"vgg": dict(loss=LossConfig(alpha_pc=0.0, automask=True)),
                            "pose_nets": dict(data=DataConfig(use_colmap=True))}),
+    "render": (lambda **kw: stage1_config(**{"model": RENDER, **kw}),
+               {"vgg": dict(loss=LossConfig(alpha_pc=0.0)), "render": dict(model=ModelConfig())}),
+    "yz": (lambda **kw: stage1_config(**{"model": YZ, **kw}),
+           {"vgg": dict(loss=LossConfig(alpha_pc=0.0)), "yz": dict(model=ModelConfig())}),
+    "self": (lambda **kw: stage1_config(**{"loss": SELF, **kw}),
+             {"self_loss": dict(loss=LossConfig())}),
 }
 
 

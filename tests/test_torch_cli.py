@@ -1,7 +1,7 @@
 """The port's CLIs against the JAX package's: flags, stage presets, the checkpoint meta.
 
 - ``build_parser`` has the JAX parser's flags with their defaults, but for
-  the TPU-only ones and ``--use_ssim``, which it refuses by name; each argv
+  the TPU-only ones, which it refuses by name; each argv
   below gives a config whose every field equals the JAX config's (the port
   keeps a subset of the JAX fields, which the refused flags do not set);
 - ``apply_checkpoint_meta`` adopts what the JAX one adopts;
@@ -33,7 +33,7 @@ torch.set_num_threads(1)
 CPU = torch.device("cpu")
 TPU_ONLY = {"no_bf16", "remat_warp", "rowshift_warp", "warp_sample_bf16", "fused_head",
             "s2d_tail", "remat"}
-REFUSED = TPU_ONLY | {"use_ssim"}          # JAX flags that the port's parser refuses
+REFUSED = TPU_ONLY                         # JAX flags that the port's parser refuses
 
 
 def _parse(mod, argv):

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card, each held to its plain PyTorch version
-(the plane sweep and the 2-D warp in both of their modes), and one stage-1,
-one stage-3, one mono and one FalNet training step on the card held to the
-same step on the CPU.
+(the plane sweep and the 2-D warp in both of their modes, the head epilogue
+with N and N - 1 logit planes), and one stage-1, one stage-3, one mono, one
+FalNet, one render_probability, one yz-plane and one yz-plane stage-3
+training step on the card held to the same step on the CPU.
 
 These tests need an NVIDIA GPU with nvcc (a CUDA kernel has no CPU mode) and
 skip without one.  They import neither JAX nor the JAX package, so they run
@@ -320,6 +321,109 @@ def test_head_epilogue_kernels_match_plain(cuda, shape, full_mask):
     logits, sigma = head_epilogue(raw_l, None, mask)             # no sigma head
     assert sigma is None
     torch.testing.assert_close(logits, raw_l * mask, rtol=0, atol=0)
+
+
+# render_probability: N - 1 logit planes beside N mask and sigma planes; the
+# 16-byte path (1280, 64) and the scalar path (100, 63); the row-constant
+# mask and the yz planes' full one (N = 71)
+@pytest.mark.parametrize("shape,full_mask", [((2, 63, 8, 1280), False),
+                                             ((1, 5, 7, 100), True),
+                                             ((2, 3, 4, 63), False),
+                                             ((1, 71, 3, 64), True)])
+def test_head_epilogue_n_minus_1_kernels_match_plain(cuda, shape, full_mask):
+    """logits (N - 1 planes) and sigma, then their gradients, at rtol = atol
+    = 1e-6, with and without the sigma head, aligned and misaligned."""
+    b, n, h, w = shape
+    rng = np.random.default_rng(sum(shape) + 1)
+    raw_l = rng.normal(0, 2, (b, n - 1, h, w)).astype(np.float32)
+    raw_s = rng.uniform(-8, 8, shape).astype(np.float32)
+    raw_s[:, 0, 0], raw_s[:, -1, -1] = 40.0, -40.0
+    cts_np = [rng.normal(0, 1, a.shape).astype(np.float32) for a in (raw_l, raw_s)]
+    mask = torch.from_numpy((rng.uniform(0, 1, (b, n, h, w if full_mask else 1)) > 0.3)
+                            .astype(np.float32)).to(cuda)
+
+    def aligned(a):
+        return torch.from_numpy(a).to(cuda)
+
+    def misaligned(a):              # contiguous, 4 bytes past a 16-byte boundary
+        return torch.from_numpy(np.concatenate([[0.0], a.ravel()]).astype(
+            np.float32)).to(cuda)[1:].view(a.shape)
+
+    for place in (aligned, misaligned):
+        for with_sigma in (True, False):
+            k = 1 + with_sigma
+            heads = [place(a).requires_grad_() for a in (raw_l, raw_s)][:k]
+            cts = [place(a) for a in cts_np][:k]
+            sigma = heads[1] if with_sigma else None
+            fwd, bwd = head_epilogue.fwd_launches, head_epilogue.bwd_launches
+            got = head_epilogue(heads[0], sigma, mask)[:k]
+            want = head_epilogue_plain(heads[0], sigma, mask)[:k]
+            assert got[0].shape == (b, n - 1, h, w)
+            for g, wt in zip(got, want):
+                torch.testing.assert_close(g, wt, rtol=1e-6, atol=1e-6)
+            d_got = torch.autograd.grad(got, heads, cts)
+            d_want = torch.autograd.grad(want, heads, cts)
+            torch.cuda.synchronize()
+            assert (head_epilogue.fwd_launches, head_epilogue.bwd_launches) == (fwd + 1,
+                                                                                bwd + 1)
+            for g, wt in zip(d_got, d_want):
+                torch.testing.assert_close(g, wt, rtol=1e-6, atol=1e-6)
+    with pytest.raises(ValueError, match="planes beside"):
+        head_epilogue(aligned(raw_l[:, :-1]), None, mask)
+
+
+def _rescue_counts():
+    return (warp2d.fwd_launches, warp2d.bwd_launches, head_epilogue.fwd_launches,
+            head_epilogue.bwd_launches, plane_sweep.fwd_launches, disp_head.launches,
+            disp_head.bwd_launches)
+
+
+@pytest.mark.parametrize("model_kw", [
+    dict(render_probability=True, planes=PlaneConfig(disp_levels=7, disp_max=24,
+                                                     xz_levels=0)),
+    dict(planes=PlaneConfig(disp_levels=7, disp_max=24, xz_levels=3, yz_levels=4,
+                            yz_min=1.0)),
+], ids=["render", "yz"])
+def test_rescue_step_on_cuda_matches_cpu(cuda, model_kw):
+    """One stage-1 step with render_probability, and one with yz side planes,
+    through the 2-D warp on the card and on the CPU, held as chip_smoke.py
+    holds the full-size model: one warp and one head epilogue each way on
+    the card (the head epilogue in its N - 1 mode under render_probability),
+    no sweep and no disp head."""
+    from chip_smoke import check_step_against_cpu
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = stage1_config(model=ModelConfig(num_layers=18, **model_kw),
+                        loss=LossConfig(automask=True), data=DataConfig(64, 128),
+                        batch_size=2)
+    before = _rescue_counts()
+    worst = check_step_against_cpu(cfg, cuda)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_rescue_counts(), before)) == (1, 1, 1, 1, 0, 0, 0)
+    assert worst["share_of_weights_held_at_atol"] > 0.5
+
+
+def test_yz_distillation_step_on_cuda_matches_cpu(cuda):
+    """One stage-3 step with yz side planes on the card and on the CPU: the
+    teacher shifts its maps per pixel (plain tensor code, no row shift),
+    the student goes through the 2-D warp; the head epilogue runs in the
+    teacher's forward and the student's, each way in the student's."""
+    from chip_smoke import check_step_against_cpu
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = self_distillation_config(
+        model=ModelConfig(num_layers=18, planes=PlaneConfig(disp_levels=7, disp_max=24,
+                                                            xz_levels=3, yz_levels=4,
+                                                            yz_min=1.0)),
+        data=DataConfig(64, 128), batch_size=2)
+    before = _rescue_counts() + (row_shift.launches,)
+    worst = check_step_against_cpu(cfg, cuda)
+    torch.cuda.synchronize()
+    after = _rescue_counts() + (row_shift.launches,)
+    assert tuple(a - b for a, b in zip(after, before)) == (1, 1, 2, 1, 0, 0, 0, 0)
+    assert worst["share_of_weights_held_at_atol"] > 0.5
 
 
 # the recipe's N = 63; W not a multiple of the 128-pixel tile, narrower than

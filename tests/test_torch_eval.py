@@ -101,10 +101,11 @@ def test_port_imports_no_jax():
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for m in mods + ['chip_smoke', 'scripts.profile_torch_step']:\n"
         "    importlib.import_module(m)\n"
-        "assert len(mods) >= 39, mods\n"
+        "assert len(mods) >= 41, mods\n"
         "for m in ('train.step', 'cli.options', 'cli.train', 'cli.evaluate', 'data.kitti',\n"
         "          'data.kitti_utils', 'data.transforms', 'data.native', 'data.image_io',\n"
-        "          'data.kitti_tree', 'eval.export_gt', 'eval.evaluator'):\n"
+        "          'data.kitti_tree', 'eval.export_gt', 'eval.evaluator', 'ops.ssim',\n"
+        "          'train.view_synthesis'):\n"
         "    assert 'planedepth_tpu_torch.' + m in mods, (m, mods)\n"
         "assert 'PIL' not in sys.modules and 'cv2' not in sys.modules\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax',"

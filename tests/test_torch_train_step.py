@@ -311,13 +311,13 @@ def test_lr_schedule_matches_optax():
 
 
 @pytest.mark.parametrize("override,item", [
-    (dict(novel_frame_ids=(-1, 1), loss=tcfg.LossConfig(use_mom=True)), "A10"),
-    (dict(loss=tcfg.LossConfig(alpha_self=0.1)), "C1"),
-    (dict(model=tcfg.ModelConfig(net_type="PladeNet", render_probability=True)), "A3"),
-    (dict(fused_sweep=False), "A4"),
-    (dict(model=tcfg.ModelConfig(render_probability=True)), "A3"),
-    (dict(warp_type="homography_warp", novel_frame_ids=(-1, 1),
-          model=tcfg.ModelConfig(planes=tcfg.PlaneConfig(yz_levels=4))), "A10"),
+    pytest.param(dict(novel_frame_ids=(-1, 1), loss=tcfg.LossConfig(use_mom=True)), "A4",
+                 id="use_mom_temporal-A4"),
+    pytest.param(dict(fused_sweep=False), "A4", id="fused_sweep_off-A4"),
+    pytest.param(dict(model=tcfg.ModelConfig(net_type="PladeNet", planes=tcfg.PlaneConfig(
+        yz_levels=4))), "A10", id="pladenet_yz-A10"),
+    pytest.param(dict(model=tcfg.ModelConfig(net_type="FalNet", render_probability=True)),
+                 "FalNet has no render_probability head", id="falnet_render"),
 ])
 def test_unported_recipes_name_their_roadmap_item(override, item):
     cfg = tcfg.stage1_config(**override)
