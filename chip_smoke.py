@@ -1,4 +1,4 @@
-"""Drive the PyTorch/CUDA port's inference path, stage-1 step, stage-2 -> stage-3 trainer, mono trainer, FalNet and PladeNet trainers, no-mixture recipes, KITTI entry points, and the render_probability, yz-plane and alpha_self recipes on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's inference path, stage-1 step, stage-2 -> stage-3 trainer, mono trainer, FalNet and PladeNet trainers, no-mixture recipes, KITTI entry points, the render_probability, yz-plane and alpha_self recipes, the sweep's image gradients and the oracle view synthesis on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -29,7 +29,19 @@ Phases, each printing a line:
      bit-identical; kernel (the backward alone and through autograd) and
      twin times by CUDA events at both shapes, with each kernel's bound,
      share of it, MUFU floor, registers and occupancy;
-  6. train: stage1_config() (ResNet-50, DenseASPP, 49+14 planes, VGG19
+   5b. sweep_img (run after 5): the backward's image-gradient instance (src
+     and tgt require grad; the mixture with the automask) against the
+     twin's autograd: d_src, d_tgt, d_logits, d_sigma, d_shift under seeded
+     cotangents on every output (nll_auto's too) on phase 5's odd shapes up
+     to W = 1280 (wider rows must raise: they do not fit its staged rows),
+     with and without the centre disparity, and at (8, 63, 192, 640); its
+     head gradients against the head-only instance's (<= 1e-6 relative);
+     the no-mixture and no-automask cases raise before any launch; the
+     entry point once forward and backward with the counts zeroed (its
+     launches in the kernels line); the kernel alone and through autograd
+     beside the head-only backward, with its bound, MUFU floor, registers,
+     spills and blocks an SM;
+ 6. train: stage1_config() (ResNet-50, DenseASPP, 49+14 planes, VGG19
      perceptual loss, Adam) at 640x192 with seeded random weights on
      make_stereo_batch(4, 192, 640) flipped to 8: 3 warm-up and 10 timed
      steps with every launch count read around them, the memory of one
@@ -139,7 +151,16 @@ Phases, each printing a line:
      loss/self_loss printed;
  22. pladenet_render: 2 stage-1 steps of PladeNet (49+14 planes, mixture,
      PE 8, plane residuals) with render_probability, each one 2-D warp each
-     way.
+     way;
+ 23. oracle: stage1_config with fused_sweep=False (the oracle view
+     synthesis, the JAX CLI's default) through Trainer at 640x192, batch 4
+     flipped to 8: 3 warm-up and 10 timed steps, each held to the head
+     epilogue and the disp head each way (no sweep, no warp), one validation
+     batch, the Trainer's image panels built on the card (one eval forward);
+     one step of the same weights and batch through the fused sweep, its
+     losses held to the oracle's at rtol 2e-4; then 2 steps each of
+     mono_config with use_mom (the oracle) and of stage 1 with the
+     ResNet-18 perceptual net.
 Each phase prints its wall time.  Then one JSON line of the kernels and,
 last, the ok line.  TF32 is off for convolutions and matmuls so that the
 card computes in float32 throughout.
@@ -253,6 +274,8 @@ KERNELS = {
                            "planedepth_tpu/ops/pallas_warp2d.py:200"),
     "warp2d_nosigma_bwd": ("planedepth_tpu_torch/csrc/warp2d.cu",
                            "planedepth_tpu/ops/pallas_warp2d.py:244"),
+    "plane_sweep_img_bwd": ("planedepth_tpu_torch/csrc/plane_sweep.cu",
+                            "planedepth_tpu/ops/pallas_sweep.py:542"),
 }
 
 
@@ -307,8 +330,9 @@ def sweep_mufu(mix, with_disp, direction, with_auto=False):
     """MUFU operations a pixel-plane of the sweep kernels: forward, the
     online-softmax exp, 1/sigma, the Laplacian's exp (and the automask's),
     the centre disp head's exp and 1/sigma; backward, pi's exp, 1/sigma,
-    the Laplacian's exp, the centre's exp and 1/sigma."""
-    ops = 2 + int(mix) + int(with_auto and direction == "fwd")
+    the Laplacian's exp (and with the image gradients, ``with_auto``, the
+    automask's), the centre's exp and 1/sigma."""
+    ops = 2 + int(mix) + int(with_auto)
     return ops + (1 + int(mix) if with_disp else 0)
 
 
@@ -318,11 +342,13 @@ def mufu_floor_ms(pixel_planes, ops):
     return pixel_planes * ops / MUFU_OPS_PER_S * 1e3
 
 
-def sweep_kernel_info(backward, mix, N, W):
+def sweep_kernel_info(backward, mix, N, W, image_grads=False):
     """The compiler's and the occupancy calculator's view of the sweep
-    kernel instance that a launch at (N, W) takes."""
+    kernel instance that a launch at (N, W) takes (``image_grads``: the
+    backward's image-gradient instance)."""
     out = (ctypes.c_int * 5)()
-    rc = _build.load_library().pdt_plane_sweep_kernel_info(int(backward), int(mix), N, W, out)
+    rc = _build.load_library().pdt_plane_sweep_kernel_info(
+        int(backward), int(mix), int(image_grads), N, W, out)
     if rc != 0:
         raise RuntimeError(f"pdt_plane_sweep_kernel_info: CUDA error {rc}")
     return dict(zip(("registers", "spill_bytes", "threads", "blocks_per_sm", "smem_bytes"),
@@ -621,12 +647,9 @@ def phase_sweep(card, shape=SWEEP_SHAPE, dev=torch.device("cuda"),
             held.hold(plane_sweep(*inputs, pad, with_auto, with_disp),
                       plane_sweep_plain(*inputs, pad, with_auto, with_disp),
                       inputs, (2, 3, 4), names, i)
-    timed, image_grads = {}, {}
+    timed = {}
     for at, seed in ((shape, 1), (hr_shape, 4)):
         inputs = seeded_sweep_inputs(at, seed, dev)
-        # the backward's image_grads=True mode also writes d_src and d_tgt
-        moved = sweep_bounds(inputs)[1][0] + nbytes(*inputs[:2])
-        image_grads[at] = (moved, *bound(moved, 100 * inputs[2].numel()))
         for with_auto in (True, False):
             got = plane_sweep(*inputs, pad, with_auto, True)
             if not bool((got[-1][:, 5] == 0).all()):
@@ -646,11 +669,167 @@ def phase_sweep(card, shape=SWEEP_SHAPE, dev=torch.device("cuda"),
           f"at both | {card}")
     for at, t in timed.items():
         print_sweep_times("sweep", at, t, card)
-    print("[sweep] the backward's image_grads=True mode (not ported; no path runs it): bound "
-          + ", ".join(f"{ms:.4f} ms ({by}) of {moved / 1e6:.1f} MB at {at}"
-                      for at, (moved, ms, by) in image_grads.items()))
     fwd, bwd = sweep_fields(held, timed[shape], {hr_shape: timed[hr_shape]})
     return {"plane_sweep_fwd": fwd, "plane_sweep_bwd": bwd}
+
+
+def image_grad_inputs(shape, seed, dev):
+    """:func:`seeded_sweep_inputs` with src and tgt requiring grad too."""
+    inputs = seeded_sweep_inputs(shape, seed, dev)
+    for t in inputs[:2]:
+        t.requires_grad_()
+    return inputs
+
+
+def head_grads_of_both_instances(inputs, pad):
+    """d_logits, d_sigma, d_shift under the same seeded cotangents from the
+    image-gradient instance (images require grad) and from the head-only
+    instance (images detached); the automask NLL's cotangent reaches only
+    the images, so the two must agree."""
+    out = []
+    for images in (True, False):
+        args = [t.detach().requires_grad_(i in (2, 3, 4) or (images and i < 2))
+                for i, t in enumerate(inputs)]
+        outs = plane_sweep(*args, pad, True, True)
+        g = torch.Generator(device=args[2].device).manual_seed(7)
+        cts = [torch.randn(o.shape, generator=g, device=o.device) for o in outs]
+        live = [i for i, o in enumerate(outs) if o.requires_grad]
+        out.append(torch.autograd.grad([outs[i] for i in live], args[2:5],
+                                       [cts[i] for i in live]))
+    return out
+
+
+def phase_sweep_img(card, shape=SWEEP_SHAPE, dev=torch.device("cuda"), smalls=SWEEP_SMALLS):
+    """The backward's image-gradient instance (src and tgt require grad; the
+    mixture with the automask) against ``plane_sweep_plain``'s autograd:
+    d_src, d_tgt, d_logits, d_sigma, d_shift under seeded cotangents on
+    every output, on phase 5's odd shapes that fit its rows (W <= 1280;
+    wider ones must raise) with and without the centre disparity, and at
+    the stage-1 shape; its head gradients against the head-only instance's;
+    the cases without an image-gradient mode raise; then the entry point
+    once with the counts zeroed, and the kernel timed alone and through
+    autograd beside the head-only backward, with its bound, MUFU floor,
+    registers and occupancy.  Returns (the JSON fields, the launch count)."""
+    held = Held()
+    pad = sweep_pad(stage1_config())
+    names = ("d_src", "d_tgt", "d_logits", "d_sigma", "d_shift")
+    refused = []
+    for i, small in enumerate(smalls):
+        for with_disp in (True, False):
+            inputs = image_grad_inputs(small, 70 + i, dev)
+            if small[-1] > 1280:
+                try:
+                    plane_sweep(*inputs, pad, True, with_disp)
+                except ValueError:
+                    refused.append(small)
+                    continue
+                raise AssertionError(f"image gradients at W = {small[-1]} must raise")
+            held.hold(plane_sweep(*inputs, pad, True, with_disp),
+                      plane_sweep_plain(*inputs, pad, True, with_disp),
+                      inputs, (0, 1, 2, 3, 4), names, i)
+    inputs = image_grad_inputs(shape, 2, dev)
+    held.hold(plane_sweep(*inputs, pad, True, True),
+              plane_sweep_plain(*inputs, pad, True, True), inputs, (0, 1, 2, 3, 4), names, 9)
+    free_cache()
+    img, plain = head_grads_of_both_instances(inputs, pad)
+    head_rel = max((a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+                   for a, b in zip(img, plain))
+    identical = all(torch.equal(a, b) for a, b in zip(img, plain))
+    if head_rel > 1e-6:
+        raise AssertionError(f"head gradients of the two instances differ by {head_rel:.3e}")
+    del img, plain
+    for sigma, with_auto, err in ((None, False, NotImplementedError),
+                                  (inputs[3], False, ValueError)):
+        reset_launch_counts()
+        try:
+            plane_sweep(inputs[0], inputs[1], inputs[2], sigma, inputs[4], inputs[5], pad,
+                        with_auto, True)
+        except err:
+            pass
+        else:
+            raise AssertionError(f"image gradients with sigma={sigma is not None}, "
+                                 f"with_auto={with_auto} must raise {err.__name__}")
+        if nonzero(launch_counts()):
+            raise AssertionError(f"a refused call launched {nonzero(launch_counts())}")
+
+    # the main path: the entry point forward and backward, counts zeroed
+    reset_launch_counts()
+    outs = plane_sweep(*inputs, pad, True, True)
+    torch.autograd.grad(sum(o.sum() for o in outs), inputs[:5])
+    launches = launch_counts()
+    if launches != only(plane_sweep_fwd=1, plane_sweep_img_bwd=1):
+        raise AssertionError(f"image-gradient sweep launches {launches}")
+    del outs
+    t = time_sweep_img(inputs, pad)
+    del inputs
+    free_cache()
+    share = t["bound"][0] / t["ms"]
+    print(f"[sweep_img] plane_sweep with image gradients vs plain on "
+          f"{', '.join(map(str, [x for x in smalls if x not in refused]))} (with and without "
+          f"disp) and at {shape}, pad {pad}: {held.describe()}; head gradients of the "
+          f"image-gradient instance vs the head-only instance: max rel diff {head_rel:.3e} "
+          f"({'bit-identical' if identical else 'not bit-identical'}); W = "
+          f"{sorted({x[-1] for x in refused})} refused (ValueError: its staged rows exceed a "
+          f"block's shared memory); no-mixture and no-automask image gradients refused before "
+          f"any launch; main path launches {nonzero(launches)} | {card}")
+    print(f"[sweep_img] at {shape}: image-gradient backward alone {t['ms']:.4f} ms (bound "
+          f"{t['bound'][0]:.4f} ms of {t['bytes'] / 1e6:.1f} MB, {share:.1%} of it; MUFU floor "
+          f"{t['mufu_ms']:.4f} ms), through autograd {t['autograd_ms']:.4f} ms; the head-only "
+          f"backward alone {t['heads_ms']:.4f} ms in the same call; twin backward "
+          f"{t['plain_ms']:.2f} ms; {t['info']}; no single PyTorch call computes it | {card}")
+    fields = {**held.bwd_fields(), "ms": t["ms"], "autograd_ms": t["autograd_ms"],
+              "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+              "library_ms": None, "mufu_floor_ms": t["mufu_ms"],
+              "head_only_bwd_ms": t["heads_ms"], "head_grads_rel_diff": head_rel,
+              "head_grads_bit_identical": identical, "kernel_info": t["kernel_info"],
+              "shape": list(shape)}
+    return {"plane_sweep_img_bwd": fields}, launches["plane_sweep_img_bwd"]
+
+
+def time_sweep_img(inputs, pad):
+    """The image-gradient backward alone (the library entry point on the
+    forward's statistics) and through autograd, the head-only backward
+    alone on the same operands, the twin's backward, the bound (the
+    mixture backward's bytes plus g_nll_auto read and d_src, d_tgt
+    written) and the MUFU floor."""
+    src, tgt, logits, sigma, shift, mask = inputs
+    B, N, H, W = logits.shape
+    limit = shift_max(pad)
+    with torch.no_grad():
+        new = lambda *size: torch.empty(size, device=logits.device)
+        rgb, nll, nll_auto, disp, stats = (new(B, 3, H, W), new(B, H, W), new(B, H, W),
+                                           new(B, H, W), new(B, 7, H, W))
+        _build.launch("pdt_plane_sweep_fwd", src, tgt, logits, sigma, shift, mask, rgb, nll,
+                      nll_auto, disp, stats, B, N, H, W, limit, 1, 1, 1)
+        g_rgb, g_nll, g_auto, g_disp = (torch.randn_like(x) for x in (rgb, nll, nll_auto, disp))
+        heads = (torch.empty_like(logits), torch.empty_like(sigma), torch.empty_like(shift))
+        images = (torch.empty_like(src), torch.empty_like(tgt))
+        common = (src, tgt, logits, sigma, shift, mask, stats, rgb, g_rgb, g_nll)
+        ms = launch_ms("pdt_plane_sweep_bwd_img", (*common, g_auto, g_disp, *images, *heads),
+                       B, N, H, W, limit, 1)
+        heads_ms = launch_ms("pdt_plane_sweep_bwd", (*common, g_disp, *heads),
+                             B, N, H, W, limit, 1, 1)
+        del rgb, nll, nll_auto, disp, stats, g_rgb, g_nll, g_auto, g_disp, heads, images
+    out = plane_sweep(*inputs, pad, True, True)
+    cts = [torch.randn_like(o) for o in out]
+    wrt = inputs[:5]
+    autograd_ms = cuda_ms(lambda: torch.autograd.grad(out, wrt, cts, retain_graph=True))
+    plain = lambda: plane_sweep_plain(*inputs, pad, True, True)
+    with torch.no_grad():
+        plain_fwd_ms = cuda_ms(plain, warmup=1, reps=3)
+    plain_ms = cuda_ms(lambda: torch.autograd.grad(plain(), wrt, cts), warmup=1, reps=3)
+    row = B * H * W * 4
+    moved = sweep_bounds(inputs)[1][0] + row + nbytes(src, tgt)
+    info = sweep_kernel_info(1, True, N, W, image_grads=True)
+    return {"ms": ms, "heads_ms": heads_ms, "autograd_ms": autograd_ms,
+            "plain_ms": plain_ms - plain_fwd_ms, "bytes": moved,
+            "bound": bound(moved, 120 * logits.numel()),
+            "mufu_ms": mufu_floor_ms(logits.numel(), sweep_mufu(True, True, "bwd", True)),
+            "kernel_info": info,
+            "info": (f"registers {info['registers']} (spills {info['spill_bytes']} B), "
+                     f"{info['threads']} threads a block, {info['blocks_per_sm']} blocks an SM, "
+                     f"{info['smem_bytes']} B shared; at W = 1280: "
+                     f"{json.dumps(sweep_kernel_info(1, True, N, 1280, image_grads=True))}")}
 
 
 # each kernel's counter: (the wrapper that counts, its attribute)
@@ -666,16 +845,51 @@ COUNTERS = {"disp_head_fwd": (disp_head, "launches"),
             "plane_sweep_nomix_fwd": (plane_sweep, "nomix_fwd_launches"),
             "plane_sweep_nomix_bwd": (plane_sweep, "nomix_bwd_launches"),
             "warp2d_nosigma_fwd": (warp2d, "nosigma_fwd_launches"),
-            "warp2d_nosigma_bwd": (warp2d, "nosigma_bwd_launches")}
+            "warp2d_nosigma_bwd": (warp2d, "nosigma_bwd_launches"),
+            "plane_sweep_img_bwd": (plane_sweep, "img_bwd_launches")}
 
 
 def launch_counts():
     return {name: getattr(fn, attr) for name, (fn, attr) in COUNTERS.items()}
 
 
+# the Trainer's image panels since the last reset: how many were built (one
+# eval-mode forward each; only where a TensorBoard writer exists) and their
+# launches, which the trainer phases add to what their runs must launch
+PANELS = {"built": 0, "launches": {}}
+
+
 def reset_launch_counts():
     for fn, attr in COUNTERS.values():
         setattr(fn, attr, 0)
+    PANELS.update(built=0, launches={})
+
+
+def count_panels():
+    """Wrap ``Trainer.log_images`` so that :data:`PANELS` counts the panels
+    it builds and their launches."""
+    log_images = Trainer.log_images
+
+    def counted(self, mode, batch, step=None):
+        built = self.logger.has_writer(mode)
+        before = launch_counts()
+        log_images(self, mode, batch, step)
+        PANELS["built"] += int(built)
+        for k, v in launch_counts().items():
+            if v != before[k]:
+                PANELS["launches"][k] = PANELS["launches"].get(k, 0) + v - before[k]
+
+    Trainer.log_images = counted
+
+
+def with_panels(want, eval_forward):
+    """``want`` plus the panels' launches, each panel held to one eval
+    forward's launches ``eval_forward``."""
+    per = nonzero(eval_forward)
+    if PANELS["launches"] != nonzero({k: v * PANELS["built"] for k, v in per.items()}):
+        raise AssertionError(f"{PANELS['built']} panels launched {PANELS['launches']}, "
+                             f"want {per} each")
+    return {k: v + PANELS["launches"].get(k, 0) for k, v in want.items()}
 
 
 class PeakByOp(TorchDispatchMode):
@@ -1117,8 +1331,9 @@ def phase_distill(card, dev=torch.device("cuda"), warmup=3, steps=10):
         stage2.train()
         stage2.close()
         s2_launches = launch_counts()
-        want = only(disp_head_fwd=1, plane_sweep_fwd=2, plane_sweep_bwd=2,
-                    head_epilogue_fwd=3, head_epilogue_bwd=2)   # 2 steps + one val batch
+        want = with_panels(only(disp_head_fwd=1, plane_sweep_fwd=2, plane_sweep_bwd=2,
+                                head_epilogue_fwd=3, head_epilogue_bwd=2),   # 2 steps + val
+                           {"disp_head_fwd": 1, "head_epilogue_fwd": 1})
         if s2_launches != want:
             raise AssertionError(f"stage-2 launches {s2_launches}, want {want}")
         del stage2                      # its model, VGG and Adam leave the card
@@ -1167,6 +1382,7 @@ def phase_distill(card, dev=torch.device("cuda"), warmup=3, steps=10):
         want = {k: v * n for k, v in DISTILL_STEP.items()}
         want["disp_head_fwd"] += 1                      # the validation batch
         want["head_epilogue_fwd"] += 1
+        want = with_panels(want, {"disp_head_fwd": 1, "head_epilogue_fwd": 1})
         if launches != want or len(times) != n:
             raise AssertionError(f"stage-3 run launches {launches} in {len(times)} "
                                  f"steps, want {want} in {n}")
@@ -1648,11 +1864,14 @@ def phase_sweep_nomix(card, dev=torch.device("cuda"), shape=FALNET_SHAPE,
             "plane_sweep_nomix_bwd": {**bwd, "shape": list(shape)}}
 
 
-def trainer_run(cfg, dev, warmup, steps, per_step, after_val):
+def trainer_run(cfg, dev, warmup, steps, per_step, after_val, panels=False):
     """``cfg`` through the Trainer on synthetic samples: ``warmup + steps``
     steps, each held to the launch counts ``per_step``, and one validation
     pass, whose launches must be ``after_val``; then the memory of one more
-    step by aten op.  Returns what the phases print."""
+    step by aten op.  With ``panels`` the Trainer's image panels of a batch
+    are built once more on the card, held to one eval forward's launches
+    (``after_val``'s) and checked finite in [0, 1].  Returns what the
+    phases print."""
     with tempfile.TemporaryDirectory(prefix="pdt_chip_smoke_") as log_dir:
         # seeded random weights throughout: no ImageNet files in the checkout
         cfg = cfg.replace(log_dir=log_dir, allow_random_pc=True,
@@ -1692,7 +1911,8 @@ def trainer_run(cfg, dev, warmup, steps, per_step, after_val):
         reserved_gb = torch.cuda.max_memory_reserved(dev) / 1e9
         trainer.close()
         n = warmup + steps
-        want = {k: v * n + after_val.get(k, 0) for k, v in per_step.items()}
+        want = with_panels({k: v * n + after_val.get(k, 0) for k, v in per_step.items()},
+                           after_val)
         if launches != want or len(times) != n:
             raise AssertionError(f"{cfg.model_name} run launches {launches} in {len(times)} "
                                  f"steps, want {want} in {n}")
@@ -1706,6 +1926,18 @@ def trainer_run(cfg, dev, warmup, steps, per_step, after_val):
             moved[net][0] += int(not torch.equal(p.detach(), start[k]))
             moved[net][1] += 1
         saved = sorted(os.listdir(os.path.join(log_dir, cfg.model_name, "last_models")))
+        panel_launches, panel_images = {}, []
+        if panels:
+            reset_launch_counts()
+            images = trainer.panels(step_batch(cfg, 0))
+            panel_launches = nonzero(launch_counts())
+            if panel_launches != nonzero(after_val) or not all(
+                    np.isfinite(im).all() and im.min() >= 0.0 and im.max() <= 1.0
+                    for im in images.values()):
+                raise AssertionError(f"panels: launches {panel_launches}, images "
+                                     f"{sorted(images)}")
+            panel_images = sorted(images)
+            del images
         batch = batch_to_tensors(step_batch(cfg, 0), dev)
         memory = memory_by_op(lambda: step_fn(batch), dev)
         del trainer, start, batch
@@ -1713,7 +1945,8 @@ def trainer_run(cfg, dev, warmup, steps, per_step, after_val):
     return {"cfg": cfg, "launches": launches, "losses": losses, "val": val["metrics"],
             "moved": moved, "saved": saved, "memory": memory, "peak_gb": peak_gb,
             "reserved_gb": reserved_gb, "step_ms": statistics.median(times[warmup:]) * 1e3,
-            "event_ms": statistics.median(event_ms[warmup:]), "warmup": warmup, "steps": steps}
+            "event_ms": statistics.median(event_ms[warmup:]), "warmup": warmup, "steps": steps,
+            "panels": panel_launches, "panel_images": panel_images}
 
 
 def print_trainer_run(tag, what, run, cpu, cpu_shape, card):
@@ -1725,7 +1958,8 @@ def print_trainer_run(tag, what, run, cpu, cpu_shape, card):
           f"{run['saved']}; first/last losses {json.dumps(run['losses'][0])} "
           f"{json.dumps(run['losses'][-1])}")
     print(f"[{tag}] validation metrics {json.dumps(run['val'])}")
-    print(f"[{tag}] card vs CPU at {cpu_shape} (one step): {json.dumps(cpu)}")
+    if cpu is not None:
+        print(f"[{tag}] card vs CPU at {cpu_shape} (one step): {json.dumps(cpu)}")
     print(f"[{tag}] step {run['step_ms']:.2f} ms median of {run['steps']} (host clock around "
           f"synchronised steps, after {run['warmup']} warm-up; CUDA events around them "
           f"{run['event_ms']:.2f} ms), "
@@ -1876,6 +2110,84 @@ def phase_stage1_trainer(card, dev=torch.device("cuda"), warmup=3, steps=10):
           f"launches per step {nonzero(STAGE1_STEP)}, "
           f"step {run['event_ms']:.2f} ms (CUDA events; {run['step_ms']:.2f} host clock), "
           f"peak {run['peak_gb']:.2f} GB allocated | {card}")
+    return run
+
+
+# per oracle stage-1 step: the decoder's head epilogue and disp head each
+# way (disp feeds the smoothness loss); the view synthesis is plain gathers
+ORACLE_STEP = only(head_epilogue_fwd=1, head_epilogue_bwd=1, disp_head_fwd=1, disp_head_bwd=1)
+# with use_mom (which forces flip_right): the 4 row shifts of the mirror
+# occlusion mask over the synthesised right-view probability
+ORACLE_MOM_STEP = dict(ORACLE_STEP, row_shift_fwd=4)
+ORACLE_LOSS_RTOL = 2e-4            # tests/test_fused_train.py: the JAX fused step vs its oracle
+
+
+def fused_vs_oracle(cfg, dev, seed=0):
+    """One step of ``cfg`` through the fused sweep and one through the
+    oracle view synthesis, from the same seeded weights (each bundle from
+    the config's seed, the oracle's state copied into the fused one) and
+    batch; returns both loss dicts and each step's launches."""
+    batch = batch_to_tensors(step_batch(cfg, seed), dev)
+    out, weights = {}, None
+    for name, c in (("oracle", cfg.replace(fused_sweep=False)),
+                    ("fused", cfg.replace(fused_sweep=True))):
+        bundle = ModelBundle(c, dev)
+        if weights is None:
+            weights = {k: v.clone() for k, v in bundle.model.state_dict().items()}
+        else:
+            bundle.model.load_state_dict(weights)
+        optimizer, scheduler = make_optimizer(c, bundle.parameters(), 1000)
+        reset_launch_counts()
+        losses = make_train_step(bundle, optimizer, scheduler)(batch)
+        out[name] = (losses, nonzero(launch_counts()))
+        del bundle, optimizer, scheduler
+        free_cache()
+    return out
+
+
+def phase_oracle(card, dev=torch.device("cuda"), warmup=3, steps=10):
+    """The oracle view synthesis (``fused_sweep`` off, the JAX CLI's
+    default): stage1_config through the Trainer at full width, each step
+    held to its launches, its panels on the card; one step of the same
+    weights and batch through the fused sweep held to the oracle's losses;
+    then 2 steps each of mono_config with use_mom (the oracle too: the 2-D
+    warp route leaves use_mom out, as in the JAX package) and of stage 1
+    with the ResNet-18 perceptual net."""
+    free_cache()
+    cfg = stage1_config(model_name="oracle", fused_sweep=False)
+    eval_forward = {"disp_head_fwd": 1, "head_epilogue_fwd": 1}
+    run = trainer_run(cfg, dev, warmup, steps, ORACLE_STEP, eval_forward, panels=True)
+    pair = fused_vs_oracle(stage1_config(allow_random_pc=True), dev)
+    (oracle, oracle_launches), (fused, fused_launches) = pair["oracle"], pair["fused"]
+    gap = {k: abs(fused[k] / v - 1) for k, v in oracle.items()}
+    if set(fused) != set(oracle) or max(gap.values()) > ORACLE_LOSS_RTOL:
+        raise AssertionError(f"fused step {fused} vs oracle step {oracle}")
+    if oracle_launches != nonzero(ORACLE_STEP) or fused_launches != nonzero(STAGE1_STEP):
+        raise AssertionError(f"launches oracle {oracle_launches}, fused {fused_launches}")
+    mono = mono_config(model_name="mono_mom", loss=dataclasses.replace(
+        mono_config().loss, use_mom=True), allow_random_pc=True)
+    mono_losses, mono_ms, mono_peak = steps_held(mono, ORACLE_MOM_STEP, dev)
+    resnet = stage1_config(model_name="pc_resnet18", allow_random_pc=True,
+                           loss=dataclasses.replace(stage1_config().loss, pc_net="resnet18"))
+    resnet_losses, resnet_ms, resnet_peak = steps_held(resnet, STAGE1_STEP, dev)
+    print_trainer_run("oracle", f"stage1_config with fused_sweep=False (the oracle view "
+                      f"synthesis), ResNet-{cfg.model.num_layers} DenseASPP "
+                      f"{cfg.model.planes.disp_levels}+{cfg.model.planes.xz_levels} planes VGG19",
+                      run, None, None, card)
+    print(f"[oracle] panels (train and val, one eval-mode forward each): launches "
+          f"{json.dumps(run['panels'])}, images {run['panel_images']} | {card}")
+    print(f"[oracle] the same weights and batch, one step each: oracle {json.dumps(oracle)} "
+          f"(launches {oracle_launches}), fused sweep {json.dumps(fused)} (launches "
+          f"{fused_launches}); relative gap per loss {json.dumps(gap)} (<= "
+          f"{ORACLE_LOSS_RTOL}) | {card}")
+    print(f"[oracle] mono_config with use_mom ({mono.warp_type}, sides {mono.target_sides}, "
+          f"the oracle; batch {mono.per_step_batch} flipped to {mono.effective_batch}): 2 "
+          f"steps, launches per step {nonzero(ORACLE_MOM_STEP)}, "
+          f"{[round(t, 2) for t in mono_ms]} ms (CUDA events), peak {mono_peak:.2f} GB, losses "
+          f"{json.dumps(mono_losses[-1])} | {card}")
+    print(f"[oracle] stage1_config with pc_net resnet18 (the fused sweep): 2 steps, launches "
+          f"per step {nonzero(STAGE1_STEP)}, {[round(t, 2) for t in resnet_ms]} ms (CUDA "
+          f"events), peak {resnet_peak:.2f} GB, losses {json.dumps(resnet_losses[-1])} | {card}")
     return run
 
 
@@ -2188,9 +2500,10 @@ def phase_kitti(card, dev=torch.device("cuda")):
             BatchLoader._make_batch, trainer_module.make_train_step = make_batch, make_step
         cfg = trainer.cfg
         n_steps, n_val = len(KITTI_TRAIN) // cfg.per_step_batch, -(-len(KITTI_VAL) // cfg.per_step_batch)
-        want = only(plane_sweep_fwd=n_steps, plane_sweep_bwd=n_steps,
-                    head_epilogue_fwd=n_steps + n_val, head_epilogue_bwd=n_steps,
-                    disp_head_fwd=n_val)
+        want = with_panels(only(plane_sweep_fwd=n_steps, plane_sweep_bwd=n_steps,
+                                head_epilogue_fwd=n_steps + n_val, head_epilogue_bwd=n_steps,
+                                disp_head_fwd=n_val),
+                           {"disp_head_fwd": 1, "head_epilogue_fwd": 1})
         if train_launches != want or len(steps) != n_steps or trainer.step_count != n_steps:
             raise AssertionError(f"kitti training: launches {train_launches} in {len(steps)} "
                                  f"steps, want {want} in {n_steps}")
@@ -2306,12 +2619,15 @@ def main():
               f"{time.perf_counter() - t0:.1f} s")
         return out
 
+    count_panels()
     card = run(phase_device)
     run(phase_build)
     # launches: each kernel's count on the path that brought it to the port
     fields = {"disp_head_fwd": run(phase_kernel, card)}
     launches = {"disp_head_fwd": run(phase_slice, card)["disp_head_fwd"]}
     fields.update(run(phase_sweep, card))
+    img_fields, launches["plane_sweep_img_bwd"] = run(phase_sweep_img, card)
+    fields.update(img_fields)
     train = run(phase_train, card)
     launches.update({k: train[k] for k in ("plane_sweep_fwd", "plane_sweep_bwd")})
     fields.update(run(phase_epilogue, card))
@@ -2337,6 +2653,7 @@ def main():
     run(phase_yz, card, stage1)
     run(phase_self, card, stage1)
     run(phase_pladenet_render, card)
+    run(phase_oracle, card)
     print(f"[time] all phases: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,

@@ -114,7 +114,7 @@ class LossConfig:
     automask: bool = False
     use_ssim: bool = False          # SSIM in alpha_self's reprojection loss
     match_aug: bool = False
-    pc_net: str = "vgg19"           # vgg19 (resnet18: ROADMAP A4)
+    pc_net: str = "vgg19"           # vgg19 or resnet18
     use_mom: bool = False           # mirror occlusion mask
 
 

@@ -3,8 +3,8 @@
 // (backward), for the stereo training step.
 //
 // Replaces planedepth_tpu/ops/pallas_sweep.py:_fwd_kernel and _bwd_kernel
-// (v1 unpacked layout, nonneg shifts, image_grads=False), in both of their
-// modes: with_mixture=True (the mixture recipes) and with_mixture=False
+// (v1 unpacked layout, nonneg shifts; the backward with image_grads False
+// and, with the mixture and the automask, True), in both of their modes: with_mixture=True (the mixture recipes) and with_mixture=False
 // (B1', fused_plane_sweep_nomix: FalNet and use_mixture_loss=False), one
 // template instance each.  At 1280x384 they also compute the function of the
 // TPU's quad kernels (pallas_sweep_quad.py:_fwd_kernel_q, _bwd_kernel_q), fed
@@ -34,6 +34,16 @@
 // local; the cotangent of a sample at x+k lands back on the source row by a
 // reverse window, d[x'] = (1-f) g[x'-k] + f g[x'-k-1]
 // (pallas_sweep.py:1340-1358).
+// The image-gradient backward (IMG, pallas_sweep.py:540-882 with
+// image_grads=True; the mixture with the automask only, as JAX asserts)
+// also writes d_src and d_tgt: d_tgt += -sgn(c_n - tgt) de_n / 3 at x;
+// d_src is the same reverse window of dc_n m, the per-channel adjoint of
+// the source sample, that d_logits takes of dl_n m; and the automask's
+// identity error e_auto = mean_c |src - tgt| adds t = sgn(src - tgt) dEa
+// dMa / 3 to d_src and -t to d_tgt, where dEa = -sum_n pi_n lapa_n r_n,
+// lapa_n = 0.5 exp(-e_auto r_n) r_n, r_n = 1 / s_n (pi and sigma held
+// constant, as the reference holds them) and dMa = -g_nll_auto / (Ma + eps)
+// from the forward's stats entry 3.
 //
 // Bound.  Stage 1, (B, N, H, W) = (8, 63, 192, 640), f32: the forward moves
 // ~566 MB (logits + sigma 495 MB, images 24 MB, outputs and stats 47 MB),
@@ -76,6 +86,15 @@
 //   adjoints into the other buffer, so one barrier serves a group.
 //   d_shift: each warp sums its lanes in a fixed shuffle tree, one warp a
 //   plane then sums the warps' partials in a fixed tree: deterministic.
+// - IMG stages dc m (3 channels) beside the adjoint rows of each group,
+//   double-buffered like them (2 x group x 3 rows: ~31 KB at W = 640, ~62 KB
+//   at 1280; the rows of W > 1280 no longer fit a block, and the wrapper
+//   refuses them), gathers d_src's reverse window after the group's
+//   barrier with d_logits', and keeps d_src, d_tgt and dEa in registers
+//   across the planes: each pixel's 6 image gradients are written once.
+//   One more ex2 a pixel-plane (the automask's Laplacian).  Its instance
+//   asks the compiler for one block an SM (__launch_bounds__ min 1), so the
+//   7 more accumulators a pixel cost no spills.
 // - exp and 1/x in the per-plane chain are ex2.approx.ftz and
 //   rcp.approx.ftz (~2 ulp; results under 2^-126 flush to 0, far below
 //   the 1e-7 guards); the per-pixel epilogue keeps logf and IEEE division.
@@ -115,11 +134,13 @@ __host__ __device__ __forceinline__ int round4(int v) { return (v + 3) & ~3; }
 // Shared-memory layout, in floats, rows of stride S: clipped shifts and
 // masks (N each), the source row (3 channels), the ring of plane slots
 // (logits, then sigma under MIX), then for the backward the double-buffered
-// adjoint rows (dl m, and dsg m under MIX: 2 x group rows each) and the
-// d_shift partials (2 x group x 32 warps).
+// adjoint rows (dl m, and dsg m under MIX: 2 x group rows each; under IMG
+// dc m: 2 x 3 x group rows, buffer, channel, plane), all contiguous, and
+// the d_shift partials (2 x group x 32 warps).
 struct Layout {
-  int shift, mask, src, ring, slot, adj_l, adj_s, red, total;
-  __host__ __device__ Layout(int N, int S, bool mix, int slots, int group, bool bwd) {
+  int shift, mask, src, ring, slot, adj_l, adj_s, adj_c, red, total;
+  __host__ __device__ Layout(int N, int S, bool mix, int slots, int group, bool bwd,
+                             bool img = false) {
     shift = 0;
     mask = N;
     src = round4(2 * N);
@@ -127,9 +148,12 @@ struct Layout {
     slot = S * (mix ? 2 : 1);
     adj_l = ring + slots * slot;
     adj_s = adj_l + (bwd ? 2 * group * S : 0);
-    red = adj_s + (bwd && mix ? 2 * group * S : 0);
+    adj_c = adj_s + (bwd && mix ? 2 * group * S : 0);
+    red = adj_c + (bwd && img ? 2 * 3 * group * S : 0);
     total = red + (bwd ? 2 * group * 32 : 0);
   }
+  // adjoint rows (each with its two leading zeros) from adj_l to red
+  __host__ __device__ int adj_rows(int S) const { return (red - adj_l) / S; }
   size_t bytes() const { return (size_t)total * sizeof(float); }
 };
 
@@ -400,9 +424,11 @@ sweep_fwd_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
 namespace {
 
 // MIX as in sweep_fwd_kernel; without it d_sigma is not written (and may be
-// null), and no sigma row is staged.
-template <int PX, bool MIX>
-__global__ void __launch_bounds__(Tile<PX>::threads, Tile<PX>::blocks)
+// null), and no sigma row is staged.  IMG (only with MIX, and the forward's
+// automask): also d_src and d_tgt (B, 3, H, W), from g_nll_auto (B, H, W);
+// one block an SM, for the registers.
+template <int PX, bool MIX, bool IMG>
+__global__ void __launch_bounds__(Tile<PX>::threads, IMG ? 1 : Tile<PX>::blocks)
 sweep_bwd_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
                  const float* __restrict__ logits,
                  const float* __restrict__ sigma,
@@ -412,19 +438,22 @@ sweep_bwd_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
                  const float* __restrict__ rgb,
                  const float* __restrict__ g_rgb,
                  const float* __restrict__ g_nll,
+                 const float* __restrict__ g_nll_auto,
                  const float* __restrict__ g_disp,
+                 float* __restrict__ d_src, float* __restrict__ d_tgt,
                  float* __restrict__ d_logits, float* __restrict__ d_sigma,
                  float* __restrict__ d_shift, int N, int H, int W,
                  float shift_max, int with_disp, int vec) {
+  static_assert(MIX || !IMG, "the image gradients exist only with the mixture");
   constexpr int G = kBwdGroup, P = kBwdRingGroups, S = Tile<PX>::stride;
   extern __shared__ __align__(16) float smem[];
-  const Layout L(N, S, MIX, G * P, G, true);
+  const Layout L(N, S, MIX, G * P, G, true, IMG);
   const int h = blockIdx.x, b = blockIdx.y;
   load_row<S>(shift, mask, src, smem, L, G * P * (MIX ? 2 : 1), b, h, N, H, W,
               shift_max);
   // positions -2 and -1 of every adjoint row are 0 (the reverse window's
   // taps left of the row)
-  for (int r = threadIdx.x; r < 2 * 2 * G * (MIX ? 2 : 1); r += blockDim.x)
+  for (int r = threadIdx.x; r < 2 * L.adj_rows(S); r += blockDim.x)
     smem[L.adj_l + (r >> 1) * S + (r & 1)] = 0.f;
 
   const int64_t plane = (int64_t)H * W;
@@ -443,11 +472,21 @@ sweep_bwd_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
   // per-pixel globals from the forward statistics (pallas_sweep.py:663-681)
   float t[PX][3], G3[PX][3], Ls[PX], inv_u[PX], dM[PX], dU[PX], Sg[PX];
   float L0[PX], gu0[PX], disp0[PX];
+  // IMG: d_src and d_tgt of this thread's pixels, dEa, e_auto and dMa
+  float dsr[PX][3], dtg[PX][3], dEa[PX], e_auto[PX], dMa[PX];
 #pragma unroll
   for (int p = 0; p < PX; ++p) {
     const int x = min((int)(threadIdx.x + p * blockDim.x), W - 1);
     const float* st = stats + (int64_t)b * nst * plane + pix_row + x;
     Ls[p] = st[0];
+    if (IMG) {
+      const float Ma = st[3 * plane];
+      const float gA = g_nll_auto[(int64_t)b * plane + pix_row + x];
+      dMa[p] = Ma > 0.f ? -gA / (fmaxf(Ma, 0.f) + kEps) : 0.f;
+      dEa[p] = e_auto[p] = 0.f;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) dsr[p][c] = dtg[p][c] = 0.f;
+    }
     const float U = st[plane], M = st[2 * plane];
     float gr = 0.f;
 #pragma unroll
@@ -486,6 +525,7 @@ sweep_bwd_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
   auto compute = [&](int j) {
     float* adj_l = smem + L.adj_l + (j & 1) * G * S + 2;
     float* adj_s = smem + L.adj_s + (j & 1) * G * S + 2;
+    float* adj_c = smem + L.adj_c + (j & 1) * 3 * G * S + 2;
     float* red = smem + L.red + (j & 1) * G * 32;
 #pragma unroll
     for (int g = 0; g < G; ++g) {
@@ -539,8 +579,17 @@ sweep_bwd_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
           const float dsg = (MIX && sg > 0.01f && sg < 1.f) ? ds : 0.f;
           float dc_cd = 0.f;
 #pragma unroll
-          for (int ch = 0; ch < 3; ++ch)
-            dc_cd += (G3[p][ch] * wgt + sgn(c[ch] - t[p][ch]) * (de * kThird)) * cd[ch];
+          for (int ch = 0; ch < 3; ++ch) {
+            const float de_c = sgn(c[ch] - t[p][ch]) * (de * kThird);
+            const float dc = G3[p][ch] * wgt + de_c;
+            dc_cd += dc * cd[ch];
+            if (IMG) {
+              adj_c[(ch * G + g) * S + x] = dc * m;
+              dtg[p][ch] -= de_c;
+            }
+          }
+          // the automask's Laplacian at this plane's (constant) pi, sigma
+          if (IMG) dEa[p] -= pi * (0.5f * fexp(-e_auto[p] * r) * r) * r;
           dsh += dl * ld + dsg * sd + dc_cd;
           if (with_disp) {
             // centre disp head (pallas_sweep.py:731-755); the softmax
@@ -577,6 +626,7 @@ sweep_bwd_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
   auto gather = [&](int j) {
     const float* adj_l = smem + L.adj_l + (j & 1) * G * S + 2;
     const float* adj_s = smem + L.adj_s + (j & 1) * G * S + 2;
+    const float* adj_c = smem + L.adj_c + (j & 1) * 3 * G * S + 2;
     const float* red = smem + L.red + (j & 1) * G * 32;
 #pragma unroll
     for (int g = 0; g < G; ++g) {
@@ -597,6 +647,13 @@ sweep_bwd_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
         if (MIX)
           d_sigma[plane_off + x] = w0 * adj_s[g * S + j0] + f * adj_s[g * S + j0 - 1]
                                    + ds0[g][p];
+        if (IMG) {
+#pragma unroll
+          for (int ch = 0; ch < 3; ++ch) {
+            const float* ac = adj_c + (ch * G + g) * S;
+            dsr[p][ch] += w0 * ac[j0] + f * ac[j0 - 1];
+          }
+        }
       }
     }
     for (int g = warp; g < G; g += nwarps) {
@@ -613,6 +670,16 @@ sweep_bwd_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
   cp_async_wait<P - 2>();     // group 0 has landed
   __syncthreads();            // everyone's copies, and load_row's stores
   issue_group<S, G, P, MIX>(smem, L, cp, logits, sigma, rowbase, plane, P - 1, N, vec);
+  if (IMG) {
+#pragma unroll
+    for (int p = 0; p < PX; ++p) {
+      const int x = min((int)(threadIdx.x + p * blockDim.x), W - 1);
+      float ea = 0.f;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) ea += fabsf(sh_src[c * S + x] - t[p][c]);
+      e_auto[p] = ea / 3.f;
+    }
+  }
   compute(0);
   for (int i = 0; i < ngroups; ++i) {
     // group i's adjoints and group i+1's rows are complete; group i's ring
@@ -625,15 +692,32 @@ sweep_bwd_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
     if (i + 1 < ngroups) compute(i + 1);
   }
   cp_async_wait<0>();
+  if (IMG) {
+    // the automask's identity-error adjoint lands on both images at x
+#pragma unroll
+    for (int p = 0; p < PX; ++p) {
+      const int x = (int)(threadIdx.x + p * blockDim.x);
+      if (x >= W) continue;
+      const float ta = dEa[p] * dMa[p] / 3.f;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const int64_t o = ((int64_t)b * 3 + c) * plane + pix_row + x;
+        const float t_auto = sgn(sh_src[c * S + x] - t[p][c]) * ta;
+        d_src[o] = dsr[p][c] + t_auto;
+        d_tgt[o] = dtg[p][c] - t_auto;
+      }
+    }
+  }
 }
 
 }  // namespace
 
 namespace {
 
-size_t smem_bytes(int backward, int mix, int N, int W) {
+size_t smem_bytes(int backward, int mix, int N, int W, int img = 0) {
   const int S = row_stride(W);
-  return backward ? Layout(N, S, mix, kBwdGroup * kBwdRingGroups, kBwdGroup, true).bytes()
+  return backward ? Layout(N, S, mix, kBwdGroup * kBwdRingGroups, kBwdGroup, true,
+                           img).bytes()
                   : Layout(N, S, mix, kFwdGroup * kFwdRingGroups, kFwdGroup, false).bytes();
 }
 
@@ -668,21 +752,27 @@ int launch_fwd(const float* src, const float* tgt, const float* logits,
   return (int)cudaGetLastError();
 }
 
-template <int PX, bool MIX>
+template <int PX, bool MIX, bool IMG>
 int launch_bwd(const float* src, const float* tgt, const float* logits,
                const float* sigma, const float* shift, const float* mask,
                const float* stats, const float* rgb, const float* g_rgb,
-               const float* g_nll, const float* g_disp, float* d_logits,
-               float* d_sigma, float* d_shift, int B, int N, int H, int W,
-               float shift_max, int with_disp, int vec, cudaStream_t st) {
-  const size_t smem = smem_bytes(1, MIX, N, W);
-  const cudaError_t e = allow_smem(sweep_bwd_kernel<PX, MIX>, smem);
+               const float* g_nll, const float* g_nll_auto, const float* g_disp,
+               float* d_src, float* d_tgt, float* d_logits, float* d_sigma,
+               float* d_shift, int B, int N, int H, int W, float shift_max,
+               int with_disp, int vec, cudaStream_t st) {
+  const size_t smem = smem_bytes(1, MIX, N, W, IMG);
+  const cudaError_t e = allow_smem(sweep_bwd_kernel<PX, MIX, IMG>, smem);
   if (e != cudaSuccess) return (int)e;
-  sweep_bwd_kernel<PX, MIX><<<dim3(H, B), block_for(W), smem, st>>>(
-      src, tgt, logits, sigma, shift, mask, stats, rgb, g_rgb, g_nll, g_disp,
-      d_logits, d_sigma, d_shift, N, H, W, shift_max, with_disp, vec);
+  sweep_bwd_kernel<PX, MIX, IMG><<<dim3(H, B), block_for(W), smem, st>>>(
+      src, tgt, logits, sigma, shift, mask, stats, rgb, g_rgb, g_nll, g_nll_auto,
+      g_disp, d_src, d_tgt, d_logits, d_sigma, d_shift, N, H, W, shift_max, with_disp,
+      vec);
   return (int)cudaGetLastError();
 }
+
+// The widest row the image-gradient backward takes: its staged rows of
+// 2 pixels a thread (W <= 1280) fit a block, those of 4 do not.
+constexpr int kMaxImgW = 1280;
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
@@ -736,45 +826,80 @@ extern "C" int pdt_plane_sweep_bwd(const float* src, const float* tgt,
   const int vec = W % 4 == 0 && aligned16(logits) && (!with_mixture || aligned16(sigma));
   const int px = pixels_per_thread(W);
   cudaStream_t st = (cudaStream_t)stream;
-#define PDT_BWD(P, MIX)                                                        \
-  launch_bwd<P, MIX>(src, tgt, logits, sigma, shift, mask, stats, rgb, g_rgb,   \
-                     g_nll, g_disp, d_logits, d_sigma, d_shift, B, N, H, W,    \
-                     shift_max, with_disp, vec, st)
+#define PDT_BWD(P, MIX)                                                            \
+  launch_bwd<P, MIX, false>(src, tgt, logits, sigma, shift, mask, stats, rgb, g_rgb, \
+                            g_nll, nullptr, g_disp, nullptr, nullptr, d_logits,     \
+                            d_sigma, d_shift, B, N, H, W, shift_max, with_disp, vec, st)
   if (with_mixture)
     return px == 1 ? PDT_BWD(1, true) : px == 2 ? PDT_BWD(2, true) : PDT_BWD(4, true);
   return px == 1 ? PDT_BWD(1, false) : px == 2 ? PDT_BWD(2, false) : PDT_BWD(4, false);
 #undef PDT_BWD
 }
 
+// pdt_plane_sweep_bwd's image-gradient mode (the mixture, with the
+// forward's automask NLL): the same head gradients, and d_src, d_tgt
+// (B, 3, H, W), each element written once, from the cotangents g_rgb,
+// g_nll, g_nll_auto (B, H, W) and g_disp.  W <= 1280.
+extern "C" int pdt_plane_sweep_bwd_img(const float* src, const float* tgt,
+                                       const float* logits, const float* sigma,
+                                       const float* shift, const float* mask,
+                                       const float* stats, const float* rgb,
+                                       const float* g_rgb, const float* g_nll,
+                                       const float* g_nll_auto, const float* g_disp,
+                                       float* d_src, float* d_tgt, float* d_logits,
+                                       float* d_sigma, float* d_shift, int B, int N,
+                                       int H, int W, float shift_max, int with_disp,
+                                       void* stream) {
+  if (W < 1 || W > kMaxImgW || N < 1) return (int)cudaErrorInvalidValue;
+  const int vec = W % 4 == 0 && aligned16(logits) && aligned16(sigma);
+  cudaStream_t st = (cudaStream_t)stream;
+#define PDT_BWD_IMG(P)                                                             \
+  launch_bwd<P, true, true>(src, tgt, logits, sigma, shift, mask, stats, rgb, g_rgb, \
+                            g_nll, g_nll_auto, g_disp, d_src, d_tgt, d_logits,      \
+                            d_sigma, d_shift, B, N, H, W, shift_max, with_disp, vec, st)
+  return pixels_per_thread(W) == 1 ? PDT_BWD_IMG(1) : PDT_BWD_IMG(2);
+#undef PDT_BWD_IMG
+}
+
 // Dynamic shared memory, in bytes, that one launch of the forward (backward
-// 0) or backward (1) kernel needs at (N, W); -1 when W is wider than the
+// 0) or backward (1) kernel needs at (N, W), of the backward's
+// image-gradient mode with image_grads 1; -1 when W is wider than the
 // kernels take (kMaxW).
 extern "C" long long pdt_plane_sweep_smem_bytes(int backward, int with_mixture,
-                                                int N, int W) {
+                                                int image_grads, int N, int W) {
   if (W < 1 || W > kMaxW) return -1;
-  return (long long)smem_bytes(backward, with_mixture, N, W);
+  return (long long)smem_bytes(backward, with_mixture, N, W, backward && image_grads);
 }
 
 // What the compiler and the occupancy calculator say of the kernel instance
-// a launch at (N, W) takes: out[0] registers a thread, out[1] local (spill)
-// bytes a thread, out[2] threads a block, out[3] resident blocks an SM,
-// out[4] dynamic shared memory in bytes.  Returns a CUDA error code.
-extern "C" int pdt_plane_sweep_kernel_info(int backward, int with_mixture, int N,
-                                           int W, int* out) {
-  if (W < 1 || W > kMaxW) return (int)cudaErrorInvalidValue;
+// a launch at (N, W) takes (image_grads 1: the backward's image-gradient
+// instance, with the mixture, W <= 1280): out[0] registers a thread, out[1]
+// local (spill) bytes a thread, out[2] threads a block, out[3] resident
+// blocks an SM, out[4] dynamic shared memory in bytes.  Returns a CUDA error
+// code.
+extern "C" int pdt_plane_sweep_kernel_info(int backward, int with_mixture,
+                                           int image_grads, int N, int W, int* out) {
+  const int img = backward && image_grads;
+  if (W < 1 || W > (img ? kMaxImgW : kMaxW) || (img && !with_mixture))
+    return (int)cudaErrorInvalidValue;
   const void* fn;
   const int px = pixels_per_thread(W);
-#define PDT_PICK(P)                                                             \
-  fn = backward ? (with_mixture ? (const void*)sweep_bwd_kernel<P, true>      \
-                                : (const void*)sweep_bwd_kernel<P, false>)    \
-                : (with_mixture ? (const void*)sweep_fwd_kernel<P, true>      \
+#define PDT_PICK(P)                                                                \
+  fn = backward ? (with_mixture ? (const void*)sweep_bwd_kernel<P, true, false>    \
+                                : (const void*)sweep_bwd_kernel<P, false, false>)  \
+                : (with_mixture ? (const void*)sweep_fwd_kernel<P, true>           \
                                 : (const void*)sweep_fwd_kernel<P, false>)
-  if (px == 1) PDT_PICK(1); else if (px == 2) PDT_PICK(2); else PDT_PICK(4);
+  if (img)
+    fn = px == 1 ? (const void*)sweep_bwd_kernel<1, true, true>
+                 : (const void*)sweep_bwd_kernel<2, true, true>;
+  else if (px == 1) PDT_PICK(1);
+  else if (px == 2) PDT_PICK(2);
+  else PDT_PICK(4);
 #undef PDT_PICK
   cudaFuncAttributes attr;
   cudaError_t e = cudaFuncGetAttributes(&attr, fn);
   if (e != cudaSuccess) return (int)e;
-  const size_t smem = smem_bytes(backward, with_mixture, N, W);
+  const size_t smem = smem_bytes(backward, with_mixture, N, W, img);
   e = allow_smem(fn, smem);
   if (e != cudaSuccess) return (int)e;
   const int threads = (int)block_for(W).x;

@@ -38,6 +38,11 @@ def disp_to_depth(disp, width: int):
     return BASELINE * FX_NORM * width / disp
 
 
+def depth_to_disp(depth, width: int):
+    """``disp = 0.1 * 0.58 * W / depth``, the inverse of :func:`disp_to_depth`."""
+    return BASELINE * FX_NORM * width / depth
+
+
 def pixel_grid(height: int, width: int, dtype=torch.float32,
                device=None) -> torch.Tensor:
     """Integer pixel-centre coordinates ``(H, W, 2)`` with x, y channels."""

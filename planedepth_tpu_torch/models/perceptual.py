@@ -1,12 +1,15 @@
-"""Frozen VGG-19 feature extractor (``planedepth_tpu/models/perceptual.py:Vgg19Features``,
-reference layers.py:378-422).
+"""Frozen perceptual feature extractors (``planedepth_tpu/models/perceptual.py``,
+reference layers.py:378-449), chosen by ``LossConfig.pc_net``.
 
-ImageNet normalisation, then torchvision's ``features`` layers up to pool3;
-the three slices end at the pools (``features[0:5]``, ``[5:10]``,
-``[10:19]``), so the features compared are the pooled maps.  Parameters keep
-torchvision's ``features.{i}`` names.  The net is frozen
-(``requires_grad_(False)``, eval mode); gradients still reach its input.
-``Resnet18Features`` is not ported yet (ROADMAP A4).
+``Vgg19Features``: ImageNet normalisation, then torchvision's ``features``
+layers up to pool3; the three slices end at the pools (``features[0:5]``,
+``[5:10]``, ``[10:19]``), so the features compared are the pooled maps.
+Parameters keep torchvision's ``features.{i}`` names.
+``Resnet18Features``: ImageNet normalisation, then the ResNet-18 trunk
+(``models/resnet.py``, under ``encoder.``) with BatchNorm on its running
+statistics; its first three feature maps (relu1, layer1, layer2).
+Both nets are frozen (``requires_grad_(False)``, always in eval mode);
+gradients still reach their input.
 """
 from __future__ import annotations
 
@@ -15,6 +18,8 @@ from typing import List
 import torch
 import torch.nn as nn
 
+from planedepth_tpu_torch.models.resnet import ResNetTrunk
+
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 # torchvision vgg19 config E up to pool3: channels, then "M" for a max-pool
@@ -22,7 +27,25 @@ _VGG_LAYERS = (64, 64, "M", 128, 128, "M", 256, 256, 256, 256, "M")
 SLICE_ENDS = (5, 10, 19)
 
 
-class Vgg19Features(nn.Module):
+class _Frozen(nn.Module):
+    """A feature net that no step trains: no parameter requires grad, and
+    it stays in eval mode."""
+
+    def freeze(self):
+        # constants, not weights: outside the state dict
+        self.register_buffer("mean", torch.tensor(IMAGENET_MEAN).view(1, 3, 1, 1),
+                             persistent=False)
+        self.register_buffer("std", torch.tensor(IMAGENET_STD).view(1, 3, 1, 1),
+                             persistent=False)
+        self.requires_grad_(False)
+        self.eval()
+
+    def train(self, mode: bool = True):
+        """Frozen: stays in eval mode."""
+        return super().train(False)
+
+
+class Vgg19Features(_Frozen):
     def __init__(self):
         super().__init__()
         layers, ch = [], 3
@@ -33,14 +56,7 @@ class Vgg19Features(nn.Module):
                 layers += [nn.Conv2d(ch, item, 3, padding=1), nn.ReLU()]
                 ch = item
         self.features = nn.Sequential(*layers)
-        self.register_buffer("mean", torch.tensor(IMAGENET_MEAN).view(1, 3, 1, 1))
-        self.register_buffer("std", torch.tensor(IMAGENET_STD).view(1, 3, 1, 1))
-        self.requires_grad_(False)
-        self.eval()
-
-    def train(self, mode: bool = True):
-        """Frozen: stays in eval mode."""
-        return super().train(False)
+        self.freeze()
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         h = (x - self.mean) / self.std
@@ -50,3 +66,23 @@ class Vgg19Features(nn.Module):
             feats.append(h)
             start = end
         return feats
+
+
+class Resnet18Features(_Frozen):
+    """(reference layers.py:424-449)"""
+
+    def __init__(self):
+        super().__init__()
+        self.encoder = ResNetTrunk(18)
+        self.freeze()
+
+    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+        return self.encoder((x - self.mean) / self.std)[:3]
+
+
+def make_perceptual_net(kind: str) -> nn.Module:
+    if kind == "vgg19":
+        return Vgg19Features()
+    if kind == "resnet18":
+        return Resnet18Features()
+    raise ValueError(f"unknown perceptual net: {kind}")

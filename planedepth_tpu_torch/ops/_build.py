@@ -115,11 +115,13 @@ def load_library() -> ctypes.CDLL:
     lib.pdt_plane_sweep_fwd.restype = i
     lib.pdt_plane_sweep_bwd.argtypes = [p] * 14 + [i, i, i, i, f, i, i, p]
     lib.pdt_plane_sweep_bwd.restype = i
-    lib.pdt_plane_sweep_smem_bytes.argtypes = [i, i, i, i]
+    lib.pdt_plane_sweep_bwd_img.argtypes = [p] * 17 + [i, i, i, i, f, i, p]
+    lib.pdt_plane_sweep_bwd_img.restype = i
+    lib.pdt_plane_sweep_smem_bytes.argtypes = [i, i, i, i, i]
     lib.pdt_plane_sweep_smem_bytes.restype = ctypes.c_longlong
     lib.pdt_plane_sweep_smem_limit.argtypes = []
     lib.pdt_plane_sweep_smem_limit.restype = i
-    lib.pdt_plane_sweep_kernel_info.argtypes = [i, i, i, i, p]
+    lib.pdt_plane_sweep_kernel_info.argtypes = [i, i, i, i, i, p]
     lib.pdt_plane_sweep_kernel_info.restype = i
     lib.pdt_row_shift_fwd.argtypes = [p, p, p, i, i, i, i, f, p]
     lib.pdt_row_shift_fwd.restype = i

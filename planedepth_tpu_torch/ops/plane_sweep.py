@@ -19,12 +19,16 @@ softmax expectation over the masked centre logits (``oracle_softmax``).
 ``plane_sweep.bwd_launches`` count the mixture mode's launches,
 ``nomix_fwd_launches`` and ``nomix_bwd_launches`` the no-mixture mode's)
 and takes ``plane_sweep_plain``, differentiated by autograd, on CPU
-tensors.  The kernels give the images no gradient (the train step never
-differentiates them; the ``image_grads=True`` mode of the TPU backward is
-not ported, ROADMAP B), so on CUDA an ``src`` or ``tgt`` that requires grad
-raises rather than lose its gradient; the CPU path differentiates them, as
-the JAX default does.  The automask NLL treats pi and sigma as constants, as
-the reference does.
+tensors.  When ``src`` or ``tgt`` requires grad, the mixture mode with the
+automask runs the backward's image-gradient instance, which also writes
+``d_src`` and ``d_tgt`` (the TPU backward's ``image_grads=True``, the JAX
+default; ``plane_sweep.img_bwd_launches`` counts it; no training recipe
+differentiates the images).  On CUDA the image gradients need the
+automask (JAX asserts it: ``ValueError``), and the no-mixture mode has
+none (``NotImplementedError``: ``fused_plane_sweep_nomix`` returns zero
+image cotangents); the CPU path differentiates the images in every mode.
+The automask NLL treats pi and sigma as constants, as the reference does;
+its cotangent reaches only the images.
 """
 from __future__ import annotations
 
@@ -125,7 +129,7 @@ def _check_mode(sigma, with_auto):
                          "the caller takes the L1 automask from the composite")
 
 
-def _check(src, tgt, logits, sigma, shift, mask):
+def _check(src, tgt, logits, sigma, shift, mask, image_grads=False):
     if logits.dim() != 4:
         raise ValueError(f"logits must be (B, N, H, W), got {tuple(logits.shape)}")
     B, N, H, W = logits.shape
@@ -142,7 +146,8 @@ def _check(src, tgt, logits, sigma, shift, mask):
             raise TypeError(f"{name}: dtype {t.dtype}, the kernels take float32")
     lib = load_library()
     mix = int(sigma is not None)
-    need = [lib.pdt_plane_sweep_smem_bytes(bwd, mix, N, W) for bwd in (0, 1)]
+    need = [lib.pdt_plane_sweep_smem_bytes(bwd, mix, int(image_grads), N, W)
+            for bwd in (0, 1)]
     if min(need) < 0:
         raise ValueError(f"W = {W}: wider than the kernels' rows")
     need, limit = max(need), lib.pdt_plane_sweep_smem_limit()
@@ -153,10 +158,12 @@ def _check(src, tgt, logits, sigma, shift, mask):
 
 class _PlaneSweep(torch.autograd.Function):
     """The two CUDA kernels joined as forward and backward; ``sigma=None``
-    launches their no-mixture instances."""
+    launches their no-mixture instances, ``image_grads`` the backward's
+    image-gradient instance."""
 
     @staticmethod
-    def forward(ctx, src, tgt, logits, sigma, shift, mask, pad, with_auto, with_disp):
+    def forward(ctx, src, tgt, logits, sigma, shift, mask, pad, with_auto, with_disp,
+                image_grads):
         B, N, H, W = logits.shape
         mix = sigma is not None
         src, tgt, logits, sigma, shift, mask = (
@@ -177,7 +184,10 @@ class _PlaneSweep(torch.autograd.Function):
             plane_sweep.nomix_fwd_launches += 1
         ctx.save_for_backward(src, tgt, logits, sigma, shift, mask, stats, rgb)
         ctx.with_disp, ctx.pad, ctx.mix = with_disp, pad, mix
-        ctx.mark_non_differentiable(*(o for o in (nll_auto,) if o is not None))
+        ctx.image_grads = image_grads
+        if not image_grads:
+            # its only cotangent path is into the images
+            ctx.mark_non_differentiable(*(o for o in (nll_auto,) if o is not None))
         return tuple(o for o in (rgb, nll, nll_auto, disp) if o is not None)
 
     @staticmethod
@@ -188,14 +198,24 @@ class _PlaneSweep(torch.autograd.Function):
         d_logits = torch.empty_like(logits)
         d_sigma = torch.empty_like(sigma) if ctx.mix else None
         d_shift = torch.empty_like(shift)
-        launch("pdt_plane_sweep_bwd", src, tgt, logits, sigma, shift, mask, stats, rgb,
-               g_rgb.contiguous(), g_nll.contiguous(), g_disp, d_logits, d_sigma, d_shift,
-               B, N, H, W, shift_max(ctx.pad), int(ctx.with_disp), int(ctx.mix))
-        if ctx.mix:
-            plane_sweep.bwd_launches += 1
+        d_src = d_tgt = None
+        if ctx.image_grads:
+            d_src, d_tgt = torch.empty_like(src), torch.empty_like(tgt)
+            launch("pdt_plane_sweep_bwd_img", src, tgt, logits, sigma, shift, mask, stats,
+                   rgb, g_rgb.contiguous(), g_nll.contiguous(), rest[0].contiguous(), g_disp,
+                   d_src, d_tgt, d_logits, d_sigma, d_shift, B, N, H, W,
+                   shift_max(ctx.pad), int(ctx.with_disp))
+            plane_sweep.img_bwd_launches += 1
         else:
-            plane_sweep.nomix_bwd_launches += 1
-        return None, None, d_logits, d_sigma, d_shift, None, None, None, None
+            launch("pdt_plane_sweep_bwd", src, tgt, logits, sigma, shift, mask, stats, rgb,
+                   g_rgb.contiguous(), g_nll.contiguous(), g_disp, d_logits, d_sigma,
+                   d_shift, B, N, H, W, shift_max(ctx.pad), int(ctx.with_disp),
+                   int(ctx.mix))
+            if ctx.mix:
+                plane_sweep.bwd_launches += 1
+            else:
+                plane_sweep.nomix_bwd_launches += 1
+        return d_src, d_tgt, d_logits, d_sigma, d_shift, None, None, None, None, None
 
 
 def plane_sweep(src, tgt, logits, sigma, shift, mask, pad: int,
@@ -205,27 +225,33 @@ def plane_sweep(src, tgt, logits, sigma, shift, mask, pad: int,
 
     CPU tensors take :func:`plane_sweep_plain`.  CUDA tensors run the
     forward kernel, and the backward kernel when autograd reaches it, of
-    the mode ``sigma`` selects; images that require grad raise there, as
-    does any other device.
+    the mode ``sigma`` selects; with images that require grad the
+    backward's image-gradient instance, which needs the mixture and the
+    automask.  Any other device raises.
     """
     _check_mode(sigma, with_auto)
     if logits.device.type == "cpu":
         return plane_sweep_plain(src, tgt, logits, sigma, shift, mask, pad,
                                  with_auto, with_disp)
+    image_grads = torch.is_grad_enabled() and (src.requires_grad or tgt.requires_grad)
+    if image_grads and sigma is None:
+        raise NotImplementedError(
+            "plane_sweep: the no-mixture sweep has no image-gradient mode (the JAX "
+            "fused_plane_sweep_nomix returns zero cotangents for src and tgt); detach "
+            "the images")
+    if image_grads and not with_auto:
+        raise ValueError("plane_sweep: image gradients need the automask adjoint "
+                         "(with_auto=True), as the JAX kernel asserts")
     if logits.device.type != "cuda":
         raise NotImplementedError(f"plane_sweep: no kernel for {logits.device}")
-    if torch.is_grad_enabled() and (src.requires_grad or tgt.requires_grad):
-        raise NotImplementedError(
-            "plane_sweep: the CUDA kernels compute no gradient for src or tgt (the "
-            "image_grads=True mode of pallas_sweep.py:_bwd_kernel is not ported yet, "
-            "ROADMAP B); detach the images")
     with torch.cuda.device(logits.device):
-        _check(src, tgt, logits, sigma, shift, mask)
+        _check(src, tgt, logits, sigma, shift, mask, image_grads)
         return _PlaneSweep.apply(src, tgt, logits, sigma, shift, mask, pad,
-                                 with_auto, with_disp)
+                                 with_auto, with_disp, image_grads)
 
 
 plane_sweep.fwd_launches = 0
 plane_sweep.bwd_launches = 0
+plane_sweep.img_bwd_launches = 0
 plane_sweep.nomix_fwd_launches = 0
 plane_sweep.nomix_bwd_launches = 0

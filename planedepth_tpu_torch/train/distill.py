@@ -6,16 +6,18 @@ plane volumes blend the two disparities into ``disp_pp``, the distillation
 target, and the warped probability volume gives ``mask_novel``.
 
 ``mirror_occlusion_mask`` (reference trainer.py:636-669, with the JAX
-package's repair of its undefined warp grids) and ``fused_mom_mask_novel``:
-``mask_novel`` under ``use_mom`` from the student's plane heads on the fused
-path.
+package's repair of its undefined warp grids): ``mask_novel`` under
+``use_mom``, from the oracle view synthesis's right-view probability or,
+on the fused path (``fused_mom_mask_novel``), from the student's plane
+heads.
 
 Every warp is a per-plane horizontal shift.  With a row-constant disparity
 each goes through :func:`ops.row_shift.row_shift` (the CUDA kernel on the
 card, its plain twin on the CPU); with yz side planes, whose disparity
 varies along the row, the teacher's shifts are the per-pixel linear
 interpolation the JAX package runs in XLA there (``ops/sampling.py:
-shift_sample_x``, zero padding, no clip), plain tensor code here too.
+shift_sample_x``, zero padding, no clip), plain tensor code here too
+(``ops/sampling.py:shift_sample_planes``).
 Tensors are NCHW and plane-first: maps ``(B, N, H, W)``, row shifts ``(B,
 H, N)`` (the decoder's ``disp_rows``), per-pixel shifts ``(B, N, H, W)``.
 Nothing here carries a gradient.
@@ -28,28 +30,15 @@ import torch
 
 from planedepth_tpu_torch.models.depth_decoder import mixture_reweight
 from planedepth_tpu_torch.ops.row_shift import row_shift
+from planedepth_tpu_torch.ops.sampling import shift_sample_planes
 from planedepth_tpu_torch.train.flip import flip_grid, flip_w
 
 
-def shift_per_pixel(maps: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
-    """Each plane's map sampled at ``x + shift`` by linear interpolation
-    along W, zero outside [0, W): maps and shift ``(B, N, H, W)``."""
-    W = maps.shape[-1]
-    xs = torch.arange(W, dtype=shift.dtype, device=shift.device) + shift
-    x0 = torch.floor(xs)
-    w1 = xs - x0
-    out = torch.zeros_like(maps)
-    for cx, wgt in ((x0, 1.0 - w1), (x0 + 1.0, w1)):
-        valid = (cx >= 0) & (cx <= W - 1)
-        ix = cx.clamp(0, W - 1).long()
-        out = out + torch.gather(maps, 3, ix) * torch.where(valid, wgt, torch.zeros_like(wgt))
-    return out
-
-
 def _shift(maps: torch.Tensor, shift: torch.Tensor, pad: int) -> torch.Tensor:
-    """``row_shift`` for row shifts ``(B, H, N)``, else :func:`shift_per_pixel`."""
+    """``row_shift`` for row shifts ``(B, H, N)``, else
+    :func:`ops.sampling.shift_sample_planes`."""
     if shift.shape == maps.shape:
-        return shift_per_pixel(maps, shift)
+        return shift_sample_planes(maps, shift)
     return row_shift(maps, shift, pad)
 
 
@@ -110,6 +99,20 @@ def mirror_occlusion_mask(probability: torch.Tensor, prob_rec: torch.Tensor,
 
 
 @torch.no_grad()
+def head_probability(outputs: Dict[str, torch.Tensor],
+                     use_mixture_loss: bool) -> torch.Tensor:
+    """The source-view probability volume ``(B, N, H, W)`` as the ResNet
+    decoder's non-fused head builds it from the plane heads: softmax, then
+    with the mixture the reweight by sigma and the padding mask (the decoder
+    itself skips it in training under the disp head)."""
+    probability = torch.softmax(outputs["logits"].detach(), dim=1)
+    if not use_mixture_loss:
+        return probability
+    return mixture_reweight(probability, outputs["sigma"].detach(),
+                            outputs["padding_mask"].detach())
+
+
+@torch.no_grad()
 def fused_mom_mask_novel(outputs: Dict[str, torch.Tensor], use_mixture_loss: bool,
                          pad: int) -> torch.Tensor:
     """``mask_novel`` under ``use_mom`` on the fused path (the JAX package's
@@ -123,16 +126,10 @@ def fused_mom_mask_novel(outputs: Dict[str, torch.Tensor], use_mixture_loss: boo
     """
     rows = outputs["disp_rows"].detach()
     pmask = outputs["padding_mask"].detach()                  # (2B, N, H, 1)
-    logits = outputs["logits"].detach().float()
-    sigma = outputs.get("sigma") if use_mixture_loss else None
-
-    probability = torch.softmax(logits, dim=1)
-    pi_rec = torch.softmax(row_shift(logits, rows, pad) * pmask, dim=1)
-    if sigma is None:
-        prob_rec = pi_rec
-    else:
-        sigma = sigma.detach().float()
-        probability = mixture_reweight(probability, sigma, pmask)
-        sigma_rec = (row_shift(sigma, rows, pad) * pmask).clamp(0.01, 1.0)
+    pi_rec = torch.softmax(row_shift(outputs["logits"].detach(), rows, pad) * pmask, dim=1)
+    prob_rec = pi_rec
+    if use_mixture_loss:
+        sigma_rec = (row_shift(outputs["sigma"].detach(), rows, pad) * pmask).clamp(0.01, 1.0)
         prob_rec = mixture_reweight(pi_rec, sigma_rec, 1.0)
-    return mirror_occlusion_mask(probability, prob_rec, rows, pad)
+    return mirror_occlusion_mask(head_probability(outputs, use_mixture_loss), prob_rec,
+                                 rows, pad)

@@ -35,7 +35,7 @@ from planedepth_tpu_torch.geometry.warp import (
     homography_warp_coords,
 )
 from planedepth_tpu_torch.models.depth_decoder import render_probability_from_logits
-from planedepth_tpu_torch.ops.losses import smooth_loss_disp
+from planedepth_tpu_torch.ops.losses import multimodal_nll, smooth_loss_disp
 from planedepth_tpu_torch.ops.warp2d import warp2d
 from planedepth_tpu_torch.train.losses import perceptual_loss, reprojection_loss
 from planedepth_tpu_torch.train.view_synthesis import pred_self_images
@@ -45,7 +45,10 @@ def fused_warp2d_ok(cfg: TrainConfig) -> bool:
     """True when training routes every side through the 2-D warp: the
     homography and depth warps, and the ``disp_warp`` recipes with
     ``render_probability`` or yz side planes (the rescue), all target
-    sides, without ``use_mom`` (the JAX package sends that to its oracle)."""
+    sides, without ``use_mom``: its mirror occlusion mask reads the oracle
+    view synthesis's right-view probability, so those recipes train
+    through the oracle (``train/step.py:oracle_losses``), as in the JAX
+    package."""
     rescue = cfg.warp_type == "disp_warp" and (
         cfg.model.render_probability or cfg.model.planes.yz_levels > 0)
     return (cfg.fused_sweep
@@ -94,12 +97,6 @@ def self_reconstruction_loss(cfg: TrainConfig, disp: torch.Tensor,
     rec = pred_self_images(disp, batch[f"{color}_r"], batch["Rt_r"], batch["K"],
                            batch["inv_K"])
     return reprojection_loss(rec, batch[f"{color}_l"], cfg.loss.use_ssim).mean()
-
-
-def _laplace_nll(err: torch.Tensor, pi: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
-    """``-log(sum_n pi_n Laplace(err_n; sigma_n) + 1e-7)`` over dim 1."""
-    M = (pi * 0.5 * torch.exp(-err / sigma) / sigma).sum(1)
-    return -torch.log(torch.clamp_min(M, 0.0) + 1e-7)
 
 
 def fused_warp2d_losses(bundle, outputs: Dict[str, torch.Tensor],
@@ -151,11 +148,11 @@ def fused_warp2d_losses(bundle, outputs: Dict[str, torch.Tensor],
 
         if mix:
             err = (rgb_l - target[:, None]).abs().mean(2)            # (B, N, H, W)
-            ph = _laplace_nll(err, pi, sigma_rec)                    # (B, H, W)
+            ph = multimodal_nll(err, sigma_rec, pi)[:, 0]            # (B, H, W)
             if cfg.loss.automask:
                 err_a = (source - target).abs().mean(1, keepdim=True)   # (B, 1, H, W)
-                ph = torch.minimum(ph, _laplace_nll(err_a, pi.detach(),
-                                                    sigma_rec.detach()))
+                ph = torch.minimum(ph, multimodal_nll(err_a, sigma_rec.detach(),
+                                                      pi.detach())[:, 0])
             if mask_novel is not None:
                 ph = ph * mask_novel[:, 0]
         else:

@@ -6,15 +6,18 @@ flip_right batch doubling on the device, the depth forward in training mode
 seeded per step), the pose networks and the crop-rotation conjugation for
 the temporal neighbours, under ``self_distillation`` the frozen teacher's
 ``disp_pp`` and ``mask_novel``, under ``use_mom`` the mirror occlusion mask,
-the losses, backward, and the Adam step.  The losses take one of three
+the losses, backward, and the Adam step.  The losses take one of four
 routes, as in the JAX package: the stereo recipes through the fused plane
 sweep against the right view (:func:`fused_stereo_losses`); the homography
 and depth warps, and the ``disp_warp`` recipes with ``render_probability``
 or yz side planes, through the 2-D warp for every side (``train/mono.py``);
 the mixed stereo + temporal ``disp_warp`` recipe through both, side 'r' in
-the sweep and the temporal sides in the 2-D warp.  Batches are dicts of NCHW
-tensors (:func:`batch_to_tensors` converts the NHWC numpy batches of
-``data/``).
+the sweep and the temporal sides in the 2-D warp; and every other recipe
+(``fused_sweep`` off, the JAX CLI's default, and ``use_mom`` outside the
+stereo sweep) through the oracle view synthesis
+(``train/view_synthesis.py:pred_novel_images`` and
+``train/losses.py:compute_losses``).  Batches are dicts of NCHW tensors
+(:func:`batch_to_tensors` converts the NHWC numpy batches of ``data/``).
 """
 from __future__ import annotations
 
@@ -33,7 +36,7 @@ from planedepth_tpu_torch.geometry.pose import (
     transformation_from_parameters,
 )
 from planedepth_tpu_torch.models.factory import DepthModel, init_weights_
-from planedepth_tpu_torch.models.perceptual import Vgg19Features
+from planedepth_tpu_torch.models.perceptual import make_perceptual_net
 from planedepth_tpu_torch.models.pose_net import PoseDecoder
 from planedepth_tpu_torch.models.resnet import ResnetPoseEncoder
 from planedepth_tpu_torch.ops.losses import smooth_loss_disp
@@ -41,14 +44,21 @@ from planedepth_tpu_torch.ops.plane_sweep import plane_sweep
 from planedepth_tpu_torch.train.distill import (
     fused_mom_mask_novel,
     generate_post_process_disp,
+    head_probability,
+    mirror_occlusion_mask,
 )
 from planedepth_tpu_torch.train.flip import add_flip_right_inputs
-from planedepth_tpu_torch.train.losses import compute_depth_metrics, perceptual_loss
+from planedepth_tpu_torch.train.losses import (
+    compute_depth_metrics,
+    compute_losses,
+    perceptual_loss,
+)
 from planedepth_tpu_torch.train.mono import (
     fused_warp2d_losses,
     fused_warp2d_ok,
     self_reconstruction_loss,
 )
+from planedepth_tpu_torch.train.view_synthesis import pred_novel_images, pred_self_images
 
 
 def sweep_pad(cfg: TrainConfig) -> int:
@@ -82,20 +92,6 @@ def fused_mixed_ok(cfg: TrainConfig) -> bool:
     )
 
 
-def _check_ported(cfg: TrainConfig) -> None:
-    """Raise for what the training step does not reach yet, naming its
-    ROADMAP item."""
-    if cfg.novel_frame_ids and cfg.loss.use_mom:
-        raise NotImplementedError("use_mom with temporal sides runs on the oracle view "
-                                  "synthesis, which is not ported yet (ROADMAP A4)")
-    if not (fused_sweep_ok(cfg) or fused_warp2d_ok(cfg) or fused_mixed_ok(cfg)):
-        raise NotImplementedError("this recipe needs the non-fused view synthesis, "
-                                  "which is not ported yet (ROADMAP A4)")
-    if cfg.loss.alpha_pc > 0 and cfg.loss.pc_net != "vgg19":
-        raise NotImplementedError("the ResNet-18 perceptual net is not ported yet "
-                                  "(ROADMAP A4)")
-
-
 class ModelBundle:
     """The networks of one configuration, with seeded random weights
     (``init_weights_`` from one generator seeded with ``cfg.seed``), on
@@ -103,7 +99,8 @@ class ModelBundle:
 
     ``model`` is the ``DepthModel``; under ``cfg.use_pose_net`` the pose
     encoder (a ResNet on frame pairs) and the ``pose`` decoder train beside
-    it; ``pc`` is the frozen perceptual VGG.  Under ``self_distillation`` the
+    it; ``pc`` is the frozen perceptual net (VGG-19 or ResNet-18, by
+    ``cfg.loss.pc_net``).  Under ``self_distillation`` the
     step also needs the frozen teacher, which :meth:`freeze_teacher` takes
     from the student once its weights are final (the trainer calls it after
     the restore)."""
@@ -114,7 +111,6 @@ class ModelBundle:
                 raise RuntimeError("ModelBundle: CUDA is not available; pass "
                                    "device=torch.device('cpu') to run on the CPU")
             device = torch.device("cuda")
-        _check_ported(cfg)
         self.cfg = cfg
         self.device = torch.device(device)
         # the ResNet decoder stops at its plane heads under the fused sweep;
@@ -123,7 +119,7 @@ class ModelBundle:
             cfg.model, fused_sweep_loss=fused_sweep_ok(cfg) and cfg.model.net_type == "ResNet")
         g = torch.Generator().manual_seed(cfg.seed)
         self.model = init_weights_(DepthModel(model_cfg), g).to(self.device)
-        self.pc = (init_weights_(Vgg19Features(), g).to(self.device)
+        self.pc = (init_weights_(make_perceptual_net(cfg.loss.pc_net), g).to(self.device)
                    if cfg.loss.alpha_pc > 0 else None)
         self.pose_encoder: Optional[ResnetPoseEncoder] = None
         self.pose: Optional[PoseDecoder] = None
@@ -287,7 +283,7 @@ def process_batch(bundle: ModelBundle, batch: Dict[str, torch.Tensor],
     outputs = bundle.model(batch["color_aug_l"], batch["grid"], generator)
     outputs.update(targets)
     poses = bundle.predict_poses(batch)
-    if cfg.loss.use_mom and cfg.flip_right:
+    if cfg.loss.use_mom and cfg.flip_right and (fused_sweep_ok(cfg) or fused_mixed_ok(cfg)):
         # overwrites the teacher's mask_novel, in the reference's order
         outputs["mask_novel"] = fused_mom_mask_novel(
             outputs, cfg.model.use_mixture_loss, sweep_pad(cfg))
@@ -295,15 +291,46 @@ def process_batch(bundle: ModelBundle, batch: Dict[str, torch.Tensor],
         return fused_stereo_losses(bundle, outputs, batch)
     if fused_warp2d_ok(cfg):
         return fused_warp2d_losses(bundle, outputs, batch, poses)
-    # the mixed recipe (fused_mixed_ok): the stereo part holds the smoothness
-    # term; the loss keys sum over the sides as the reference's side loop does
-    losses = fused_stereo_losses(bundle, outputs, batch)
-    extra = fused_warp2d_losses(bundle, outputs, batch, poses,
-                                sides=tuple(cfg.novel_frame_ids), include_smooth=False)
-    for k, v in extra.items():
-        # disp_loss: the same value for every side, already in each part's total
-        losses[k] = v if k == "loss/disp_loss" else losses.get(k, 0.0) + v
-    return losses
+    if fused_mixed_ok(cfg):
+        # the stereo part holds the smoothness term; the loss keys sum over
+        # the sides as the reference's side loop does
+        losses = fused_stereo_losses(bundle, outputs, batch)
+        extra = fused_warp2d_losses(bundle, outputs, batch, poses,
+                                    sides=tuple(cfg.novel_frame_ids), include_smooth=False)
+        for k, v in extra.items():
+            # disp_loss: the same value for every side, already in each part's total
+            losses[k] = v if k == "loss/disp_loss" else losses.get(k, 0.0) + v
+        return losses
+    return oracle_losses(bundle, outputs, batch, poses)
+
+
+def oracle_losses(bundle: ModelBundle, outputs: Dict[str, torch.Tensor],
+                  batch: Dict[str, torch.Tensor], poses: Dict) -> Dict[str, torch.Tensor]:
+    """The loss dict through the oracle view synthesis (the JAX package's
+    ``synth_and_losses``, reference trainer.py:325-356): every target side
+    synthesised by ``pred_novel_images``; under ``use_mom`` with
+    ``flip_right`` the mirror occlusion mask of the source-view and the
+    synthesised right-view probabilities replaces ``mask_novel``; under
+    ``alpha_self`` the self-reconstruction of side 'r'; then
+    ``compute_losses``."""
+    cfg = bundle.cfg
+    color = "color_aug" if cfg.loss.match_aug else "color"
+    rec = pred_novel_images(outputs, batch[f"{color}_l"], cfg.target_sides, poses,
+                            batch["K"], batch["inv_K"], warp_type=cfg.warp_type,
+                            use_mixture_loss=cfg.model.use_mixture_loss,
+                            render_probability=cfg.model.render_probability)
+    if cfg.loss.use_mom and cfg.flip_right:
+        probability = (outputs["probability"].detach() if "probability" in outputs
+                       else head_probability(outputs, cfg.model.use_mixture_loss))
+        shifts = outputs.get("disp_rows", outputs["disp_layered"])
+        outputs = dict(outputs, mask_novel=mirror_occlusion_mask(
+            probability, rec[("probability_rec", "r")].detach(), shifts.detach(),
+            sweep_pad(cfg)))
+    if cfg.loss.alpha_self > 0 and "r" in cfg.target_sides:
+        rec[("self_rec", "r")] = pred_self_images(outputs["disp"], batch[f"{color}_r"],
+                                                  batch["Rt_r"], batch["K"], batch["inv_K"])
+    return compute_losses(cfg.loss, cfg.target_sides, batch, outputs, rec, bundle.pc,
+                          cfg.model.use_mixture_loss, pc_remat=cfg.pc_remat)
 
 
 def make_train_step(bundle: ModelBundle, optimizer: torch.optim.Optimizer,

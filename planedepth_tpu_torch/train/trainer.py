@@ -9,7 +9,11 @@ on a random VGG raises unless ``allow_random_pc``), the ``models_to_load``
 restore that chains the three-stage recipe, and the
 frozen self-distillation teacher, built from the student after the restore;
 in the temporal recipes the pose networks train, save and restore beside the
-depth model.  One card, one process; image panels are not ported (ROADMAP A7).
+depth model; TensorBoard image panels (reference trainer.py:831-856: the
+inputs, side 'r' synthesised by the oracle view synthesis in eval mode, and
+the normalised disparity) on the epoch's first batch and every
+``log_img_frequency`` steps, and on every ``log_img_frequency``-th
+validation batch, when a writer exists.  One card, one process.
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ import subprocess
 import time
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 import planedepth_tpu_torch
@@ -32,12 +37,13 @@ from planedepth_tpu_torch.train.step import (
     make_eval_step,
     make_train_step,
 )
+from planedepth_tpu_torch.train.view_synthesis import pred_novel_images
 from planedepth_tpu_torch.utils.checkpoint import (
     load_checkpoint,
     restore_submodules,
     save_checkpoint,
 )
-from planedepth_tpu_torch.utils.logging import Logger, ThroughputMeter
+from planedepth_tpu_torch.utils.logging import Logger, ThroughputMeter, normalize_image
 from planedepth_tpu_torch.utils.pretrained import apply_pretrained, check_perceptual_weights
 
 REPO_DIR = os.path.dirname(os.path.dirname(os.path.abspath(planedepth_tpu_torch.__file__)))
@@ -135,6 +141,7 @@ class Trainer:
         self.logger.save_config(cfg.to_json())
         self._save_provenance()
         self.best_absrel = 10.0
+        self._val_panel_step = 0
         self.meter = ThroughputMeter(self.steps_per_epoch * cfg.optim.num_epochs,
                                      cfg.per_step_batch)
 
@@ -156,6 +163,10 @@ class Trainer:
                 print(line)
                 self.logger.text(line)
                 self.logger.scalars("train", metrics, self.step_count)
+            # train panels every log_img_frequency steps (reference
+            # trainer.py:316-320), and on the epoch's first batch
+            if batch_idx == 0 or self.step_count % cfg.log_img_frequency == 0:
+                self.log_images("train", batch)
             self.step_count += 1
         self.val(epoch)
 
@@ -165,10 +176,15 @@ class Trainer:
         ``de/abs_rel`` saves ``best_models``."""
         total: Dict[str, float] = {}
         n = 0
-        for batch in self.val_loader.epoch(0):
+        for batch_idx, batch in enumerate(self.val_loader.epoch(0)):
             if "depth_gt_l" not in batch:
                 continue
             metrics = self.eval_step(batch_to_tensors(batch, self.device))
+            # val panels every log_img_frequency batches, on their own step
+            # count (reference trainer.py:499-500)
+            if batch_idx % self.cfg.log_img_frequency == 0:
+                self.log_images("val", batch, step=self._val_panel_step)
+                self._val_panel_step += 1
             b = batch["color_l"].shape[0]
             n += b
             for k, v in metrics.items():
@@ -182,6 +198,46 @@ class Trainer:
         self.logger.scalars("val", metrics, self.step_count)
         self.logger.metric_row(metrics)
         return metrics
+
+    # --- panels -------------------------------------------------------------
+    def panels(self, batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        """Image panels of up to 4 samples of the NHWC numpy ``batch``: the
+        stereo pair, side 'r' synthesised by ``pred_novel_images`` (where
+        the recipe has that side) and the normalised disparity, each
+        ``(H, W, 3)`` in [0, 1], from one eval-mode forward (JAX
+        ``train/trainer.py:viz_step``)."""
+        cfg = self.cfg
+        tensors = batch_to_tensors(batch, self.device)
+        color = "color_aug" if cfg.loss.match_aug else "color"
+        model = self.bundle.model.eval()
+        sides = tuple(s for s in cfg.target_sides if s == "r")
+        with torch.inference_mode():
+            out = model(tensors["color_aug_l"], tensors["grid"])
+            rec = pred_novel_images(
+                out, tensors[f"{color}_l"], sides, {s: tensors["Rt_r"] for s in sides},
+                tensors["K"], tensors["inv_K"], warp_type=cfg.warp_type,
+                use_mixture_loss=cfg.model.use_mixture_loss,
+                render_probability=cfg.model.render_probability)
+            hwc = lambda t: t.permute(0, 2, 3, 1).float().cpu().numpy()
+            disp = hwc(out["disp"])
+            pred = hwc(rec[("rgb_rec", "r")].clamp(0.0, 1.0)) if ("rgb_rec", "r") in rec else None
+        images = {}
+        for j in range(min(4, batch["color_l"].shape[0])):
+            images[f"color_l/{j}"] = np.asarray(batch["color_l"][j])
+            images[f"color_r/{j}"] = np.asarray(batch["color_r"][j])
+            if pred is not None:
+                images[f"color_pred_r/{j}"] = pred[j]
+            images[f"disp/{j}"] = np.repeat(normalize_image(disp[j]), 3, axis=-1)
+        return images
+
+    def log_images(self, mode: str, batch: Dict[str, np.ndarray],
+                   step: Optional[int] = None) -> None:
+        """The panels of ``batch`` to the ``mode`` writer (reference
+        trainer.py:831-856); without a writer (no ``tensorboardX``) nothing
+        is computed."""
+        if self.logger.has_writer(mode):
+            self.logger.images(mode, self.panels(batch),
+                               self.step_count if step is None else step)
 
     # --- state --------------------------------------------------------------
     def pose_nets(self) -> Dict[str, torch.nn.Module]:

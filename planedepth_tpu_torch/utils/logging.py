@@ -1,15 +1,16 @@
 """Run logging (``planedepth_tpu/utils/logging.py``, reference trainer.py:174-184,812-867).
 
-A ``logs.log`` text file, scalars to TensorBoard when ``tensorboardX``
-imports, the ``examples/s`` console line with its ETA, the 7-metric
-validation row and the ``opt.json`` config dump.  Image panels are not
-ported (they need the non-fused view synthesis).
+A ``logs.log`` text file, scalars and image panels to TensorBoard when
+``tensorboardX`` imports, the ``examples/s`` console line with its ETA, the
+7-metric validation row and the ``opt.json`` config dump.
 """
 from __future__ import annotations
 
 import os
 import time
 from typing import Dict
+
+import numpy as np
 
 METRIC_NAMES = ("de/abs_rel", "de/sq_rel", "de/rms", "de/log_rms",
                 "da/a1", "da/a2", "da/a3")
@@ -19,6 +20,12 @@ def sec_to_hm_str(t: float) -> str:
     """10239 -> '02h50m39s' (reference utils.py:45-62)."""
     t = int(t)
     return f"{t // 3600:02d}h{(t // 60) % 60:02d}m{t % 60:02d}s"
+
+
+def normalize_image(x: np.ndarray) -> np.ndarray:
+    """Rescale to [0, 1] for the panels (reference utils.py:36-42)."""
+    ma, mi = float(np.max(x)), float(np.min(x))
+    return (x - mi) / (ma - mi + 1e-5)
 
 
 class Logger:
@@ -42,6 +49,16 @@ class Logger:
         if w is not None:
             for k, v in values.items():
                 w.add_scalar(k, float(v), step)
+
+    def has_writer(self, mode: str) -> bool:
+        return mode in self.writers
+
+    def images(self, mode: str, images: Dict[str, np.ndarray], step: int) -> None:
+        """``images``: name -> ``(H, W, C)`` float in [0, 1]."""
+        w = self.writers.get(mode)
+        if w is not None:
+            for k, v in images.items():
+                w.add_image(k, np.moveaxis(v, -1, 0), step)
 
     def text(self, line: str) -> None:
         print(line, file=self.log_file, flush=True)

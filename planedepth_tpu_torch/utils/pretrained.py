@@ -14,8 +14,7 @@ Files in ``TrainConfig.weights_dir``:
   ``resnet{pose_num_layers}.npz``  pose encoder trunk, conv1 tiled and
                                    averaged for the two-frame input
                                    (reference pose_net.py:57-60)
-  ``vgg19.npz``                    perceptual net (``pc_net="resnet18"``
-                                   raises in ``ModelBundle``: ROADMAP A4)
+  ``vgg19.npz`` / ``resnet18.npz`` perceptual net per ``LossConfig.pc_net``
 
 A file whose tree does not match the live network, in structure or in a
 shape, raises :class:`PretrainedWeightsError` before anything is copied.
@@ -164,7 +163,9 @@ def apply_pretrained(cfg, bundle) -> List[str]:
                 f"but {path} is missing (converted by the JAX package's "
                 f"scripts/convert_torch_weights.py {cfg.loss.pc_net} <pth> {wd})")
         tree = load_converted(path)
-        _check_tree(_vgg_leaf_shapes(bundle.pc), tree, "perceptual")
+        want = (_vgg_leaf_shapes(bundle.pc) if cfg.loss.pc_net == "vgg19"
+                else jax_leaf_shapes(bundle.pc))
+        _check_tree(want, tree, "perceptual")
         load_jax_pc_params(bundle.pc, tree)
         loaded.append(f"pc<-{fname}")
     return loaded

@@ -9,7 +9,8 @@ HWIO -> OIHW; BatchNorm ``scale``/``bias`` (params) and ``mean``/``var``
 (batch stats) become ``weight``/``bias``/``running_mean``/``running_var``.
 ``load_jax_pose_params`` does the same for the pose networks (the names of
 ``convert_resnet_encoder(num_input_images=2)`` and ``convert_pose_decoder``),
-``load_jax_pc_params`` for the frozen perceptual VGG, and
+``load_jax_pc_params`` for the frozen perceptual net (VGG-19, or the
+ResNet-18 trunk, whose tree is a ResNet encoder's), and
 ``load_jax_encoder_params`` for one ResNet trunk alone (the converted ImageNet
 files of ``utils/pretrained.py``).  ``jax_leaf_shapes`` lists the JAX leaves a
 module takes, with their JAX shapes.
@@ -181,13 +182,20 @@ VGG19_CONV_IDS = (0, 2, 5, 7, 10, 12, 14, 16, 19, 21, 23, 25)
 
 
 @torch.no_grad()
-def load_jax_pc_params(vgg: nn.Module, tree: Mapping) -> None:
-    """Weights into the port's ``Vgg19Features``, from either the JAX
-    ``pc_params`` tree (``{"params": {"conv_{i}": {kernel, bias}}}``, the
-    inverse of ``utils/torch_convert.py:convert_vgg19_features``) or a
-    torchvision-layout state dict (``features.{i}.weight`` or ``{i}.weight``).
-    Every conv of ``vgg`` must be found.
+def load_jax_pc_params(pc: nn.Module, tree: Mapping) -> None:
+    """Weights into the port's perceptual net.  A ``Resnet18Features`` takes
+    the JAX ``pc_params`` tree (``{"params": {"encoder": trunk},
+    "batch_stats": {"encoder": trunk}}``, the layout of a converted
+    ``resnet18.npz``).  A ``Vgg19Features`` takes either the JAX tree
+    (``{"params": {"conv_{i}": {kernel, bias}}}``, the inverse of
+    ``utils/torch_convert.py:convert_vgg19_features``) or a
+    torchvision-layout state dict (``features.{i}.weight`` or
+    ``{i}.weight``).  Every weight of ``pc`` must be found.
     """
+    if not hasattr(pc, "features"):
+        load_jax_encoder_params(pc, tree["params"], tree.get("batch_stats", {}))
+        return
+    vgg = pc
     if "params" in tree:
         src = {}
         for i, cid in enumerate(VGG19_CONV_IDS):

@@ -1,8 +1,9 @@
 """The port's CUDA kernels on the card, each held to its plain PyTorch version
 (the plane sweep and the 2-D warp in both of their modes, the head epilogue
-with N and N - 1 logit planes), and one stage-1, one stage-3, one mono, one
-FalNet, one render_probability, one yz-plane and one yz-plane stage-3
-training step on the card held to the same step on the CPU.
+with N and N - 1 logit planes; the sweep's image-gradient backward), and one
+stage-1 (fused and oracle), one stage-3, one mono, one FalNet, one
+render_probability, one yz-plane and one yz-plane stage-3 training step on
+the card held to the same step on the CPU.
 
 These tests need an NVIDIA GPU with nvcc (a CUDA kernel has no CPU mode) and
 skip without one.  They import neither JAX nor the JAX package, so they run
@@ -176,18 +177,65 @@ def test_plane_sweep_backward_is_deterministic(cuda, mixture):
         plane_sweep(*wide, 328, False, True)
 
 
+# the image-gradient backward: one and two pixels a thread (W up to 640,
+# 1280), N odd and 63, W not a multiple of 4 and below one warp
+@pytest.mark.parametrize("shape,with_disp", [((2, 6, 8, 64), True),
+                                             ((1, 63, 3, 640), True),
+                                             ((1, 14, 3, 1280), False),
+                                             ((1, 5, 3, 100), True),
+                                             ((2, 7, 3, 37), False),
+                                             ((1, 3, 4, 18), True)])
+def test_plane_sweep_image_gradients_match_plain(cuda, shape, with_disp):
+    """With src and tgt requiring grad the mixture sweep with the automask
+    runs the backward's image-gradient instance: d_src, d_tgt, d_logits,
+    d_sigma and d_shift at 1e-4 of each gradient's largest magnitude
+    against the twin's autograd, with seeded cotangents on every output
+    (nll_auto's included); its head gradients equal the head-only
+    instance's on the same cotangents.  Rows wider than 1280 do not fit
+    its staged rows and raise."""
+    inputs = sweep_inputs(shape, sum(shape) + 1, cuda)
+    for t in inputs[:2]:
+        t.requires_grad_()
+    img, bwd = plane_sweep.img_bwd_launches, plane_sweep.bwd_launches
+    got = plane_sweep(*inputs, 328, True, with_disp)
+    want = plane_sweep_plain(*inputs, 328, True, with_disp)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    cts = [torch.randn(o.shape, generator=gen, device=cuda) for o in got]
+    wrt = inputs[:5]
+    d_got = torch.autograd.grad(sum((o * c).sum() for o, c in zip(got, cts)), wrt)
+    d_want = torch.autograd.grad(sum((o * c).sum() for o, c in zip(want, cts)), wrt)
+    torch.cuda.synchronize()
+    assert (plane_sweep.img_bwd_launches, plane_sweep.bwd_launches) == (img + 1, bwd)
+    for g, w in zip(d_got, d_want):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-4 * float(w.abs().max()))
+    heads = [t.detach().requires_grad_(i in (2, 3, 4)) for i, t in enumerate(inputs)]
+    outs = plane_sweep(*heads, 328, True, with_disp)
+    d_heads = torch.autograd.grad(
+        [o for o in outs if o.requires_grad],
+        heads[2:5], [c for o, c in zip(outs, cts) if o.requires_grad])
+    for a, b in zip(d_got[2:], d_heads):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6 * float(b.abs().max()))
+    wide = sweep_inputs((1, 3, 2, 1501), 3, cuda)
+    wide[0].requires_grad_()
+    with pytest.raises(ValueError, match="shared memory"):
+        plane_sweep(*wide, 328, True, True)
+
+
 @pytest.mark.parametrize("image", ["src", "tgt"])
 @pytest.mark.parametrize("mixture", [True, False])
 def test_plane_sweep_refuses_image_gradients(cuda, image, mixture):
-    """The kernels compute no image gradient: an image that requires grad
-    raises, naming the unported image_grads mode, before any launch (the
-    CPU path differentiates it); under no_grad nothing is lost."""
+    """Where the JAX package has no image-gradient mode the CUDA path raises
+    before any launch: the mixture without the automask (JAX asserts it)
+    and the no-mixture sweep (its JAX backward returns zero image
+    cotangents); the CPU path differentiates the image; under no_grad
+    nothing is lost."""
     inputs = sweep_inputs((1, 5, 3, 100), 7, cuda)
     if not mixture:
         inputs[3] = None
     inputs[("src", "tgt").index(image)].requires_grad_()
     launches = (plane_sweep.fwd_launches, plane_sweep.nomix_fwd_launches)
-    with pytest.raises(NotImplementedError, match="image_grads"):
+    with pytest.raises(ValueError if mixture else NotImplementedError,
+                       match="with_auto=True" if mixture else "no image-gradient mode"):
         plane_sweep(*inputs, 16, False, True)
     assert (plane_sweep.fwd_launches, plane_sweep.nomix_fwd_launches) == launches
     with torch.no_grad():
@@ -198,7 +246,6 @@ def test_plane_sweep_refuses_image_gradients(cuda, image, mixture):
     grad = torch.autograd.grad(sum(o.sum() for o in outs),
                                cpu[("src", "tgt").index(image)])[0]
     assert grad.abs().sum() > 0
-
 
 def test_train_step_on_cuda_matches_cpu(cuda):
     """One stage-1-style step (DenseASPP dropout included: both draw their
@@ -217,6 +264,29 @@ def test_train_step_on_cuda_matches_cpu(cuda):
     worst = check_step_against_cpu(cfg, cuda)
     torch.cuda.synchronize()
     assert (plane_sweep.fwd_launches, plane_sweep.bwd_launches) == (fwd + 1, bwd + 1)
+    assert worst["share_of_weights_held_at_atol"] > 0.5
+
+
+def test_oracle_step_on_cuda_matches_cpu(cuda):
+    """The stage-1 step through the oracle view synthesis (``fused_sweep``
+    off) with ``use_mom``, held to the CPU as above: no sweep and no warp
+    launches; the head epilogue and the disp head each way, and the row
+    shifts of the mirror occlusion mask."""
+    from chip_smoke import check_step_against_cpu, launch_counts, only
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = stage1_config(
+        model=ModelConfig(num_layers=18, planes=PlaneConfig(disp_levels=7, disp_max=24,
+                                                            xz_levels=3)),
+        loss=LossConfig(automask=True, use_mom=True), data=DataConfig(64, 96), batch_size=2,
+        fused_sweep=False)
+    before = launch_counts()
+    worst = check_step_against_cpu(cfg, cuda)
+    torch.cuda.synchronize()
+    delta = {k: v - before[k] for k, v in launch_counts().items()}
+    assert delta == only(head_epilogue_fwd=1, head_epilogue_bwd=1, disp_head_fwd=1,
+                         disp_head_bwd=1, row_shift_fwd=4)
     assert worst["share_of_weights_held_at_atol"] > 0.5
 
 

@@ -56,8 +56,8 @@ from planedepth_tpu_torch.models.depth_decoder import (
 )
 from planedepth_tpu_torch.models.factory import DepthModel
 from planedepth_tpu_torch.ops.head_epilogue import head_epilogue
+from planedepth_tpu_torch.ops.sampling import shift_sample_planes
 from planedepth_tpu_torch.ops.warp2d import warp2d
-from planedepth_tpu_torch.train.distill import shift_per_pixel
 from planedepth_tpu_torch.train.mono import fused_warp2d_ok
 from planedepth_tpu_torch.train.step import fused_sweep_ok
 from planedepth_tpu_torch.utils.weights import load_jax_params
@@ -184,7 +184,7 @@ def test_shift_per_pixel_matches_jax():
     shift = rng.uniform(-14.0, 14.0, (B, N, h, w)).astype(np.float32)
     want = jax.vmap(lambda m, s: shift_sample_x(m[..., None], s[:, None])[:, 0, ..., 0],
                     in_axes=(1, 1), out_axes=1)(jnp.asarray(maps), jnp.asarray(shift))
-    got = shift_per_pixel(torch.from_numpy(maps), torch.from_numpy(shift))
+    got = shift_sample_planes(torch.from_numpy(maps), torch.from_numpy(shift))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)
 
 
