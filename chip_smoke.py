@@ -699,58 +699,91 @@ def head_grads_of_both_instances(inputs, pad):
     return out
 
 
-def phase_sweep_img(card, shape=SWEEP_SHAPE, dev=torch.device("cuda"), smalls=SWEEP_SMALLS):
+# the image-gradient backward's timed shapes: stage 1, the stage-3 student,
+# and a row wider than 1280 (4 pixels a thread)
+SWEEP_IMG_TIMED = (SWEEP_SHAPE, SHIFT_SHAPE, (2, 63, 96, 2048))
+# its cases against the twin: (shape, input seed, cotangent seed,
+# with_disp); every SWEEP_SMALLS shape with and without the centre
+# disparity, then the stage-3 student's and stage 1's shapes (the last,
+# whose inputs phase 5b's later checks take)
+SWEEP_IMG_HELD = (*((small, 70 + i, i, with_disp) for i, small in enumerate(SWEEP_SMALLS)
+                    for with_disp in (True, False)),
+                  (SHIFT_SHAPE, 3, 9, True), (SWEEP_SHAPE, 2, 9, True))
+
+
+def image_grads_repeat(inputs, pad):
+    """Two backward runs of the image-gradient instance on the same forward
+    and cotangents give bit-identical d_src, d_tgt and head gradients."""
+    outs = plane_sweep(*inputs, pad, True, True)
+    live = [o for o in outs if o.requires_grad]
+    cts = [torch.randn_like(o) for o in live]
+    first = torch.autograd.grad(live, inputs[:5], cts, retain_graph=True)
+    second = torch.autograd.grad(live, inputs[:5], cts)
+    return all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def nomix_image_cotangents(inputs, pad):
+    """The no-mixture sweep on images that require grad: launch counts of
+    one forward and backward, and whether src and tgt got no cotangent
+    (``fused_plane_sweep_nomix`` returns zeros for them)."""
+    args = [None if i == 3 else t.detach().requires_grad_(i in (0, 1, 2, 4))
+            for i, t in enumerate(inputs)]
+    reset_launch_counts()
+    outs = plane_sweep(*args, pad, False, True)
+    grads = torch.autograd.grad(sum(o.sum() for o in outs), [args[i] for i in (0, 1, 2, 4)],
+                                allow_unused=True, materialize_grads=True)
+    torch.cuda.synchronize()
+    zero = all(not bool(g.any()) for g in grads[:2])
+    live = all(bool(g.any()) for g in grads[2:])
+    return launch_counts(), zero and live
+
+
+def phase_sweep_img(card, shape=SWEEP_SHAPE, dev=torch.device("cuda"), cases=SWEEP_IMG_HELD,
+                    timed=SWEEP_IMG_TIMED):
     """The backward's image-gradient instance (src and tgt require grad; the
     mixture with the automask) against ``plane_sweep_plain``'s autograd:
     d_src, d_tgt, d_logits, d_sigma, d_shift under seeded cotangents on
-    every output, on phase 5's odd shapes that fit its rows (W <= 1280;
-    wider ones must raise) with and without the centre disparity, and at
-    the stage-1 shape; its head gradients against the head-only instance's;
-    the cases without an image-gradient mode raise; then the entry point
-    once with the counts zeroed, and the kernel timed alone and through
-    autograd beside the head-only backward, with its bound, MUFU floor,
-    registers and occupancy.  Returns (the JSON fields, the launch count)."""
+    every output, on ``cases``: phase 5's odd shapes (W up to 2048) with and
+    without the centre disparity, and the stage-3 and stage-1 shapes; two
+    runs bit-identical at each; its head gradients bit-identical to the
+    head-only instance's; the mixture without the automask refused before
+    any launch; the no-mixture mode's images without a cotangent through its
+    head-only backward; then the entry point once with the counts zeroed,
+    and the kernel timed alone and through autograd beside the head-only
+    backward at each of ``timed``, with its bound, MUFU floor, registers,
+    occupancy and shared memory.  Returns (the JSON fields, the launch
+    count)."""
     held = Held()
     pad = sweep_pad(stage1_config())
     names = ("d_src", "d_tgt", "d_logits", "d_sigma", "d_shift")
-    refused = []
-    for i, small in enumerate(smalls):
-        for with_disp in (True, False):
-            inputs = image_grad_inputs(small, 70 + i, dev)
-            if small[-1] > 1280:
-                try:
-                    plane_sweep(*inputs, pad, True, with_disp)
-                except ValueError:
-                    refused.append(small)
-                    continue
-                raise AssertionError(f"image gradients at W = {small[-1]} must raise")
-            held.hold(plane_sweep(*inputs, pad, True, with_disp),
-                      plane_sweep_plain(*inputs, pad, True, with_disp),
-                      inputs, (0, 1, 2, 3, 4), names, i)
-    inputs = image_grad_inputs(shape, 2, dev)
-    held.hold(plane_sweep(*inputs, pad, True, True),
-              plane_sweep_plain(*inputs, pad, True, True), inputs, (0, 1, 2, 3, 4), names, 9)
+    for at, seed, ct_seed, with_disp in cases:
+        free_cache()
+        inputs = image_grad_inputs(at, seed, dev)
+        held.hold(plane_sweep(*inputs, pad, True, with_disp),
+                  plane_sweep_plain(*inputs, pad, True, with_disp), inputs, (0, 1, 2, 3, 4),
+                  names, ct_seed)
+        if not image_grads_repeat(inputs, pad):
+            raise AssertionError(f"two image-gradient backward runs at {at} differ")
     free_cache()
     img, plain = head_grads_of_both_instances(inputs, pad)
     head_rel = max((a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
                    for a, b in zip(img, plain))
-    identical = all(torch.equal(a, b) for a, b in zip(img, plain))
-    if head_rel > 1e-6:
+    if not all(torch.equal(a, b) for a, b in zip(img, plain)):
         raise AssertionError(f"head gradients of the two instances differ by {head_rel:.3e}")
     del img, plain
-    for sigma, with_auto, err in ((None, False, NotImplementedError),
-                                  (inputs[3], False, ValueError)):
-        reset_launch_counts()
-        try:
-            plane_sweep(inputs[0], inputs[1], inputs[2], sigma, inputs[4], inputs[5], pad,
-                        with_auto, True)
-        except err:
-            pass
-        else:
-            raise AssertionError(f"image gradients with sigma={sigma is not None}, "
-                                 f"with_auto={with_auto} must raise {err.__name__}")
-        if nonzero(launch_counts()):
-            raise AssertionError(f"a refused call launched {nonzero(launch_counts())}")
+    reset_launch_counts()
+    try:
+        plane_sweep(*inputs, pad, False, True)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("image gradients without the automask must raise ValueError")
+    if nonzero(launch_counts()):
+        raise AssertionError(f"a refused call launched {nonzero(launch_counts())}")
+    nomix, nomix_zero = nomix_image_cotangents(inputs, pad)
+    if nomix != only(plane_sweep_nomix_fwd=1, plane_sweep_nomix_bwd=1) or not nomix_zero:
+        raise AssertionError(f"no-mixture sweep on images that require grad: launches "
+                             f"{nonzero(nomix)}, zero image cotangents {nomix_zero}")
 
     # the main path: the entry point forward and backward, counts zeroed
     reset_launch_counts()
@@ -759,39 +792,50 @@ def phase_sweep_img(card, shape=SWEEP_SHAPE, dev=torch.device("cuda"), smalls=SW
     launches = launch_counts()
     if launches != only(plane_sweep_fwd=1, plane_sweep_img_bwd=1):
         raise AssertionError(f"image-gradient sweep launches {launches}")
-    del outs
-    t = time_sweep_img(inputs, pad)
-    del inputs
+    del outs, inputs
+    times = {}
+    for at in timed:
+        free_cache()
+        inputs = image_grad_inputs(at, 2, dev)
+        times[at] = time_sweep_img(inputs, pad, plain=at == shape)
+        del inputs
     free_cache()
-    share = t["bound"][0] / t["ms"]
     print(f"[sweep_img] plane_sweep with image gradients vs plain on "
-          f"{', '.join(map(str, [x for x in smalls if x not in refused]))} (with and without "
-          f"disp) and at {shape}, pad {pad}: {held.describe()}; head gradients of the "
-          f"image-gradient instance vs the head-only instance: max rel diff {head_rel:.3e} "
-          f"({'bit-identical' if identical else 'not bit-identical'}); W = "
-          f"{sorted({x[-1] for x in refused})} refused (ValueError: its staged rows exceed a "
-          f"block's shared memory); no-mixture and no-automask image gradients refused before "
-          f"any launch; main path launches {nonzero(launches)} | {card}")
-    print(f"[sweep_img] at {shape}: image-gradient backward alone {t['ms']:.4f} ms (bound "
-          f"{t['bound'][0]:.4f} ms of {t['bytes'] / 1e6:.1f} MB, {share:.1%} of it; MUFU floor "
-          f"{t['mufu_ms']:.4f} ms), through autograd {t['autograd_ms']:.4f} ms; the head-only "
-          f"backward alone {t['heads_ms']:.4f} ms in the same call; twin backward "
-          f"{t['plain_ms']:.2f} ms; {t['info']}; no single PyTorch call computes it | {card}")
+          f"{', '.join(dict.fromkeys(str(c[0]) for c in cases))} (the small ones with and "
+          f"without disp), pad {pad}: {held.describe()}; two backward runs bit-identical at "
+          f"each; head gradients bit-identical to the head-only instance's; no-automask "
+          f"image gradients refused before any launch; no-mixture images without a "
+          f"cotangent (launches {nonzero(nomix)}); main path launches {nonzero(launches)} | "
+          f"{card}")
+    for at, t in times.items():
+        share = t["bound"][0] / t["ms"]
+        plain = (f"; twin backward {t['plain_ms']:.2f} ms" if "plain_ms" in t else "")
+        print(f"[sweep_img] at {at}: image-gradient backward alone {t['ms']:.4f} ms (bound "
+              f"{t['bound'][0]:.4f} ms of {t['bytes'] / 1e6:.1f} MB, {share:.1%} of it; MUFU "
+              f"floor {t['mufu_ms']:.4f} ms), through autograd {t['autograd_ms']:.4f} ms; the "
+              f"head-only backward alone {t['heads_ms']:.4f} ms in the same call{plain}; "
+              f"{t['info']}; no single PyTorch call computes it | {card}")
+    t = times[shape]
     fields = {**held.bwd_fields(), "ms": t["ms"], "autograd_ms": t["autograd_ms"],
               "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
               "library_ms": None, "mufu_floor_ms": t["mufu_ms"],
               "head_only_bwd_ms": t["heads_ms"], "head_grads_rel_diff": head_rel,
-              "head_grads_bit_identical": identical, "kernel_info": t["kernel_info"],
-              "shape": list(shape)}
+              "head_grads_bit_identical": True, "bit_identical": True,
+              "kernel_info": t["kernel_info"], "shape": list(shape),
+              "at": [{"shape": list(at), "ms": x["ms"], "head_only_bwd_ms": x["heads_ms"],
+                      "bound_ms": x["bound"][0], "mufu_floor_ms": x["mufu_ms"],
+                      "kernel_info": x["kernel_info"]}
+                     for at, x in times.items() if at != shape]}
     return {"plane_sweep_img_bwd": fields}, launches["plane_sweep_img_bwd"]
 
 
-def time_sweep_img(inputs, pad):
+def time_sweep_img(inputs, pad, plain=True):
     """The image-gradient backward alone (the library entry point on the
     forward's statistics) and through autograd, the head-only backward
-    alone on the same operands, the twin's backward, the bound (the
-    mixture backward's bytes plus g_nll_auto read and d_src, d_tgt
-    written) and the MUFU floor."""
+    alone on the same operands, the twin's backward (``plain``), the bound
+    (the mixture backward's bytes plus g_nll_auto read and d_src, d_tgt
+    written), the MUFU floor, and both instances' registers, blocks an SM
+    and shared memory."""
     src, tgt, logits, sigma, shift, mask = inputs
     B, N, H, W = logits.shape
     limit = shift_max(pad)
@@ -814,22 +858,27 @@ def time_sweep_img(inputs, pad):
     cts = [torch.randn_like(o) for o in out]
     wrt = inputs[:5]
     autograd_ms = cuda_ms(lambda: torch.autograd.grad(out, wrt, cts, retain_graph=True))
-    plain = lambda: plane_sweep_plain(*inputs, pad, True, True)
-    with torch.no_grad():
-        plain_fwd_ms = cuda_ms(plain, warmup=1, reps=3)
-    plain_ms = cuda_ms(lambda: torch.autograd.grad(plain(), wrt, cts), warmup=1, reps=3)
     row = B * H * W * 4
     moved = sweep_bounds(inputs)[1][0] + row + nbytes(src, tgt)
     info = sweep_kernel_info(1, True, N, W, image_grads=True)
-    return {"ms": ms, "heads_ms": heads_ms, "autograd_ms": autograd_ms,
-            "plain_ms": plain_ms - plain_fwd_ms, "bytes": moved,
-            "bound": bound(moved, 120 * logits.numel()),
-            "mufu_ms": mufu_floor_ms(logits.numel(), sweep_mufu(True, True, "bwd", True)),
-            "kernel_info": info,
-            "info": (f"registers {info['registers']} (spills {info['spill_bytes']} B), "
-                     f"{info['threads']} threads a block, {info['blocks_per_sm']} blocks an SM, "
-                     f"{info['smem_bytes']} B shared; at W = 1280: "
-                     f"{json.dumps(sweep_kernel_info(1, True, N, 1280, image_grads=True))}")}
+    head_info = sweep_kernel_info(1, True, N, W)
+    got = {"ms": ms, "heads_ms": heads_ms, "autograd_ms": autograd_ms, "bytes": moved,
+           "bound": bound(moved, 120 * logits.numel()),
+           "mufu_ms": mufu_floor_ms(logits.numel(), sweep_mufu(True, True, "bwd", True)),
+           "kernel_info": info, "head_only_kernel_info": head_info,
+           "info": (f"registers {info['registers']} (spills {info['spill_bytes']} B), "
+                    f"{info['threads']} threads a block, {info['blocks_per_sm']} blocks an SM "
+                    f"({info['blocks_per_sm'] * info['threads'] // 32} warps), "
+                    f"{info['smem_bytes']} B shared; the head-only instance "
+                    f"{head_info['registers']} registers, {head_info['blocks_per_sm']} blocks "
+                    f"an SM, {head_info['smem_bytes']} B")}
+    if plain:
+        twin = lambda: plane_sweep_plain(*inputs, pad, True, True)
+        with torch.no_grad():
+            plain_fwd_ms = cuda_ms(twin, warmup=1, reps=3)
+        got["plain_ms"] = cuda_ms(lambda: torch.autograd.grad(twin(), wrt, cts),
+                                  warmup=1, reps=3) - plain_fwd_ms
+    return got
 
 
 # each kernel's counter: (the wrapper that counts, its attribute)
@@ -1481,10 +1530,11 @@ class Held:
     """The worst errors of a kernel pair against its plain version over
     every shape it was held at: the forward's max abs error, and per
     gradient the max abs error and that error over the gradient's largest
-    magnitude."""
+    magnitude, with the case that set the latter (the shape of the largest
+    input held, the sweep's logits)."""
 
     def __init__(self):
-        self.fwd, self.abs, self.rel = 0.0, {}, {}
+        self.fwd, self.abs, self.rel, self.worst_at = 0.0, {}, {}, {}
 
     def hold(self, kernel_out, plain_out, inputs, diff, names, seed, no_cotangent=()):
         """Forward outputs at TOL; the gradients of ``inputs[i] for i in
@@ -1501,6 +1551,7 @@ class Held:
         for i in no_cotangent:
             cts[i].zero_()
         wrt = [inputs[i] for i in diff]
+        at = tuple(max(wrt, key=lambda t: t.numel()).shape)
         # outputs with no gradient (the sweep's automask NLL) take none
         live = [i for i, o in enumerate(kernel_out) if o.requires_grad]
         pick = lambda seq: [seq[i] for i in live]
@@ -1516,7 +1567,9 @@ class Held:
                 raise AssertionError(f"{name} at {tuple(a.shape)}: max err {err:.3e} > "
                                      f"{GRAD_TOL} x {scale:.3e}")
             self.abs[name] = max(err, self.abs.get(name, 0.0))
-            self.rel[name] = max(err / max(scale, 1e-30), self.rel.get(name, 0.0))
+            rel = err / max(scale, 1e-30)
+            if rel >= self.rel.get(name, 0.0):
+                self.rel[name], self.worst_at[name] = rel, at
 
     def bwd_fields(self):
         return {"max_abs_err": max(self.abs.values()), "max_rel_err": max(self.rel.values())}
@@ -1525,7 +1578,7 @@ class Held:
         fmt = lambda d: json.dumps({k: float(f"{v:.3e}") for k, v in d.items()})
         return (f"forward max_abs_err {self.fwd:.3e} (rtol {TOL['rtol']}, atol {TOL['atol']}); "
                 f"grads max_abs_err {fmt(self.abs)}, over max |value| {fmt(self.rel)} "
-                f"(<= {GRAD_TOL})")
+                f"(<= {GRAD_TOL}), the latter worst at {json.dumps(self.worst_at)}")
 
 
 def launch_ms(fn, tensors, *sizes):

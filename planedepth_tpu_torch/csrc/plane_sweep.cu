@@ -34,13 +34,14 @@
 // local; the cotangent of a sample at x+k lands back on the source row by a
 // reverse window, d[x'] = (1-f) g[x'-k] + f g[x'-k-1]
 // (pallas_sweep.py:1340-1358).
-// The image-gradient backward (IMG, pallas_sweep.py:540-882 with
+// The image-gradient backward (sweep_bwd_img_kernel, pallas_sweep.py:540-882 with
 // image_grads=True; the mixture with the automask only, as JAX asserts)
 // also writes d_src and d_tgt: d_tgt += -sgn(c_n - tgt) de_n / 3 at x;
 // d_src is the same reverse window of dc_n m, the per-channel adjoint of
-// the source sample, that d_logits takes of dl_n m; and the automask's
-// identity error e_auto = mean_c |src - tgt| adds t = sgn(src - tgt) dEa
-// dMa / 3 to d_src and -t to d_tgt, where dEa = -sum_n pi_n lapa_n r_n,
+// the source sample, that d_logits takes of dl_n m (the kernel stages dc_n
+// and puts m into the window's weights); and the automask's identity error
+// e_auto = mean_c |src - tgt| adds t = sgn(src - tgt) dEa dMa / 3 to d_src
+// and -t to d_tgt, where dEa = -sum_n pi_n lapa_n r_n,
 // lapa_n = 0.5 exp(-e_auto r_n) r_n, r_n = 1 / s_n (pi and sigma held
 // constant, as the reference holds them) and dMa = -g_nll_auto / (Ma + eps)
 // from the forward's stats entry 3.
@@ -67,7 +68,8 @@
 // - Each plane's logits row (and sigma row under MIX) streams into a ring of
 //   shared-memory slots by cp.async (16-byte granules when the rows are
 //   16-byte aligned, 4-byte otherwise), counted in commit groups: a group
-//   of planes a block barrier (forward 4, backward 2), the ring prefetching
+//   of planes a block barrier (forward 4, backward 2; with the image
+//   gradients 1 or 2), the ring prefetching
 //   two groups ahead, so later planes load while plane n computes.  Every
 //   thread copies a fixed share of each group's granules, its (row,
 //   granule) worked out once.  One __syncthreads a group both
@@ -86,19 +88,36 @@
 //   adjoints into the other buffer, so one barrier serves a group.
 //   d_shift: each warp sums its lanes in a fixed shuffle tree, one warp a
 //   plane then sums the warps' partials in a fixed tree: deterministic.
-// - IMG stages dc m (3 channels) beside the adjoint rows of each group,
-//   double-buffered like them (2 x group x 3 rows: ~31 KB at W = 640, ~62 KB
-//   at 1280; the rows of W > 1280 no longer fit a block, and the wrapper
-//   refuses them), gathers d_src's reverse window after the group's
-//   barrier with d_logits', and keeps d_src, d_tgt and dEa in registers
-//   across the planes: each pixel's 6 image gradients are written once.
-//   One more ex2 a pixel-plane (the automask's Laplacian).  Its instance
-//   asks the compiler for one block an SM (__launch_bounds__ min 1), so the
-//   7 more accumulators a pixel cost no spills.
+// - The image-gradient kernel (its own function, so that the head-only
+//   kernel compiles as before; the two share their per-plane algebra,
+//   centre-disp term, d_shift sums and pipeline as inline helpers) keeps
+//   the head-only kernel's blocks an SM:
+//   at PX = 1 two blocks of 640 threads, so 48 registers a thread, which
+//   the head-only kernel already uses, and at most 113 KB a block of the
+//   SM's 228 KB.  Its staged adjoint is one float4 a position, (dl m, dc_0,
+//   dc_1, dc_2), beside the dsg m row, so the reverse windows of d_logits
+//   and d_src are two LDS.128; the source row is one float4 a position (the
+//   six taps: two LDS.128), and so are the target pixel's (tgt, -e_auto
+//   log2 e) and (g_rgb, 0), read a plane rather than held.  A per-plane
+//   table (k, f, w0, m; s, w0 m, f m) replaces every thread's floor and
+//   products; the image's planes are addressed by 32-bit offsets, and a
+//   thread's one granule of a plane's rows (W <= 640) is a multiply-add and
+//   a cp.async.  At PX = 1 (lean, ImgTile) one plane a barrier, and d_tgt,
+//   the automask sum and the pixel's head constants sit in float4 rows that
+//   only the pixel's own thread touches (no barrier): 105,312 B at N = 63.
+//   At PX = 2 two planes a barrier (one block an SM); at PX = 4 one plane
+//   a barrier, so that the rows fit a block at W = 2048 (232,096 B at
+//   N = 63, under the card's 232,448).  d_src and d_tgt are summed in a
+//   fixed plane order and written once: repeated runs are bit-identical.
+//   One more ex2 a pixel-plane (the automask's Laplacian); sgn(v) a as a
+//   sign flip (three instructions, not six).  Counted in SASS, the address
+//   arithmetic of the copies and stores outweighed the image terms: most
+//   levers cut instructions, not bytes.
 // - exp and 1/x in the per-plane chain are ex2.approx.ftz and
 //   rcp.approx.ftz (~2 ulp; results under 2^-126 flush to 0, far below
 //   the 1e-7 guards); the per-pixel epilogue keeps logf and IEEE division.
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -122,6 +141,16 @@ template <> struct Tile<1> { static constexpr int threads = 640, blocks = 2, str
 template <> struct Tile<2> { static constexpr int threads = 640, blocks = 1, stride = 1284; };
 template <> struct Tile<4> { static constexpr int threads = 512, blocks = 1, stride = 2052; };
 
+// The image-gradient backward at PX pixels a thread: its planes a barrier,
+// and whether it is lean, keeping the pixel's d_tgt, automask sum and head
+// constants in shared rows rather than registers (at one pixel a thread,
+// where two blocks an SM leave 48 registers a thread).  Four pixels a
+// thread take one plane a barrier, so that the rows fit a block at 2048.
+template <int PX> struct ImgTile;
+template <> struct ImgTile<1> { static constexpr int group = 1, lean = 1; };
+template <> struct ImgTile<2> { static constexpr int group = 2, lean = 0; };
+template <> struct ImgTile<4> { static constexpr int group = 1, lean = 0; };
+
 int pixels_per_thread(int W) { return W <= 640 ? 1 : W <= 1280 ? 2 : 4; }
 
 int row_stride(int W) {
@@ -132,27 +161,33 @@ int row_stride(int W) {
 __host__ __device__ __forceinline__ int round4(int v) { return (v + 3) & ~3; }
 
 // Shared-memory layout, in floats, rows of stride S: clipped shifts and
-// masks (N each), the source row (3 channels), the ring of plane slots
-// (logits, then sigma under MIX), then for the backward the double-buffered
-// adjoint rows (dl m, and dsg m under MIX: 2 x group rows each; under IMG
-// dc m: 2 x 3 x group rows, buffer, channel, plane), all contiguous, and
-// the d_shift partials (2 x group x 32 warps).
+// masks (N each; under img a plane table of two float4, (k, f, w0, m) and
+// (s, w0 m, f m, 0)), the source row (3 channels; under img one float4 a
+// position, the channels and a 0), under img float4 rows of the target
+// pixels ((tgt, -e_auto log2 e), (g_rgb, 0); lean also (d_tgt, sum_n pi_n
+// r_n^2 exp(-e_auto r_n)) and the head constants (Ls, inv_u, dM, dU), (Sg,
+// L0, gu0, disp0)), the ring of plane slots (logits, then sigma under MIX),
+// then for the backward the double-buffered adjoint rows (dl m, and dsg m
+// under MIX: 2 x group rows each; under img the dl m row holds a float4 a
+// position, (dl m, dc_0, dc_1, dc_2)), all contiguous, and the d_shift
+// partials (2 x group x 32 warps).
 struct Layout {
-  int shift, mask, src, ring, slot, adj_l, adj_s, adj_c, red, total;
+  int shift, mask, src, pix, ring, slot, adj_l, adj_s, red, total;
   __host__ __device__ Layout(int N, int S, bool mix, int slots, int group, bool bwd,
-                             bool img = false) {
+                             bool img = false, bool lean = false) {
     shift = 0;
     mask = N;
-    src = round4(2 * N);
-    ring = src + 3 * S;
+    src = img ? 8 * N : round4(2 * N);
+    pix = src + (img ? 4 : 3) * S;
+    ring = pix + (img ? (lean ? 20 : 8) * S : 0);
     slot = S * (mix ? 2 : 1);
     adj_l = ring + slots * slot;
-    adj_s = adj_l + (bwd ? 2 * group * S : 0);
-    adj_c = adj_s + (bwd && mix ? 2 * group * S : 0);
-    red = adj_c + (bwd && img ? 2 * 3 * group * S : 0);
+    adj_s = adj_l + (bwd ? 2 * group * S * (img ? 4 : 1) : 0);
+    red = adj_s + (bwd && mix ? 2 * group * S : 0);
     total = red + (bwd ? 2 * group * 32 : 0);
   }
-  // adjoint rows (each with its two leading zeros) from adj_l to red
+  // the head-only backward's adjoint rows (each with its two leading zeros)
+  // from adj_l to red
   __host__ __device__ int adj_rows(int S) const { return (red - adj_l) / S; }
   size_t bytes() const { return (size_t)total * sizeof(float); }
 };
@@ -165,9 +200,22 @@ __device__ __forceinline__ float sgn(float v) {
   return (float)((v > 0.f) - (v < 0.f));
 }
 
+// sgn(v) * a in three instructions: a with its sign flipped where v < 0,
+// 0 where v == 0
+__device__ __forceinline__ float sgn_times(float v, float a) {
+  const float t = __int_as_float(__float_as_int(a) ^ (__float_as_int(v) & 0x80000000));
+  return v != 0.f ? t : 0.f;
+}
+
 __device__ __forceinline__ float fexp(float v) {
   float r;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v * kLog2e));
+  return r;
+}
+
+__device__ __forceinline__ float fexp2(float v) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
   return r;
 }
 
@@ -229,6 +277,33 @@ __device__ __forceinline__ void load_row(const float* shift, const float* mask,
     smem[L.ring + (r >> 1) * S + W + (r & 1)] = 0.f;
 }
 
+// load_row for the image-gradient backward: the plane table of two float4
+// a plane, (k, f, w0, m) and (s, w0 m, f m, 0), in place of the shifts and
+// masks, and the source row as one float4 a position (the 3 channels and a
+// 0; 0 from W on).
+template <int S>
+__device__ __forceinline__ void load_row_img(const float* shift, const float* mask,
+                                             const float* src, float* smem,
+                                             const Layout& L, int slot_rows,
+                                             int b, int h, int N, int H, int W,
+                                             float shift_max) {
+  const int64_t row = (int64_t)b * H + h;
+  for (int n = threadIdx.x; n < N; n += blockDim.x) {
+    const float s = fminf(fmaxf(shift[row * N + n], 0.f), shift_max), m = mask[row * N + n];
+    const int k = (int)floorf(s);
+    const float f = s - (float)k, w0 = 1.f - f;
+    float4* tab = reinterpret_cast<float4*>(smem) + 2 * n;
+    tab[0] = make_float4(__int_as_float(k), f, w0, m);
+    tab[1] = make_float4(s, w0 * m, f * m, 0.f);
+  }
+  for (int i = threadIdx.x; i < 4 * S; i += blockDim.x) {
+    const int c = i & 3, x = i >> 2;
+    smem[L.src + i] = x < W && c < 3 ? src[(((int64_t)b * 3 + c) * H + h) * W + x] : 0.f;
+  }
+  for (int r = threadIdx.x; r < 2 * slot_rows; r += blockDim.x)
+    smem[L.ring + (r >> 1) * S + W + (r & 1)] = 0.f;
+}
+
 // Which granule of a group's rows this thread copies first, and how far its
 // next one is: the group's rows (G planes, logits and sigma interleaved
 // under MIX) hold nq granules each, of 4 floats when vec, else of one.
@@ -275,6 +350,106 @@ __device__ __forceinline__ void issue_group(float* smem, const Layout& L,
     }
   }
   cp_async_commit();
+}
+
+// A pixel's constants of the backward, from the forward statistics
+// (pallas_sweep.py:663-681), as the per-plane helpers below read them.
+struct HeadConsts { float Ls, inv_u, dM, dU, Sg, L0, gu0, disp0; };
+
+// The per-plane algebra of pallas_sweep.py:_bwd_kernel.plane_grads at one
+// pixel: from the plane's sampled logit l, clipped sigma sg (1 without MIX)
+// and its colour's err and dwgt.
+struct PlaneGrads { float pi, r, wgt, dl, de, dsg; };
+
+template <bool MIX>
+__device__ __forceinline__ PlaneGrads plane_grads(float l, float sg, float err, float dwgt,
+                                                  const HeadConsts& h) {
+  PlaneGrads o;
+  o.pi = fexp(l - h.Ls);
+  o.r = MIX ? frcp(sg) : 1.f;
+  const float lap = 0.5f * fexp(-err * o.r) * o.r;
+  o.wgt = o.pi * o.r * h.inv_u;
+  const float du = dwgt * h.inv_u + h.dU;
+  const float dpi = du * o.r + h.dM * lap;
+  o.dl = o.pi * (dpi - h.Sg);
+  const float dlap = h.dM * o.pi;
+  o.de = -dlap * lap * o.r;
+  // sigma is the constant 1 without the mixture: no gradient
+  const float ds = (dlap * lap * (err - sg) - du * o.pi) * (o.r * o.r);
+  o.dsg = (MIX && sg > 0.01f && sg < 1.f) ? ds : 0.f;
+  return o;
+}
+
+// The centre disp head's terms at one pixel and plane (pallas_sweep.py:
+// 731-755), from the plane's staged logit at lr_x (its sigma S further
+// under MIX), mask m and clipped shift s: sets dl0 (and ds0 under MIX) and
+// returns the plane's d_shift term.  The softmax coupling vanishes and the
+// sigma gate is on the RAW centre sigma.  Without the mixture the weights
+// carry neither mask nor sigma, but l0 = L m still chains the mask into
+// d_logits.
+template <bool MIX, int S>
+__device__ __forceinline__ float centre_disp(const float* lr_x, float m, float s,
+                                             const HeadConsts& h, float& dl0, float& ds0) {
+  const float l0 = lr_x[0] * m;
+  const float p0 = fexp(l0 - h.L0);
+  const float du0 = h.gu0 * (s - h.disp0);
+  if (MIX) {
+    const float s0raw = lr_x[S];
+    const float r0 = frcp(clip_sigma(s0raw));
+    dl0 = p0 * (du0 * m * r0);
+    ds0 = (s0raw > 0.01f && s0raw < 1.f) ? -du0 * p0 * m * (r0 * r0) : 0.f;
+    return h.gu0 * p0 * m * r0;
+  }
+  dl0 = p0 * du0 * m;
+  return h.gu0 * p0;
+}
+
+// A warp's d_shift partial of plane slot g, summed over its lanes in a fixed
+// shuffle tree, into red[g * 32 + warp].
+__device__ __forceinline__ void warp_partial(float dsh, float* red, int g, int lane,
+                                             int warp) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    dsh += __shfl_down_sync(0xffffffffu, dsh, off);
+  if (lane == 0) red[g * 32 + warp] = dsh;
+}
+
+// d_shift of group j's planes: one warp a plane sums the warps' partials
+// in a fixed tree, so repeated runs are bit-identical.
+template <int G>
+__device__ __forceinline__ void sum_partials(const float* red, float* d_shift, int64_t row,
+                                             int j, int N, int lane, int warp, int nwarps) {
+  for (int g = warp; g < G; g += nwarps) {
+    const int n = j * G + g;
+    if (n >= N) break;
+    float v = lane < nwarps ? red[g * 32 + lane] : 0.f;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      v += __shfl_down_sync(0xffffffffu, v, off);
+    if (lane == 0) d_shift[row * N + n] = v;
+  }
+}
+
+// The backward's pipeline over ngroups groups in a ring of P, once groups
+// 0 .. P-2 are issued: after the barrier of group i, issue group i + P,
+// gather group i and compute group i + 1, so one barrier serves a group.
+template <int P, class Issue, class Compute, class Gather>
+__device__ __forceinline__ void run_pipeline(int ngroups, Issue&& issue, Compute&& compute,
+                                             Gather&& gather) {
+  cp_async_wait<P - 2>();     // group 0 has landed
+  __syncthreads();            // everyone's copies, and load_row's stores
+  issue(P - 1);
+  compute(0);
+  for (int i = 0; i < ngroups; ++i) {
+    // group i's adjoints and group i+1's rows are complete; group i's ring
+    // slots and buffer i+1 (read by gather(i-1)) are free
+    cp_async_wait<P - 2>();
+    __syncthreads();
+    issue(i + P);
+    gather(i);
+    if (i + 1 < ngroups) compute(i + 1);
+  }
+  cp_async_wait<0>();
 }
 
 }  // namespace
@@ -424,11 +599,10 @@ sweep_fwd_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
 namespace {
 
 // MIX as in sweep_fwd_kernel; without it d_sigma is not written (and may be
-// null), and no sigma row is staged.  IMG (only with MIX, and the forward's
-// automask): also d_src and d_tgt (B, 3, H, W), from g_nll_auto (B, H, W);
-// one block an SM, for the registers.
-template <int PX, bool MIX, bool IMG>
-__global__ void __launch_bounds__(Tile<PX>::threads, IMG ? 1 : Tile<PX>::blocks)
+// null), and no sigma row is staged.  The head gradients only; the images'
+// are sweep_bwd_img_kernel's.
+template <int PX, bool MIX>
+__global__ void __launch_bounds__(Tile<PX>::threads, Tile<PX>::blocks)
 sweep_bwd_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
                  const float* __restrict__ logits,
                  const float* __restrict__ sigma,
@@ -438,16 +612,13 @@ sweep_bwd_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
                  const float* __restrict__ rgb,
                  const float* __restrict__ g_rgb,
                  const float* __restrict__ g_nll,
-                 const float* __restrict__ g_nll_auto,
                  const float* __restrict__ g_disp,
-                 float* __restrict__ d_src, float* __restrict__ d_tgt,
                  float* __restrict__ d_logits, float* __restrict__ d_sigma,
                  float* __restrict__ d_shift, int N, int H, int W,
                  float shift_max, int with_disp, int vec) {
-  static_assert(MIX || !IMG, "the image gradients exist only with the mixture");
   constexpr int G = kBwdGroup, P = kBwdRingGroups, S = Tile<PX>::stride;
   extern __shared__ __align__(16) float smem[];
-  const Layout L(N, S, MIX, G * P, G, true, IMG);
+  const Layout L(N, S, MIX, G * P, G, true);
   const int h = blockIdx.x, b = blockIdx.y;
   load_row<S>(shift, mask, src, smem, L, G * P * (MIX ? 2 : 1), b, h, N, H, W,
               shift_max);
@@ -469,24 +640,15 @@ sweep_bwd_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
   const int nst = with_disp ? 7 : 4;
   const float* sh_src = smem + L.src;
 
-  // per-pixel globals from the forward statistics (pallas_sweep.py:663-681)
+  // per-pixel globals from the forward statistics (pallas_sweep.py:663-681),
+  // in arrays rather than HeadConsts: the struct changes this kernel's SASS
   float t[PX][3], G3[PX][3], Ls[PX], inv_u[PX], dM[PX], dU[PX], Sg[PX];
   float L0[PX], gu0[PX], disp0[PX];
-  // IMG: d_src and d_tgt of this thread's pixels, dEa, e_auto and dMa
-  float dsr[PX][3], dtg[PX][3], dEa[PX], e_auto[PX], dMa[PX];
 #pragma unroll
   for (int p = 0; p < PX; ++p) {
     const int x = min((int)(threadIdx.x + p * blockDim.x), W - 1);
     const float* st = stats + (int64_t)b * nst * plane + pix_row + x;
     Ls[p] = st[0];
-    if (IMG) {
-      const float Ma = st[3 * plane];
-      const float gA = g_nll_auto[(int64_t)b * plane + pix_row + x];
-      dMa[p] = Ma > 0.f ? -gA / (fmaxf(Ma, 0.f) + kEps) : 0.f;
-      dEa[p] = e_auto[p] = 0.f;
-#pragma unroll
-      for (int c = 0; c < 3; ++c) dsr[p][c] = dtg[p][c] = 0.f;
-    }
     const float U = st[plane], M = st[2 * plane];
     float gr = 0.f;
 #pragma unroll
@@ -525,7 +687,6 @@ sweep_bwd_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
   auto compute = [&](int j) {
     float* adj_l = smem + L.adj_l + (j & 1) * G * S + 2;
     float* adj_s = smem + L.adj_s + (j & 1) * G * S + 2;
-    float* adj_c = smem + L.adj_c + (j & 1) * 3 * G * S + 2;
     float* red = smem + L.red + (j & 1) * G * 32;
 #pragma unroll
     for (int g = 0; g < G; ++g) {
@@ -542,6 +703,7 @@ sweep_bwd_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
         for (int p = 0; p < PX; ++p) {
           const int x = (int)(threadIdx.x + p * blockDim.x);
           if (x >= W) continue;
+          const HeadConsts h = {Ls[p], inv_u[p], dM[p], dU[p], Sg[p], L0[p], gu0[p], disp0[p]};
           const int i0 = min(x + k, W);     // entries W, W + 1 are 0
           const float* a = lr + i0;
           const float* cs = sh_src + i0;
@@ -564,60 +726,21 @@ sweep_bwd_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
             dwgt += G3[p][ch] * c[ch];
           }
           err *= kThird;
-          // per-plane algebra of pallas_sweep.py:_bwd_kernel.plane_grads
-          const float pi = fexp(l - Ls[p]);
-          const float r = MIX ? frcp(sg) : 1.f;
-          const float lap = 0.5f * fexp(-err * r) * r;
-          const float wgt = pi * r * inv_u[p];
-          const float du = dwgt * inv_u[p] + dU[p];
-          const float dpi = du * r + dM[p] * lap;
-          const float dl = pi * (dpi - Sg[p]);
-          const float dlap = dM[p] * pi;
-          const float de = -dlap * lap * r;
-          // sigma is the constant 1 without the mixture: no gradient
-          const float ds = (dlap * lap * (err - sg) - du * pi) * (r * r);
-          const float dsg = (MIX && sg > 0.01f && sg < 1.f) ? ds : 0.f;
+          const PlaneGrads q = plane_grads<MIX>(l, sg, err, dwgt, h);
           float dc_cd = 0.f;
 #pragma unroll
           for (int ch = 0; ch < 3; ++ch) {
-            const float de_c = sgn(c[ch] - t[p][ch]) * (de * kThird);
-            const float dc = G3[p][ch] * wgt + de_c;
+            const float de_c = sgn(c[ch] - t[p][ch]) * (q.de * kThird);
+            const float dc = G3[p][ch] * q.wgt + de_c;
             dc_cd += dc * cd[ch];
-            if (IMG) {
-              adj_c[(ch * G + g) * S + x] = dc * m;
-              dtg[p][ch] -= de_c;
-            }
           }
-          // the automask's Laplacian at this plane's (constant) pi, sigma
-          if (IMG) dEa[p] -= pi * (0.5f * fexp(-e_auto[p] * r) * r) * r;
-          dsh += dl * ld + dsg * sd + dc_cd;
-          if (with_disp) {
-            // centre disp head (pallas_sweep.py:731-755); the softmax
-            // coupling vanishes, the sigma gate is on the RAW centre sigma.
-            // Without the mixture the weights carry neither mask nor sigma,
-            // but l0 = L m still chains the mask into d_logits.
-            const float l0 = lr[x] * m;
-            const float p0 = fexp(l0 - L0[p]);
-            const float du0 = gu0[p] * (s - disp0[p]);
-            if (MIX) {
-              const float s0raw = lr[S + x];
-              const float r0 = frcp(clip_sigma(s0raw));
-              dl0[g][p] = p0 * (du0 * m * r0);
-              ds0[g][p] = (s0raw > 0.01f && s0raw < 1.f) ? -du0 * p0 * m * (r0 * r0) : 0.f;
-              dsh += gu0[p] * p0 * m * r0;
-            } else {
-              dl0[g][p] = p0 * du0 * m;
-              dsh += gu0[p] * p0;
-            }
-          }
-          adj_l[g * S + x] = dl * m;
-          if (MIX) adj_s[g * S + x] = dsg * m;
+          dsh += q.dl * ld + q.dsg * sd + dc_cd;
+          if (with_disp) dsh += centre_disp<MIX, S>(lr + x, m, s, h, dl0[g][p], ds0[g][p]);
+          adj_l[g * S + x] = q.dl * m;
+          if (MIX) adj_s[g * S + x] = q.dsg * m;
         }
       }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        dsh += __shfl_down_sync(0xffffffffu, dsh, off);
-      if (lane == 0) red[g * 32 + warp] = dsh;
+      warp_partial(dsh, red, g, lane, warp);
     }
   };
 
@@ -626,8 +749,6 @@ sweep_bwd_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
   auto gather = [&](int j) {
     const float* adj_l = smem + L.adj_l + (j & 1) * G * S + 2;
     const float* adj_s = smem + L.adj_s + (j & 1) * G * S + 2;
-    const float* adj_c = smem + L.adj_c + (j & 1) * 3 * G * S + 2;
-    const float* red = smem + L.red + (j & 1) * G * 32;
 #pragma unroll
     for (int g = 0; g < G; ++g) {
       const int n = j * G + g;
@@ -647,65 +768,309 @@ sweep_bwd_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
         if (MIX)
           d_sigma[plane_off + x] = w0 * adj_s[g * S + j0] + f * adj_s[g * S + j0 - 1]
                                    + ds0[g][p];
-        if (IMG) {
-#pragma unroll
-          for (int ch = 0; ch < 3; ++ch) {
-            const float* ac = adj_c + (ch * G + g) * S;
-            dsr[p][ch] += w0 * ac[j0] + f * ac[j0 - 1];
-          }
-        }
       }
     }
-    for (int g = warp; g < G; g += nwarps) {
-      const int n = j * G + g;
-      if (n >= N) break;
-      float v = lane < nwarps ? red[g * 32 + lane] : 0.f;
+    sum_partials<G>(smem + L.red + (j & 1) * G * 32, d_shift, row, j, N, lane, warp, nwarps);
+  };
+
+  run_pipeline<P>(ngroups, [&](int j) {
+    issue_group<S, G, P, MIX>(smem, L, cp, logits, sigma, rowbase, plane, j, N, vec);
+  }, compute, gather);
+}
+
+// sweep_bwd_kernel<PX, true> with the image gradients (the mixture and the
+// forward's automask): also d_src and d_tgt (B, 3, H, W), from g_nll_auto
+// (B, H, W), at the head-only kernel's blocks an SM.  Its head gradients
+// come from the same helpers (plane_grads, centre_disp, the d_shift sums) on
+// the same values, so they are the head-only kernel's bit for bit (the card
+// checks hold them equal).
+template <int PX>
+__global__ void __launch_bounds__(Tile<PX>::threads, Tile<PX>::blocks)
+sweep_bwd_img_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
+                     const float* __restrict__ logits,
+                     const float* __restrict__ sigma,
+                     const float* __restrict__ shift,
+                     const float* __restrict__ mask,
+                     const float* __restrict__ stats,
+                     const float* __restrict__ rgb,
+                     const float* __restrict__ g_rgb,
+                     const float* __restrict__ g_nll,
+                     const float* __restrict__ g_nll_auto,
+                     const float* __restrict__ g_disp,
+                     float* __restrict__ d_src, float* __restrict__ d_tgt,
+                     float* __restrict__ d_logits, float* __restrict__ d_sigma,
+                     float* __restrict__ d_shift, int N, int H, int W,
+                     float shift_max, int with_disp, int vec) {
+  constexpr int G = ImgTile<PX>::group, P = kBwdRingGroups, S = Tile<PX>::stride;
+  constexpr bool LEAN = ImgTile<PX>::lean;
+  extern __shared__ __align__(16) float smem[];
+  const Layout L(N, S, true, G * P, G, true, true, LEAN);
+  const int h = blockIdx.x, b = blockIdx.y;
+  load_row_img<S>(shift, mask, src, smem, L, G * P * 2, b, h, N, H, W, shift_max);
+  // positions -2 and -1 of every adjoint row are 0 (the reverse window's
+  // taps left of the row): 8 floats of a (dl m, dc) row, 2 of a dsg m row
+  for (int r = threadIdx.x; r < 2 * G * 8; r += blockDim.x)
+    smem[L.adj_l + (r >> 3) * 4 * S + (r & 7)] = 0.f;
+  for (int r = threadIdx.x; r < 2 * G * 2; r += blockDim.x)
+    smem[L.adj_s + (r >> 1) * S + (r & 1)] = 0.f;
+
+  const int64_t plane = (int64_t)H * W;
+  const int64_t pix_row = (int64_t)h * W;
+  const int64_t row = (int64_t)b * H + h;
+  const int64_t rowbase = (int64_t)b * N * plane + pix_row;
+  const int ngroups = (N + G - 1) / G;
+  const CopyPlan cp(W, G * 2, vec);
+  // this image's planes, addressed by 32-bit offsets (N H W < 2^31,
+  // which the entry point checks); where a group's rows hold at most one
+  // granule a thread, that granule's offset at group 0 and in a group's
+  // slots, so that a group's copy is a multiply-add and one cp.async
+  // (own_g >= N: none); otherwise issue_group, its plan made anew a group
+  // rather than held in registers
+  const int iplane = H * W, ipix = h * W;
+  const float* logits_i = logits + (int64_t)b * N * plane;
+  const float* sigma_i = sigma + (int64_t)b * N * plane;
+  const bool own = cp.total <= (int)blockDim.x;
+  int own_src = 0, own_dst = 0, own_g = N;
+  bool own_sg = false;
+  if (own && (int)threadIdx.x < cp.total) {
+    const int g = cp.r0 >> 1, e = vec ? 4 * cp.q0 : cp.q0;
+    own_sg = cp.r0 & 1;
+    own_src = g * iplane + ipix + e;
+    own_dst = g * L.slot + (own_sg ? S : 0) + e;
+    own_g = g;
+  }
+  auto issue = [&](int j) {
+    if (!own) {
+      issue_group<S, G, P, true>(smem, L, CopyPlan(W, G * 2, vec), logits, sigma, rowbase,
+                                 plane, j, N, vec);
+      return;
+    }
+    if (j * G + own_g < N) {
+      float* d = smem + L.ring + (j % P) * G * L.slot + own_dst;
+      const float* a = (own_sg ? sigma_i : logits_i) + (j * G * iplane + own_src);
+      if (vec)
+        cp_async16(d, a);
+      else
+        cp_async4(d, a);
+    }
+    cp_async_commit();
+  };
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        v += __shfl_down_sync(0xffffffffu, v, off);
-      if (lane == 0) d_shift[row * N + n] = v;
+  for (int j = 0; j < P - 1; ++j) issue(j);
+
+  const int nst = with_disp ? 7 : 4;
+  // the plane table; the source pixels and the target pixels' (tgt,
+  // -e_auto log2 e), (g_rgb, 0), one float4 a position; LEAN: the pixel's
+  // (d_tgt, auto_sum) and head constants, (Ls, inv_u, dM, dU) and (Sg, L0,
+  // gu0, disp0), read and written by the pixel's own thread only
+  const float4* tab4 = reinterpret_cast<const float4*>(smem);
+  const float4* src4 = reinterpret_cast<const float4*>(smem + L.src);
+  float4* tgt4 = reinterpret_cast<float4*>(smem + L.pix);
+  float4* grgb4 = tgt4 + S;
+  float4* dtgt4 = grgb4 + S;
+  float4* head4 = dtgt4 + S;
+
+  // per-pixel globals from the forward statistics (pallas_sweep.py:663-681)
+  float Ls[PX], inv_u[PX], dM[PX], dU[PX], Sg[PX], L0[PX], gu0[PX], disp0[PX];
+  // d_src and d_tgt of this thread's pixels, and auto_sum = sum_n pi_n
+  // r_n^2 exp(-e_auto r_n) = -2 dEa (pi and sigma constant); LEAN keeps the
+  // last two in shared memory
+  float dsr[PX][3], dtg[PX][3], auto_sum[PX];
+#pragma unroll
+  for (int p = 0; p < PX; ++p) {
+    const int xr = (int)(threadIdx.x + p * blockDim.x);
+    const int x = min(xr, W - 1);
+    const float* st = stats + (int64_t)b * nst * plane + pix_row + x;
+    Ls[p] = st[0];
+    const float U = st[plane], M = st[2 * plane];
+    float gr = 0.f, tv[3], gv[3], ea = 0.f;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const int64_t o = ((int64_t)b * 3 + c) * plane + pix_row + x;
+      tv[c] = tgt[o];
+      gv[c] = g_rgb[o];
+      gr += gv[c] * rgb[o];
+      ea += fabsf(src[o] - tv[c]);
+      dsr[p][c] = dtg[p][c] = 0.f;
+    }
+    auto_sum[p] = 0.f;
+    if (xr < W) {
+      tgt4[x] = make_float4(tv[0], tv[1], tv[2], -(ea / 3.f) * kLog2e);
+      grgb4[x] = make_float4(gv[0], gv[1], gv[2], 0.f);
+      if (LEAN) dtgt4[x] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    const float A = U * gr;
+    const bool live = U > kEps;
+    inv_u[p] = live ? 1.f / fmaxf(U, kEps) : 0.f;
+    const float gN = g_nll[(int64_t)b * plane + pix_row + x];
+    dM[p] = M > 0.f ? -gN / (fmaxf(M, 0.f) + kEps) : 0.f;
+    dU[p] = live ? -(inv_u[p] * inv_u[p]) * A : 0.f;
+    Sg[p] = inv_u[p] * A + dM[p] * M + dU[p] * U;
+    L0[p] = gu0[p] = disp0[p] = 0.f;
+    if (with_disp) {
+      L0[p] = st[4 * plane];
+      const float U0 = st[5 * plane];
+      disp0[p] = st[6 * plane];
+      const float gD = U0 > kEps ? g_disp[(int64_t)b * plane + pix_row + x] : 0.f;
+      gu0[p] = gD / fmaxf(U0, kEps);
+    }
+    if (LEAN && xr < W) {
+      head4[x] = make_float4(Ls[p], inv_u[p], dM[p], dU[p]);
+      head4[S + x] = make_float4(Sg[p], L0[p], gu0[p], disp0[p]);
+    }
+  }
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  // the centre (unshifted) terms of d_logits / d_sigma at this thread's
+  // pixels, from the group's compute to its gather
+  float dl0[G][PX], ds0[G][PX];
+
+  // group j's per-plane adjoints: (dl m, dc) and dsg m at sample position p
+  // into entry p + 2 of buffer j % 2, the centre terms into dl0/ds0, the
+  // warps' d_shift partials
+  auto compute = [&](int j) {
+    float4* adj_q = reinterpret_cast<float4*>(smem + L.adj_l) + (j & 1) * G * S + 2;
+    float* adj_s = smem + L.adj_s + (j & 1) * G * S + 2;
+    float* red = smem + L.red + (j & 1) * G * 32;
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const int n = j * G + g;
+      float dsh = 0.f;
+#pragma unroll
+      for (int p = 0; p < PX; ++p) dl0[g][p] = ds0[g][p] = 0.f;
+      if (n < N) {
+        const float4 a = tab4[2 * n];
+        const int k = __float_as_int(a.x);
+        const float f = a.y, w0 = a.z, m = a.w, s = tab4[2 * n + 1].x;
+        const float* lr = smem + L.ring + ((j % P) * G + g) * L.slot;
+#pragma unroll
+        for (int p = 0; p < PX; ++p) {
+          const int x = (int)(threadIdx.x + p * blockDim.x);
+          if (x >= W) continue;
+          const int i0 = min(x + k, W);     // entries W, W + 1 are 0
+          const float* a = lr + i0;
+          const float lt0 = a[0], lt1 = a[1];
+          const float l = (w0 * lt0 + f * lt1) * m;
+          const float ld = (lt1 - lt0) * m;
+          const float st0 = a[S], st1 = a[S + 1];
+          const float sg = clip_sigma((w0 * st0 + f * st1) * m);
+          const float sd = (st1 - st0) * m;
+          // the pixel's head constants
+          HeadConsts h;
+          if constexpr (LEAN) {
+            const float4 u = head4[x], v = head4[S + x];
+            h = {u.x, u.y, u.z, u.w, v.x, v.y, v.z, v.w};
+          } else {
+            h = {Ls[p], inv_u[p], dM[p], dU[p], Sg[p], L0[p], gu0[p], disp0[p]};
+          }
+          // the source taps, the target pixel and g_rgb, a float4 each
+          const float4 u0 = src4[i0], u1 = src4[i0 + 1], tq = tgt4[x], gq = grgb4[x];
+          const float i0v[3] = {u0.x, u0.y, u0.z}, i1v[3] = {u1.x, u1.y, u1.z};
+          const float tp[3] = {tq.x, tq.y, tq.z}, gp[3] = {gq.x, gq.y, gq.z}, eal = tq.w;
+          float c[3], cd[3], err = 0.f, dwgt = 0.f;
+#pragma unroll
+          for (int ch = 0; ch < 3; ++ch) {
+            const float c0 = i0v[ch], c1 = i1v[ch];
+            c[ch] = (w0 * c0 + f * c1) * m;
+            cd[ch] = (c1 - c0) * m;
+            err += fabsf(c[ch] - tp[ch]);
+            dwgt += gp[ch] * c[ch];
+          }
+          err *= kThird;
+          const PlaneGrads q = plane_grads<true>(l, sg, err, dwgt, h);
+          float dc_cd = 0.f, dcs[3], dec[3];
+#pragma unroll
+          for (int ch = 0; ch < 3; ++ch) {
+            const float de_c = sgn_times(c[ch] - tp[ch], q.de * kThird);
+            const float dc = gp[ch] * q.wgt + de_c;
+            dc_cd += dc * cd[ch];
+            dcs[ch] = dc;
+            dec[ch] = de_c;
+          }
+          // d_tgt takes -de_c; the automask's Laplacian at this plane's
+          // (constant) pi and sigma
+          const float lapa = q.pi * q.r * (fexp2(eal * q.r) * q.r);
+          if constexpr (LEAN) {
+            float4 v = dtgt4[x];
+            v.x -= dec[0];
+            v.y -= dec[1];
+            v.z -= dec[2];
+            v.w += lapa;
+            dtgt4[x] = v;
+          } else {
+#pragma unroll
+            for (int ch = 0; ch < 3; ++ch) dtg[p][ch] -= dec[ch];
+            auto_sum[p] += lapa;
+          }
+          dsh += q.dl * ld + q.dsg * sd + dc_cd;
+          if (with_disp) dsh += centre_disp<true, S>(lr + x, m, s, h, dl0[g][p], ds0[g][p]);
+          adj_q[g * S + x] = make_float4(q.dl * m, dcs[0], dcs[1], dcs[2]);
+          adj_s[g * S + x] = q.dsg * m;
+        }
+      }
+      warp_partial(dsh, red, g, lane, warp);
     }
   };
 
-  cp_async_wait<P - 2>();     // group 0 has landed
-  __syncthreads();            // everyone's copies, and load_row's stores
-  issue_group<S, G, P, MIX>(smem, L, cp, logits, sigma, rowbase, plane, P - 1, N, vec);
-  if (IMG) {
+  // group j's outputs: each pixel's reverse window over the staged adjoint
+  // rows plus its centre term; one warp a plane sums the d_shift partials
+  auto gather = [&](int j) {
+    const float4* adj_q = reinterpret_cast<const float4*>(smem + L.adj_l) + (j & 1) * G * S + 2;
+    const float* adj_s = smem + L.adj_s + (j & 1) * G * S + 2;
 #pragma unroll
-    for (int p = 0; p < PX; ++p) {
-      const int x = min((int)(threadIdx.x + p * blockDim.x), W - 1);
-      float ea = 0.f;
+    for (int g = 0; g < G; ++g) {
+      const int n = j * G + g;
+      if (n >= N) break;
+      const float4 a = tab4[2 * n], c = tab4[2 * n + 1];
+      const int k = __float_as_int(a.x);
+      const float f = a.y, w0 = a.z, wm = c.y, fm = c.z;
 #pragma unroll
-      for (int c = 0; c < 3; ++c) ea += fabsf(sh_src[c * S + x] - t[p][c]);
-      e_auto[p] = ea / 3.f;
-    }
-  }
-  compute(0);
-  for (int i = 0; i < ngroups; ++i) {
-    // group i's adjoints and group i+1's rows are complete; group i's ring
-    // slots and buffer i+1 (read by gather(i-1)) are free
-    cp_async_wait<P - 2>();
-    __syncthreads();
-    issue_group<S, G, P, MIX>(smem, L, cp, logits, sigma, rowbase, plane, i + P, N,
-                              vec);
-    gather(i);
-    if (i + 1 < ngroups) compute(i + 1);
-  }
-  cp_async_wait<0>();
-  if (IMG) {
-    // the automask's identity-error adjoint lands on both images at x
-#pragma unroll
-    for (int p = 0; p < PX; ++p) {
-      const int x = (int)(threadIdx.x + p * blockDim.x);
-      if (x >= W) continue;
-      const float ta = dEa[p] * dMa[p] / 3.f;
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        const int64_t o = ((int64_t)b * 3 + c) * plane + pix_row + x;
-        const float t_auto = sgn(sh_src[c * S + x] - t[p][c]) * ta;
-        d_src[o] = dsr[p][c] + t_auto;
-        d_tgt[o] = dtg[p][c] - t_auto;
+      for (int p = 0; p < PX; ++p) {
+        const int x = (int)(threadIdx.x + p * blockDim.x);
+        if (x >= W) continue;
+        // taps at x - k and x - k - 1; left of the row they read the zeros
+        const int j0 = max(x - k, -1);
+        const float4 q0 = adj_q[g * S + j0], q1 = adj_q[g * S + j0 - 1];
+        const int o = n * iplane + ipix + x;
+        (d_logits + (int64_t)b * N * plane)[o] = w0 * q0.x + f * q1.x + dl0[g][p];
+        (d_sigma + (int64_t)b * N * plane)[o] =
+            w0 * adj_s[g * S + j0] + f * adj_s[g * S + j0 - 1] + ds0[g][p];
+        // dc carries no mask: the window's weights take it
+        dsr[p][0] += wm * q0.y + fm * q1.y;
+        dsr[p][1] += wm * q0.z + fm * q1.z;
+        dsr[p][2] += wm * q0.w + fm * q1.w;
       }
+    }
+    sum_partials<G>(smem + L.red + (j & 1) * G * 32, d_shift, row, j, N, lane, warp, nwarps);
+  };
+
+  run_pipeline<P>(ngroups, issue, compute, gather);
+  // the automask's identity-error adjoint lands on both images at x:
+  // dEa = -auto_sum / 2, dMa = -g_nll_auto / (Ma + eps)
+#pragma unroll
+  for (int p = 0; p < PX; ++p) {
+    const int x = (int)(threadIdx.x + p * blockDim.x);
+    if (x >= W) continue;
+    const float Ma = stats[(int64_t)b * nst * plane + 3 * plane + pix_row + x];
+    const float gA = g_nll_auto[(int64_t)b * plane + pix_row + x];
+    const float dMa = Ma > 0.f ? -gA / (fmaxf(Ma, 0.f) + kEps) : 0.f;
+    if (LEAN) {
+      const float4 v = dtgt4[x];
+      dtg[p][0] = v.x;
+      dtg[p][1] = v.y;
+      dtg[p][2] = v.z;
+      auto_sum[p] = v.w;
+    }
+    const float ta = -0.5f * auto_sum[p] * dMa * kThird;
+    const float4 sv = src4[x], tq = tgt4[x];
+    const float sc[3] = {sv.x, sv.y, sv.z}, tc[3] = {tq.x, tq.y, tq.z};
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const int64_t o = ((int64_t)b * 3 + c) * plane + pix_row + x;
+      const float t_auto = sgn(sc[c] - tc[c]) * ta;
+      d_src[o] = dsr[p][c] + t_auto;
+      d_tgt[o] = dtg[p][c] - t_auto;
     }
   }
 }
@@ -715,10 +1080,16 @@ sweep_bwd_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
 namespace {
 
 size_t smem_bytes(int backward, int mix, int N, int W, int img = 0) {
-  const int S = row_stride(W);
-  return backward ? Layout(N, S, mix, kBwdGroup * kBwdRingGroups, kBwdGroup, true,
-                           img).bytes()
-                  : Layout(N, S, mix, kFwdGroup * kFwdRingGroups, kFwdGroup, false).bytes();
+  const int S = row_stride(W), px = pixels_per_thread(W);
+  if (!backward)
+    return Layout(N, S, mix, kFwdGroup * kFwdRingGroups, kFwdGroup, false).bytes();
+  if (!img)
+    return Layout(N, S, mix, kBwdGroup * kBwdRingGroups, kBwdGroup, true).bytes();
+#define PDT_IMG_LAYOUT(PX)                                                       \
+  Layout(N, S, mix, ImgTile<PX>::group * kBwdRingGroups, ImgTile<PX>::group, true, \
+         true, ImgTile<PX>::lean).bytes()
+  return px == 1 ? PDT_IMG_LAYOUT(1) : px == 2 ? PDT_IMG_LAYOUT(2) : PDT_IMG_LAYOUT(4);
+#undef PDT_IMG_LAYOUT
 }
 
 dim3 block_for(int W) {
@@ -729,9 +1100,16 @@ dim3 block_for(int W) {
 
 // Raises the kernel's dynamic shared-memory cap to `bytes` when it is above
 // the default 48 KB (every launch: the cap is the function's, and
-// pdt_plane_sweep_kernel_info sets it too).
+// pdt_plane_sweep_kernel_info sets it too); `most_smem` asks for the SM's
+// largest shared-memory carveout (the image-gradient backward's two blocks
+// at W <= 640 need 2 x 112 KB of it).
 template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes) {
+cudaError_t allow_smem(K kernel, size_t bytes, bool most_smem = false) {
+  if (most_smem) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return e;
+  }
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)bytes);
@@ -752,27 +1130,39 @@ int launch_fwd(const float* src, const float* tgt, const float* logits,
   return (int)cudaGetLastError();
 }
 
-template <int PX, bool MIX, bool IMG>
+template <int PX, bool MIX>
 int launch_bwd(const float* src, const float* tgt, const float* logits,
                const float* sigma, const float* shift, const float* mask,
                const float* stats, const float* rgb, const float* g_rgb,
-               const float* g_nll, const float* g_nll_auto, const float* g_disp,
-               float* d_src, float* d_tgt, float* d_logits, float* d_sigma,
+               const float* g_nll, const float* g_disp, float* d_logits, float* d_sigma,
                float* d_shift, int B, int N, int H, int W, float shift_max,
                int with_disp, int vec, cudaStream_t st) {
-  const size_t smem = smem_bytes(1, MIX, N, W, IMG);
-  const cudaError_t e = allow_smem(sweep_bwd_kernel<PX, MIX, IMG>, smem);
+  const size_t smem = smem_bytes(1, MIX, N, W);
+  const cudaError_t e = allow_smem(sweep_bwd_kernel<PX, MIX>, smem);
   if (e != cudaSuccess) return (int)e;
-  sweep_bwd_kernel<PX, MIX, IMG><<<dim3(H, B), block_for(W), smem, st>>>(
+  sweep_bwd_kernel<PX, MIX><<<dim3(H, B), block_for(W), smem, st>>>(
+      src, tgt, logits, sigma, shift, mask, stats, rgb, g_rgb, g_nll, g_disp, d_logits,
+      d_sigma, d_shift, N, H, W, shift_max, with_disp, vec);
+  return (int)cudaGetLastError();
+}
+
+template <int PX>
+int launch_bwd_img(const float* src, const float* tgt, const float* logits,
+                   const float* sigma, const float* shift, const float* mask,
+                   const float* stats, const float* rgb, const float* g_rgb,
+                   const float* g_nll, const float* g_nll_auto, const float* g_disp,
+                   float* d_src, float* d_tgt, float* d_logits, float* d_sigma,
+                   float* d_shift, int B, int N, int H, int W, float shift_max,
+                   int with_disp, int vec, cudaStream_t st) {
+  const size_t smem = smem_bytes(1, 1, N, W, 1);
+  const cudaError_t e = allow_smem(sweep_bwd_img_kernel<PX>, smem, true);
+  if (e != cudaSuccess) return (int)e;
+  sweep_bwd_img_kernel<PX><<<dim3(H, B), block_for(W), smem, st>>>(
       src, tgt, logits, sigma, shift, mask, stats, rgb, g_rgb, g_nll, g_nll_auto,
       g_disp, d_src, d_tgt, d_logits, d_sigma, d_shift, N, H, W, shift_max, with_disp,
       vec);
   return (int)cudaGetLastError();
 }
-
-// The widest row the image-gradient backward takes: its staged rows of
-// 2 pixels a thread (W <= 1280) fit a block, those of 4 do not.
-constexpr int kMaxImgW = 1280;
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
@@ -826,10 +1216,9 @@ extern "C" int pdt_plane_sweep_bwd(const float* src, const float* tgt,
   const int vec = W % 4 == 0 && aligned16(logits) && (!with_mixture || aligned16(sigma));
   const int px = pixels_per_thread(W);
   cudaStream_t st = (cudaStream_t)stream;
-#define PDT_BWD(P, MIX)                                                            \
-  launch_bwd<P, MIX, false>(src, tgt, logits, sigma, shift, mask, stats, rgb, g_rgb, \
-                            g_nll, nullptr, g_disp, nullptr, nullptr, d_logits,     \
-                            d_sigma, d_shift, B, N, H, W, shift_max, with_disp, vec, st)
+#define PDT_BWD(P, MIX)                                                              \
+  launch_bwd<P, MIX>(src, tgt, logits, sigma, shift, mask, stats, rgb, g_rgb, g_nll, g_disp, \
+                     d_logits, d_sigma, d_shift, B, N, H, W, shift_max, with_disp, vec, st)
   if (with_mixture)
     return px == 1 ? PDT_BWD(1, true) : px == 2 ? PDT_BWD(2, true) : PDT_BWD(4, true);
   return px == 1 ? PDT_BWD(1, false) : px == 2 ? PDT_BWD(2, false) : PDT_BWD(4, false);
@@ -839,7 +1228,7 @@ extern "C" int pdt_plane_sweep_bwd(const float* src, const float* tgt,
 // pdt_plane_sweep_bwd's image-gradient mode (the mixture, with the
 // forward's automask NLL): the same head gradients, and d_src, d_tgt
 // (B, 3, H, W), each element written once, from the cotangents g_rgb,
-// g_nll, g_nll_auto (B, H, W) and g_disp.  W <= 1280.
+// g_nll, g_nll_auto (B, H, W) and g_disp.  W <= 2048, as the forward.
 extern "C" int pdt_plane_sweep_bwd_img(const float* src, const float* tgt,
                                        const float* logits, const float* sigma,
                                        const float* shift, const float* mask,
@@ -850,14 +1239,16 @@ extern "C" int pdt_plane_sweep_bwd_img(const float* src, const float* tgt,
                                        float* d_sigma, float* d_shift, int B, int N,
                                        int H, int W, float shift_max, int with_disp,
                                        void* stream) {
-  if (W < 1 || W > kMaxImgW || N < 1) return (int)cudaErrorInvalidValue;
+  if (W < 1 || W > kMaxW || N < 1 || (long long)N * H * W > INT_MAX)
+    return (int)cudaErrorInvalidValue;
   const int vec = W % 4 == 0 && aligned16(logits) && aligned16(sigma);
+  const int px = pixels_per_thread(W);
   cudaStream_t st = (cudaStream_t)stream;
-#define PDT_BWD_IMG(P)                                                             \
-  launch_bwd<P, true, true>(src, tgt, logits, sigma, shift, mask, stats, rgb, g_rgb, \
-                            g_nll, g_nll_auto, g_disp, d_src, d_tgt, d_logits,      \
-                            d_sigma, d_shift, B, N, H, W, shift_max, with_disp, vec, st)
-  return pixels_per_thread(W) == 1 ? PDT_BWD_IMG(1) : PDT_BWD_IMG(2);
+#define PDT_BWD_IMG(P)                                                              \
+  launch_bwd_img<P>(src, tgt, logits, sigma, shift, mask, stats, rgb, g_rgb, g_nll,     \
+                    g_nll_auto, g_disp, d_src, d_tgt, d_logits, d_sigma, d_shift, B, N, \
+                    H, W, shift_max, with_disp, vec, st)
+  return px == 1 ? PDT_BWD_IMG(1) : px == 2 ? PDT_BWD_IMG(2) : PDT_BWD_IMG(4);
 #undef PDT_BWD_IMG
 }
 
@@ -873,25 +1264,26 @@ extern "C" long long pdt_plane_sweep_smem_bytes(int backward, int with_mixture,
 
 // What the compiler and the occupancy calculator say of the kernel instance
 // a launch at (N, W) takes (image_grads 1: the backward's image-gradient
-// instance, with the mixture, W <= 1280): out[0] registers a thread, out[1]
+// instance, with the mixture): out[0] registers a thread, out[1]
 // local (spill) bytes a thread, out[2] threads a block, out[3] resident
 // blocks an SM, out[4] dynamic shared memory in bytes.  Returns a CUDA error
 // code.
 extern "C" int pdt_plane_sweep_kernel_info(int backward, int with_mixture,
                                            int image_grads, int N, int W, int* out) {
   const int img = backward && image_grads;
-  if (W < 1 || W > (img ? kMaxImgW : kMaxW) || (img && !with_mixture))
+  if (W < 1 || W > kMaxW || (img && !with_mixture))
     return (int)cudaErrorInvalidValue;
   const void* fn;
   const int px = pixels_per_thread(W);
 #define PDT_PICK(P)                                                                \
-  fn = backward ? (with_mixture ? (const void*)sweep_bwd_kernel<P, true, false>    \
-                                : (const void*)sweep_bwd_kernel<P, false, false>)  \
+  fn = backward ? (with_mixture ? (const void*)sweep_bwd_kernel<P, true>           \
+                                : (const void*)sweep_bwd_kernel<P, false>)         \
                 : (with_mixture ? (const void*)sweep_fwd_kernel<P, true>           \
                                 : (const void*)sweep_fwd_kernel<P, false>)
   if (img)
-    fn = px == 1 ? (const void*)sweep_bwd_kernel<1, true, true>
-                 : (const void*)sweep_bwd_kernel<2, true, true>;
+    fn = px == 1   ? (const void*)sweep_bwd_img_kernel<1>
+         : px == 2 ? (const void*)sweep_bwd_img_kernel<2>
+                   : (const void*)sweep_bwd_img_kernel<4>;
   else if (px == 1) PDT_PICK(1);
   else if (px == 2) PDT_PICK(2);
   else PDT_PICK(4);
@@ -900,7 +1292,7 @@ extern "C" int pdt_plane_sweep_kernel_info(int backward, int with_mixture,
   cudaError_t e = cudaFuncGetAttributes(&attr, fn);
   if (e != cudaSuccess) return (int)e;
   const size_t smem = smem_bytes(backward, with_mixture, N, W, img);
-  e = allow_smem(fn, smem);
+  e = allow_smem(fn, smem, img);
   if (e != cudaSuccess) return (int)e;
   const int threads = (int)block_for(W).x;
   int blocks = 0;

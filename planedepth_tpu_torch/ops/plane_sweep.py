@@ -19,14 +19,15 @@ softmax expectation over the masked centre logits (``oracle_softmax``).
 ``plane_sweep.bwd_launches`` count the mixture mode's launches,
 ``nomix_fwd_launches`` and ``nomix_bwd_launches`` the no-mixture mode's)
 and takes ``plane_sweep_plain``, differentiated by autograd, on CPU
-tensors.  When ``src`` or ``tgt`` requires grad, the mixture mode with the
-automask runs the backward's image-gradient instance, which also writes
-``d_src`` and ``d_tgt`` (the TPU backward's ``image_grads=True``, the JAX
-default; ``plane_sweep.img_bwd_launches`` counts it; no training recipe
-differentiates the images).  On CUDA the image gradients need the
-automask (JAX asserts it: ``ValueError``), and the no-mixture mode has
-none (``NotImplementedError``: ``fused_plane_sweep_nomix`` returns zero
-image cotangents); the CPU path differentiates the images in every mode.
+tensors.  Where ``src`` or ``tgt`` requires grad, the image-gradient rules
+of the JAX package hold on every device, decided before the device is:
+the mixture mode with the automask differentiates the images (the TPU
+backward's ``image_grads=True``, the JAX default; on CUDA the backward's
+image-gradient instance, counted by ``plane_sweep.img_bwd_launches``; no
+training recipe differentiates the images); the mixture mode without the
+automask raises ``ValueError`` (JAX asserts it); the no-mixture mode gives
+the images no cotangent (``fused_plane_sweep_nomix`` returns zeros): the
+CPU path detaches them, the CUDA path runs its head-only backward.
 The automask NLL treats pi and sigma as constants, as the reference does;
 its cotangent reaches only the images.
 """
@@ -144,6 +145,9 @@ def _check(src, tgt, logits, sigma, shift, mask, image_grads=False):
             raise ValueError(f"{name} on {t.device}, logits on {logits.device}")
         if t.dtype != torch.float32:
             raise TypeError(f"{name}: dtype {t.dtype}, the kernels take float32")
+    if image_grads and N * H * W >= 2**31:
+        raise ValueError(f"(N, H, W) = ({N}, {H}, {W}): the image-gradient backward "
+                         "addresses an image's planes with 32-bit offsets")
     lib = load_library()
     mix = int(sigma is not None)
     need = [lib.pdt_plane_sweep_smem_bytes(bwd, mix, int(image_grads), N, W)
@@ -225,23 +229,22 @@ def plane_sweep(src, tgt, logits, sigma, shift, mask, pad: int,
 
     CPU tensors take :func:`plane_sweep_plain`.  CUDA tensors run the
     forward kernel, and the backward kernel when autograd reaches it, of
-    the mode ``sigma`` selects; with images that require grad the
-    backward's image-gradient instance, which needs the mixture and the
-    automask.  Any other device raises.
+    the mode ``sigma`` selects; with images that require grad, the
+    mixture's backward image-gradient instance, which needs the automask
+    (``ValueError`` without it, on every device), while the no-mixture
+    mode leaves the images without a cotangent.  Any other device raises.
     """
     _check_mode(sigma, with_auto)
+    image_grads = torch.is_grad_enabled() and (src.requires_grad or tgt.requires_grad)
+    if image_grads and sigma is not None and not with_auto:
+        raise ValueError("plane_sweep: image gradients need the automask adjoint "
+                         "(with_auto=True), as the JAX kernel asserts")
+    if sigma is None:
+        # fused_plane_sweep_nomix returns zero cotangents for the images
+        src, tgt, image_grads = src.detach(), tgt.detach(), False
     if logits.device.type == "cpu":
         return plane_sweep_plain(src, tgt, logits, sigma, shift, mask, pad,
                                  with_auto, with_disp)
-    image_grads = torch.is_grad_enabled() and (src.requires_grad or tgt.requires_grad)
-    if image_grads and sigma is None:
-        raise NotImplementedError(
-            "plane_sweep: the no-mixture sweep has no image-gradient mode (the JAX "
-            "fused_plane_sweep_nomix returns zero cotangents for src and tgt); detach "
-            "the images")
-    if image_grads and not with_auto:
-        raise ValueError("plane_sweep: image gradients need the automask adjoint "
-                         "(with_auto=True), as the JAX kernel asserts")
     if logits.device.type != "cuda":
         raise NotImplementedError(f"plane_sweep: no kernel for {logits.device}")
     with torch.cuda.device(logits.device):

@@ -23,8 +23,25 @@ it is timed alone (on buffers zeroed once) and with the zeroing that its
 wrapper runs.  The two libraries' outputs are held to each other (forward
 at rtol = atol = 1e-5, gradients to 1e-4 of their largest magnitude); two
 backward runs of this tree's sweep and disp-head kernels must be
-bit-identical (the warp's repeat is reported).  Prints one JSON object,
-also written to ``--out``, with the card's name and power limit.
+bit-identical (the warp's repeat is reported).
+
+The sweep backward's image-gradient instance (``pdt_plane_sweep_bwd_img``)
+is timed the same way at stage 1's and stage 3's shapes and at (2, 63, 96,
+2048), on ``chip_smoke.py:time_sweep_img``'s inputs, this tree's forward
+with the automask and the centre disparity and seeded cotangents on every
+output, beside this tree's head-only backward on the same operands; an
+other checkout whose ``pdt_plane_sweep_kernel_info`` refuses the width (an
+earlier kernel took W <= 1280 only) is reported as refusing it, and any
+other failure stops the run.  Its d_src, d_tgt and head gradients are held
+to the other's (1e-4 of their largest magnitude), its head gradients must
+equal the head-only instance's bit for bit and its repeat run its first.
+Both image-gradient backwards are also held to the plain version's
+autograd on ``chip_smoke.py:phase_sweep_img``'s cases (the same inputs and
+cotangents), each gradient's max error over its largest magnitude side by
+side.  Last, ``cuobjdump -sass`` of both libraries' plane-sweep kernels:
+each instance's instruction count, and whether its instructions are the
+other's but for constant-bank offsets (the parameter lists differ).  Prints one JSON object, also written to ``--out``, with the card's
+name and power limit.
 """
 from __future__ import annotations
 
@@ -32,6 +49,7 @@ import argparse
 import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -44,7 +62,7 @@ sys.path.insert(0, str(REPO))
 import chip_smoke as cs                                   # noqa: E402
 from planedepth_tpu_torch.config import stage1_config     # noqa: E402
 from planedepth_tpu_torch.ops import _build               # noqa: E402
-from planedepth_tpu_torch.ops.plane_sweep import shift_max  # noqa: E402
+from planedepth_tpu_torch.ops.plane_sweep import plane_sweep_plain, shift_max  # noqa: E402
 from planedepth_tpu_torch.train.step import sweep_pad     # noqa: E402
 
 # (name, shape, mixture, with_disp): the main paths' calls
@@ -55,6 +73,10 @@ CASES = (("stage1 mixture", cs.SWEEP_SHAPE, True, True),
 # zoom whose taps cross far into the neighbouring blocks' bands
 WARP_CASES = (("warp2d_bwd sigma", True, 30.0), ("warp2d_bwd nosigma", False, 30.0),
               ("warp2d_bwd sigma zoom 200", True, 200.0))
+# the image-gradient backward: stage 1, stage 3, and a row wider than 1280
+IMG_CASES = (("img_bwd stage1", cs.SWEEP_SHAPE), ("img_bwd stage3", cs.SHIFT_SHAPE),
+             ("img_bwd wide", (2, 63, 96, 2048)))
+IMG_NAMES = ("d_src", "d_tgt", "d_logits", "d_sigma", "d_shift")
 
 
 def build_other(checkout: Path) -> dict:
@@ -82,9 +104,12 @@ def build_other(checkout: Path) -> dict:
     lib.pdt_plane_sweep_fwd.restype = i
     lib.pdt_plane_sweep_bwd.argtypes = [p] * 14 + [i, i, i, i, f, i, i, p]
     lib.pdt_plane_sweep_bwd.restype = i
-    lib = libs["warp2d"]
-    lib.pdt_warp2d_bwd.argtypes = [p] * 13 + [i] * 5 + [p]
-    lib.pdt_warp2d_bwd.restype = i
+    lib.pdt_plane_sweep_bwd_img.argtypes = [p] * 17 + [i, i, i, i, f, i, p]
+    lib.pdt_plane_sweep_bwd_img.restype = i
+    lib.pdt_plane_sweep_kernel_info.argtypes = [i, i, i, i, i, p]
+    lib.pdt_plane_sweep_kernel_info.restype = i
+    libs["warp2d"].pdt_warp2d_bwd.argtypes = [p] * 13 + [i] * 5 + [p]
+    libs["warp2d"].pdt_warp2d_bwd.restype = i
     lib = libs["disp_head"]
     scratch = hasattr(lib, "pdt_disp_head_bwd_scratch_floats")
     lib.pdt_disp_head_bwd.argtypes = [p] * (9 if scratch else 8) + [i] * 4 + [p]
@@ -176,11 +201,11 @@ def rel_diffs(this, other):
             for k, a in this.items() if a is not None}
 
 
-def in_turns(fns):
-    """CUDA-event medians of each of ``fns`` (name -> (turn, fn)), in turns
-    other, this, this, other."""
+def in_turns(fns, order=("other", "this")):
+    """CUDA-event medians of each of ``fns`` (name -> (who, fn)), in turns
+    over ``order`` and back: other, this, this, other."""
     times = {name: [] for name in fns}
-    for turn in ("other", "this", "this", "other"):
+    for turn in (*order, *reversed(order)):
         for name, (who, fn) in fns.items():
             if who == turn:
                 times[name].append(cs.cuda_ms(fn, warmup=3, reps=20))
@@ -238,6 +263,119 @@ def run_warp(libs, shape, with_sigma, zoom, dev):
             "grad_max_rel_diff": grad_rel, "bwd_repeat_bit_identical": repeat_identical}
 
 
+def sweep_info(lib, N, W, image_grads):
+    """``pdt_plane_sweep_kernel_info`` of ``lib``'s mixture backward (its
+    image-gradient instance with ``image_grads``), None where it refuses."""
+    out = (ctypes.c_int * 5)()
+    if lib.pdt_plane_sweep_kernel_info(1, 1, int(image_grads), N, W, out) != 0:
+        return None
+    return dict(zip(("registers", "spill_bytes", "threads", "blocks_per_sm", "smem_bytes"),
+                    out))
+
+
+def sweep_fwd_stats(this, src, tgt, logits, sigma, shift, mask, with_disp, limit):
+    """This tree's mixture forward with the automask: (rgb, nll, nll_auto,
+    disp or None, stats)."""
+    B, N, H, W = logits.shape
+    new = lambda *size: torch.empty(size, device=logits.device)
+    outs = (new(B, 3, H, W), new(B, H, W), new(B, H, W), new(B, H, W) if with_disp else None,
+            new(B, 7 if with_disp else 4, H, W))
+    call(this, "pdt_plane_sweep_fwd", src, tgt, logits, sigma, shift, mask, *outs,
+         B, N, H, W, limit, 1, int(with_disp), 1)
+    return outs
+
+
+def run_img(libs, shape, limit, dev):
+    """The image-gradient backward of each of ``libs`` (name -> library, in
+    turn order; "this" among them) that takes the width, and this tree's
+    head-only backward at ``shape``, on ``chip_smoke.py:time_sweep_img``'s
+    operands."""
+    src, tgt, logits, sigma, shift, mask = (t.detach() for t in
+                                            cs.image_grad_inputs(shape, 2, dev))
+    B, N, H, W = shape
+    this = libs["this"]
+    rgb, nll, nll_auto, disp, stats = sweep_fwd_stats(this, src, tgt, logits, sigma, shift,
+                                                      mask, True, limit)
+    g = torch.Generator(device=dev).manual_seed(3)
+    g_rgb, g_nll, g_auto, g_disp = (torch.randn(x.shape, generator=g, device=dev)
+                                    for x in (rgb, nll, nll_auto, disp))
+    common = (src, tgt, logits, sigma, shift, mask, stats, rgb, g_rgb, g_nll)
+    info = {who: sweep_info(lib, N, W, True) for who, lib in libs.items()}
+    if info["this"] is None:
+        raise AssertionError(f"this tree's image-gradient backward refuses {shape}")
+    res = {}
+    for who, lib in libs.items():
+        if info[who] is None:
+            continue
+        d = {k: torch.empty_like(x) for k, x in zip(IMG_NAMES, (src, tgt, logits, sigma, shift))}
+        fn = lambda lib=lib, d=d: call(lib, "pdt_plane_sweep_bwd_img", *common, g_auto,
+                                       g_disp, *d.values(), B, N, H, W, limit, 1)
+        fn()
+        torch.cuda.synchronize(dev)
+        res[who] = dict(fn=fn, d=d, first={k: v.clone() for k, v in d.items()})
+    heads = {k: torch.empty_like(x) for k, x in zip(IMG_NAMES[2:], (logits, sigma, shift))}
+    head_only = lambda: call(this, "pdt_plane_sweep_bwd", *common, g_disp, *heads.values(),
+                             B, N, H, W, limit, 1, 1)
+    head_only()
+    mine = res["this"]
+    mine["fn"]()
+    torch.cuda.synchronize(dev)
+    repeat = all(torch.equal(mine["first"][k], v) for k, v in mine["d"].items())
+    heads_identical = all(torch.equal(mine["first"][k], v) for k, v in heads.items())
+    grad_rel = {who: rel_diffs(mine["first"], r["first"]) for who, r in res.items()
+                if who != "this"}
+    worst = max((max(v.values()) for v in grad_rel.values()), default=0.0)
+    if worst > 1e-4 or not repeat or not heads_identical:
+        raise AssertionError(f"image-gradient backward {shape}: grads {grad_rel}, repeat "
+                             f"bit-identical {repeat}, heads as the head-only instance's "
+                             f"{heads_identical}")
+    fns = {f"{who}_ms": (who, r["fn"]) for who, r in res.items()}
+    fns["head_only_ms"] = ("this", head_only)
+    times = in_turns(fns, tuple(res))
+    row = B * H * W * 4
+    inputs = [src, tgt, logits, sigma, shift, mask]
+    moved = cs.sweep_bounds(inputs)[1][0] + row + cs.nbytes(src, tgt)
+    return {"shape": list(shape), "ms": times,
+            "refused": [who for who, i in info.items() if i is None],
+            "bound_ms": cs.bound(moved, 120 * logits.numel())[0], "bytes": moved,
+            "mufu_floor_ms": cs.mufu_floor_ms(logits.numel(),
+                                              cs.sweep_mufu(True, True, "bwd", True)),
+            "kernel_info": info, "head_only_kernel_info": sweep_info(this, N, W, False),
+            "grad_max_rel_diff": grad_rel, "bwd_repeat_bit_identical": repeat,
+            "head_grads_bit_identical": heads_identical}
+
+
+def img_twin_errors(libs, shape, seed, ct_seed, with_disp, pad, dev):
+    """Each of ``libs``' image-gradient backward against the plain
+    version's autograd on one of phase 5b's cases (its inputs, and its
+    cotangents on every output, as ``chip_smoke.py:Held`` seeds them), on
+    this tree's forward statistics: each gradient's max abs error over its
+    largest magnitude; None for a library that refuses the width."""
+    inputs = cs.image_grad_inputs(shape, seed, dev)
+    outs = plane_sweep_plain(*inputs, pad, True, with_disp)
+    g = torch.Generator(device=dev).manual_seed(ct_seed)
+    cts = [torch.randn(o.shape, generator=g, device=dev) for o in outs]
+    want = dict(zip(IMG_NAMES, torch.autograd.grad(outs, inputs[:5], cts)))
+    del outs
+    ops = [t.detach() for t in inputs]
+    B, N, H, W = shape
+    limit = shift_max(pad)
+    rgb, _, _, _, stats = sweep_fwd_stats(libs["this"], *ops, with_disp, limit)
+    g_disp = cts[3] if with_disp else None
+    errs = {}
+    for who, lib in libs.items():
+        if sweep_info(lib, N, W, True) is None:
+            errs[who] = None
+            continue
+        # the twin's gradients may be strided: the kernel writes contiguous ones
+        d = {k: torch.empty_like(x) for k, x in zip(IMG_NAMES, ops[:5])}
+        call(lib, "pdt_plane_sweep_bwd_img", *ops, stats, rgb, *cts[:3], g_disp, *d.values(),
+             B, N, H, W, limit, int(with_disp))
+        torch.cuda.synchronize(dev)
+        errs[who] = rel_diffs(d, want)
+    return errs
+
+
 def run_disp(libs, shape, dev):
     """The disp-head backward of both libraries at ``shape``."""
     logits, sigma, rows, mask = cs.seeded_head_inputs(shape, 3, dev)
@@ -277,6 +415,41 @@ def run_disp(libs, shape, dev):
             "grad_max_rel_diff": grad_rel, "bwd_repeat_bit_identical": identical}
 
 
+def sweep_sass(lib_path) -> dict:
+    """The plane-sweep kernels of a library as ``cuobjdump -sass`` prints
+    them: "fwd|bwd|bwd_img<PX,MIX>" -> instruction texts, constant-bank
+    offsets blanked.  An earlier source's sweep_bwd_kernel<PX, MIX, IMG>
+    holds both backwards."""
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(tool), "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True).stdout
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            m = re.search(r"sweep_(fwd|bwd|bwd_img)_kernelI((?:L[ib]\d+E)+)E", line)
+            cur = None
+            if m:
+                args = [int(a) for a in re.findall(r"L[ib](\d+)E", m.group(2))]
+                kind = ("bwd_img" if m.group(1) == "bwd_img" or args[2:] == [1]
+                        else m.group(1))
+                cur = f"{kind}<{args[0]},{args[1] if len(args) > 1 else 1}>"
+                funcs[cur] = []
+            continue
+        ins = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)
+        if cur and ins:
+            funcs[cur].append(re.sub(r"c\[0x0\]\[0x[0-9a-f]+\]", "c[0x0][.]", ins.group(1)))
+    return funcs
+
+
+def compare_sass(this_path, other_path) -> dict:
+    """Each plane-sweep kernel instance of either library: its instruction
+    counts and whether the two are the same but for constant-bank offsets."""
+    this, other = sweep_sass(this_path), sweep_sass(other_path)
+    return {k: {"this": len(this.get(k, ())), "other": len(other.get(k, ())),
+                "same": this.get(k) == other.get(k)}
+            for k in sorted(set(this) | set(other))}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", required=True, type=Path)
@@ -288,8 +461,10 @@ def main():
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[0]
     dev = torch.device("cuda")
-    this, other = _build.load_library(), build_other(args.other)
-    limit = shift_max(sweep_pad(stage1_config()))
+    this = _build.load_library()
+    other = build_other(args.other)
+    pad = sweep_pad(stage1_config())
+    limit = shift_max(pad)
     cases = {name: run_case({"this": this, "other": other["sweep"]}, shape, mix, with_disp,
                             limit, dev)
              for name, shape, mix, with_disp in CASES}
@@ -299,21 +474,40 @@ def main():
         torch.cuda.empty_cache()
     cases["disp_head_bwd"] = run_disp({"this": this, "other": other["disp_head"]},
                                       cs.SWEEP_SHAPE, dev)
-    report = {"card": card, "other": str(args.other), "cases": cases}
+    img_libs = {"other": other["sweep"], "this": this}
+    for name, shape in IMG_CASES:
+        cases[name] = run_img(img_libs, shape, limit, dev)
+        torch.cuda.empty_cache()
+    held = []
+    for shape, seed, ct_seed, with_disp in cs.SWEEP_IMG_HELD:
+        held.append({"shape": list(shape), "with_disp": with_disp,
+                     "rel_err": img_twin_errors(img_libs, shape, seed, ct_seed, with_disp,
+                                                pad, dev)})
+        torch.cuda.empty_cache()
+    sass = compare_sass(_build.library_path(),
+                        REPO / "build" / "compare_sweep" / "libother_plane_sweep.so")
+    report = {"card": card, "other": str(args.other), "cases": cases,
+              "img_bwd_vs_plain": held, "sass": sass}
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(report, f, indent=1)
     for name, c in cases.items():
         t = c["ms"]
         if "this_fwd" not in t:
+            refused = (f"; refused by {json.dumps(c['refused'])}" if c.get("refused") else "")
             print(f"[compare] {name} {tuple(c['shape'])}: {json.dumps(t)} (bound "
-                  f"{c['bound_ms']:.4f} ms; {json.dumps(c['kernel_info'])}) | {card}")
+                  f"{c['bound_ms']:.4f} ms; {json.dumps(c['kernel_info'])}{refused}) | {card}")
             continue
         print(f"[compare] {name} {tuple(c['shape'])}: forward this {t['this_fwd']} other "
               f"{t['other_fwd']} ms (bound {c['bound_ms']['fwd']:.4f}, MUFU floor "
               f"{c['mufu_floor_ms']['fwd']:.4f}); backward this {t['this_bwd']} other "
               f"{t['other_bwd']} ms (bound {c['bound_ms']['bwd']:.4f}, MUFU floor "
               f"{c['mufu_floor_ms']['bwd']:.4f}) | {card}")
+    for h in held:
+        print(f"[compare] img_bwd vs plain {tuple(h['shape'])} disp={h['with_disp']}: "
+              f"{json.dumps(h['rel_err'])} | {card}")
+    print(f"[compare] SASS, instructions this/other and the same but for constant-bank "
+          f"offsets: {json.dumps(sass)}")
     print(json.dumps(report))
 
 

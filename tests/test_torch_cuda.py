@@ -177,22 +177,25 @@ def test_plane_sweep_backward_is_deterministic(cuda, mixture):
         plane_sweep(*wide, 328, False, True)
 
 
-# the image-gradient backward: one and two pixels a thread (W up to 640,
-# 1280), N odd and 63, W not a multiple of 4 and below one warp
+# the image-gradient backward: one, two and four pixels a thread (W up to
+# 640, 1280, 2048), N odd and 63, W not a multiple of 4 and below one warp
 @pytest.mark.parametrize("shape,with_disp", [((2, 6, 8, 64), True),
                                              ((1, 63, 3, 640), True),
                                              ((1, 14, 3, 1280), False),
                                              ((1, 5, 3, 100), True),
                                              ((2, 7, 3, 37), False),
-                                             ((1, 3, 4, 18), True)])
+                                             ((1, 3, 4, 18), True),
+                                             ((1, 9, 3, 1281), True),
+                                             ((1, 9, 3, 1501), False),
+                                             ((1, 63, 2, 2048), True)])
 def test_plane_sweep_image_gradients_match_plain(cuda, shape, with_disp):
     """With src and tgt requiring grad the mixture sweep with the automask
     runs the backward's image-gradient instance: d_src, d_tgt, d_logits,
     d_sigma and d_shift at 1e-4 of each gradient's largest magnitude
     against the twin's autograd, with seeded cotangents on every output
     (nll_auto's included); its head gradients equal the head-only
-    instance's on the same cotangents.  Rows wider than 1280 do not fit
-    its staged rows and raise."""
+    instance's bit for bit on the same cotangents, and a second backward
+    run repeats the first bit for bit.  Every W the forward takes runs."""
     inputs = sweep_inputs(shape, sum(shape) + 1, cuda)
     for t in inputs[:2]:
         t.requires_grad_()
@@ -213,39 +216,46 @@ def test_plane_sweep_image_gradients_match_plain(cuda, shape, with_disp):
     d_heads = torch.autograd.grad(
         [o for o in outs if o.requires_grad],
         heads[2:5], [c for o, c in zip(outs, cts) if o.requires_grad])
-    for a, b in zip(d_got[2:], d_heads):
-        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6 * float(b.abs().max()))
-    wide = sweep_inputs((1, 3, 2, 1501), 3, cuda)
-    wide[0].requires_grad_()
-    with pytest.raises(ValueError, match="shared memory"):
-        plane_sweep(*wide, 328, True, True)
+    assert all(torch.equal(a, b) for a, b in zip(d_got[2:], d_heads))
+    outs = plane_sweep(*inputs, 328, True, with_disp)
+    first = torch.autograd.grad(outs, wrt, cts, retain_graph=True)
+    assert all(torch.equal(a, b) for a, b in zip(first, torch.autograd.grad(outs, wrt, cts)))
 
 
 @pytest.mark.parametrize("image", ["src", "tgt"])
 @pytest.mark.parametrize("mixture", [True, False])
 def test_plane_sweep_refuses_image_gradients(cuda, image, mixture):
-    """Where the JAX package has no image-gradient mode the CUDA path raises
-    before any launch: the mixture without the automask (JAX asserts it)
-    and the no-mixture sweep (its JAX backward returns zero image
-    cotangents); the CPU path differentiates the image; under no_grad
-    nothing is lost."""
+    """The image-gradient rules of the JAX package on the card and on the
+    CPU alike: the mixture without the automask raises before any launch
+    (JAX asserts it); the no-mixture sweep runs its head-only backward once
+    and gives the image no cotangent (its JAX backward returns zeros);
+    under no_grad nothing is refused."""
     inputs = sweep_inputs((1, 5, 3, 100), 7, cuda)
     if not mixture:
         inputs[3] = None
-    inputs[("src", "tgt").index(image)].requires_grad_()
-    launches = (plane_sweep.fwd_launches, plane_sweep.nomix_fwd_launches)
-    with pytest.raises(ValueError if mixture else NotImplementedError,
-                       match="with_auto=True" if mixture else "no image-gradient mode"):
-        plane_sweep(*inputs, 16, False, True)
-    assert (plane_sweep.fwd_launches, plane_sweep.nomix_fwd_launches) == launches
-    with torch.no_grad():
-        plane_sweep(*inputs, 16, False, True)
+    idx = ("src", "tgt").index(image)
+    inputs[idx].requires_grad_()
     cpu = [None if t is None else t.detach().cpu().requires_grad_(t.requires_grad)
            for t in inputs]
-    outs = plane_sweep(*cpu, 16, False, True)
-    grad = torch.autograd.grad(sum(o.sum() for o in outs),
-                               cpu[("src", "tgt").index(image)])[0]
-    assert grad.abs().sum() > 0
+    counts = lambda: (plane_sweep.fwd_launches, plane_sweep.nomix_fwd_launches,
+                      plane_sweep.bwd_launches, plane_sweep.nomix_bwd_launches,
+                      plane_sweep.img_bwd_launches)
+    before = counts()
+    if mixture:
+        for args in (inputs, cpu):
+            with pytest.raises(ValueError, match="with_auto=True"):
+                plane_sweep(*args, 16, False, True)
+        assert counts() == before
+    else:
+        for args in (inputs, cpu):
+            outs = plane_sweep(*args, 16, False, True)
+            grads = torch.autograd.grad(sum(o.sum() for o in outs), (args[idx], args[2]),
+                                        allow_unused=True, materialize_grads=True)
+            assert not grads[0].any() and grads[1].any()
+        torch.cuda.synchronize()
+        assert counts() == (before[0], before[1] + 1, before[2], before[3] + 1, before[4])
+    with torch.no_grad():
+        plane_sweep(*inputs, 16, False, True)
 
 def test_train_step_on_cuda_matches_cpu(cuda):
     """One stage-1-style step (DenseASPP dropout included: both draw their

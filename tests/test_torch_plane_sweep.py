@@ -111,7 +111,9 @@ def test_plain_grads_match_jax_vjp(data, with_auto):
     _, vjp = jax.vjp(jax_f, *(jnp.asarray(a) for a in (logits, sigma, shift)))
     want = vjp(tuple(jnp.asarray(c) for c in cts))
 
-    s, t, lg, sg, sh, m = _torch(data, grad=True)
+    # the images without grad, as the JAX side (image_grads=False) takes them
+    s, t, m = _torch((src, tgt, mask))
+    lg, sg, sh = _torch((logits, sigma, shift), grad=True)
     outs = plane_sweep(s, t, lg, sg, sh, m, PAD, with_auto, True)
     got = torch.autograd.grad(
         sum((o * torch.from_numpy(c)).sum() for o, c in zip(outs, cts)), (lg, sg, sh))
