@@ -1,4 +1,4 @@
-"""Drive the PyTorch/CUDA port's inference path, stage-1 step, stage-2 -> stage-3 trainer, mono trainer, FalNet and PladeNet trainers, no-mixture recipes, KITTI entry points, the render_probability, yz-plane and alpha_self recipes, the sweep's image gradients and the oracle view synthesis on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's inference path, stage-1 step, stage-2 -> stage-3 trainer, mono trainer, FalNet and PladeNet trainers, no-mixture recipes, KITTI entry points, the render_probability, yz-plane and alpha_self recipes, the sweep's image gradients, the oracle view synthesis and every recipe in bf16 on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -161,9 +161,31 @@ Phases, each printing a line:
      losses held to the oracle's at rtol 2e-4; then 2 steps each of
      mono_config with use_mom (the oracle) and of stage 1 with the
      ResNet-18 perceptual net.
+ bf16 (the JAX package's default arithmetic, TrainConfig.bf16):
+  sweep_wide (after 5b): rows wider than one launch (W = 2560, 4096) in
+     column segments: forward, head-only backward and image-gradient
+     backward against the plain version, one launch a segment;
+  sweep_bf16, warp2d_bf16: the bf16 instances of the sweep (both mixture
+     modes, at (8, 63, 192, 640), (4, 63, 384, 1280) and FalNet's 49
+     planes) and of the 2-D warp (with and without sigma, at (8, 63, 192,
+     640) and a small shape with degenerate coordinates) against their
+     plain versions with seeded cotangents: bf16 outputs within one bf16
+     ulp plus the float32 instance's tolerance, float32 outputs at it (the
+     sweep's gradients against the plain version anchored at the kernel's
+     rounded reconstruction, which its backward reads); each kernel alone
+     timed beside its float32 instance, its bound in bf16 bytes;
+  bf16_recipes (last): through the Trainer in bf16, stage 1 (13 steps),
+     stage 2 -> stage 3 with the teacher (2 + 13), mono (13), mono without
+     the mixture, FalNet and PladeNet (2 each), each step held to its bf16
+     launch counts, with ms a step, peak memory and the card's idle share
+     in 3 more steps (torch.profiler) beside the float32 runs of this call,
+     and one step's losses from the same weights held to float32's; the
+     eval forward at 1280x384 on 8 images in bf16 beside float32.
+  The kitti phase runs the CLIs' default, bf16.
 Each phase prints its wall time.  Then one JSON line of the kernels and,
 last, the ok line.  TF32 is off for convolutions and matmuls so that the
-card computes in float32 throughout.
+float32 phases compute in float32 throughout; they pass bf16=False
+(``_float32``).
 """
 from __future__ import annotations
 
@@ -185,16 +207,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from planedepth_tpu_torch.config import (
-    DataConfig,
-    LossConfig,
-    ModelConfig,
-    PlaneConfig,
-    hr_finetune_config,
-    mono_config,
-    self_distillation_config,
-    stage1_config,
-)
+from planedepth_tpu_torch.config import DataConfig, LossConfig, ModelConfig, PlaneConfig
+from planedepth_tpu_torch import config as _config
 from planedepth_tpu_torch.cli import evaluate as cli_evaluate
 from planedepth_tpu_torch.cli import train as cli_train
 from planedepth_tpu_torch.data import native
@@ -213,7 +227,7 @@ from planedepth_tpu_torch.models.depth_decoder import (
     mixture_reweight,
     render_probability_from_logits,
 )
-from planedepth_tpu_torch.models.factory import DepthModel, init_weights_
+from planedepth_tpu_torch.models.factory import DepthModel, build_depth_model, init_weights_
 from planedepth_tpu_torch.ops import _build
 from planedepth_tpu_torch.ops.disp_head import disp_head, disp_head_plain
 from planedepth_tpu_torch.ops.head_epilogue import head_epilogue, head_epilogue_plain
@@ -233,6 +247,18 @@ from planedepth_tpu_torch.train.step import (
 from planedepth_tpu_torch.train import trainer as trainer_module
 from planedepth_tpu_torch.train.trainer import Trainer
 from planedepth_tpu_torch.utils.checkpoint import load_checkpoint
+
+
+def _float32(preset):
+    """``preset`` computing in float32 unless asked for bf16: the float32
+    phases stay float32 (TF32 off), comparable with their earlier records;
+    the bf16 phases pass ``bf16=True``."""
+    return lambda **kw: preset(**{"bf16": False, **kw})
+
+
+stage1_config, hr_finetune_config, self_distillation_config, mono_config = map(
+    _float32, (_config.stage1_config, _config.hr_finetune_config,
+               _config.self_distillation_config, _config.mono_config))
 
 SHAPE = (8, 63, 384, 1280)            # (B, N, H, W): eval batch 4, doubled
 SWEEP_SHAPE = (8, 63, 192, 640)       # stage-1 batch 4, flipped to 8
@@ -276,6 +302,23 @@ KERNELS = {
                            "planedepth_tpu/ops/pallas_warp2d.py:244"),
     "plane_sweep_img_bwd": ("planedepth_tpu_torch/csrc/plane_sweep.cu",
                             "planedepth_tpu/ops/pallas_sweep.py:542"),
+    # bf16, the JAX package's default: the same kernels' bf16 instances
+    "plane_sweep_bf16_fwd": ("planedepth_tpu_torch/csrc/plane_sweep.cu",
+                             "planedepth_tpu/ops/pallas_sweep.py:376"),
+    "plane_sweep_bf16_bwd": ("planedepth_tpu_torch/csrc/plane_sweep.cu",
+                             "planedepth_tpu/ops/pallas_sweep.py:542"),
+    "plane_sweep_nomix_bf16_fwd": ("planedepth_tpu_torch/csrc/plane_sweep.cu",
+                                   "planedepth_tpu/ops/pallas_sweep.py:376"),
+    "plane_sweep_nomix_bf16_bwd": ("planedepth_tpu_torch/csrc/plane_sweep.cu",
+                                   "planedepth_tpu/ops/pallas_sweep.py:542"),
+    "warp2d_bf16_fwd": ("planedepth_tpu_torch/csrc/warp2d.cu",
+                        "planedepth_tpu/ops/pallas_warp2d.py:200"),
+    "warp2d_bf16_bwd": ("planedepth_tpu_torch/csrc/warp2d.cu",
+                        "planedepth_tpu/ops/pallas_warp2d.py:244"),
+    "warp2d_nosigma_bf16_fwd": ("planedepth_tpu_torch/csrc/warp2d.cu",
+                                "planedepth_tpu/ops/pallas_warp2d.py:200"),
+    "warp2d_nosigma_bf16_bwd": ("planedepth_tpu_torch/csrc/warp2d.cu",
+                                "planedepth_tpu/ops/pallas_warp2d.py:244"),
 }
 
 
@@ -508,6 +551,7 @@ def phase_slice(card, data=DataConfig(height=384, width=1280),
           f"predict wall {wall:.2f} s (first call)")
     print(f"[slice] eigen metrics (random weights, shows the path runs): "
           f"{json.dumps(metrics)}")
+    F32_RUNS["eval"] = (fwd_ms, None)
     print(f"[slice] forward {fwd_ms:.2f} ms/batch of 8 images at {height}x{width} "
           f"(CUDA events, 3 warm-up, median of 10, TF32 off for cudnn and "
           f"matmul) | {card}")
@@ -529,6 +573,48 @@ def check_against_cpu(model, dev):
     for key in ("logits", "sigma", "probability", "disp"):
         torch.testing.assert_close(got[key].cpu(), want[key], msg=key, **MODEL_TOL)
     return (got["disp"].cpu() - want["disp"]).abs().max().item()
+
+
+def check_against_cpu_bf16(model, dev):
+    """A bf16 model's card forward against the same weights in bf16 on the
+    CPU, on a small seeded input.  cuDNN's and the CPU's float32 sums tip bf16
+    roundings apart from layer to layer, as far as bf16 stands from float32,
+    so the card's forward must stand no further from the CPU's bf16 forward
+    than the CPU's bf16 forward stands from the float32 forward of the same
+    weights, times a factor, on logits, sigma, probability and disp: twice
+    on average, 2.5 times in the 99.9th percentile of the elements'
+    distances (a localised fault, a wrong row or plane, shows there; 0.87-
+    1.55 times measured on an H100), three times at the largest.  Returns
+    each pair."""
+    batch = make_stereo_batch(2, 64, 192, seed=1)
+    image, grid = mirror_batch(
+        torch.from_numpy(batch["color_l"]).permute(0, 3, 1, 2),
+        torch.from_numpy(batch["grid"]).permute(0, 3, 1, 2))
+    cpu_model = copy.deepcopy(model).cpu()
+    f32 = build_depth_model(model.cfg, bf16=False).eval()
+    f32.load_state_dict(cpu_model.state_dict())
+    with torch.inference_mode():
+        want, ref = cpu_model(image, grid), f32(image, grid)
+        got = model(image.to(dev), grid.to(dev))
+    def tail(err, q):
+        err = err.flatten()
+        return float(err.kthvalue(max(1, int(q * err.numel()))).values)
+
+    out = {}
+    for key in ("logits", "sigma", "probability", "disp"):
+        e_card = (got[key].cpu().float() - want[key].float()).abs()
+        e_bf16 = (want[key].float() - ref[key].float()).abs()
+        d_card, d_bf16 = float(e_card.mean()), float(e_bf16.mean())
+        q_card, q_bf16 = tail(e_card, 0.999), tail(e_bf16, 0.999)
+        m_card, m_bf16 = float(e_card.max()), float(e_bf16.max())
+        if not (d_card <= 2.0 * d_bf16 + 1e-6 and q_card <= 2.5 * q_bf16 + 1e-6
+                and m_card <= 3.0 * m_bf16 + 1e-6):
+            raise AssertionError(f"{key}: the card's bf16 forward from the CPU's (mean, "
+                                 f"99.9th percentile, max) {d_card:.3e} {q_card:.3e} "
+                                 f"{m_card:.3e}, the CPU's from float32 {d_bf16:.3e} "
+                                 f"{q_bf16:.3e} {m_bf16:.3e}")
+        out[key] = (d_card, d_bf16, q_card, q_bf16, m_card, m_bf16)
+    return out
 
 
 def seeded_sweep_inputs(shape, seed, dev):
@@ -895,7 +981,19 @@ COUNTERS = {"disp_head_fwd": (disp_head, "launches"),
             "plane_sweep_nomix_bwd": (plane_sweep, "nomix_bwd_launches"),
             "warp2d_nosigma_fwd": (warp2d, "nosigma_fwd_launches"),
             "warp2d_nosigma_bwd": (warp2d, "nosigma_bwd_launches"),
-            "plane_sweep_img_bwd": (plane_sweep, "img_bwd_launches")}
+            "plane_sweep_img_bwd": (plane_sweep, "img_bwd_launches"),
+            "plane_sweep_bf16_fwd": (plane_sweep, "bf16_fwd_launches"),
+            "plane_sweep_bf16_bwd": (plane_sweep, "bf16_bwd_launches"),
+            "plane_sweep_nomix_bf16_fwd": (plane_sweep, "bf16_nomix_fwd_launches"),
+            "plane_sweep_nomix_bf16_bwd": (plane_sweep, "bf16_nomix_bwd_launches"),
+            "warp2d_bf16_fwd": (warp2d, "bf16_fwd_launches"),
+            "warp2d_bf16_bwd": (warp2d, "bf16_bwd_launches"),
+            "warp2d_nosigma_bf16_fwd": (warp2d, "bf16_nosigma_fwd_launches"),
+            "warp2d_nosigma_bf16_bwd": (warp2d, "bf16_nosigma_bwd_launches")}
+
+# float32 runs of this call (model name -> (ms a step, peak GB allocated)),
+# which the bf16 phase prints beside its own
+F32_RUNS = {}
 
 
 def launch_counts():
@@ -1470,6 +1568,7 @@ def phase_distill(card, dev=torch.device("cuda"), warmup=3, steps=10):
     print(f"[distill] validation metrics {json.dumps(val['metrics'])}")
     print(f"[distill] card vs CPU at 64x192 (stage-3 step, teacher of its own): "
           f"{json.dumps(cpu)}")
+    F32_RUNS["self_distillation"] = (step_ms, peak_gb)
     print(f"[distill] stage-3 step {step_ms:.2f} ms median of {steps} (host clock around "
           f"synchronised steps, after {warmup} warm-up), {b / step_ms * 1e3:.2f} imgs/s "
           f"(student images), peak device memory {peak_gb:.2f} GB allocated, "
@@ -1995,6 +2094,8 @@ def trainer_run(cfg, dev, warmup, steps, per_step, after_val, panels=False):
         memory = memory_by_op(lambda: step_fn(batch), dev)
         del trainer, start, batch
         free_cache()
+    if not cfg.bf16:
+        F32_RUNS[cfg.model_name] = (statistics.median(times[warmup:]) * 1e3, peak_gb)
     return {"cfg": cfg, "launches": launches, "losses": losses, "val": val["metrics"],
             "moved": moved, "saved": saved, "memory": memory, "peak_gb": peak_gb,
             "reserved_gb": reserved_gb, "step_ms": statistics.median(times[warmup:]) * 1e3,
@@ -2553,7 +2654,8 @@ def phase_kitti(card, dev=torch.device("cuda")):
             BatchLoader._make_batch, trainer_module.make_train_step = make_batch, make_step
         cfg = trainer.cfg
         n_steps, n_val = len(KITTI_TRAIN) // cfg.per_step_batch, -(-len(KITTI_VAL) // cfg.per_step_batch)
-        want = with_panels(only(plane_sweep_fwd=n_steps, plane_sweep_bwd=n_steps,
+        # the CLI's default is bf16, as the JAX CLI's: the sweep's bf16 instances
+        want = with_panels(only(plane_sweep_bf16_fwd=n_steps, plane_sweep_bf16_bwd=n_steps,
                                 head_epilogue_fwd=n_steps + n_val, head_epilogue_bwd=n_steps,
                                 disp_head_fwd=n_val),
                            {"disp_head_fwd": 1, "head_epilogue_fwd": 1})
@@ -2622,7 +2724,7 @@ def phase_kitti(card, dev=torch.device("cuda")):
         names = ("abs_rel", "sq_rel", "rmse", "rmse_log", "a1", "a2", "a3")
         if sorted(metrics) != sorted(names) or not all(math.isfinite(v) for v in metrics.values()):
             raise AssertionError(f"evaluate metrics {metrics}")
-        small_err = check_against_cpu(model, dev)
+        small_err = check_against_cpu_bf16(model, dev)
         del model
         free_cache()
     print(f"[kitti] tree: {n_frames} eigen_raw frames (both cameras, a {KITTI_SCAN_POINTS}-point "
@@ -2655,10 +2757,554 @@ def phase_kitti(card, dev=torch.device("cuda")):
           f"doubled to 8, {ecfg.data.width}x{ecfg.data.height}): {n_frames} frames in "
           f"{eval_s:.2f} s = {n_frames / eval_s:.2f} frames/s, prediction alone "
           f"{predict_s[0]:.2f} s = {n_frames / predict_s[0]:.2f} frames/s; launches "
-          f"{eval_launches}; card vs CPU forward at 64x192 max_abs_err {small_err:.3e} | {card}")
+          f"{eval_launches}; bf16 (the CLI's default) card vs CPU forward at 64x192, "
+          f"|card - CPU| beside the CPU's |bf16 - float32|, mean, 99.9th percentile, max: "
+          f"{json.dumps({k: [float(f'{x:.3e}') for x in v] for k, v in small_err.items()})}"
+          f" | {card}")
     print(f"[kitti] eigen_raw metrics (random weights, shows the path runs): "
           f"{json.dumps(metrics)}")
     return {"train": train_launches, "evaluate": eval_launches}
+
+
+# ---------------------------------------------------------------------------
+# bf16, the JAX package's default arithmetic (TrainConfig.bf16): the sweep's
+# and the 2-D warp's bf16 instances, the sweep's column segments (C10), and
+# the recipes in bf16 beside their float32 runs
+# ---------------------------------------------------------------------------
+
+BF16 = torch.bfloat16
+# rows wider than the sweep's widest launch (csrc/plane_sweep.cu:kMaxW), which
+# run in column segments
+WIDE_SHAPES = ((1, 63, 8, 2560), (1, 63, 8, 4096))
+
+
+def bf16_ulp(x):
+    """The spacing of bf16 numbers at |x| (8 significant bits)."""
+    a = x.detach().float().abs().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+def as_bf16(inputs, float_idx):
+    """The operands in bf16 but for the float32 ones at ``float_idx`` (the
+    sweep's shift and mask, the warp's dx, dy and mask), each a fresh leaf
+    that requires grad where the float32 one did."""
+    return [None if t is None else
+            (t.detach() if i in float_idx else t.detach().to(BF16)).requires_grad_(
+                t.requires_grad) for i, t in enumerate(inputs)]
+
+
+class HeldBf16:
+    """The worst errors of a bf16 kernel pair against its plain version:
+    every bf16 output (forward, and the heads' gradients) within one bf16
+    ulp of the plain value plus the float32 instance's tolerance (TOL
+    forward, GRAD_TOL of the gradient's scale), every float32 output at the
+    float32 instance's tolerance; the worst error in ulps of the value and
+    in absolute terms.  ``plain_grad_out``: the plain outputs whose
+    gradients are compared, where they are not ``plain_out`` (the sweep's
+    plain version anchored at the kernel's rounded reconstruction).
+    ``segmented``: the row ran in column segments, whose overlapping bf16
+    gradient windows are added and rounded once more, so a bf16 gradient
+    may be one more ulp of its largest magnitude away."""
+
+    def __init__(self):
+        self.fwd, self.fwd_ulps, self.abs, self.rel, self.ulps = 0.0, 0.0, {}, {}, {}
+
+    def hold(self, kernel_out, plain_out, inputs, diff, names, seed, no_cotangent=(),
+             plain_grad_out=None, segmented=False):
+        for a, b in zip(kernel_out, plain_out):
+            if a.dtype != b.dtype or not bool(torch.isfinite(a).all()):
+                raise AssertionError(f"output {a.dtype} vs plain {b.dtype}, finite "
+                                     f"{bool(torch.isfinite(a).all())}")
+            a, b = a.detach(), b.detach()
+            err = (a.float() - b.float()).abs()
+            tol = TOL["atol"] + TOL["rtol"] * b.float().abs()
+            if a.dtype == BF16:
+                over = err - bf16_ulp(b) - tol
+                # ulps beyond the float32 tolerance: at most 1
+                self.fwd_ulps = max(self.fwd_ulps,
+                                    float(((err - tol).clamp_min(0) / bf16_ulp(b)).max()))
+            else:
+                over = err - tol
+            if float(over.max()) > 0:
+                raise AssertionError(f"{a.dtype} output at {tuple(a.shape)}: over its bound "
+                                     f"by {float(over.max()):.3e}")
+            self.fwd = max(self.fwd, float(err.max()))
+        g = torch.Generator(device=a.device).manual_seed(seed)
+        cts = [torch.randn(o.shape, generator=g, device=o.device).to(o.dtype)
+               for o in kernel_out]
+        for i in no_cotangent:
+            cts[i].zero_()
+        wrt = [inputs[i] for i in diff]
+        live = [i for i, o in enumerate(kernel_out) if o.requires_grad]
+        pick = lambda seq: [seq[i] for i in live]
+        d_got = torch.autograd.grad(pick(kernel_out), wrt, pick(cts))
+        torch.cuda.synchronize()
+        d_want = torch.autograd.grad(pick(plain_out if plain_grad_out is None
+                                          else plain_grad_out), wrt, pick(cts))
+        for name, a, b in zip(names, d_got, d_want):
+            if a.dtype != b.dtype or not bool(torch.isfinite(a).all()):
+                raise AssertionError(f"{name}: {a.dtype} vs {b.dtype}")
+            scale = float(b.float().abs().max())
+            err = (a.float() - b.float()).abs()
+            ulp = bf16_ulp(b) if a.dtype == BF16 else torch.zeros_like(err)
+            if segmented and a.dtype == BF16:
+                ulp = ulp + float(bf16_ulp(torch.tensor(scale)))
+            over = float((err - ulp).max()) - GRAD_TOL * scale
+            if over > 0:
+                raise AssertionError(f"{name} ({a.dtype}) at {tuple(a.shape)}: over one bf16 "
+                                     f"ulp + {GRAD_TOL} x {scale:.3e} by {over:.3e}")
+            self.abs[name] = max(float(err.max()), self.abs.get(name, 0.0))
+            self.rel[name] = max(float(err.max()) / max(scale, 1e-30), self.rel.get(name, 0.0))
+            if a.dtype == BF16:
+                beyond = (err - GRAD_TOL * scale).clamp_min(0) / bf16_ulp(b)
+                self.ulps[name] = max(float(beyond.max()), self.ulps.get(name, 0.0))
+
+    def describe(self):
+        fmt = lambda d: json.dumps({k: float(f"{v:.3e}") for k, v in d.items()})
+        return (f"forward max_abs_err {self.fwd:.3e} (bf16 outputs: worst {self.fwd_ulps:.2f} "
+                f"ulps beyond the float32 tolerance); grads max_abs_err {fmt(self.abs)}, over "
+                f"max |value| {fmt(self.rel)}, bf16 gradients' worst ulps beyond the float32 "
+                f"tolerance {fmt(self.ulps)} (bound: 1)")
+
+
+def sweep_bytes(inputs, with_disp):
+    """Bytes of the sweep forward and backward (``with_auto`` off), each
+    input read once and each output written once, at the operands' own
+    element sizes: the reconstruction and the heads' gradients in their
+    dtype, the NLL, disp, statistics and d_shift float32."""
+    src, tgt, logits, sigma, shift, mask = inputs
+    B, N, H, W = logits.shape
+    row, es = B * H * W * 4, logits.element_size()
+    rows_out = 1 + int(with_disp)                        # nll, disp
+    stats = 7 if with_disp else 4
+    fwd = nbytes(*inputs) + 3 * B * H * W * es + row * (rows_out + stats)
+    bwd = (nbytes(*inputs) + row * stats + 2 * 3 * B * H * W * es + row * rows_out
+           + nbytes(logits, sigma, shift))
+    return fwd, bwd
+
+
+def time_sweep_bf16(inputs32, inputs16, pad):
+    """The bf16 sweep kernels alone beside the float32 ones on the same
+    values, their plain version, and the bounds in the bf16 instance's
+    bytes (the disp on, the automask off, as the stage-1 and FalNet steps
+    launch them)."""
+    times = {}
+    for tag, inputs in (("f32", inputs32), ("bf16", inputs16)):
+        src, tgt, logits, sigma, shift, mask = inputs
+        B, N, H, W = logits.shape
+        mix = sigma is not None
+        suffix = "_bf16" if tag == "bf16" else ""
+        with torch.no_grad():
+            rgb = torch.empty((B, 3, H, W), dtype=logits.dtype, device=logits.device)
+            new = lambda *size: torch.empty(size, device=logits.device)
+            nll, disp, stats = new(B, H, W), new(B, H, W), new(B, 7, H, W)
+            limit = shift_max(pad)
+            times[f"{tag}_fwd_ms"] = launch_ms(
+                f"pdt_plane_sweep_fwd{suffix}",
+                (src, tgt, logits, sigma, shift, mask, rgb, nll, None, disp, stats),
+                B, N, H, W, limit, 0, 1, int(mix))
+            g = (torch.randn_like(rgb), torch.randn_like(nll), torch.randn_like(disp))
+            grads = (torch.empty_like(logits), torch.empty_like(logits) if mix else None,
+                     torch.empty_like(shift))
+            times[f"{tag}_bwd_ms"] = launch_ms(
+                f"pdt_plane_sweep_bwd{suffix}",
+                (src, tgt, logits, sigma, shift, mask, stats, rgb, *g, *grads),
+                B, N, H, W, limit, 1, int(mix))
+            del rgb, nll, disp, stats, g, grads
+    heads = [t for t in inputs16[2:5] if t is not None]
+    plain = lambda: plane_sweep_plain(*inputs16, pad, False, True)
+    with torch.no_grad():
+        times["plain_fwd_ms"] = cuda_ms(plain, warmup=1, reps=3)
+    out = plain()
+    cts = [torch.randn_like(o) for o in out]
+    times["plain_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(plain(), heads, cts),
+                                    warmup=1, reps=3) - times["plain_fwd_ms"]
+    del out, cts
+    fwd_bytes, bwd_bytes = sweep_bytes(inputs16, True)
+    n = inputs16[2].numel()
+    times.update(fwd_bytes=fwd_bytes, bwd_bytes=bwd_bytes,
+                 fwd_bound=bound(fwd_bytes, 60 * n), bwd_bound=bound(bwd_bytes, 100 * n))
+    return times
+
+
+def bf16_fields(held, t, extra=None):
+    """The kernels line's entries of a bf16 pair, timed as ``t``; the times
+    at other shapes (``extra``) beside them."""
+    more = lambda d: {"at": [{"shape": list(at), "ms": x[f"bf16_{d}_ms"],
+                              "float32_ms": x[f"f32_{d}_ms"], "bound_ms": x[f"{d}_bound"][0]}
+                             for at, x in (extra or {}).items()]}
+    fwd = {"max_abs_err": held.fwd, "max_ulps": held.fwd_ulps, "ms": t["bf16_fwd_ms"],
+           "float32_ms": t["f32_fwd_ms"], "plain_ms": t["plain_fwd_ms"],
+           "bound_ms": t["fwd_bound"][0], "bound_by": t["fwd_bound"][1], "library_ms": None,
+           **more("fwd")}
+    bwd = {"max_abs_err": max(held.abs.values()), "max_rel_err": max(held.rel.values()),
+           "max_ulps": max(held.ulps.values()), "ms": t["bf16_bwd_ms"],
+           "float32_ms": t["f32_bwd_ms"], "plain_ms": t["plain_bwd_ms"],
+           "bound_ms": t["bwd_bound"][0], "bound_by": t["bwd_bound"][1], "library_ms": None,
+           **more("bwd")}
+    return fwd, bwd
+
+
+def print_bf16_times(tag, at, t, card):
+    for d in ("fwd", "bwd"):
+        b = t[f"{d}_bound"][0]
+        print(f"[{tag}] at {at}: {d} kernel alone bf16 {t[f'bf16_{d}_ms']:.4f} ms beside "
+              f"float32 {t[f'f32_{d}_ms']:.4f} ms in this call (bf16 bound {b:.4f} ms of "
+              f"{t[f'{d}_bytes'] / 1e6:.0f} MB, {b / t[f'bf16_{d}_ms']:.1%} of it); plain "
+              f"{t[f'plain_{d}_ms']:.2f} ms; no single PyTorch call computes it | {card}")
+
+
+def phase_sweep_bf16(card, shapes=(SWEEP_SHAPE, SHIFT_SHAPE), dev=torch.device("cuda")):
+    """The sweep's bf16 instances (images, heads, rgb and the heads'
+    gradients bf16) against their plain version in both mixture modes, at
+    the stage-1 and the stage-3 student's shapes (the no-mixture mode at
+    FalNet's 49 planes too), with seeded cotangents; then each timed beside
+    its float32 instance.  Returns the kernels line's four entries."""
+    pad = sweep_pad(stage1_config())
+    fields = {}
+    for mix in (True, False):
+        held, timed = HeldBf16(), {}
+        names = ("d_logits", "d_sigma", "d_shift") if mix else ("d_logits", "d_shift")
+        diff = (2, 3, 4) if mix else (2, 4)
+        cases = shapes if mix else shapes + (FALNET_SHAPE,)
+        for i, at in enumerate(cases):
+            inputs32 = seeded_sweep_inputs(at, 80 + i, dev)
+            if not mix:
+                inputs32[3] = None
+            inputs16 = as_bf16(inputs32, (4, 5))
+            with_auto = mix
+            got = plane_sweep(*inputs16, pad, with_auto, True)
+            # the backward reads the reconstruction as rounded (A = U (G .
+            # rgb)): where the kernel's and the plain version's float32 sums
+            # straddle a bf16 rounding point the two round it one ulp apart,
+            # which d_shift sums over the row; so the gradients are held to
+            # the plain version anchored at the kernel's rounded rgb
+            held.hold(got, plane_sweep_plain(*inputs16, pad, with_auto, True), inputs16, diff,
+                      names, 90 + i, plain_grad_out=plane_sweep_plain(
+                          *inputs16, pad, with_auto, True, rounded_rgb=got[0]))
+            del got
+            free_cache()
+            timed[at] = time_sweep_bf16(inputs32, inputs16, pad)
+            del inputs32, inputs16
+            free_cache()
+        tag = "sweep_bf16" if mix else "sweep_nomix_bf16"
+        print(f"[{tag}] plane_sweep on bf16 images and heads vs plain at {', '.join(map(str, cases))} "
+              f"(automask {mix}, disp on): {held.describe()} | {card}")
+        for at, t in timed.items():
+            print_bf16_times(tag, at, t, card)
+        main = shapes[0] if mix else FALNET_SHAPE
+        fwd, bwd = bf16_fields(held, timed[main], {a: x for a, x in timed.items() if a != main})
+        name = "plane_sweep_bf16" if mix else "plane_sweep_nomix_bf16"
+        fields[f"{name}_fwd"], fields[f"{name}_bwd"] = fwd, bwd
+    return fields
+
+
+def phase_warp2d_bf16(card, shape=SWEEP_SHAPE, dev=torch.device("cuda")):
+    """The 2-D warp's bf16 instances (src, heads and the three stacks bf16,
+    dx, dy and their gradients float32) against their plain version with
+    and without sigma, on a small odd shape with degenerate coordinates and
+    at the mono step's shape; then each timed beside its float32 instance.
+    Returns the kernels line's four entries."""
+    fields = {}
+    for with_sigma in (True, False):
+        held = HeldBf16()
+        diff = (1, 2, 3, 4) if with_sigma else (1, 3, 4)
+        names = (("d_logits", "d_sigma", "d_dx", "d_dy") if with_sigma
+                 else ("d_logits", "d_dx", "d_dy"))
+        for i, (at, degenerate) in enumerate((((2, 5, 7, 200), True), (shape, False))):
+            inputs32 = seeded_warp_inputs(at, 30 + i, dev, degenerate)
+            if not with_sigma:
+                inputs32[2] = None
+            inputs16 = as_bf16(inputs32, (3, 4, 5))
+            held.hold(warp2d(*inputs16), warp2d_plain(*inputs16), inputs16, diff, names, i)
+            free_cache()
+        B, N, H, W = shape
+        t = {}
+        for tag, inputs in (("f32", inputs32), ("bf16", inputs16)):
+            suffix = "_bf16" if tag == "bf16" else ""
+            src, logits, sigma, dx, dy, mask = inputs
+            with torch.no_grad():
+                outs = [torch.empty((B, N, 3, H, W), dtype=logits.dtype, device=dev),
+                        torch.empty_like(logits),
+                        torch.empty_like(logits) if with_sigma else None]
+                t[f"{tag}_fwd_ms"] = launch_ms(f"pdt_warp2d_fwd{suffix}", (*inputs, *outs),
+                                               B, N, H, W, int(with_sigma))
+                cts = [None if o is None else torch.randn_like(o) for o in outs]
+                acc = [torch.zeros(logits.shape, device=dev),
+                       torch.zeros(logits.shape, device=dev) if with_sigma else None]
+                d_xy = [torch.empty_like(dx), torch.empty_like(dy)]
+                heads_out = ([torch.empty_like(logits), torch.empty_like(logits)
+                              if with_sigma else None] if tag == "bf16" else [])
+                t[f"{tag}_bwd_ms"] = launch_ms(f"pdt_warp2d_bwd{suffix}",
+                                               (*inputs, *cts, *acc, *heads_out, *d_xy),
+                                               B, N, H, W, int(with_sigma))
+                del outs, cts, acc, d_xy, heads_out
+        wrt = [inputs16[i] for i in diff]
+        with torch.no_grad():
+            t["plain_fwd_ms"] = cuda_ms(lambda: warp2d_plain(*inputs16), warmup=1, reps=3)
+        out = warp2d_plain(*inputs16)
+        cts = [torch.randn_like(o) for o in out]
+        t["plain_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(warp2d_plain(*inputs16), wrt,
+                                                                cts),
+                                    warmup=1, reps=3) - t["plain_fwd_ms"]
+        stacks = nbytes(*out)
+        t["fwd_bytes"] = nbytes(*inputs16) + stacks
+        # backward: the operands and the stacks' cotangents read, the heads'
+        # bf16 gradients and dx's and dy's written; the float32 tap sums'
+        # round trip to the rounding kernel is the instance's own cost
+        t["bwd_bytes"] = nbytes(*inputs16) + stacks + nbytes(*wrt)
+        n = inputs16[3].numel()
+        t["fwd_bound"] = bound(t["fwd_bytes"], 60 * n)
+        t["bwd_bound"] = bound(t["bwd_bytes"], 100 * n)
+        del out, cts, wrt, inputs32, inputs16
+        free_cache()
+        tag = "warp2d_bf16" if with_sigma else "warp2d_nosigma_bf16"
+        print(f"[{tag}] warp2d on bf16 src and heads vs plain at (2, 5, 7, 200) with "
+              f"degenerate coordinates and at {shape}: {held.describe()} | {card}")
+        print_bf16_times(tag, shape, t, card)
+        fwd, bwd = bf16_fields(held, t)
+        fields[f"{tag}_fwd"], fields[f"{tag}_bwd"] = fwd, bwd
+    return fields
+
+
+def phase_sweep_wide(card, shapes=WIDE_SHAPES, dev=torch.device("cuda")):
+    """C10: rows wider than one launch takes run in column segments with a
+    right halo.  At each width the forward and the head-only backward (with
+    and without the automask) in float32 and in bf16, and the
+    image-gradient backward, against the plain version, and the launches
+    one call makes: one a segment."""
+    pad = sweep_pad(stage1_config())
+    held, held16 = Held(), HeldBf16()
+    segs = {}
+    names = ("d_logits", "d_sigma", "d_shift")
+    for i, at in enumerate(shapes):
+        for with_auto in (False, True):
+            inputs = seeded_sweep_inputs(at, 100 + i, dev)
+            reset_launch_counts()
+            got = plane_sweep(*inputs, pad, with_auto, True)
+            n = launch_counts()["plane_sweep_fwd"]
+            held.hold(got, plane_sweep_plain(*inputs, pad, with_auto, True), inputs, (2, 3, 4),
+                      names, 110 + i)
+            segs[at] = (n, launch_counts()["plane_sweep_bwd"])
+            inputs = as_bf16(inputs, (4, 5))
+            reset_launch_counts()
+            got = plane_sweep(*inputs, pad, with_auto, True)
+            held16.hold(got, plane_sweep_plain(*inputs, pad, with_auto, True), inputs,
+                        (2, 3, 4), names, 140 + i, segmented=True,
+                        plain_grad_out=plane_sweep_plain(*inputs, pad, with_auto, True,
+                                                         rounded_rgb=got[0]))
+            n16 = (launch_counts()["plane_sweep_bf16_fwd"],
+                   launch_counts()["plane_sweep_bf16_bwd"])
+            if n16 != segs[at]:
+                raise AssertionError(f"{at}: bf16 launches {n16}, float32 {segs[at]}")
+            del got, inputs
+        inputs = image_grad_inputs(at, 120 + i, dev)
+        reset_launch_counts()
+        got = plane_sweep(*inputs, pad, True, True)
+        held.hold(got, plane_sweep_plain(*inputs, pad, True, True), inputs, (0, 1, 2, 3, 4),
+                  ("d_src", "d_tgt") + names, 130 + i)
+        img = launch_counts()["plane_sweep_img_bwd"]
+        if img != segs[at][0] or segs[at] != (segs[at][1],) * 2 or img < 2:
+            raise AssertionError(f"{at}: launches {segs[at]}, image-gradient {img}")
+        del got, inputs
+        free_cache()
+    print(f"[sweep_wide] C10: plane_sweep at {', '.join(map(str, shapes))} in column "
+          f"segments of at most {_build.load_library().pdt_plane_sweep_max_w()} "
+          f"(launches a call {json.dumps({str(k): v[0] for k, v in segs.items()})}): forward, "
+          f"head-only backward (automask off and on) and image-gradient backward vs plain: "
+          f"{held.describe()}; bf16 forward and head-only backward vs plain (one more ulp of "
+          f"the gradient's largest magnitude where segments overlap): {held16.describe()} "
+          f"| {card}")
+
+
+def idle_share(step, label="pdt_step", n=3):
+    """The card's idle share inside ``n`` calls of ``step`` (each
+    synchronised): their span less the device's busy time, over their
+    span, from a torch.profiler trace."""
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        for _ in range(n):
+            with torch.profiler.record_function(label):
+                step()
+                torch.cuda.synchronize()
+    traced = step_device_busy(prof, label)
+    span = sum(s for s, _ in traced)
+    busy = sum(b for _, b in traced)
+    if len(traced) != n or busy <= 0:
+        raise AssertionError(f"the profiler saw {traced}")
+    return 1.0 - busy / span
+
+
+def bf16_vs_f32_step(cfg, dev, seed=1):
+    """One training step of ``cfg`` in bf16 and in float32 on the card from
+    the same weights and batch: each loss's difference, held to
+    BF16_STEP_LOSS_TOL."""
+    batch = step_batch(cfg, seed)
+    losses = []
+    for bf16 in (True, False):
+        c = cfg.replace(bf16=bf16, allow_random_pc=True)
+        bundle = ModelBundle(c, dev)
+        distinct_teacher(bundle, c.seed + 1)
+        opt, sched = make_optimizer(c, bundle.parameters(), 1000)
+        losses.append(make_train_step(bundle, opt, sched)(batch_to_tensors(batch, dev)))
+        del bundle, opt, sched
+        free_cache()
+    rtol, atol = BF16_STEP_LOSS_TOL
+    diff = {k: abs(losses[0][k] - v) for k, v in losses[1].items()}
+    if any(d > rtol * abs(losses[1][k]) + atol for k, d in diff.items()):
+        raise AssertionError(f"bf16 vs float32 losses {losses}")
+    return diff
+
+
+# bf16 keeps 8 significant bits (a loss of order 1 to ~4e-3): one step's
+# losses from the same weights, (rtol, atol)
+BF16_STEP_LOSS_TOL = (2e-2, 5e-3)
+
+
+def bf16_step(per_step):
+    """A step's launch counts with the sweep and the 2-D warp in their bf16
+    instances."""
+    out = dict(per_step)
+    for k in ("plane_sweep_fwd", "plane_sweep_bwd", "plane_sweep_nomix_fwd",
+              "plane_sweep_nomix_bwd", "warp2d_fwd", "warp2d_bwd", "warp2d_nosigma_fwd",
+              "warp2d_nosigma_bwd"):
+        n, out[k] = out[k], 0
+        key = {"plane_sweep_fwd": "plane_sweep_bf16_fwd", "plane_sweep_bwd":
+               "plane_sweep_bf16_bwd", "plane_sweep_nomix_fwd": "plane_sweep_nomix_bf16_fwd",
+               "plane_sweep_nomix_bwd": "plane_sweep_nomix_bf16_bwd",
+               "warp2d_fwd": "warp2d_bf16_fwd", "warp2d_bwd": "warp2d_bf16_bwd",
+               "warp2d_nosigma_fwd": "warp2d_nosigma_bf16_fwd",
+               "warp2d_nosigma_bwd": "warp2d_nosigma_bf16_bwd"}[k]
+        out[key] = out.get(key, 0) + n
+    return out
+
+
+def trainer_idle(cfg, dev, per_step, after_val, warmup, steps):
+    """``trainer_run`` of ``cfg``, then the card's idle share inside 3 more
+    steps of a bundle of the same configuration."""
+    run = trainer_run(cfg, dev, warmup, steps, per_step, after_val)
+    c = run["cfg"]
+    bundle = ModelBundle(c, dev)
+    distinct_teacher(bundle, c.seed + 1)
+    opt, sched = make_optimizer(c, bundle.parameters(), 1000)
+    step = make_train_step(bundle, opt, sched)
+    batch = batch_to_tensors(step_batch(c, 0), dev)
+    step(batch)
+    run["idle"] = idle_share(lambda: step(batch))
+    del bundle, opt, sched, step, batch
+    free_cache()
+    return run
+
+
+def phase_bf16_recipes(card, f32, dev=torch.device("cuda"), warmup=3, steps=10):
+    """The recipes in bf16 (the JAX package's default) beside their float32
+    runs of this call (``f32``: name -> step ms, peak GB): stage 1 through
+    the Trainer (13 steps), stage 2 -> stage 3 with the teacher (2 + 13),
+    mono (13), mono without the mixture, FalNet and PladeNet (2 each), and
+    the eval forward at 1280x384, batch 8; each with ms a step, peak memory
+    and the card's idle share, and one step's losses from the same weights
+    held to float32's.  Returns the bf16 kernels' launches on those paths."""
+    val = {"disp_head_fwd": 1, "head_epilogue_fwd": 1}
+    rows, launches = {}, {}
+    free_cache()
+    stage1 = stage1_config(model_name="stage1_bf16", bf16=True)
+    run = trainer_idle(stage1, dev, bf16_step(STAGE1_STEP), val, warmup, steps)
+    launches.update({k: run["launches"][k] for k in ("plane_sweep_bf16_fwd",
+                                                      "plane_sweep_bf16_bwd")})
+    rows["stage1"] = (run, bf16_vs_f32_step(stage1_config(
+        data=DataConfig(height=192, width=640)), dev))
+
+    with tempfile.TemporaryDirectory(prefix="pdt_chip_smoke_") as log_dir:
+        cfg2 = hr_finetune_config(log_dir=log_dir, allow_random_pc=True, bf16=True)
+        h, w = cfg2.data.height, cfg2.data.width
+        stage2 = Trainer(cfg2, datasets=(SyntheticStereo(2 * cfg2.per_step_batch, h, w),
+                                         SyntheticStereo(cfg2.per_step_batch, h, w)),
+                         device=dev)
+        stage2.train()
+        stage2.close()
+        del stage2
+        free_cache()
+        ckpt = os.path.join(log_dir, cfg2.model_name, "last_models")
+        stage3 = self_distillation_config(model_name="stage3_bf16", load_weights_folder=ckpt,
+                                          bf16=True)
+        run = trainer_idle(stage3, dev, bf16_step(DISTILL_STEP), val, warmup, steps)
+    rows["stage3"] = (run, bf16_vs_f32_step(self_distillation_config(), dev))
+
+    mono = mono_config(model_name="mono_bf16", bf16=True)
+    run = trainer_idle(mono, dev, bf16_step(MONO_STEP), val, warmup, steps)
+    launches.update({k: run["launches"][k] for k in ("warp2d_bf16_fwd", "warp2d_bf16_bwd")})
+    rows["mono"] = (run, bf16_vs_f32_step(mono_config(), dev))
+
+    nomix = dataclasses.replace(mono_config().model, use_mixture_loss=False)
+    run = trainer_idle(mono_config(model_name="mono_nomix_bf16", model=nomix, bf16=True),
+                       dev, bf16_step(NOMIX_MONO_STEP), {"head_epilogue_fwd": 1}, 1, 1)
+    launches.update({k: run["launches"][k] for k in ("warp2d_nosigma_bf16_fwd",
+                                                      "warp2d_nosigma_bf16_bwd")})
+    rows["mono_nomix"] = (run, None)
+
+    for name, model, per_step in (("falnet", FALNET_MODEL, FALNET_STEP),
+                                  ("pladenet", PLADENET_MODEL, PLADENET_STEP)):
+        cfg = stage1_config(model_name=f"{name}_bf16", model=model, bf16=True)
+        run = trainer_idle(cfg, dev, bf16_step(per_step), {}, 1, 1)
+        rows[name] = (run, bf16_vs_f32_step(stage1_config(model=model), dev))
+        if name == "falnet":
+            launches.update({k: run["launches"][k] for k in ("plane_sweep_nomix_bf16_fwd",
+                                                              "plane_sweep_nomix_bf16_bwd")})
+
+    for name, (run, rel) in rows.items():
+        base = f32.get(name)
+        beside = (f"; float32 in this call {base[0]:.2f} ms, peak {base[1]:.2f} GB"
+                  if base else "")
+        print(f"[bf16] {name} ({run['cfg'].model_name}, "
+              f"{run['cfg'].data.width}x{run['cfg'].data.height}, batch "
+              f"{run['cfg'].effective_batch}): {run['warmup']}+{run['steps']} steps through "
+              f"Trainer, step {run['step_ms']:.2f} ms (CUDA events {run['event_ms']:.2f} ms), "
+              f"peak {run['peak_gb']:.2f} GB allocated, {run['reserved_gb']:.2f} GB reserved, "
+              f"idle {run['idle']:.4f} of 3 more steps{beside}; launches "
+              f"{json.dumps(nonzero(run['launches']))}; last losses "
+              f"{json.dumps(run['losses'][-1])}"
+              + (f"; one step from the same weights vs float32: |loss difference| "
+                 f"{json.dumps({k: float(f'{v:.3e}') for k, v in rel.items()})} (<= rtol "
+                 f"{BF16_STEP_LOSS_TOL[0]} + atol {BF16_STEP_LOSS_TOL[1]})" if rel else "")
+              + f" | {card}")
+    eval_forward_bf16(card, f32.get("eval"), dev)
+    return launches
+
+
+def eval_forward_bf16(card, f32_ms, dev, batch=4):
+    """The eval recipe's forward (ResNet-50, DenseASPP, 49+14 planes, PE 8)
+    at 1280x384 on 4 images doubled to 8 by post-processing, bf16 beside
+    float32 on the same weights: ms (CUDA events), peak memory, idle
+    share; disp finite and non-negative; its mean distance from float32's
+    printed."""
+    cfg = ModelConfig()
+    out = {}
+    images = make_stereo_batch(batch, 384, 1280, seed=0)
+    x = torch.from_numpy(images["color_l"]).permute(0, 3, 1, 2).to(dev)
+    g = torch.from_numpy(images["grid"]).permute(0, 3, 1, 2).to(dev)
+    x, g = torch.cat([x, x.flip(-1)]), torch.cat([g, g])
+    for name, bf16 in (("bf16", True), ("f32", False)):
+        model = init_weights_(build_depth_model(cfg, bf16),
+                              torch.Generator().manual_seed(0)).to(dev).eval()
+        with torch.no_grad():
+            torch.cuda.reset_peak_memory_stats(dev)
+            ms = cuda_ms(lambda: model(x, g))
+            peak = torch.cuda.max_memory_allocated(dev) / 1e9
+            idle = idle_share(lambda: model(x, g))
+            disp = model(x, g)["disp"].float()
+        if not bool(torch.isfinite(disp).all()) or float(disp.min()) < 0:
+            raise AssertionError(f"eval forward {name}: disp outside [0, inf)")
+        out[name] = (ms, peak, idle, disp)
+        del model
+        free_cache()
+    diff = float(((out["bf16"][3] - out["f32"][3]).abs().mean() / out["f32"][3].abs().mean()))
+    print(f"[bf16] eval forward ResNet-{cfg.num_layers} DenseASPP at 1280x384, 8 "
+          f"images: bf16 {out['bf16'][0]:.2f} ms, peak {out['bf16'][1]:.2f} GB, idle "
+          f"{out['bf16'][2]:.4f}; float32 {out['f32'][0]:.2f} ms, peak {out['f32'][1]:.2f} GB, "
+          f"idle {out['f32'][2]:.4f} (CUDA events, median of 10; TF32 off); mean |disp "
+          f"bf16 - float32| / mean |disp| {diff:.3e}"
+          + (f"; the slice phase's float32 forward {f32_ms:.2f} ms" if f32_ms else "")
+          + f" | {card}")
 
 
 def main():
@@ -2681,6 +3327,9 @@ def main():
     fields.update(run(phase_sweep, card))
     img_fields, launches["plane_sweep_img_bwd"] = run(phase_sweep_img, card)
     fields.update(img_fields)
+    run(phase_sweep_wide, card)
+    fields.update(run(phase_sweep_bf16, card))
+    fields.update(run(phase_warp2d_bf16, card))
     train = run(phase_train, card)
     launches.update({k: train[k] for k in ("plane_sweep_fwd", "plane_sweep_bwd")})
     fields.update(run(phase_epilogue, card))
@@ -2707,6 +3356,11 @@ def main():
     run(phase_self, card, stage1)
     run(phase_pladenet_render, card)
     run(phase_oracle, card)
+    f32 = {k: F32_RUNS[v] for k, v in (("stage1", "stage1"), ("stage3", "self_distillation"),
+                                         ("mono", "mono"), ("falnet", "falnet"),
+                                         ("pladenet", "pladenet"), ("eval", "eval"))}
+    launches.update(run(phase_bf16_recipes, card, {k: v for k, v in f32.items() if k != "eval"}
+                        | {"eval": f32["eval"][0]}))
     print(f"[time] all phases: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,

@@ -29,7 +29,7 @@ from planedepth_tpu_torch.cli.options import (
 )
 from planedepth_tpu_torch.config import TrainConfig
 from planedepth_tpu_torch.eval.evaluator import evaluate
-from planedepth_tpu_torch.models.factory import DepthModel
+from planedepth_tpu_torch.models.factory import build_depth_model
 from planedepth_tpu_torch.utils.checkpoint import (
     load_checkpoint,
     load_checkpoint_meta,
@@ -83,8 +83,10 @@ def load(argv=None, device: Optional[torch.device] = None
                                "device=torch.device('cpu') to run on the CPU")
         device = torch.device("cuda")
     cfg = apply_checkpoint_meta(cfg, load_checkpoint_meta(cfg.load_weights_folder), explicit)
-    # the decoder emits disp outside the fused training step
-    model = DepthModel(dataclasses.replace(cfg.model, fused_sweep_loss=False))
+    # the decoder emits disp outside the fused training step; bf16
+    # convolutions unless --no_bf16, as the JAX evaluator's ModelBundle(cfg)
+    model = build_depth_model(dataclasses.replace(cfg.model, fused_sweep_loss=False),
+                              cfg.bf16)
     restore_submodules(model, load_checkpoint(cfg.load_weights_folder), network_names(model))
     return args, cfg, model.to(device)
 

@@ -9,10 +9,10 @@ Deliberately NOT reproduced: the reference's dead/broken flags
 parsed there but never read; --num_ep's help text is wrong).
 
 The JAX package's flags of TPU layout and memory trades (``--fused_head``,
-``--s2d_tail``, ``--remat``, ``--remat_warp``, ``--rowshift_warp``,
-``--warp_sample_bf16``) and ``--no_bf16`` are not here, so argparse refuses
-them by name: the port has no such fields (``config.py``) and computes in
-float32.
+``--s2d_tail``, ``--remat``, ``--remat_warp``, ``--rowshift_warp``) are not
+here, so argparse refuses them by name: the port has no such fields
+(``config.py``).  ``--no_bf16`` (float32 networks and kernels) and
+``--warp_sample_bf16`` map as in the JAX package.
 """
 from __future__ import annotations
 
@@ -82,7 +82,11 @@ def build_parser() -> argparse.ArgumentParser:
     # system
     p.add_argument("--num_workers", type=int, default=12)
     p.add_argument("--seed", type=int, default=1)
+    p.add_argument("--no_bf16", action="store_true",
+                   help="float32 networks and kernels (default: bf16, as the JAX package)")
     # performance
+    p.add_argument("--warp_sample_bf16", action="store_true",
+                   help="sample the warped plane stacks in bfloat16")
     p.add_argument("--fused_sweep", action="store_true",
                    help="fused plane sweep kernels for the stereo hot path")
     # loading
@@ -131,6 +135,8 @@ _FLAG_MAP = {
     "log_frequency": (None, "log_frequency", _IDENT),
     "log_img_frequency": (None, "log_img_frequency", _IDENT),
     "fused_sweep": (None, "fused_sweep", _IDENT),
+    "no_bf16": (None, "bf16", lambda v: not v),
+    "warp_sample_bf16": (None, "warp_sample_bf16", _IDENT),
     "net_type": ("model", "net_type", _IDENT),
     "num_layers": ("model", "num_layers", _IDENT),
     "num_ep": ("model", "num_ep", _IDENT),

@@ -9,13 +9,15 @@ presets, the monocular recipe of the JAX package's ``bench.py`` and the
 fields that have no counterpart here, so it reads the JAX ``opt.json``
 too).  The fields that choose a TPU layout
 or a TPU memory trade (``s2d_tail``, ``s2d_stem``, ``fused_head``,
-``fused_head_bf16``, ``remat``, ``sweep_rows``, ``sweep_gp_taps*``,
-``sweep_quad*``, ``pc_s2d``, ``warp2d_*``, ``mesh_shape``, ``remat_warp``,
-``rowshift_warp``, ``warp_sample_bf16``) have no counterpart: the kernels run
-whenever their tensors lie on the card, and the 2-D warp kernel samples
-every plane exactly, so the TPU's tap budget (``warp2d_plan``) has no use.
-``bf16`` is not ported: the port trains in float32.  ``cli/options.py``
-refuses the flags of those fields.
+``remat``, ``sweep_rows``, ``sweep_gp_taps*``, ``sweep_quad*``, ``pc_s2d``,
+``warp2d_*``, ``mesh_shape``, ``remat_warp``, ``rowshift_warp``) have no
+counterpart: the kernels run whenever their tensors lie on the card, and
+the 2-D warp kernel samples every plane exactly, so the TPU's tap budget
+(``warp2d_plan``) has no use.  ``cli/options.py`` refuses the flags of
+those fields.  ``bf16`` (default True, as in the JAX package) computes the
+networks in bf16 and feeds the plane sweep and the 2-D warp bf16 operands;
+``warp_sample_bf16`` samples the 2-D warp's and the oracle view
+synthesis's plane stacks in bf16.
 """
 from __future__ import annotations
 
@@ -165,6 +167,10 @@ class TrainConfig:
     allow_random_pc: bool = False
     log_frequency: int = 500
     log_img_frequency: int = 250
+    # bfloat16 networks, and bf16 operands of the sweep and the 2-D warp
+    bf16: bool = True
+    # sample the 2-D warp's and the oracle's plane stacks in bfloat16
+    warp_sample_bf16: bool = False
     # checkpoint the perceptual net's pred-branch forward (same numbers)
     pc_remat: bool = True
     fused_sweep: bool = False

@@ -34,6 +34,16 @@
 // local; the cotangent of a sample at x+k lands back on the source row by a
 // reverse window, d[x'] = (1-f) g[x'-k] + f g[x'-k-1]
 // (pallas_sweep.py:1340-1358).
+// Element types: every kernel but the image-gradient backward is a template
+// on T, the type of the images, the plane heads, the reconstruction and the
+// head gradients: float, or bf16 (the JAX package's default arithmetic,
+// _fwd_call and _bwd_call on bf16 operands, pallas_sweep.py:1023-1026,
+// 1102-1103).  A bf16 instance reads bf16 and widens it as it stages it, so
+// its arithmetic, shared memory and ring are the float instance's; it
+// rounds rgb, d_logits and d_sigma to bf16 (nearest even) as it writes
+// them, and nll, nll_auto, disp, stats and d_shift stay float32.  Its bytes
+// are the float instance's less half of the images, heads and their
+// gradients.
 // The image-gradient backward (sweep_bwd_img_kernel, pallas_sweep.py:540-882 with
 // image_grads=True; the mixture with the automask only, as JAX asserts)
 // also writes d_src and d_tgt: d_tgt += -sgn(c_n - tgt) de_n / 3 at x;
@@ -116,10 +126,13 @@
 // - exp and 1/x in the per-plane chain are ex2.approx.ftz and
 //   rcp.approx.ftz (~2 ulp; results under 2^-126 flush to 0, far below
 //   the 1e-7 guards); the per-pixel epilogue keeps logf and IEEE division.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -225,6 +238,18 @@ __device__ __forceinline__ float frcp(float v) {
   return r;
 }
 
+// The element types of the operands: float, or bf16 (the JAX package's
+// default arithmetic: bf16 images and plane heads in, the reconstruction
+// and the head gradients out, every sum float32 inside).
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
 // Online-softmax step sharing one exp (pallas_sweep.py:_online_e): returns
 // the rescale of the old sums in *corr and the new term's weight in *e.
 __device__ __forceinline__ void online(float l, float& mx, float* corr,
@@ -258,9 +283,9 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // Loads the row's clipped shifts and masks and its source pixels (0 from W
 // on), and zeroes entries W and W + 1 of every ring row.
-template <int S>
+template <int S, typename T>
 __device__ __forceinline__ void load_row(const float* shift, const float* mask,
-                                         const float* src, float* smem,
+                                         const T* src, float* smem,
                                          const Layout& L, int slot_rows,
                                          int b, int h, int N, int H, int W,
                                          float shift_max) {
@@ -271,7 +296,7 @@ __device__ __forceinline__ void load_row(const float* shift, const float* mask,
   }
   for (int i = threadIdx.x; i < 3 * S; i += blockDim.x) {
     const int c = i / S, x = i - c * S;
-    smem[L.src + i] = x < W ? src[(((int64_t)b * 3 + c) * H + h) * W + x] : 0.f;
+    smem[L.src + i] = x < W ? to_f(src[(((int64_t)b * 3 + c) * H + h) * W + x]) : 0.f;
   }
   for (int r = threadIdx.x; r < 2 * slot_rows; r += blockDim.x)
     smem[L.ring + (r >> 1) * S + W + (r & 1)] = 0.f;
@@ -321,35 +346,74 @@ struct CopyPlan {
 
 // Issues the copies of group j (planes j*G ..) into its ring slots and
 // commits them as one group (an empty group past the last plane keeps the
-// wait counts uniform).
-template <int S, int G, int P, bool MIX>
+// wait counts uniform).  bf16 rows are widened to float as they are staged:
+// each thread loads its share (8 elements, one 16-byte load, when vec; else
+// one) and stores the floats itself, so they are published by the same
+// barrier as the copies, and the ring and everything that reads it are the
+// float kernel's.
+template <int S, int G, int P, bool MIX, typename T>
 __device__ __forceinline__ void issue_group(float* smem, const Layout& L,
                                             const CopyPlan& cp,
-                                            const float* logits,
-                                            const float* sigma, int64_t rowbase,
+                                            const T* logits,
+                                            const T* sigma, int64_t rowbase,
                                             int64_t plane, int j, int N,
                                             bool vec) {
-  if (j * G < N) {
-    float* slots = smem + L.ring + (j % P) * G * L.slot;
-    int r = cp.r0, q = cp.q0;
-    for (int t = threadIdx.x; t < cp.total; t += blockDim.x) {
-      const int g = MIX ? r >> 1 : r;
-      const int n = j * G + g;
-      if (n < N) {
+  if constexpr (!std::is_same<T, float>::value) {
+    if (j * G < N) {
+      float* slots = smem + L.ring + (j % P) * G * L.slot;
+      // the row width, from the plan the kernel made for it (W >> 2 granules
+      // when vec, which for bf16 also means W % 8 == 0)
+      const int width = vec ? cp.nq << 2 : cp.nq;
+      const int per = vec ? 8 : 1, nq = width / per;
+      const int total = G * (MIX ? 2 : 1) * nq;
+      for (int t = threadIdx.x; t < total; t += blockDim.x) {
+        const int r = t / nq, q = t - r * nq;
+        const int g = MIX ? r >> 1 : r;
+        const int n = j * G + g;
+        if (n >= N) continue;
         const bool sg = MIX && (r & 1);
-        const float* row = (sg ? sigma : logits) + rowbase + n * plane;
-        float* dst = slots + g * L.slot + (sg ? S : 0);
-        if (vec)
-          cp_async16(dst + 4 * q, row + 4 * q);
-        else
-          cp_async4(dst + q, row + q);
+        const T* row = (sg ? sigma : logits) + rowbase + n * plane;
+        float* dst = slots + g * L.slot + (sg ? S : 0) + q * per;
+        if (vec) {
+          const uint4 v = *reinterpret_cast<const uint4*>(row + q * per);
+          const unsigned w[4] = {v.x, v.y, v.z, v.w};
+          float o[8];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            o[2 * e] = __uint_as_float(w[e] << 16);
+            o[2 * e + 1] = __uint_as_float(w[e] & 0xffff0000u);
+          }
+          reinterpret_cast<float4*>(dst)[0] = make_float4(o[0], o[1], o[2], o[3]);
+          reinterpret_cast<float4*>(dst)[1] = make_float4(o[4], o[5], o[6], o[7]);
+        } else {
+          dst[0] = to_f(row[q]);
+        }
       }
-      r += cp.dr;
-      q += cp.dq;
-      if (q >= cp.nq) { q -= cp.nq; ++r; }
     }
+    cp_async_commit();
+  } else {
+    if (j * G < N) {
+      float* slots = smem + L.ring + (j % P) * G * L.slot;
+      int r = cp.r0, q = cp.q0;
+      for (int t = threadIdx.x; t < cp.total; t += blockDim.x) {
+        const int g = MIX ? r >> 1 : r;
+        const int n = j * G + g;
+        if (n < N) {
+          const bool sg = MIX && (r & 1);
+          const float* row = (sg ? sigma : logits) + rowbase + n * plane;
+          float* dst = slots + g * L.slot + (sg ? S : 0);
+          if (vec)
+            cp_async16(dst + 4 * q, row + 4 * q);
+          else
+            cp_async4(dst + q, row + q);
+        }
+        r += cp.dr;
+        q += cp.dq;
+        if (q >= cp.nq) { q -= cp.nq; ++r; }
+      }
+    }
+    cp_async_commit();
   }
-  cp_async_commit();
 }
 
 // A pixel's constants of the backward, from the forward statistics
@@ -458,14 +522,15 @@ namespace {
 
 // MIX: the mixture mode (sigma operand, clipped sigma); without it sigma is
 // the literal 1 and the sigma pointer is not read.  vec: every logits/sigma
-// row is 16-byte aligned (W % 4 == 0 and aligned bases).
-template <int PX, bool MIX>
+// row is 16-byte aligned (W % 4 == 0, for bf16 W % 8 == 0, and aligned
+// bases).  T: the type of the images, the heads and rgb (float or bf16).
+template <int PX, bool MIX, typename T>
 __global__ void __launch_bounds__(Tile<PX>::threads, Tile<PX>::blocks)
-sweep_fwd_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
-                 const float* __restrict__ logits,
-                 const float* __restrict__ sigma,
+sweep_fwd_kernel(const T* __restrict__ src, const T* __restrict__ tgt,
+                 const T* __restrict__ logits,
+                 const T* __restrict__ sigma,
                  const float* __restrict__ shift,
-                 const float* __restrict__ mask, float* __restrict__ rgb,
+                 const float* __restrict__ mask, T* __restrict__ rgb,
                  float* __restrict__ nll, float* __restrict__ nll_auto,
                  float* __restrict__ disp, float* __restrict__ stats, int N,
                  int H, int W, float shift_max, int with_auto, int with_disp,
@@ -497,7 +562,7 @@ sweep_fwd_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
     float ea = 0.f;
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      t[p][c] = tgt[((int64_t)b * 3 + c) * plane + pix_row + x];
+      t[p][c] = to_f(tgt[((int64_t)b * 3 + c) * plane + pix_row + x]);
       ea += fabsf(sh_src[c * S + x] - t[p][c]);
       acc[p][c] = 0.f;
     }
@@ -572,7 +637,7 @@ sweep_fwd_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
     const float inv_us = U > kEps ? 1.f / fmaxf(us[p], 1e-30f) : 0.f;
 #pragma unroll
     for (int ch = 0; ch < 3; ++ch)
-      rgb[((int64_t)b * 3 + ch) * plane + pix_row + x] = acc[p][ch] * inv_us;
+      rgb[((int64_t)b * 3 + ch) * plane + pix_row + x] = from_f<T>(acc[p][ch] * inv_us);
     const float Mn = M[p] * inv_se;
     nll[o] = -logf(fmaxf(Mn, 0.f) + kEps);
     const float Man = with_auto ? Ma[p] * inv_se : 0.f;
@@ -598,22 +663,23 @@ sweep_fwd_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
 
 namespace {
 
-// MIX as in sweep_fwd_kernel; without it d_sigma is not written (and may be
-// null), and no sigma row is staged.  The head gradients only; the images'
-// are sweep_bwd_img_kernel's.
-template <int PX, bool MIX>
+// MIX and T as in sweep_fwd_kernel (rgb and g_rgb, d_logits and d_sigma in
+// T too); without MIX d_sigma is not written (and may be null), and no
+// sigma row is staged.  The head gradients only; the images' are
+// sweep_bwd_img_kernel's.
+template <int PX, bool MIX, typename T>
 __global__ void __launch_bounds__(Tile<PX>::threads, Tile<PX>::blocks)
-sweep_bwd_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
-                 const float* __restrict__ logits,
-                 const float* __restrict__ sigma,
+sweep_bwd_kernel(const T* __restrict__ src, const T* __restrict__ tgt,
+                 const T* __restrict__ logits,
+                 const T* __restrict__ sigma,
                  const float* __restrict__ shift,
                  const float* __restrict__ mask,
                  const float* __restrict__ stats,
-                 const float* __restrict__ rgb,
-                 const float* __restrict__ g_rgb,
+                 const T* __restrict__ rgb,
+                 const T* __restrict__ g_rgb,
                  const float* __restrict__ g_nll,
                  const float* __restrict__ g_disp,
-                 float* __restrict__ d_logits, float* __restrict__ d_sigma,
+                 T* __restrict__ d_logits, T* __restrict__ d_sigma,
                  float* __restrict__ d_shift, int N, int H, int W,
                  float shift_max, int with_disp, int vec) {
   constexpr int G = kBwdGroup, P = kBwdRingGroups, S = Tile<PX>::stride;
@@ -654,9 +720,9 @@ sweep_bwd_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
       const int64_t o = ((int64_t)b * 3 + c) * plane + pix_row + x;
-      t[p][c] = tgt[o];
-      G3[p][c] = g_rgb[o];
-      gr += G3[p][c] * rgb[o];
+      t[p][c] = to_f(tgt[o]);
+      G3[p][c] = to_f(g_rgb[o]);
+      gr += G3[p][c] * to_f(rgb[o]);
     }
     const float A = U * gr;
     const bool live = U > kEps;
@@ -763,11 +829,11 @@ sweep_bwd_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
         if (x >= W) continue;
         // taps at x - k and x - k - 1; left of the row they read the zeros
         const int j0 = max(x - k, -1);
-        d_logits[plane_off + x] = w0 * adj_l[g * S + j0] + f * adj_l[g * S + j0 - 1]
-                                  + dl0[g][p];
+        d_logits[plane_off + x] = from_f<T>(w0 * adj_l[g * S + j0] +
+                                            f * adj_l[g * S + j0 - 1] + dl0[g][p]);
         if (MIX)
-          d_sigma[plane_off + x] = w0 * adj_s[g * S + j0] + f * adj_s[g * S + j0 - 1]
-                                   + ds0[g][p];
+          d_sigma[plane_off + x] = from_f<T>(w0 * adj_s[g * S + j0] +
+                                             f * adj_s[g * S + j0 - 1] + ds0[g][p]);
       }
     }
     sum_partials<G>(smem + L.red + (j & 1) * G * 32, d_shift, row, j, N, lane, warp, nwarps);
@@ -1115,32 +1181,32 @@ cudaError_t allow_smem(K kernel, size_t bytes, bool most_smem = false) {
                               (int)bytes);
 }
 
-template <int PX, bool MIX>
-int launch_fwd(const float* src, const float* tgt, const float* logits,
-               const float* sigma, const float* shift, const float* mask,
-               float* rgb, float* nll, float* nll_auto, float* disp,
+template <int PX, bool MIX, typename T>
+int launch_fwd(const T* src, const T* tgt, const T* logits,
+               const T* sigma, const float* shift, const float* mask,
+               T* rgb, float* nll, float* nll_auto, float* disp,
                float* stats, int B, int N, int H, int W, float shift_max,
                int with_auto, int with_disp, int vec, cudaStream_t st) {
   const size_t smem = smem_bytes(0, MIX, N, W);
-  const cudaError_t e = allow_smem(sweep_fwd_kernel<PX, MIX>, smem);
+  const cudaError_t e = allow_smem(sweep_fwd_kernel<PX, MIX, T>, smem);
   if (e != cudaSuccess) return (int)e;
-  sweep_fwd_kernel<PX, MIX><<<dim3(H, B), block_for(W), smem, st>>>(
+  sweep_fwd_kernel<PX, MIX, T><<<dim3(H, B), block_for(W), smem, st>>>(
       src, tgt, logits, sigma, shift, mask, rgb, nll, nll_auto, disp, stats,
       N, H, W, shift_max, with_auto, with_disp, vec);
   return (int)cudaGetLastError();
 }
 
-template <int PX, bool MIX>
-int launch_bwd(const float* src, const float* tgt, const float* logits,
-               const float* sigma, const float* shift, const float* mask,
-               const float* stats, const float* rgb, const float* g_rgb,
-               const float* g_nll, const float* g_disp, float* d_logits, float* d_sigma,
+template <int PX, bool MIX, typename T>
+int launch_bwd(const T* src, const T* tgt, const T* logits,
+               const T* sigma, const float* shift, const float* mask,
+               const float* stats, const T* rgb, const T* g_rgb,
+               const float* g_nll, const float* g_disp, T* d_logits, T* d_sigma,
                float* d_shift, int B, int N, int H, int W, float shift_max,
                int with_disp, int vec, cudaStream_t st) {
   const size_t smem = smem_bytes(1, MIX, N, W);
-  const cudaError_t e = allow_smem(sweep_bwd_kernel<PX, MIX>, smem);
+  const cudaError_t e = allow_smem(sweep_bwd_kernel<PX, MIX, T>, smem);
   if (e != cudaSuccess) return (int)e;
-  sweep_bwd_kernel<PX, MIX><<<dim3(H, B), block_for(W), smem, st>>>(
+  sweep_bwd_kernel<PX, MIX, T><<<dim3(H, B), block_for(W), smem, st>>>(
       src, tgt, logits, sigma, shift, mask, stats, rgb, g_rgb, g_nll, g_disp, d_logits,
       d_sigma, d_shift, N, H, W, shift_max, with_disp, vec);
   return (int)cudaGetLastError();
@@ -1166,6 +1232,51 @@ int launch_bwd_img(const float* src, const float* tgt, const float* logits,
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
+// The forward at element type T, dispatched on the pixels a thread and the
+// mode (pdt_plane_sweep_fwd and its bf16 twin).
+template <typename T>
+int sweep_fwd(const T* src, const T* tgt, const T* logits, const T* sigma,
+              const float* shift, const float* mask, T* rgb, float* nll, float* nll_auto,
+              float* disp, float* stats, int B, int N, int H, int W, float shift_max,
+              int with_auto, int with_disp, int with_mixture, cudaStream_t st) {
+  if ((!with_mixture && with_auto) || W < 1 || W > kMaxW || N < 1)
+    return (int)cudaErrorInvalidValue;
+  // 16-byte granules: 4 floats, or 8 bf16
+  const int vec = W % (16 / (int)sizeof(T)) == 0 && aligned16(logits) &&
+                  (!with_mixture || aligned16(sigma));
+  const int px = pixels_per_thread(W);
+#define PDT_FWD(P, MIX)                                                       \
+  launch_fwd<P, MIX, T>(src, tgt, logits, sigma, shift, mask, rgb, nll, nll_auto, \
+                        disp, stats, B, N, H, W, shift_max, with_auto, with_disp, \
+                        vec, st)
+  if (with_mixture)
+    return px == 1 ? PDT_FWD(1, true) : px == 2 ? PDT_FWD(2, true) : PDT_FWD(4, true);
+  return px == 1 ? PDT_FWD(1, false) : px == 2 ? PDT_FWD(2, false) : PDT_FWD(4, false);
+#undef PDT_FWD
+}
+
+// The head-only backward at element type T (pdt_plane_sweep_bwd and its
+// bf16 twin).
+template <typename T>
+int sweep_bwd(const T* src, const T* tgt, const T* logits, const T* sigma,
+              const float* shift, const float* mask, const float* stats, const T* rgb,
+              const T* g_rgb, const float* g_nll, const float* g_disp, T* d_logits,
+              T* d_sigma, float* d_shift, int B, int N, int H, int W, float shift_max,
+              int with_disp, int with_mixture, cudaStream_t st) {
+  if (W < 1 || W > kMaxW || N < 1) return (int)cudaErrorInvalidValue;
+  const int vec = W % (16 / (int)sizeof(T)) == 0 && aligned16(logits) &&
+                  (!with_mixture || aligned16(sigma));
+  const int px = pixels_per_thread(W);
+#define PDT_BWD(P, MIX)                                                                   \
+  launch_bwd<P, MIX, T>(src, tgt, logits, sigma, shift, mask, stats, rgb, g_rgb, g_nll,   \
+                        g_disp, d_logits, d_sigma, d_shift, B, N, H, W, shift_max,        \
+                        with_disp, vec, st)
+  if (with_mixture)
+    return px == 1 ? PDT_BWD(1, true) : px == 2 ? PDT_BWD(2, true) : PDT_BWD(4, true);
+  return px == 1 ? PDT_BWD(1, false) : px == 2 ? PDT_BWD(2, false) : PDT_BWD(4, false);
+#undef PDT_BWD
+}
+
 }  // namespace
 
 // Shapes (all f32, contiguous): src, tgt (B, 3, H, W); logits, sigma
@@ -1173,9 +1284,10 @@ bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 // [0, shift_max]); outputs rgb (B, 3, H, W), nll, nll_auto, disp (B, H, W),
 // stats (B, 7 or 4, H, W).  nll_auto/disp may be null when their flag is 0;
 // with_mixture 0 is the no-mixture mode (sigma may be null, with_auto must
-// be 0).  W <= 2048 and pdt_plane_sweep_smem_bytes within the card's
-// opt-in limit.  Launches on `stream`, allocates nothing, does not
-// synchronise; returns cudaGetLastError() of the launch.
+// be 0).  W <= 2048 (the wrapper runs wider rows in column segments) and
+// pdt_plane_sweep_smem_bytes within the card's opt-in limit.  Launches on
+// `stream`, allocates nothing, does not synchronise; returns
+// cudaGetLastError() of the launch.
 extern "C" int pdt_plane_sweep_fwd(const float* src, const float* tgt,
                                    const float* logits, const float* sigma,
                                    const float* shift, const float* mask,
@@ -1183,19 +1295,25 @@ extern "C" int pdt_plane_sweep_fwd(const float* src, const float* tgt,
                                    float* disp, float* stats, int B, int N,
                                    int H, int W, float shift_max, int with_auto,
                                    int with_disp, int with_mixture, void* stream) {
-  if ((!with_mixture && with_auto) || W < 1 || W > kMaxW || N < 1)
-    return (int)cudaErrorInvalidValue;
-  const int vec = W % 4 == 0 && aligned16(logits) && (!with_mixture || aligned16(sigma));
-  const int px = pixels_per_thread(W);
-  cudaStream_t st = (cudaStream_t)stream;
-#define PDT_FWD(P, MIX)                                                       \
-  launch_fwd<P, MIX>(src, tgt, logits, sigma, shift, mask, rgb, nll, nll_auto, \
-                     disp, stats, B, N, H, W, shift_max, with_auto, with_disp, \
-                     vec, st)
-  if (with_mixture)
-    return px == 1 ? PDT_FWD(1, true) : px == 2 ? PDT_FWD(2, true) : PDT_FWD(4, true);
-  return px == 1 ? PDT_FWD(1, false) : px == 2 ? PDT_FWD(2, false) : PDT_FWD(4, false);
-#undef PDT_FWD
+  return sweep_fwd<float>(src, tgt, logits, sigma, shift, mask, rgb, nll, nll_auto, disp,
+                          stats, B, N, H, W, shift_max, with_auto, with_disp, with_mixture,
+                          (cudaStream_t)stream);
+}
+
+// pdt_plane_sweep_fwd in bf16 (the JAX package's default): src, tgt,
+// logits, sigma and rgb are bf16 (__nv_bfloat16), shift, mask and the other
+// outputs float32; every sum is float32 and rgb is rounded to nearest even.
+extern "C" int pdt_plane_sweep_fwd_bf16(const void* src, const void* tgt,
+                                        const void* logits, const void* sigma,
+                                        const float* shift, const float* mask, void* rgb,
+                                        float* nll, float* nll_auto, float* disp,
+                                        float* stats, int B, int N, int H, int W,
+                                        float shift_max, int with_auto, int with_disp,
+                                        int with_mixture, void* stream) {
+  using bf = __nv_bfloat16;
+  return sweep_fwd<bf>((const bf*)src, (const bf*)tgt, (const bf*)logits, (const bf*)sigma,
+                       shift, mask, (bf*)rgb, nll, nll_auto, disp, stats, B, N, H, W,
+                       shift_max, with_auto, with_disp, with_mixture, (cudaStream_t)stream);
 }
 
 // Adjoint of pdt_plane_sweep_fwd for the head operands: d_logits, d_sigma
@@ -1212,17 +1330,28 @@ extern "C" int pdt_plane_sweep_bwd(const float* src, const float* tgt,
                                    float* d_sigma, float* d_shift, int B, int N,
                                    int H, int W, float shift_max, int with_disp,
                                    int with_mixture, void* stream) {
-  if (W < 1 || W > kMaxW || N < 1) return (int)cudaErrorInvalidValue;
-  const int vec = W % 4 == 0 && aligned16(logits) && (!with_mixture || aligned16(sigma));
-  const int px = pixels_per_thread(W);
-  cudaStream_t st = (cudaStream_t)stream;
-#define PDT_BWD(P, MIX)                                                              \
-  launch_bwd<P, MIX>(src, tgt, logits, sigma, shift, mask, stats, rgb, g_rgb, g_nll, g_disp, \
-                     d_logits, d_sigma, d_shift, B, N, H, W, shift_max, with_disp, vec, st)
-  if (with_mixture)
-    return px == 1 ? PDT_BWD(1, true) : px == 2 ? PDT_BWD(2, true) : PDT_BWD(4, true);
-  return px == 1 ? PDT_BWD(1, false) : px == 2 ? PDT_BWD(2, false) : PDT_BWD(4, false);
-#undef PDT_BWD
+  return sweep_bwd<float>(src, tgt, logits, sigma, shift, mask, stats, rgb, g_rgb, g_nll,
+                          g_disp, d_logits, d_sigma, d_shift, B, N, H, W, shift_max,
+                          with_disp, with_mixture, (cudaStream_t)stream);
+}
+
+// pdt_plane_sweep_bwd in bf16: src, tgt, logits, sigma, rgb, g_rgb and the
+// outputs d_logits, d_sigma are bf16; stats, g_nll, g_disp and d_shift
+// float32.
+extern "C" int pdt_plane_sweep_bwd_bf16(const void* src, const void* tgt,
+                                        const void* logits, const void* sigma,
+                                        const float* shift, const float* mask,
+                                        const float* stats, const void* rgb,
+                                        const void* g_rgb, const float* g_nll,
+                                        const float* g_disp, void* d_logits, void* d_sigma,
+                                        float* d_shift, int B, int N, int H, int W,
+                                        float shift_max, int with_disp, int with_mixture,
+                                        void* stream) {
+  using bf = __nv_bfloat16;
+  return sweep_bwd<bf>((const bf*)src, (const bf*)tgt, (const bf*)logits, (const bf*)sigma,
+                       shift, mask, stats, (const bf*)rgb, (const bf*)g_rgb, g_nll, g_disp,
+                       (bf*)d_logits, (bf*)d_sigma, d_shift, B, N, H, W, shift_max,
+                       with_disp, with_mixture, (cudaStream_t)stream);
 }
 
 // pdt_plane_sweep_bwd's image-gradient mode (the mixture, with the
@@ -1254,12 +1383,14 @@ extern "C" int pdt_plane_sweep_bwd_img(const float* src, const float* tgt,
 
 // Dynamic shared memory, in bytes, that one launch of the forward (backward
 // 0) or backward (1) kernel needs at (N, W), of the backward's
-// image-gradient mode with image_grads 1; -1 when W is wider than the
-// kernels take (kMaxW).
+// image-gradient mode with image_grads 1 (either element type: bf16 rows are
+// widened as they are staged); a row wider than kMaxW runs in segments of
+// kMaxW columns, whose launches need the bytes at kMaxW.  -1 when W < 1.
 extern "C" long long pdt_plane_sweep_smem_bytes(int backward, int with_mixture,
                                                 int image_grads, int N, int W) {
-  if (W < 1 || W > kMaxW) return -1;
-  return (long long)smem_bytes(backward, with_mixture, N, W, backward && image_grads);
+  if (W < 1) return -1;
+  return (long long)smem_bytes(backward, with_mixture, N, W < kMaxW ? W : kMaxW,
+                               backward && image_grads);
 }
 
 // What the compiler and the occupancy calculator say of the kernel instance
@@ -1276,10 +1407,10 @@ extern "C" int pdt_plane_sweep_kernel_info(int backward, int with_mixture,
   const void* fn;
   const int px = pixels_per_thread(W);
 #define PDT_PICK(P)                                                                \
-  fn = backward ? (with_mixture ? (const void*)sweep_bwd_kernel<P, true>           \
-                                : (const void*)sweep_bwd_kernel<P, false>)         \
-                : (with_mixture ? (const void*)sweep_fwd_kernel<P, true>           \
-                                : (const void*)sweep_fwd_kernel<P, false>)
+  fn = backward ? (with_mixture ? (const void*)sweep_bwd_kernel<P, true, float>    \
+                                : (const void*)sweep_bwd_kernel<P, false, float>)  \
+                : (with_mixture ? (const void*)sweep_fwd_kernel<P, true, float>    \
+                                : (const void*)sweep_fwd_kernel<P, false, float>)
   if (img)
     fn = px == 1   ? (const void*)sweep_bwd_img_kernel<1>
          : px == 2 ? (const void*)sweep_bwd_img_kernel<2>
@@ -1306,6 +1437,10 @@ extern "C" int pdt_plane_sweep_kernel_info(int backward, int with_mixture,
 }
 
 // The current card's opt-in limit of dynamic shared memory a block, bytes.
+// The widest row one launch takes; the wrapper runs wider rows in column
+// segments.
+extern "C" int pdt_plane_sweep_max_w() { return kMaxW; }
+
 extern "C" int pdt_plane_sweep_smem_limit() {
   int dev = 0, bytes = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||

@@ -76,6 +76,17 @@
 //  - atomics aimed at one L2-resident plane (wrong sums, a probe): only
 //    0.15 ms less, so the atomics cost their issue and L2 work, not HBM.
 // The order of the f32 sums at a tap is not fixed from run to run.
+//
+// Element types.  Both kernels are templates on T, the type of src, the
+// plane heads and the three warped stacks (and of their cotangents): float,
+// or bf16, the JAX package's default arithmetic (pallas_warp2d.py:369-370,
+// 505, 516, 532: bf16 stacks from bf16 operands).  A bf16 instance widens
+// every load to float and rounds each stored stack element to bf16 (nearest
+// even); dx, dy, mask, d_dx and d_dy stay float32.  The backward's tap sums
+// are float atomics into float32 buffers in both types; for bf16 a second
+// kernel rounds them into the bf16 d_logits and d_sigma.  Its bytes are the
+// float instance's less half of src, the heads and the stacks.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -110,10 +121,25 @@ __device__ __forceinline__ Taps make_taps(float xs, float ys, int H, int W) {
   return t;
 }
 
+__device__ __forceinline__ float ldg_f(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldg_f(const __nv_bfloat16* p) {
+  return __bfloat162float(__ldg(p));
+}
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
 // The four corner values v00, v01, v10, v11 of `img` (0 outside).
-__device__ __forceinline__ void corners(const float* __restrict__ img, const Taps& t,
+template <typename T>
+__device__ __forceinline__ void corners(const T* __restrict__ img, const Taps& t,
                                         float v[4]) {
-  for (int k = 0; k < 4; ++k) v[k] = t.in[k] ? __ldg(img + t.off[k]) : 0.f;
+  for (int k = 0; k < 4; ++k) v[k] = t.in[k] ? ldg_f(img + t.off[k]) : 0.f;
 }
 
 __device__ __forceinline__ float lerp2(const float v[4], float fx, float fy) {
@@ -128,16 +154,17 @@ __device__ __forceinline__ void add_coord_grads(const float v[4], float gc, floa
 }
 
 // SIGMA: the mixture mode; without it the sigma pointers are not touched.
-template <bool SIGMA>
-__global__ void warp2d_fwd_kernel(const float* __restrict__ src,
-                                  const float* __restrict__ logits,
-                                  const float* __restrict__ sigma,
+// T: the type of src, the heads and the three outputs.
+template <bool SIGMA, typename T>
+__global__ void warp2d_fwd_kernel(const T* __restrict__ src,
+                                  const T* __restrict__ logits,
+                                  const T* __restrict__ sigma,
                                   const float* __restrict__ dx,
                                   const float* __restrict__ dy,
                                   const float* __restrict__ mask,
-                                  float* __restrict__ rgb,
-                                  float* __restrict__ logit_out,
-                                  float* __restrict__ sigma_out,
+                                  T* __restrict__ rgb,
+                                  T* __restrict__ logit_out,
+                                  T* __restrict__ sigma_out,
                                   int N, int H, int W) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y;
@@ -166,9 +193,9 @@ __global__ void warp2d_fwd_kernel(const float* __restrict__ src,
       out[4] = m * lerp2(v, t.fx, t.fy);
     }
   }
-  for (int c = 0; c < 3; ++c) rgb[(bn * 3 + c) * plane + at] = out[c];
-  logit_out[pix] = out[3];
-  if (SIGMA) sigma_out[pix] = out[4];
+  for (int c = 0; c < 3; ++c) rgb[(bn * 3 + c) * plane + at] = from_f<T>(out[c]);
+  logit_out[pix] = from_f<T>(out[3]);
+  if (SIGMA) sigma_out[pix] = from_f<T>(out[4]);
 }
 
 constexpr int kBwdThreads = 128;
@@ -199,22 +226,24 @@ __device__ __forceinline__ Taps32 make_taps32(float xs, float ys, int H, int W) 
   return t;
 }
 
-__device__ __forceinline__ void corners32(const float* __restrict__ img, const Taps32& t,
+template <typename T>
+__device__ __forceinline__ void corners32(const T* __restrict__ img, const Taps32& t,
                                           float v[4]) {
-  for (int k = 0; k < 4; ++k) v[k] = t.in[k] ? __ldg(img + t.off[k]) : 0.f;
+  for (int k = 0; k < 4; ++k) v[k] = t.in[k] ? ldg_f(img + t.off[k]) : 0.f;
 }
 
 // One thread an output element of a row segment: grid (segments, H, planes
 // of this launch), so the blocks in flight cover a plane or two and its
 // gathers and scatter stay in L2.  With sigma the lanes combine their shared
-// taps before the atomics (COMBINE).
-template <bool SIGMA>
+// taps before the atomics (COMBINE).  T: the type of src, the heads and the
+// cotangents; d_logits and d_sigma are float32 sums in either type.
+template <bool SIGMA, typename T>
 __global__ void __launch_bounds__(kBwdThreads, kBwdMinBlocks)
-warp2d_bwd_kernel(const float* __restrict__ src, const float* __restrict__ logits,
-                  const float* __restrict__ sigma, const float* __restrict__ dx,
+warp2d_bwd_kernel(const T* __restrict__ src, const T* __restrict__ logits,
+                  const T* __restrict__ sigma, const float* __restrict__ dx,
                   const float* __restrict__ dy, const float* __restrict__ mask,
-                  const float* __restrict__ g_rgb, const float* __restrict__ g_logit,
-                  const float* __restrict__ g_sigma, float* __restrict__ d_logits,
+                  const T* __restrict__ g_rgb, const T* __restrict__ g_logit,
+                  const T* __restrict__ g_sigma, float* __restrict__ d_logits,
                   float* __restrict__ d_sigma, float* __restrict__ d_dx,
                   float* __restrict__ d_dy, int N, int H, int W) {
   constexpr bool COMBINE = SIGMA;
@@ -238,19 +267,19 @@ warp2d_bwd_kernel(const float* __restrict__ src, const float* __restrict__ logit
     if (m != 0.f) {
       live = true;
       t = make_taps32(xs, ys, H, W);
-      const float* srcb = src + (int64_t)(bn / N) * 3 * plane;
-      const float* grp = g_rgb + 3 * base + at;
+      const T* srcb = src + (int64_t)(bn / N) * 3 * plane;
+      const T* grp = g_rgb + 3 * base + at;
       float v[4];
       for (int c = 0; c < 3; ++c) {
         corners32(srcb + c * plane, t, v);
-        add_coord_grads(v, m * grp[c * plane], t.fx, t.fy, gx, gy);
+        add_coord_grads(v, m * to_f(grp[c * plane]), t.fx, t.fy, gx, gy);
       }
-      const float gl = m * g_logit[base + at];
+      const float gl = m * to_f(g_logit[base + at]);
       corners32(logits + base, t, v);
       add_coord_grads(v, gl, t.fx, t.fy, gx, gy);
       float gs = 0.f;
       if (SIGMA) {
-        gs = m * g_sigma[base + at];
+        gs = m * to_f(g_sigma[base + at]);
         corners32(sigma + base, t, v);
         add_coord_grads(v, gs, t.fx, t.fy, gx, gy);
       }
@@ -296,6 +325,66 @@ warp2d_bwd_kernel(const float* __restrict__ src, const float* __restrict__ logit
   }
 }
 
+// Rounds n float32 sums to bf16 (the bf16 backward's d_logits, d_sigma).
+__global__ void round_bf16_kernel(const float* __restrict__ in, __nv_bfloat16* __restrict__ out,
+                                  int64_t n) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) out[i] = __float2bfloat16_rn(in[i]);
+}
+
+template <typename T>
+int warp_fwd(const T* src, const T* logits, const T* sigma, const float* dx, const float* dy,
+             const float* mask, T* rgb, T* logit_out, T* sigma_out, int B, int N, int H,
+             int W, int with_sigma, cudaStream_t st) {
+  if (N > 65535 || H > 65535) return (int)cudaErrorInvalidValue;
+  const int64_t plane = (int64_t)H * W;
+  const int images = 65535 / N;              // whole images a launch
+  for (int b0 = 0; b0 < B; b0 += images) {
+    const int nb = std::min(images, B - b0);
+    const int64_t o = (int64_t)b0 * N * plane;
+    const dim3 grid((W + kThreads - 1) / kThreads, H, nb * N);
+    const T* s = src + (int64_t)b0 * 3 * plane;
+    if (with_sigma)
+      warp2d_fwd_kernel<true, T><<<grid, kThreads, 0, st>>>(
+          s, logits + o, sigma + o, dx + o, dy + o, mask + o, rgb + 3 * o, logit_out + o,
+          sigma_out + o, N, H, W);
+    else
+      warp2d_fwd_kernel<false, T><<<grid, kThreads, 0, st>>>(
+          s, logits + o, nullptr, dx + o, dy + o, mask + o, rgb + 3 * o, logit_out + o,
+          nullptr, N, H, W);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  return (int)cudaSuccess;
+}
+
+template <typename T>
+int warp_bwd(const T* src, const T* logits, const T* sigma, const float* dx, const float* dy,
+             const float* mask, const T* g_rgb, const T* g_logit, const T* g_sigma,
+             float* d_logits, float* d_sigma, float* d_dx, float* d_dy, int B, int N, int H,
+             int W, int with_sigma, cudaStream_t st) {
+  if (N > 65535 || H > 65535) return (int)cudaErrorInvalidValue;
+  const int64_t plane = (int64_t)H * W;
+  const int images = 65535 / N;              // whole images a launch
+  for (int b0 = 0; b0 < B; b0 += images) {
+    const int nb = std::min(images, B - b0);
+    const int64_t o = (int64_t)b0 * N * plane;
+    const dim3 grid((W + kBwdThreads - 1) / kBwdThreads, H, nb * N);
+    const T* s = src + (int64_t)b0 * 3 * plane;
+    if (with_sigma)
+      warp2d_bwd_kernel<true, T><<<grid, kBwdThreads, 0, st>>>(
+          s, logits + o, sigma + o, dx + o, dy + o, mask + o, g_rgb + 3 * o, g_logit + o,
+          g_sigma + o, d_logits + o, d_sigma + o, d_dx + o, d_dy + o, N, H, W);
+    else
+      warp2d_bwd_kernel<false, T><<<grid, kBwdThreads, 0, st>>>(
+          s, logits + o, nullptr, dx + o, dy + o, mask + o, g_rgb + 3 * o, g_logit + o,
+          nullptr, d_logits + o, nullptr, d_dx + o, d_dy + o, N, H, W);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  return (int)cudaSuccess;
+}
+
 }  // namespace
 
 // src: (B, 3, H, W); logits, sigma, dx, dy, mask: (B, N, H, W); outputs rgb:
@@ -308,26 +397,20 @@ extern "C" int pdt_warp2d_fwd(const float* src, const float* logits, const float
                               const float* dx, const float* dy, const float* mask,
                               float* rgb, float* logit_out, float* sigma_out,
                               int B, int N, int H, int W, int with_sigma, void* stream) {
-  if (N > 65535 || H > 65535) return (int)cudaErrorInvalidValue;
-  const int64_t plane = (int64_t)H * W;
-  const int images = 65535 / N;              // whole images a launch
-  for (int b0 = 0; b0 < B; b0 += images) {
-    const int nb = std::min(images, B - b0);
-    const int64_t o = (int64_t)b0 * N * plane;
-    const dim3 grid((W + kThreads - 1) / kThreads, H, nb * N);
-    const float* s = src + (int64_t)b0 * 3 * plane;
-    if (with_sigma)
-      warp2d_fwd_kernel<true><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-          s, logits + o, sigma + o, dx + o, dy + o, mask + o, rgb + 3 * o, logit_out + o,
-          sigma_out + o, N, H, W);
-    else
-      warp2d_fwd_kernel<false><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-          s, logits + o, nullptr, dx + o, dy + o, mask + o, rgb + 3 * o, logit_out + o,
-          nullptr, N, H, W);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-  }
-  return (int)cudaSuccess;
+  return warp_fwd<float>(src, logits, sigma, dx, dy, mask, rgb, logit_out, sigma_out, B, N,
+                         H, W, with_sigma, (cudaStream_t)stream);
+}
+
+// pdt_warp2d_fwd in bf16: src, logits, sigma and the three outputs are bf16
+// (__nv_bfloat16), dx, dy and mask float32.
+extern "C" int pdt_warp2d_fwd_bf16(const void* src, const void* logits, const void* sigma,
+                                   const float* dx, const float* dy, const float* mask,
+                                   void* rgb, void* logit_out, void* sigma_out, int B, int N,
+                                   int H, int W, int with_sigma, void* stream) {
+  using bf = __nv_bfloat16;
+  return warp_fwd<bf>((const bf*)src, (const bf*)logits, (const bf*)sigma, dx, dy, mask,
+                      (bf*)rgb, (bf*)logit_out, (bf*)sigma_out, B, N, H, W, with_sigma,
+                      (cudaStream_t)stream);
 }
 
 // Inputs as pdt_warp2d_fwd's plus the cotangents g_rgb: (B, N, 3, H, W),
@@ -342,34 +425,41 @@ extern "C" int pdt_warp2d_bwd(const float* src, const float* logits, const float
                               const float* g_sigma, float* d_logits, float* d_sigma,
                               float* d_dx, float* d_dy, int B, int N, int H, int W,
                               int with_sigma, void* stream) {
-  if (N > 65535 || H > 65535) return (int)cudaErrorInvalidValue;
+  return warp_bwd<float>(src, logits, sigma, dx, dy, mask, g_rgb, g_logit, g_sigma,
+                         d_logits, d_sigma, d_dx, d_dy, B, N, H, W, with_sigma,
+                         (cudaStream_t)stream);
+}
+
+// pdt_warp2d_bwd in bf16: src, logits, sigma and the cotangents g_rgb,
+// g_logit, g_sigma are bf16; the tap sums go into the float32 acc_logits,
+// acc_sigma, which the caller zeroes, and are then rounded into the bf16
+// d_logits, d_sigma; d_dx, d_dy are float32.
+extern "C" int pdt_warp2d_bwd_bf16(const void* src, const void* logits, const void* sigma,
+                                   const float* dx, const float* dy, const float* mask,
+                                   const void* g_rgb, const void* g_logit,
+                                   const void* g_sigma, float* acc_logits, float* acc_sigma,
+                                   void* d_logits, void* d_sigma, float* d_dx, float* d_dy,
+                                   int B, int N, int H, int W, int with_sigma,
+                                   void* stream) {
+  using bf = __nv_bfloat16;
   const cudaStream_t st = (cudaStream_t)stream;
-  const int64_t plane = (int64_t)H * W;
-  const int images = 65535 / N;              // whole images a launch
-  for (int b0 = 0; b0 < B; b0 += images) {
-    const int nb = std::min(images, B - b0);
-    const int64_t o = (int64_t)b0 * N * plane;
-    const dim3 grid((W + kBwdThreads - 1) / kBwdThreads, H, nb * N);
-    const float* s = src + (int64_t)b0 * 3 * plane;
-    if (with_sigma)
-      warp2d_bwd_kernel<true><<<grid, kBwdThreads, 0, st>>>(
-          s, logits + o, sigma + o, dx + o, dy + o, mask + o, g_rgb + 3 * o, g_logit + o,
-          g_sigma + o, d_logits + o, d_sigma + o, d_dx + o, d_dy + o, N, H, W);
-    else
-      warp2d_bwd_kernel<false><<<grid, kBwdThreads, 0, st>>>(
-          s, logits + o, nullptr, dx + o, dy + o, mask + o, g_rgb + 3 * o, g_logit + o,
-          nullptr, d_logits + o, nullptr, d_dx + o, d_dy + o, N, H, W);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-  }
-  return (int)cudaSuccess;
+  int e = warp_bwd<bf>((const bf*)src, (const bf*)logits, (const bf*)sigma, dx, dy, mask,
+                       (const bf*)g_rgb, (const bf*)g_logit, (const bf*)g_sigma, acc_logits,
+                       acc_sigma, d_dx, d_dy, B, N, H, W, with_sigma, st);
+  if (e != 0) return e;
+  const int64_t n = (int64_t)B * N * H * W;
+  const int threads = 256;
+  const unsigned blocks = (unsigned)((n + threads - 1) / threads);
+  round_bf16_kernel<<<blocks, threads, 0, st>>>(acc_logits, (bf*)d_logits, n);
+  if (with_sigma) round_bf16_kernel<<<blocks, threads, 0, st>>>(acc_sigma, (bf*)d_sigma, n);
+  return (int)cudaGetLastError();
 }
 
 // The backward kernel as the compiler and the occupancy calculator see it:
 // out = {registers, spill bytes, threads a block, blocks an SM}.
 extern "C" int pdt_warp2d_bwd_kernel_info(int with_sigma, int* out) {
-  const void* fn = with_sigma ? (const void*)warp2d_bwd_kernel<true>
-                              : (const void*)warp2d_bwd_kernel<false>;
+  const void* fn = with_sigma ? (const void*)warp2d_bwd_kernel<true, float>
+                              : (const void*)warp2d_bwd_kernel<false, float>;
   cudaFuncAttributes attr;
   cudaError_t e = cudaFuncGetAttributes(&attr, fn);
   if (e != cudaSuccess) return (int)e;

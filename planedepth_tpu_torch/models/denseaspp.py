@@ -6,7 +6,8 @@ dropout], then dropout and a 1x1 fuse.  Module names are the reference's
 (``ASPP_{d}.norm1/conv1/norm2/conv2``, ``classification.1``).  BN momentum is
 the reference's 0.0003 in torch's convention; in eval mode BN uses its running
 statistics and dropout is inactive.  In training the channel-dropout masks are
-drawn from the ``torch.Generator`` the caller passes.
+drawn from the ``torch.Generator`` the caller passes.  ``dtype`` is the
+compute dtype of ``models/layers.py``.
 """
 from __future__ import annotations
 
@@ -15,6 +16,8 @@ from typing import Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from planedepth_tpu_torch.models.layers import BatchNorm2d, Conv2d, scalar
 
 DILATIONS = (3, 6, 12, 18, 24)
 NUM_FEATURES, D_FEATURE0, D_FEATURE1, DROPOUT0 = 256, 512, 128, 0.1
@@ -33,18 +36,19 @@ def channel_dropout(x: torch.Tensor, rate: float, training: bool,
         raise ValueError("DenseASPP dropout in training needs a torch.Generator")
     keep = torch.full(x.shape[:2] + (1, 1), 1.0 - rate, device=generator.device)
     keep = torch.bernoulli(keep, generator=generator).to(x.device, x.dtype)
-    return x * keep / (1.0 - rate)
+    return x * keep / scalar(1.0 - rate, x)
 
 
 class DenseAsppBlock(nn.Module):
-    def __init__(self, in_ch: int, dilation: int, bn_start: bool, dropout: float):
+    def __init__(self, in_ch: int, dilation: int, bn_start: bool, dropout: float,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.dropout = dropout
-        self.norm1 = nn.BatchNorm2d(in_ch, momentum=0.0003) if bn_start else None
-        self.conv1 = nn.Conv2d(in_ch, D_FEATURE0, 1)
-        self.norm2 = nn.BatchNorm2d(D_FEATURE0, momentum=0.0003)
-        self.conv2 = nn.Conv2d(D_FEATURE0, D_FEATURE1, 3, padding=dilation,
-                               dilation=dilation)
+        self.norm1 = BatchNorm2d(in_ch, momentum=0.0003) if bn_start else None
+        self.conv1 = Conv2d(in_ch, D_FEATURE0, 1, dtype=dtype)
+        self.norm2 = BatchNorm2d(D_FEATURE0, momentum=0.0003)
+        self.conv2 = Conv2d(D_FEATURE0, D_FEATURE1, 3, padding=dilation,
+                            dilation=dilation, dtype=dtype)
 
     def forward(self, x, generator=None):
         if self.norm1 is not None:
@@ -58,16 +62,17 @@ class DenseAspp(nn.Module):
     """``dropout`` is the JAX module's ``dropout0``: the rate of every
     channel dropout (the reference's 0.1)."""
 
-    def __init__(self, in_ch: int, dropout: float = DROPOUT0):
+    def __init__(self, in_ch: int, dropout: float = DROPOUT0,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.dropout = dropout
         ch = in_ch
         for i, d in enumerate(DILATIONS):
-            setattr(self, f"ASPP_{d}", DenseAsppBlock(ch, d, i > 0, dropout))
+            setattr(self, f"ASPP_{d}", DenseAsppBlock(ch, d, i > 0, dropout, dtype))
             ch += D_FEATURE1
         # index 0 keeps the reference's key ``classification.1``
         self.classification = nn.Sequential(
-            nn.Identity(), nn.Conv2d(ch, NUM_FEATURES, 1))
+            nn.Identity(), Conv2d(ch, NUM_FEATURES, 1, dtype=dtype))
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
         feature = x

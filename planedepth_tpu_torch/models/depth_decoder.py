@@ -28,6 +28,16 @@ compositing of those densities over the plane distances along each ray
 (``plane_dists``), in training too (``disp`` is its expectation: the disp
 head's softmax is not this mode's probability), and a plane of ones is
 appended to the logits for the warps that read them.
+
+``dtype`` is the compute dtype of ``models/layers.py``, with the JAX
+decoder's float32 points: the residual sigmoid, the plane volume, the
+softmax and the sigma epilogue are float32.  The plane heads leave float32
+(``head_epilogue`` runs on the upcast raw heads) unless the decoder trains
+for the fused sweep in bf16: then they are rounded back to
+``dtype``, the sweep's bf16 operands (the JAX decoder's ``head_f32`` rule,
+``depth_decoder.py:284-286``; eval, validation, the teacher and the 2-D
+warp recipes keep float32 heads).  Where the JAX v1 route does the
+epilogue's own arithmetic in bf16, the port rounds its float32 result once.
 """
 from __future__ import annotations
 
@@ -41,11 +51,14 @@ from planedepth_tpu_torch.geometry.camera import create_camera_plane, disp_to_de
 from planedepth_tpu_torch.geometry.planes import build_plane_volume
 from planedepth_tpu_torch.models.denseaspp import DenseAspp
 from planedepth_tpu_torch.models.layers import (
+    Conv2d,
     Conv3x3,
     ConvBlock,
     ep_conv,
     frequency_embed,
     inject_grid,
+    to_dtype,
+    upcast,
     upsample2x_nearest,
 )
 from planedepth_tpu_torch.ops.disp_head import disp_head
@@ -96,8 +109,10 @@ class DepthDecoder(nn.Module):
                  num_ep: int = 8, pe_type: str = "neural",
                  use_denseaspp: bool = True, use_mixture_loss: bool = True,
                  render_probability: bool = False, plane_residual: bool = True,
-                 fused_sweep_loss: bool = False):
+                 fused_sweep_loss: bool = False,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         self.planes = planes
         self.num_ep = num_ep
         self.pe_type = pe_type
@@ -118,25 +133,26 @@ class DepthDecoder(nn.Module):
         # parameters, so the state_dict has only the reference's keys
         self.convs: Dict[str, nn.Module] = {}
         if num_ep > 0 and pe_type == "neural":
-            self.convs["epconv"] = ep_conv(num_ep)
+            self.convs["epconv"] = ep_conv(num_ep, dtype)
         for i in range(4, -1, -1):
             cin = num_ch_enc[-1] + n_pe if i == 4 else NUM_CH_DEC[i + 1]
-            self.convs[f"upconv_{i}_0"] = ConvBlock(cin, NUM_CH_DEC[i])
+            self.convs[f"upconv_{i}_0"] = ConvBlock(cin, NUM_CH_DEC[i], dtype)
             cin = NUM_CH_DEC[i]
             if i > 0:
                 cin += num_ch_enc[i - 1] + n_pe        # skip + PE
-            self.convs[f"upconv_{i}_1"] = ConvBlock(cin, NUM_CH_DEC[i])
+            self.convs[f"upconv_{i}_1"] = ConvBlock(cin, NUM_CH_DEC[i], dtype)
         if use_denseaspp:
-            self.convs["denseaspp"] = DenseAspp(NUM_CH_DEC[4])
+            self.convs["denseaspp"] = DenseAspp(NUM_CH_DEC[4], dtype=dtype)
         self.convs["dispconv"] = Conv3x3(NUM_CH_DEC[0],
-                                         n_planes - 1 if render_probability else n_planes)
+                                         n_planes - 1 if render_probability else n_planes,
+                                         dtype)
         if use_mixture_loss:
-            self.convs["sigmaconv"] = Conv3x3(NUM_CH_DEC[0], n_planes)
+            self.convs["sigmaconv"] = Conv3x3(NUM_CH_DEC[0], n_planes, dtype)
         if plane_residual:
             self.convs["residualconv"] = nn.Sequential(
-                nn.Conv2d(NUM_CH_DEC[0], NUM_CH_DEC[0], 1),
+                Conv2d(NUM_CH_DEC[0], NUM_CH_DEC[0], 1, dtype=dtype),
                 nn.AdaptiveAvgPool2d(1),
-                nn.Conv2d(NUM_CH_DEC[0], n_planes, 1))
+                Conv2d(NUM_CH_DEC[0], n_planes, 1, dtype=dtype))
         self.decoder = nn.ModuleList(self.convs.values())
 
     def forward(self, input_features: Sequence[torch.Tensor], grid: torch.Tensor,
@@ -148,16 +164,16 @@ class DepthDecoder(nn.Module):
         without yz planes (``(B, N, H, W)`` with them), disp_rows ``(B, H, N)``
         without yz planes, distance ``(B, N)``, norm ``(B, N, 3)``, and under
         ``render_probability`` dists ``(B, N - 1, H, W)``."""
-        cfg, c = self.planes, self.convs
+        cfg, c, dt = self.planes, self.convs, self.dtype
         grid_ep = None
         if self.num_ep > 0:
             grid_ep = (c["epconv"](grid) if self.pe_type == "neural"
-                       else frequency_embed(grid, self.num_ep))
+                       else to_dtype(frequency_embed(grid, self.num_ep), dt))
 
-        x = inject_grid(input_features[-1], grid_ep)
+        x = inject_grid(to_dtype(input_features[-1], dt), grid_ep)
         for i in range(4, 0, -1):
             x = upsample2x_nearest(c[f"upconv_{i}_0"](x))
-            x = torch.cat([x, input_features[i - 1]], dim=1)
+            x = torch.cat([x, to_dtype(input_features[i - 1], dt)], dim=1)
             x = c[f"upconv_{i}_1"](inject_grid(x, grid_ep))
             if i == 4 and self.use_denseaspp:
                 x = c["denseaspp"](x, generator)
@@ -168,7 +184,7 @@ class DepthDecoder(nn.Module):
         residual_levels = None
         if self.plane_residual:
             r = c["residualconv"](x)                              # (B, N, 1, 1)
-            residual_levels = torch.sigmoid(r)[:, :, 0, 0] - 0.5
+            residual_levels = torch.sigmoid(upcast(r))[:, :, 0, 0] - 0.5
         vol = build_plane_volume(grid, cfg, W, residual_levels)
         out = {"disp_layered": vol.disp_layered, "padding_mask": vol.padding_mask,
                "distance": vol.distance, "norm": vol.normal}
@@ -177,9 +193,13 @@ class DepthDecoder(nn.Module):
             out["disp_rows"] = vol.disp_layered[..., 0].transpose(1, 2).contiguous()
 
         logits, sigma = head_epilogue(
-            c["dispconv"](x),
-            c["sigmaconv"](x) if self.use_mixture_loss else None,
+            upcast(c["dispconv"](x)),
+            upcast(c["sigmaconv"](x)) if self.use_mixture_loss else None,
             vol.padding_mask)
+        if dt is not None and self.fused_sweep_loss and self.training:
+            # the fused sweep's bf16 operands (the JAX decoder's head_f32 rule)
+            logits = logits.to(dt)
+            sigma = None if sigma is None else sigma.to(dt)
         probability = None
         if self.render_probability:
             out["dists"] = plane_dists(vol.disp_layered, W, H)

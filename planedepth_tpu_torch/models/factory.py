@@ -24,20 +24,23 @@ class DepthModel(nn.Module):
     ``plade``) or ``FalNet`` (submodule ``fal``), the JAX package's names.
 
     ``image`` is ``(B, 3, H, W)`` in [0, 1], ``grid`` the ``(B, 2, H, W)``
-    augmentation grid.  ``fused_sweep_loss`` reaches only the ResNet
-    decoder; the other families always emit ``disp``.
+    augmentation grid.  ``fused_sweep_loss`` reaches
+    only the ResNet decoder; the other families always emit ``disp``.
+    ``dtype`` is the networks' compute dtype (``models/layers.py``: None
+    for the input's, ``torch.bfloat16`` for the JAX package's default).
     """
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, dtype: Optional[torch.dtype] = None):
         super().__init__()
         if cfg.net_type not in NET_TYPES:
             raise ValueError(f"unknown net_type {cfg.net_type!r} (one of {NET_TYPES})")
         self.cfg = cfg
+        self.dtype = dtype
         if cfg.net_type == "PladeNet":
             self.plade = PladeNet(cfg.planes, num_ep=cfg.num_ep,
                                   use_mixture_loss=cfg.use_mixture_loss,
                                   render_probability=cfg.render_probability,
-                                  plane_residual=cfg.plane_residual)
+                                  plane_residual=cfg.plane_residual, dtype=dtype)
             return
         if cfg.net_type == "FalNet":
             if cfg.render_probability:
@@ -46,9 +49,9 @@ class DepthModel(nn.Module):
                 raise NotImplementedError(
                     "FalNet has no render_probability head: the JAX FalNet builds "
                     "none and its factory drops the flag")
-            self.fal = FalNet(cfg.planes)
+            self.fal = FalNet(cfg.planes, dtype=dtype)
             return
-        self.encoder = ResnetEncoder(cfg.num_layers)
+        self.encoder = ResnetEncoder(cfg.num_layers, dtype=dtype)
         self.depth = DepthDecoder(
             num_ch_enc=tuple(int(c) for c in self.encoder.num_ch_enc),
             planes=cfg.planes,
@@ -59,6 +62,7 @@ class DepthModel(nn.Module):
             render_probability=cfg.render_probability,
             plane_residual=cfg.plane_residual,
             fused_sweep_loss=cfg.fused_sweep_loss,
+            dtype=dtype,
         )
 
     def forward(self, image: torch.Tensor, grid: torch.Tensor,
@@ -70,6 +74,12 @@ class DepthModel(nn.Module):
         if self.cfg.net_type == "FalNet":
             return self.fal(image)
         return self.depth(self.encoder(image), grid, generator)
+
+
+def build_depth_model(cfg: ModelConfig, bf16: bool = False) -> DepthModel:
+    """``DepthModel`` computing in bf16 or in float32
+    (``planedepth_tpu/models/factory.py:build_depth_model``)."""
+    return DepthModel(cfg, dtype=torch.bfloat16 if bf16 else None)
 
 
 @torch.no_grad()

@@ -5,6 +5,18 @@ code, so a reference ``state_dict`` loads as it is: ``Conv3x3.conv``,
 ``ConvBlock.conv.conv``.  The PladeNet/FalNet blocks (``ConvELU``,
 ``ResidualBlock``, ``Deconv``) name theirs after the JAX modules
 (``conv``, ``conv1``, ``conv2``), the names ``utils/weights.py`` maps.
+
+Every block takes a ``dtype``, as the JAX package's flax modules do: None
+computes in the input's dtype (float32), ``torch.bfloat16`` in bf16 (the
+JAX package's default, ``TrainConfig.bf16``).  The parameters stay float32
+and are cast where they are used (:class:`Conv2d`), so Adam updates float32
+weights.  BatchNorm (:class:`BatchNorm2d`) keeps its statistics and
+normalises in float32 on a bf16 input, and rounds its output to bf16, as
+flax's ``BatchNorm(dtype=bf16)``; on running statistics it normalises in
+flax's order.  Elementwise work runs op by op in the tensor's dtype, with its
+constants in that dtype (:func:`scalar`), which is where XLA rounds the JAX
+package's bf16 arithmetic.  ``torch.autocast`` is not used: its op lists
+differ between the CPU and CUDA and from flax's rounding points.
 """
 from __future__ import annotations
 
@@ -13,6 +25,26 @@ from typing import Optional, Sequence
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+
+def upcast(x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """A bf16 (or fp16) tensor in float32, any other as it is: the JAX
+    package's ``astype(jnp.float32)`` where a float64 run stays float64."""
+    if x is not None and x.dtype in (torch.bfloat16, torch.float16):
+        return x.float()
+    return x
+
+
+def to_dtype(x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """``x`` cast to ``dtype``; None leaves it as it is (flax ``dtype=None``)."""
+    return x if dtype is None else x.to(dtype)
+
+
+def scalar(value: float, like: torch.Tensor) -> torch.Tensor:
+    """``value`` as a 0-d tensor of ``like``'s dtype: a Python float beside a
+    bf16 tensor would enter PyTorch's float32 arithmetic unrounded, where
+    JAX rounds it to bf16 first."""
+    return torch.tensor(value, dtype=like.dtype, device=like.device)
 
 
 def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
@@ -34,33 +66,70 @@ def resize_nearest(x: torch.Tensor, size: Sequence[int]) -> torch.Tensor:
     return F.interpolate(x, size=tuple(size), mode="nearest")
 
 
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` computing in ``dtype`` (flax ``nn.Conv(dtype=...)``): the
+    input, the weight and the bias are cast at use, the parameters stay
+    float32.  In a set dtype the bias is added after the convolution, in
+    that dtype, where flax adds it; None is ``nn.Conv2d`` as it is."""
+
+    def __init__(self, *args, dtype: Optional[torch.dtype] = None, **kw):
+        super().__init__(*args, **kw)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        y = self._conv_forward(x.to(dt), self.weight.to(dt), None)
+        return y if self.bias is None else y + self.bias.to(dt)[:, None, None]
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` that, on running statistics and a bf16 (or fp16)
+    input, normalises in flax's order: ``(x - mean) * (scale * rsqrt(var +
+    eps)) + bias`` in float32, rounded once to the input's dtype, on every
+    device.  torch's CPU kernel folds the mean into the bias, ``x * a +
+    (bias - mean * a)``, which cancels where the mean is large beside the
+    spread and so rounds elsewhere.  Training and float32 inputs take ``nn.BatchNorm2d``."""
+
+    def forward(self, x):
+        if self.training or x.dtype not in (torch.bfloat16, torch.float16):
+            return super().forward(x)
+        view = lambda t: t[:, None, None]      # noqa: E731
+        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+        # x - mean promotes to float32 in one pass, as flax upcasts x
+        return torch.addcmul(view(self.bias), x - view(self.running_mean),
+                             view(mul)).to(x.dtype)
+
+
 class Conv3x3(nn.Module):
     """Reflection pad, then a VALID 3x3 conv (reference layers.py:110-125)."""
 
-    def __init__(self, in_ch: int, out_ch: int):
+    def __init__(self, in_ch: int, out_ch: int, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.conv = nn.Conv2d(in_ch, out_ch, 3)
+        self.conv = Conv2d(in_ch, out_ch, 3, dtype=dtype)
 
     def forward(self, x):
-        return self.conv(F.pad(x, (1, 1, 1, 1), mode="reflect"))
+        return self.conv(F.pad(to_dtype(x, self.conv.compute_dtype), (1, 1, 1, 1),
+                               mode="reflect"))
 
 
 class ConvBlock(nn.Module):
     """Conv3x3 + ELU (reference layers.py:95-107)."""
 
-    def __init__(self, in_ch: int, out_ch: int):
+    def __init__(self, in_ch: int, out_ch: int, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.conv = Conv3x3(in_ch, out_ch)
+        self.conv = Conv3x3(in_ch, out_ch, dtype)
 
     def forward(self, x):
         return F.elu(self.conv(x))
 
 
-def ep_conv(num_ep: int) -> nn.Sequential:
+def ep_conv(num_ep: int, dtype: Optional[torch.dtype] = None) -> nn.Sequential:
     """Neural positional encoding: 1x1 2->16 ELU -> 1x1 16->num_ep ELU
     (reference depth_decoder.py:66-71; parameters at ``0.*`` and ``2.*``)."""
-    return nn.Sequential(nn.Conv2d(2, 16, 1), nn.ELU(),
-                         nn.Conv2d(16, num_ep, 1), nn.ELU())
+    return nn.Sequential(Conv2d(2, 16, 1, dtype=dtype), nn.ELU(),
+                         Conv2d(16, num_ep, 1, dtype=dtype), nn.ELU())
 
 
 def frequency_embed(grid: torch.Tensor, num_ep: int) -> torch.Tensor:
@@ -90,11 +159,12 @@ class ConvELU(nn.Module):
     the port does not build one."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3, stride: int = 1,
-                 pad: int = 1, batch_norm: bool = False):
+                 pad: int = 1, batch_norm: bool = False, dtype: Optional[torch.dtype] = None):
         super().__init__()
         if batch_norm:
             raise NotImplementedError("ConvELU with BatchNorm: no ModelConfig builds it")
-        self.conv = nn.Conv2d(in_ch, out_ch, kernel_size, stride=stride, padding=pad)
+        self.conv = Conv2d(in_ch, out_ch, kernel_size, stride=stride, padding=pad,
+                           dtype=dtype)
 
     def forward(self, x):
         return F.elu(self.conv(x))
@@ -104,13 +174,14 @@ class ResidualBlock(nn.Module):
     """Two bias-free 3x3 convs, ``elu(conv2(elu(conv1(x))) + x)`` (reference
     plade_net.py:61-72)."""
 
-    def __init__(self, ch: int, kernel_size: int = 3):
+    def __init__(self, ch: int, kernel_size: int = 3, dtype: Optional[torch.dtype] = None):
         super().__init__()
         p = (kernel_size - 1) // 2
-        self.conv1 = nn.Conv2d(ch, ch, kernel_size, padding=p, bias=False)
-        self.conv2 = nn.Conv2d(ch, ch, kernel_size, padding=p, bias=False)
+        self.conv1 = Conv2d(ch, ch, kernel_size, padding=p, bias=False, dtype=dtype)
+        self.conv2 = Conv2d(ch, ch, kernel_size, padding=p, bias=False, dtype=dtype)
 
     def forward(self, x):
+        x = to_dtype(x, self.conv1.compute_dtype)
         return F.elu(self.conv2(F.elu(self.conv1(x))) + x)
 
 
@@ -118,9 +189,9 @@ class Deconv(nn.Module):
     """Nearest resize to a reference size, a bias-free 3x3 conv, ELU
     (reference plade_net.py:49-58)."""
 
-    def __init__(self, in_ch: int, out_ch: int):
+    def __init__(self, in_ch: int, out_ch: int, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.conv1 = nn.Conv2d(in_ch, out_ch, 3, padding=1, bias=False)
+        self.conv1 = Conv2d(in_ch, out_ch, 3, padding=1, bias=False, dtype=dtype)
 
     def forward(self, x, size: Sequence[int]):
         return F.elu(self.conv1(resize_nearest(x, size)))

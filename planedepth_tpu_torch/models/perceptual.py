@@ -9,15 +9,19 @@ Parameters keep torchvision's ``features.{i}`` names.
 (``models/resnet.py``, under ``encoder.``) with BatchNorm on its running
 statistics; its first three feature maps (relu1, layer1, layer2).
 Both nets are frozen (``requires_grad_(False)``, always in eval mode);
-gradients still reach their input.
+gradients still reach their input.  The normalisation runs in the input's
+dtype (a bf16 reconstruction in bf16, a float32 image in float32), then
+casts to the nets' compute ``dtype`` (``models/layers.py``), as the JAX
+modules do.
 """
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import torch
 import torch.nn as nn
 
+from planedepth_tpu_torch.models.layers import Conv2d, to_dtype
 from planedepth_tpu_torch.models.resnet import ResNetTrunk
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -30,6 +34,10 @@ SLICE_ENDS = (5, 10, 19)
 class _Frozen(nn.Module):
     """A feature net that no step trains: no parameter requires grad, and
     it stays in eval mode."""
+
+    def normalise(self, x: torch.Tensor) -> torch.Tensor:
+        """ImageNet normalisation in x's dtype, then the compute dtype."""
+        return to_dtype((x - self.mean.to(x.dtype)) / self.std.to(x.dtype), self.dtype)
 
     def freeze(self):
         # constants, not weights: outside the state dict
@@ -46,20 +54,21 @@ class _Frozen(nn.Module):
 
 
 class Vgg19Features(_Frozen):
-    def __init__(self):
+    def __init__(self, dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         layers, ch = [], 3
         for item in _VGG_LAYERS:
             if item == "M":
                 layers.append(nn.MaxPool2d(2))
             else:
-                layers += [nn.Conv2d(ch, item, 3, padding=1), nn.ReLU()]
+                layers += [Conv2d(ch, item, 3, padding=1, dtype=dtype), nn.ReLU()]
                 ch = item
         self.features = nn.Sequential(*layers)
         self.freeze()
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
-        h = (x - self.mean) / self.std
+        h = self.normalise(x)
         feats, start = [], 0
         for end in SLICE_ENDS:
             h = self.features[start:end](h)
@@ -71,18 +80,19 @@ class Vgg19Features(_Frozen):
 class Resnet18Features(_Frozen):
     """(reference layers.py:424-449)"""
 
-    def __init__(self):
+    def __init__(self, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.encoder = ResNetTrunk(18)
+        self.dtype = dtype
+        self.encoder = ResNetTrunk(18, dtype=dtype)
         self.freeze()
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
-        return self.encoder((x - self.mean) / self.std)[:3]
+        return self.encoder(self.normalise(x))[:3]
 
 
-def make_perceptual_net(kind: str) -> nn.Module:
+def make_perceptual_net(kind: str, dtype: Optional[torch.dtype] = None) -> nn.Module:
     if kind == "vgg19":
-        return Vgg19Features()
+        return Vgg19Features(dtype)
     if kind == "resnet18":
-        return Resnet18Features()
+        return Resnet18Features(dtype)
     raise ValueError(f"unknown perceptual net: {kind}")

@@ -13,7 +13,9 @@ as the ResNet decoder composites them, but unmasked here too (the JAX
 module's ``plade_net.py:213-220``).
 Module names follow the JAX modules (``backbone.conv_ep1.conv``,
 ``conv_residual``, ``conv_sigma``), which ``utils/weights.py`` maps from a
-JAX ``{"plade": ...}`` tree.
+JAX ``{"plade": ...}`` tree.  ``dtype`` is the backbone's and heads'
+compute dtype (``models/layers.py``); the heads leave it in float32, as the
+JAX module's do.
 """
 from __future__ import annotations
 
@@ -31,10 +33,13 @@ from planedepth_tpu_torch.models.depth_decoder import (
 )
 from planedepth_tpu_torch.models.fal_net import subtract_fal_mean
 from planedepth_tpu_torch.models.layers import (
+    Conv2d,
     ConvELU,
     Deconv,
     ResidualBlock,
     resize_bilinear_align_corners,
+    to_dtype,
+    upcast,
 )
 
 
@@ -46,33 +51,36 @@ class PladeBackBone(nn.Module):
     LADDER = ((128, 256), (128, 256), (128, 256), (128, 256), (128, 128))
     SKIPS = (64, 128, 256, 256, 256, 256)        # out0 .. out5 channels
 
-    def __init__(self, no_out: int, num_ep: int = 8):
+    def __init__(self, no_out: int, num_ep: int = 8, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.num_ep = num_ep
-        ep = num_ep
-        self.conv0 = ConvELU(3, 64, 3)
-        self.conv0_1 = ResidualBlock(64)
+        self.dtype = dtype
+        ep, dt = num_ep, dtype
+        self.conv0 = ConvELU(3, 64, 3, dtype=dt)
+        self.conv0_1 = ResidualBlock(64, dtype=dt)
         if num_ep > 0:
-            self.conv_ep1 = ConvELU(2, 16, 1, pad=0)
-            self.conv_ep2 = ConvELU(16, num_ep, 1, pad=0)
-        self.conv1 = ConvELU(64 + ep, 128, stride=2)
-        self.conv1_1 = ResidualBlock(128)
-        self.conv0l = ConvELU(3, 64, 3)
-        self.conv0l_1 = ResidualBlock(64)
+            self.conv_ep1 = ConvELU(2, 16, 1, pad=0, dtype=dt)
+            self.conv_ep2 = ConvELU(16, num_ep, 1, pad=0, dtype=dt)
+        self.conv1 = ConvELU(64 + ep, 128, stride=2, dtype=dt)
+        self.conv1_1 = ResidualBlock(128, dtype=dt)
+        self.conv0l = ConvELU(3, 64, 3, dtype=dt)
+        self.conv0l_1 = ResidualBlock(64, dtype=dt)
         cin = 128 + 64 + ep
         for i in range(2, 7):
-            self.add_module(f"conv{i}", ConvELU(cin, 256, stride=2))
-            self.add_module(f"conv{i}_1", ResidualBlock(256))
+            self.add_module(f"conv{i}", ConvELU(cin, 256, stride=2, dtype=dt))
+            self.add_module(f"conv{i}_1", ResidualBlock(256, dtype=dt))
             cin = 256 + ep
         cin = 256
         for level, (dch, ich) in zip(range(6, 1, -1), self.LADDER):
-            self.add_module(f"deconv{level}", Deconv(cin, dch))
-            self.add_module(f"iconv{level}", ConvELU(dch + self.SKIPS[level - 1], ich))
+            self.add_module(f"deconv{level}", Deconv(cin, dch, dt))
+            self.add_module(f"iconv{level}", ConvELU(dch + self.SKIPS[level - 1], ich,
+                                                     dtype=dt))
             cin = ich
-        self.deconv1 = Deconv(cin, 64)
-        self.iconv1 = nn.Conv2d(64 + 64, no_out, 3, padding=1, bias=False)
+        self.deconv1 = Deconv(cin, 64, dt)
+        self.iconv1 = Conv2d(64 + 64, no_out, 3, padding=1, bias=False, dtype=dt)
 
     def forward(self, x: torch.Tensor, grid: torch.Tensor):
+        x = to_dtype(x, self.dtype)
         g = None
         if self.num_ep > 0:
             g = self.conv_ep2(self.conv_ep1(grid))
@@ -107,7 +115,8 @@ class PladeNet(nn.Module):
     JAX module asserts ``yz_levels == 0``)."""
 
     def __init__(self, planes: PlaneConfig, num_ep: int = 8, use_mixture_loss: bool = False,
-                 render_probability: bool = False, plane_residual: bool = False):
+                 render_probability: bool = False, plane_residual: bool = False,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         if planes.yz_levels > 0:
             raise NotImplementedError(
@@ -118,11 +127,11 @@ class PladeNet(nn.Module):
         self.planes = planes
         self.use_mixture_loss = use_mixture_loss
         self.render_probability = render_probability
-        self.backbone = PladeBackBone(no_out, num_ep)
-        self.conv0 = nn.Conv2d(no_out, no_out, 1)
-        self.conv_residual = (nn.Conv2d(128, n, 3, padding=1, bias=False)
+        self.backbone = PladeBackBone(no_out, num_ep, dtype)
+        self.conv0 = Conv2d(no_out, no_out, 1, dtype=dtype)
+        self.conv_residual = (Conv2d(128, n, 3, padding=1, bias=False, dtype=dtype)
                               if plane_residual else None)
-        self.conv_sigma = (nn.Conv2d(128, n, 3, padding=1, bias=False)
+        self.conv_sigma = (Conv2d(128, n, 3, padding=1, bias=False, dtype=dtype)
                            if use_mixture_loss else None)
 
     def forward(self, image: torch.Tensor, grid: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -131,9 +140,10 @@ class PladeNet(nn.Module):
         residual_levels: Optional[torch.Tensor] = None
         if self.conv_residual is not None:
             # per image: the mean of the full-resolution residual map
-            residual_levels = torch.sigmoid(self.conv_residual(features).mean(dim=(2, 3))) - 0.5
+            residual_levels = torch.sigmoid(
+                upcast(self.conv_residual(features)).mean(dim=(2, 3))) - 0.5
         vol = build_plane_volume(grid, self.planes, W, residual_levels)
-        logits = self.conv0(dlog)                         # not masked
+        logits = upcast(self.conv0(dlog))                 # not masked
         out = {"disp_layered": vol.disp_layered, "padding_mask": vol.padding_mask,
                "distance": vol.distance, "norm": vol.normal,
                "disp_rows": vol.disp_layered[..., 0].transpose(1, 2).contiguous()}
@@ -145,7 +155,7 @@ class PladeNet(nn.Module):
             probability = torch.softmax(logits, dim=1)
         out["logits"] = logits
         if self.conv_sigma is not None:
-            sigma = torch.clamp(torch.sigmoid(self.conv_sigma(features)), 0.01, 1.0)
+            sigma = torch.clamp(torch.sigmoid(upcast(self.conv_sigma(features))), 0.01, 1.0)
             out["sigma"], out["pi"] = sigma, probability
             w = probability / sigma
             probability = w / w.sum(dim=1, keepdim=True)  # no padding-mask factor

@@ -4,17 +4,21 @@ Written out here because the port may not depend on torchvision; the
 parameter layout is torchvision's (``conv1``, ``bn1``,
 ``layer{i}.{b}.conv{k}``/``bn{k}``, ``downsample.0``/``.1``), under the
 ``encoder.`` prefix of the reference's ``ResnetEncoder``, so a reference
-``encoder.pth`` loads as it is.  BatchNorm is torch's (eps 1e-5); the stem's
-max-pool pads with -inf, as ``F.max_pool2d`` does.
+``encoder.pth`` loads as it is.  BatchNorm is ``layers.BatchNorm2d`` (eps 1e-5); the stem's
+max-pool pads with -inf, as ``F.max_pool2d`` does.  ``dtype`` is the
+compute dtype of ``models/layers.py`` (None: the input's; bf16: the
+normalisation of the input and every convolution in bf16).
 """
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from planedepth_tpu_torch.models.layers import BatchNorm2d, Conv2d, scalar
 
 # blocks per stage and block type, as torchvision builds them
 RESNET_SPECS = {
@@ -34,21 +38,22 @@ def encoder_channels(num_layers: int) -> np.ndarray:
     return ch
 
 
-def _downsample(in_ch: int, out_ch: int, stride: int) -> nn.Sequential:
-    return nn.Sequential(nn.Conv2d(in_ch, out_ch, 1, stride=stride, bias=False),
-                         nn.BatchNorm2d(out_ch))
+def _downsample(in_ch: int, out_ch: int, stride: int, dtype) -> nn.Sequential:
+    return nn.Sequential(Conv2d(in_ch, out_ch, 1, stride=stride, bias=False, dtype=dtype),
+                         BatchNorm2d(out_ch))
 
 
 class BasicBlock(nn.Module):
     expansion = 1
 
-    def __init__(self, in_ch: int, width: int, stride: int = 1):
+    def __init__(self, in_ch: int, width: int, stride: int = 1,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.conv1 = nn.Conv2d(in_ch, width, 3, stride, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(width)
-        self.conv2 = nn.Conv2d(width, width, 3, 1, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(width)
-        self.downsample = (_downsample(in_ch, width, stride)
+        self.conv1 = Conv2d(in_ch, width, 3, stride, 1, bias=False, dtype=dtype)
+        self.bn1 = BatchNorm2d(width)
+        self.conv2 = Conv2d(width, width, 3, 1, 1, bias=False, dtype=dtype)
+        self.bn2 = BatchNorm2d(width)
+        self.downsample = (_downsample(in_ch, width, stride, dtype)
                            if stride != 1 or in_ch != width else None)
 
     def forward(self, x):
@@ -61,16 +66,17 @@ class BasicBlock(nn.Module):
 class Bottleneck(nn.Module):
     expansion = 4
 
-    def __init__(self, in_ch: int, width: int, stride: int = 1):
+    def __init__(self, in_ch: int, width: int, stride: int = 1,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         out_ch = width * self.expansion
-        self.conv1 = nn.Conv2d(in_ch, width, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(width)
-        self.conv2 = nn.Conv2d(width, width, 3, stride, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(width)
-        self.conv3 = nn.Conv2d(width, out_ch, 1, bias=False)
-        self.bn3 = nn.BatchNorm2d(out_ch)
-        self.downsample = (_downsample(in_ch, out_ch, stride)
+        self.conv1 = Conv2d(in_ch, width, 1, bias=False, dtype=dtype)
+        self.bn1 = BatchNorm2d(width)
+        self.conv2 = Conv2d(width, width, 3, stride, 1, bias=False, dtype=dtype)
+        self.bn2 = BatchNorm2d(width)
+        self.conv3 = Conv2d(width, out_ch, 1, bias=False, dtype=dtype)
+        self.bn3 = BatchNorm2d(out_ch)
+        self.downsample = (_downsample(in_ch, out_ch, stride, dtype)
                            if stride != 1 or in_ch != out_ch else None)
 
     def forward(self, x):
@@ -85,18 +91,19 @@ class ResNetTrunk(nn.Module):
     """conv1 .. layer4, returning the 5 feature maps [relu1, layer1..layer4];
     ``in_ch`` input channels (6 for the pose encoder's frame pairs)."""
 
-    def __init__(self, num_layers: int = 50, in_ch: int = 3):
+    def __init__(self, num_layers: int = 50, in_ch: int = 3,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         kind, blocks = RESNET_SPECS[num_layers]
         block = BasicBlock if kind == "basic" else Bottleneck
-        self.conv1 = nn.Conv2d(in_ch, 64, 7, stride=2, padding=3, bias=False)
-        self.bn1 = nn.BatchNorm2d(64)
+        self.conv1 = Conv2d(in_ch, 64, 7, stride=2, padding=3, bias=False, dtype=dtype)
+        self.bn1 = BatchNorm2d(64)
         in_ch = 64
         for stage, (width, n) in enumerate(zip((64, 128, 256, 512), blocks)):
             layer = []
             for b in range(n):
                 stride = 2 if (stage > 0 and b == 0) else 1
-                layer.append(block(in_ch, width, stride))
+                layer.append(block(in_ch, width, stride, dtype))
                 in_ch = width * block.expansion
             setattr(self, f"layer{stage + 1}", nn.Sequential(*layer))
 
@@ -112,15 +119,20 @@ class ResNetTrunk(nn.Module):
 
 class ResnetEncoder(nn.Module):
     """Depth encoder (reference networks/resnet_encoder.py:18-55): input
-    normalisation ``(x - 0.45) / 0.225``, then the trunk."""
+    normalisation ``(x - 0.45) / 0.225`` (in ``dtype``), then the trunk."""
 
-    def __init__(self, num_layers: int = 50, in_ch: int = 3):
+    def __init__(self, num_layers: int = 50, in_ch: int = 3,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         self.num_ch_enc = encoder_channels(num_layers)
-        self.encoder = ResNetTrunk(num_layers, in_ch)
+        self.encoder = ResNetTrunk(num_layers, in_ch, dtype)
 
     def forward(self, image: torch.Tensor) -> List[torch.Tensor]:
-        return self.encoder((image - 0.45) / 0.225)
+        if self.dtype is None:
+            return self.encoder((image - 0.45) / 0.225)
+        x = image.to(self.dtype)
+        return self.encoder((x - scalar(0.45, x)) / scalar(0.225, x))
 
 
 class ResnetPoseEncoder(ResnetEncoder):
@@ -129,5 +141,6 @@ class ResnetPoseEncoder(ResnetEncoder):
     ``3 * num_input_images``-channel ``conv1``; a reference
     ``pose_encoder.pth`` loads as it is."""
 
-    def __init__(self, num_layers: int = 18, num_input_images: int = 2):
-        super().__init__(num_layers, in_ch=3 * num_input_images)
+    def __init__(self, num_layers: int = 18, num_input_images: int = 2,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__(num_layers, in_ch=3 * num_input_images, dtype=dtype)

@@ -109,17 +109,27 @@ def load_library() -> ctypes.CDLL:
     lib.pdt_warp2d_fwd.restype = i
     lib.pdt_warp2d_bwd.argtypes = [p] * 13 + [i] * 5 + [p]
     lib.pdt_warp2d_bwd.restype = i
+    lib.pdt_warp2d_fwd_bf16.argtypes = [p] * 9 + [i] * 5 + [p]
+    lib.pdt_warp2d_fwd_bf16.restype = i
+    lib.pdt_warp2d_bwd_bf16.argtypes = [p] * 15 + [i] * 5 + [p]
+    lib.pdt_warp2d_bwd_bf16.restype = i
     lib.pdt_warp2d_bwd_kernel_info.argtypes = [i, p]
     lib.pdt_warp2d_bwd_kernel_info.restype = i
     lib.pdt_plane_sweep_fwd.argtypes = [p] * 11 + [i, i, i, i, f, i, i, i, p]
     lib.pdt_plane_sweep_fwd.restype = i
     lib.pdt_plane_sweep_bwd.argtypes = [p] * 14 + [i, i, i, i, f, i, i, p]
     lib.pdt_plane_sweep_bwd.restype = i
+    lib.pdt_plane_sweep_fwd_bf16.argtypes = [p] * 11 + [i, i, i, i, f, i, i, i, p]
+    lib.pdt_plane_sweep_fwd_bf16.restype = i
+    lib.pdt_plane_sweep_bwd_bf16.argtypes = [p] * 14 + [i, i, i, i, f, i, i, p]
+    lib.pdt_plane_sweep_bwd_bf16.restype = i
     lib.pdt_plane_sweep_bwd_img.argtypes = [p] * 17 + [i, i, i, i, f, i, p]
     lib.pdt_plane_sweep_bwd_img.restype = i
     lib.pdt_plane_sweep_smem_bytes.argtypes = [i, i, i, i, i]
     lib.pdt_plane_sweep_smem_bytes.restype = ctypes.c_longlong
     lib.pdt_plane_sweep_smem_limit.argtypes = []
+    lib.pdt_plane_sweep_max_w.argtypes = []
+    lib.pdt_plane_sweep_max_w.restype = i
     lib.pdt_plane_sweep_smem_limit.restype = i
     lib.pdt_plane_sweep_kernel_info.argtypes = [i, i, i, i, i, p]
     lib.pdt_plane_sweep_kernel_info.restype = i

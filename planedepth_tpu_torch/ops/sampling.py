@@ -9,7 +9,10 @@ rules (a corner outside the image weighs 0 under zero padding; border
 padding clamps) are the JAX package's, and two gathers along W for the 1-D
 stereo shift.  Coordinates are normalised, x then y, -1 at pixel 0 and +1
 at pixel W - 1.  The plane axis is dim 1: a shared image ``(B, C, H, W)``
-sampled at per-plane grids gives ``(B, N, C, H, W)``.
+sampled at per-plane grids gives ``(B, N, C, H, W)``.  A bf16 image or map
+keeps its samples bf16: the 2-D samples compute in float32 and round once;
+the 1-D shift does its index and weight math in float32 and its value math
+in the image's dtype (``planedepth_tpu/ops/sampling.py:129-135``).
 """
 from __future__ import annotations
 
@@ -23,8 +26,11 @@ def grid_sample(image: torch.Tensor, coords: torch.Tensor,
     ``(B, C, Ho, Wo)``; ``padding_mode`` "zeros" or "border"."""
     if padding_mode not in ("zeros", "border"):
         raise ValueError(f"unsupported padding_mode: {padding_mode}")
-    return F.grid_sample(image, coords.to(image.dtype), mode="bilinear",
-                         padding_mode=padding_mode, align_corners=True)
+    # a bf16 image is sampled in float32 and rounded once, as the JAX
+    # package's grid_sample computes in its promoted dtype
+    img = image.float() if image.dtype == torch.bfloat16 else image
+    return F.grid_sample(img, coords.to(img.dtype), mode="bilinear",
+                         padding_mode=padding_mode, align_corners=True).to(image.dtype)
 
 
 def grid_sample_planes(image: torch.Tensor, coords: torch.Tensor,
@@ -58,7 +64,8 @@ def _lerp_x(maps: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
     for cx, wgt in ((x0, 1.0 - w1), (x0 + 1.0, w1)):
         valid = (cx >= 0) & (cx <= W - 1)
         ix = cx.clamp(0, W - 1).long().expand(shape)
-        out = out + torch.gather(maps, -1, ix) * torch.where(valid, wgt, torch.zeros_like(wgt))
+        wgt = torch.where(valid, wgt, torch.zeros_like(wgt)).to(maps.dtype)
+        out = out + torch.gather(maps, -1, ix) * wgt
     return out
 
 

@@ -15,10 +15,13 @@ with_sigma=False)``): only ``[rgb | logit]`` are warped, and the result is
 ``warp2d`` launches the CUDA forward and backward kernels of
 ``csrc/warp2d.cu`` on CUDA tensors (``warp2d.fwd_launches`` and
 ``warp2d.bwd_launches`` count the launches with sigma,
-``nosigma_fwd_launches`` and ``nosigma_bwd_launches`` those without) and
-takes ``warp2d_plain``, differentiated by autograd, on CPU tensors.  The
-gradient reaches the logits, sigma, dx and dy; ``src`` and ``mask`` get
-none, as in the JAX package's VJP (``_w2d_bwd``).
+``nosigma_fwd_launches`` and ``nosigma_bwd_launches`` those without, and
+``bf16_*`` the same of the bf16 instances) and takes ``warp2d_plain``,
+differentiated by autograd, on CPU tensors.  The gradient reaches the
+logits, sigma, dx and dy; ``src`` and ``mask`` get none, as in the JAX
+package's VJP (``_w2d_bwd``).  src, logits and sigma are float32 or all
+bf16 (the JAX package's default: its stacks and head gradients are then
+bf16, every sum float32); dx, dy, mask and their gradients are float32.
 """
 from __future__ import annotations
 
@@ -50,8 +53,14 @@ def warp2d_plain(src: torch.Tensor, logits: torch.Tensor, sigma: Optional[torch.
 
     src ``(B, 3, H, W)``; logits, sigma, dx, dy, mask ``(B, N, H, W)``.
     Returns ``(rgb (B, N, 3, H, W), logit (B, N, H, W), sigma (B, N, H, W))``,
-    without the last when ``sigma`` is None.
+    without the last when ``sigma`` is None.  bf16 operands are upcast,
+    which is exact, computed in float32, and the stacks rounded to bf16
+    (the heads' gradients come back in bf16).
     """
+    if logits.dtype == torch.bfloat16:
+        up = lambda t: None if t is None else t.float()   # noqa: E731
+        out = warp2d_plain(up(src), up(logits), up(sigma), dx, dy, mask)
+        return tuple(t.to(logits.dtype) for t in out)
     B, N, H, W = dx.shape
     xs, ys, m = _fold(dx, dy, mask)
     x0, y0 = torch.floor(xs.detach()), torch.floor(ys.detach())
@@ -76,6 +85,8 @@ def _check(src, logits, sigma, dx, dy, mask):
     if dx.dim() != 4:
         raise ValueError(f"dx must be (B, N, H, W), got {tuple(dx.shape)}")
     B, N, H, W = dx.shape
+    if logits.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"logits: dtype {logits.dtype}, the kernels take float32 or bfloat16")
     want = {"src": (B, 3, H, W), "logits": (B, N, H, W), "sigma": (B, N, H, W),
             "dx": (B, N, H, W), "dy": (B, N, H, W), "mask": (B, N, H, W)}
     for name, t in zip(want, (src, logits, sigma, dx, dy, mask)):
@@ -85,8 +96,9 @@ def _check(src, logits, sigma, dx, dy, mask):
             raise ValueError(f"{name}: shape {tuple(t.shape)}, want {want[name]}")
         if t.device != dx.device:
             raise ValueError(f"{name} on {t.device}, dx on {dx.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: dtype {t.dtype}, the kernels take float32")
+        dtype = torch.float32 if name in ("dx", "dy", "mask") else logits.dtype
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: dtype {t.dtype}, the kernels take {dtype} here")
     if N > 65535 or H > 65535:
         raise ValueError(f"(N, H) = ({N}, {H}) exceed the kernels' grid (65535)")
     if (H + 1) * (W + 2) >= 2 ** 31:
@@ -96,26 +108,29 @@ def _check(src, logits, sigma, dx, dy, mask):
                                   "src or mask")
 
 
+def _count(direction: str, with_sigma: bool, bf16: bool) -> None:
+    name = ("bf16_" if bf16 else "") + ("" if with_sigma else "nosigma_") + direction
+    setattr(warp2d, name, getattr(warp2d, name) + 1)
+
+
 class _Warp2d(torch.autograd.Function):
     """The two CUDA kernels joined as forward and backward; ``sigma=None``
-    launches their instances without sigma."""
+    launches their instances without sigma, bf16 operands their bf16
+    instances."""
 
     @staticmethod
     def forward(ctx, src, logits, sigma, dx, dy, mask):
         B, N, H, W = dx.shape
-        with_sigma = sigma is not None
+        with_sigma, bf16 = sigma is not None, logits.dtype == torch.bfloat16
         src, logits, sigma, dx, dy, mask = (
             None if t is None else t.contiguous()
             for t in (src, logits, sigma, dx, dy, mask))
-        rgb = torch.empty((B, N, 3, H, W), dtype=torch.float32, device=dx.device)
+        rgb = torch.empty((B, N, 3, H, W), dtype=logits.dtype, device=dx.device)
         logit = torch.empty_like(logits)
         sig = torch.empty_like(sigma) if with_sigma else None
-        launch("pdt_warp2d_fwd", src, logits, sigma, dx, dy, mask, rgb, logit, sig,
-               B, N, H, W, int(with_sigma))
-        if with_sigma:
-            warp2d.fwd_launches += 1
-        else:
-            warp2d.nosigma_fwd_launches += 1
+        launch("pdt_warp2d_fwd_bf16" if bf16 else "pdt_warp2d_fwd", src, logits, sigma, dx,
+               dy, mask, rgb, logit, sig, B, N, H, W, int(with_sigma))
+        _count("fwd_launches", with_sigma, bf16)
         ctx.save_for_backward(src, logits, sigma, dx, dy, mask)
         ctx.with_sigma = with_sigma
         return (rgb, logit, sig) if with_sigma else (rgb, logit)
@@ -124,17 +139,23 @@ class _Warp2d(torch.autograd.Function):
     def backward(ctx, g_rgb, g_logit, g_sigma=None):
         src, logits, sigma, dx, dy, mask = ctx.saved_tensors
         B, N, H, W = dx.shape
-        with_sigma = ctx.with_sigma
-        d_logits = torch.zeros_like(logits)
-        d_sigma = torch.zeros_like(sigma) if with_sigma else None
+        with_sigma, bf16 = ctx.with_sigma, logits.dtype == torch.bfloat16
+        zeros = lambda t: torch.zeros(t.shape, dtype=torch.float32, device=t.device)  # noqa
+        acc_logits = zeros(logits)
+        acc_sigma = zeros(sigma) if with_sigma else None
         d_dx, d_dy = torch.empty_like(dx), torch.empty_like(dy)
-        launch("pdt_warp2d_bwd", src, logits, sigma, dx, dy, mask, g_rgb.contiguous(),
-               g_logit.contiguous(), g_sigma.contiguous() if with_sigma else None,
-               d_logits, d_sigma, d_dx, d_dy, B, N, H, W, int(with_sigma))
-        if with_sigma:
-            warp2d.bwd_launches += 1
+        cts = (g_rgb.contiguous(), g_logit.contiguous(),
+               g_sigma.contiguous() if with_sigma else None)
+        if bf16:
+            d_logits = torch.empty_like(logits)
+            d_sigma = torch.empty_like(sigma) if with_sigma else None
+            launch("pdt_warp2d_bwd_bf16", src, logits, sigma, dx, dy, mask, *cts, acc_logits,
+                   acc_sigma, d_logits, d_sigma, d_dx, d_dy, B, N, H, W, int(with_sigma))
         else:
-            warp2d.nosigma_bwd_launches += 1
+            d_logits, d_sigma = acc_logits, acc_sigma
+            launch("pdt_warp2d_bwd", src, logits, sigma, dx, dy, mask, *cts, d_logits,
+                   d_sigma, d_dx, d_dy, B, N, H, W, int(with_sigma))
+        _count("bwd_launches", with_sigma, bf16)
         return None, d_logits, d_sigma, d_dx, d_dy, None
 
 
@@ -161,3 +182,7 @@ warp2d.fwd_launches = 0
 warp2d.bwd_launches = 0
 warp2d.nosigma_fwd_launches = 0
 warp2d.nosigma_bwd_launches = 0
+warp2d.bf16_fwd_launches = 0
+warp2d.bf16_bwd_launches = 0
+warp2d.bf16_nosigma_fwd_launches = 0
+warp2d.bf16_nosigma_bwd_launches = 0

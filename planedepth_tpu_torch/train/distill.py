@@ -29,6 +29,7 @@ from typing import Callable, Dict, Tuple
 import torch
 
 from planedepth_tpu_torch.models.depth_decoder import mixture_reweight
+from planedepth_tpu_torch.models.layers import upcast
 from planedepth_tpu_torch.ops.row_shift import row_shift
 from planedepth_tpu_torch.ops.sampling import shift_sample_planes
 from planedepth_tpu_torch.train.flip import flip_grid, flip_w
@@ -105,10 +106,10 @@ def head_probability(outputs: Dict[str, torch.Tensor],
     decoder's non-fused head builds it from the plane heads: softmax, then
     with the mixture the reweight by sigma and the padding mask (the decoder
     itself skips it in training under the disp head)."""
-    probability = torch.softmax(outputs["logits"].detach(), dim=1)
+    probability = torch.softmax(upcast(outputs["logits"].detach()), dim=1)
     if not use_mixture_loss:
         return probability
-    return mixture_reweight(probability, outputs["sigma"].detach(),
+    return mixture_reweight(probability, upcast(outputs["sigma"].detach()),
                             outputs["padding_mask"].detach())
 
 
@@ -123,13 +124,17 @@ def fused_mom_mask_novel(outputs: Dict[str, torch.Tensor], use_mixture_loss: boo
     from the plane heads: the source-view probability as the decoder's
     non-fused head builds it, the right-view one as the view synthesis does
     (warp by +disparity, mask, softmax, mixture reweight without the mask).
+    bf16 heads (fused bf16 training) are upcast first, as the JAX package's
+    are (``distill.py:211-217``): the row shift takes float32 maps.
     """
     rows = outputs["disp_rows"].detach()
     pmask = outputs["padding_mask"].detach()                  # (2B, N, H, 1)
-    pi_rec = torch.softmax(row_shift(outputs["logits"].detach(), rows, pad) * pmask, dim=1)
+    logits = upcast(outputs["logits"].detach())
+    pi_rec = torch.softmax(row_shift(logits, rows, pad) * pmask, dim=1)
     prob_rec = pi_rec
     if use_mixture_loss:
-        sigma_rec = (row_shift(outputs["sigma"].detach(), rows, pad) * pmask).clamp(0.01, 1.0)
+        sigma = upcast(outputs["sigma"].detach())
+        sigma_rec = (row_shift(sigma, rows, pad) * pmask).clamp(0.01, 1.0)
         prob_rec = mixture_reweight(pi_rec, sigma_rec, 1.0)
     return mirror_occlusion_mask(head_probability(outputs, use_mixture_loss), prob_rec,
                                  rows, pad)

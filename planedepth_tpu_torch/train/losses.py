@@ -10,6 +10,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from planedepth_tpu_torch.config import LossConfig
+from planedepth_tpu_torch.models.layers import upcast
 from planedepth_tpu_torch.ops.losses import (
     compute_depth_errors,
     multimodal_nll,
@@ -36,7 +37,8 @@ def perceptual_loss(pc: Callable, pred: torch.Tensor, target: torch.Tensor,
 
     Only ``pred`` carries a cotangent: its extraction is checkpointed when
     ``remat`` (one more forward in the backward, the same numbers); target
-    and source are extracted without a graph.
+    and source are extracted without a graph.  The feature differences are
+    float32 whatever the net's dtype (``planedepth_tpu/train/losses.py:74-81``).
     """
     pred_f = checkpoint(pc, pred, use_reentrant=False) if remat else pc(pred)
     with torch.no_grad():
@@ -44,9 +46,10 @@ def perceptual_loss(pc: Callable, pred: torch.Tensor, target: torch.Tensor,
         source_f = pc(source) if source is not None else None
     loss = 0.0
     for i in range(3):
-        l_p = ((pred_f[i] - target_f[i]) ** 2).mean(1, keepdim=True)
+        t = upcast(target_f[i])
+        l_p = ((upcast(pred_f[i]) - t) ** 2).mean(1, keepdim=True)
         if source_f is not None:
-            l_auto = ((source_f[i] - target_f[i]) ** 2).mean(1, keepdim=True)
+            l_auto = ((upcast(source_f[i]) - t) ** 2).mean(1, keepdim=True)
             l_p = torch.minimum(l_p, l_auto)
         loss = loss + l_p.mean()
     return loss

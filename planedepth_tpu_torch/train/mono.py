@@ -21,6 +21,9 @@ the row.  A stereo side is the ``dx = -/+disp, dy = 0`` case of the warp,
 and under ``render_probability`` the composite weights are the NeRF
 compositing of the warped densities over the source view's ``dists``.
 Under ``alpha_self`` side 'r' adds the self-reconstruction loss.
+Under ``cfg.bf16`` or ``cfg.warp_sample_bf16`` the source image and the
+plane heads enter the warp in bf16 and its stacks come back bf16, upcast
+before any loss arithmetic (``planedepth_tpu/train/mono.py:276-285``).
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ from planedepth_tpu_torch.geometry.warp import (
     homography_warp_coords,
 )
 from planedepth_tpu_torch.models.depth_decoder import render_probability_from_logits
+from planedepth_tpu_torch.models.layers import to_dtype, upcast
 from planedepth_tpu_torch.ops.losses import multimodal_nll, smooth_loss_disp
 from planedepth_tpu_torch.ops.warp2d import warp2d
 from planedepth_tpu_torch.train.losses import perceptual_loss, reprojection_loss
@@ -117,9 +121,11 @@ def fused_warp2d_losses(bundle, outputs: Dict[str, torch.Tensor],
     B, _, H, W = source.shape
     mix = cfg.model.use_mixture_loss
     render = cfg.model.render_probability
+    in_dtype = torch.bfloat16 if (cfg.bf16 or cfg.warp_sample_bf16) else None
     logits = outputs["logits"]                                       # (B, N, H, W)
     N = logits.shape[1]
-    sigma = outputs["sigma"] if mix else None
+    sigma = to_dtype(outputs["sigma"], in_dtype) if mix else None
+    src_in, logits_in = to_dtype(source, in_dtype), to_dtype(logits, in_dtype)
     mask_novel = outputs.get("mask_novel")                           # (B, 1, H, W)
 
     zero = torch.zeros((), dtype=source.dtype, device=source.device)
@@ -128,7 +134,7 @@ def fused_warp2d_losses(bundle, outputs: Dict[str, torch.Tensor],
         target = batch[f"{color}_{side}"]
         dx, dy, pmask = _side_coords(cfg, outputs, side, poses, batch["K"],
                                      batch["inv_K"], H, W)
-        warped = warp2d(source, logits, sigma, dx, dy, pmask)
+        warped = [upcast(t) for t in warp2d(src_in, logits_in, sigma, dx, dy, pmask)]
         rgb_l, logit_rec = warped[:2]
         if render:
             # the source view's dists: the stereo pair shares the layered

@@ -18,6 +18,9 @@ stereo sweep) through the oracle view synthesis
 (``train/view_synthesis.py:pred_novel_images`` and
 ``train/losses.py:compute_losses``).  Batches are dicts of NCHW tensors
 (:func:`batch_to_tensors` converts the NHWC numpy batches of ``data/``).
+Under ``cfg.bf16`` (the default, as in the JAX package) the networks
+compute in bf16 with float32 parameters, and the plane sweep and the 2-D
+warp take bf16 images and plane heads; the losses are float32.
 """
 from __future__ import annotations
 
@@ -35,7 +38,8 @@ from planedepth_tpu_torch.geometry.pose import (
     rc_correction,
     transformation_from_parameters,
 )
-from planedepth_tpu_torch.models.factory import DepthModel, init_weights_
+from planedepth_tpu_torch.models.factory import DepthModel, build_depth_model, init_weights_
+from planedepth_tpu_torch.models.layers import to_dtype, upcast
 from planedepth_tpu_torch.models.perceptual import make_perceptual_net
 from planedepth_tpu_torch.models.pose_net import PoseDecoder
 from planedepth_tpu_torch.models.resnet import ResnetPoseEncoder
@@ -100,7 +104,10 @@ class ModelBundle:
     ``model`` is the ``DepthModel``; under ``cfg.use_pose_net`` the pose
     encoder (a ResNet on frame pairs) and the ``pose`` decoder train beside
     it; ``pc`` is the frozen perceptual net (VGG-19 or ResNet-18, by
-    ``cfg.loss.pc_net``).  Under ``self_distillation`` the
+    ``cfg.loss.pc_net``).  Every network computes in bf16 under ``cfg.bf16``
+    (``dtype``), with float32 parameters; on the fused sweep's path the
+    decoder's train-mode heads stay bf16, as the JAX package's
+    ``ModelBundle`` sets them.  Under ``self_distillation`` the
     step also needs the frozen teacher, which :meth:`freeze_teacher` takes
     from the student once its weights are final (the trainer calls it after
     the restore)."""
@@ -115,21 +122,23 @@ class ModelBundle:
         self.device = torch.device(device)
         # the ResNet decoder stops at its plane heads under the fused sweep;
         # PladeNet and FalNet always emit disp, as in the JAX package
+        fused = fused_sweep_ok(cfg)
         model_cfg = dataclasses.replace(
-            cfg.model, fused_sweep_loss=fused_sweep_ok(cfg) and cfg.model.net_type == "ResNet")
+            cfg.model, fused_sweep_loss=fused and cfg.model.net_type == "ResNet")
         g = torch.Generator().manual_seed(cfg.seed)
-        self.model = init_weights_(DepthModel(model_cfg), g).to(self.device)
-        self.pc = (init_weights_(make_perceptual_net(cfg.loss.pc_net), g).to(self.device)
-                   if cfg.loss.alpha_pc > 0 else None)
+        self.model = init_weights_(build_depth_model(model_cfg, cfg.bf16), g).to(self.device)
+        self.dtype = self.model.dtype
+        self.pc = (init_weights_(make_perceptual_net(cfg.loss.pc_net, self.dtype), g)
+                   .to(self.device) if cfg.loss.alpha_pc > 0 else None)
         self.pose_encoder: Optional[ResnetPoseEncoder] = None
         self.pose: Optional[PoseDecoder] = None
         if cfg.use_pose_net:
             self.pose_encoder = init_weights_(
-                ResnetPoseEncoder(cfg.model.pose_num_layers, num_input_images=2),
-                g).to(self.device)
+                ResnetPoseEncoder(cfg.model.pose_num_layers, num_input_images=2,
+                                  dtype=self.dtype), g).to(self.device)
             self.pose = init_weights_(
-                PoseDecoder(self.pose_encoder.num_ch_enc, cfg.model.pose_num_ep),
-                g).to(self.device)
+                PoseDecoder(self.pose_encoder.num_ch_enc, cfg.model.pose_num_ep,
+                            dtype=self.dtype), g).to(self.device)
         self.teacher: Optional[DepthModel] = None
 
     def nets(self) -> Dict[str, nn.Module]:
@@ -209,7 +218,9 @@ def fused_stereo_losses(bundle: ModelBundle, outputs: Dict[str, torch.Tensor],
     perceptual loss on the composite (blended by ``mask_novel``), the
     distillation L1 to the teacher's ``disp_pp``, edge-aware smoothness on
     the right 80% of columns.  The sweep computes ``disp`` from its centre
-    samples unless the model did."""
+    samples unless the model did.  Under ``cfg.bf16`` the images and the
+    plane heads enter the sweep in bf16 (``in_dtype``) and the
+    reconstruction comes back bf16; its NLL and disparity are float32."""
     cfg = bundle.cfg
     color = "color_aug" if cfg.loss.match_aug else "color"
     source, target = batch[f"{color}_l"], batch[f"{color}_r"]
@@ -218,7 +229,10 @@ def fused_stereo_losses(bundle: ModelBundle, outputs: Dict[str, torch.Tensor],
     # without the mixture the automask is the L1's, taken outside the kernel
     with_auto = cfg.loss.automask and mix
     with_disp = "disp" not in outputs
-    sweep = plane_sweep(source, target, outputs["logits"], outputs["sigma"] if mix else None,
+    in_dtype = torch.bfloat16 if cfg.bf16 else None
+    sweep = plane_sweep(to_dtype(source, in_dtype), to_dtype(target, in_dtype),
+                        to_dtype(outputs["logits"], in_dtype),
+                        to_dtype(outputs["sigma"], in_dtype) if mix else None,
                         outputs["disp_rows"], mask_rows, sweep_pad(cfg),
                         with_auto, with_disp)
     rgb = sweep[0]
@@ -229,7 +243,9 @@ def fused_stereo_losses(bundle: ModelBundle, outputs: Dict[str, torch.Tensor],
         if mask_novel is not None:
             ph = ph * mask_novel[:, 0]
     else:
-        pred = rgb if mask_novel is None else rgb * mask_novel + target * (1.0 - mask_novel)
+        pred = upcast(rgb)
+        if mask_novel is not None:
+            pred = pred * mask_novel + target * (1.0 - mask_novel)
         ph = (pred - target).abs().mean(1)
         if cfg.loss.automask:
             ph = torch.minimum(ph, (source - target).abs().mean(1))
@@ -318,7 +334,8 @@ def oracle_losses(bundle: ModelBundle, outputs: Dict[str, torch.Tensor],
     rec = pred_novel_images(outputs, batch[f"{color}_l"], cfg.target_sides, poses,
                             batch["K"], batch["inv_K"], warp_type=cfg.warp_type,
                             use_mixture_loss=cfg.model.use_mixture_loss,
-                            render_probability=cfg.model.render_probability)
+                            render_probability=cfg.model.render_probability,
+                            sample_dtype=torch.bfloat16 if cfg.warp_sample_bf16 else None)
     if cfg.loss.use_mom and cfg.flip_right:
         probability = (outputs["probability"].detach() if "probability" in outputs
                        else head_probability(outputs, cfg.model.use_mixture_loss))

@@ -30,6 +30,7 @@ from planedepth_tpu_torch.geometry.warp import (
     disp_warp_shift,
     homography_warp_coords,
 )
+from planedepth_tpu_torch.models.layers import to_dtype, upcast
 from planedepth_tpu_torch.models.depth_decoder import (
     mixture_reweight,
     render_probability_from_logits,
@@ -76,21 +77,21 @@ def pred_novel_images(outputs: Dict[str, torch.Tensor], source_rgb: torch.Tensor
     ``rgb_rec_layered`` ``(B, N, 3, H, W)``, ``logit_rec`` and
     ``probability_rec`` ``(B, N, H, W)``, with the mixture ``sigma_rec``
     (clipped to [0.01, 1]) and ``pi_rec`` (the probability before the
-    mixture reweight).  ``rowshift`` (the JAX package's row-constant
-    custom-VJP warp, slower there than its gathers) and ``sample_dtype``
-    (bf16 samples) are not ported.
+    mixture reweight).  ``sample_dtype`` (``warp_sample_bf16``: bf16) samples
+    the source image and the plane heads in that dtype: the layered stack
+    stays in it, the logits, sigma and the composite are float32 from the
+    samples on.  ``rowshift`` (the JAX package's row-constant custom-VJP
+    warp, slower there than its gathers) is not ported.
     """
     if rowshift:
         raise NotImplementedError("pred_novel_images: the row-shift warp is left out of the "
                                   "port on purpose (ROADMAP, 'Left out': an opt-in that "
                                   "measured slower than the gathers on the TPU)")
-    if sample_dtype is not None:
-        raise NotImplementedError("pred_novel_images: bf16 samples are not ported "
-                                  "(ROADMAP A14)")
     disp_layered = outputs["disp_layered"]                 # (B, N, H, W_b)
-    logits = outputs["logits"]
+    logits = to_dtype(outputs["logits"], sample_dtype)
     B, N, H, W = logits.shape
-    sigma = outputs["sigma"] if use_mixture_loss else None
+    sigma = to_dtype(outputs["sigma"], sample_dtype) if use_mixture_loss else None
+    source_rgb = to_dtype(source_rgb, sample_dtype)
 
     rec: Dict = {}
     for side in target_sides:
@@ -112,8 +113,9 @@ def pred_novel_images(outputs: Dict[str, torch.Tensor], source_rgb: torch.Tensor
         else:
             raise ValueError(f"unknown warp_type {warp_type}")
 
+        pmask = pmask.to(rgb_l.dtype)
         rgb_layered = rgb_l * pmask[:, :, None]
-        logit_rec = logit_s * pmask
+        logit_rec = upcast(logit_s * pmask)
         if render_probability:
             # the stereo pair shares the layered depths: the source view's
             # dists (reference trainer.py:584-591)
@@ -122,13 +124,13 @@ def pred_novel_images(outputs: Dict[str, torch.Tensor], source_rgb: torch.Tensor
             prob_rec = torch.softmax(logit_rec, dim=1)
         out = {"rgb_rec_layered": rgb_layered, "logit_rec": logit_rec}
         if use_mixture_loss:
-            sigma_rec = (sigma_s * pmask).clamp(0.01, 1.0)
+            sigma_rec = upcast(sigma_s * pmask).clamp(0.01, 1.0)
             out["sigma_rec"] = sigma_rec
             out["pi_rec"] = prob_rec
             prob_rec = mixture_reweight(prob_rec, sigma_rec, 1.0)
         out["probability_rec"] = prob_rec
         # composite: sum_n p_n rgb_n (reference trainer.py:603)
-        out["rgb_rec"] = (rgb_layered * prob_rec[:, :, None]).sum(1)
+        out["rgb_rec"] = (upcast(rgb_layered) * prob_rec[:, :, None]).sum(1)
         for k, v in out.items():
             rec[(k, side)] = v
     return rec

@@ -38,7 +38,7 @@ equal the head-only instance's bit for bit and its repeat run its first.
 Both image-gradient backwards are also held to the plain version's
 autograd on ``chip_smoke.py:phase_sweep_img``'s cases (the same inputs and
 cotangents), each gradient's max error over its largest magnitude side by
-side.  Last, ``cuobjdump -sass`` of both libraries' plane-sweep kernels:
+side.  Last, ``cuobjdump -sass`` of both libraries' plane-sweep and 2-D warp kernels:
 each instance's instruction count, and whether its instructions are the
 other's but for constant-bank offsets (the parameter lists differ).  Prints one JSON object, also written to ``--out``, with the card's
 name and power limit.
@@ -416,23 +416,31 @@ def run_disp(libs, shape, dev):
 
 
 def sweep_sass(lib_path) -> dict:
-    """The plane-sweep kernels of a library as ``cuobjdump -sass`` prints
-    them: "fwd|bwd|bwd_img<PX,MIX>" -> instruction texts, constant-bank
-    offsets blanked.  An earlier source's sweep_bwd_kernel<PX, MIX, IMG>
-    holds both backwards."""
+    """The plane-sweep and 2-D warp kernels of a library as ``cuobjdump
+    -sass`` prints them: "fwd|bwd|bwd_img<PX,MIX>" and "warp_fwd|warp_bwd<
+    SIGMA>" -> instruction texts, constant-bank offsets blanked; the bf16
+    instances (a later source's element type) with ",bf16" in the key.  An
+    earlier source's sweep_bwd_kernel<PX, MIX, IMG> holds both backwards."""
     tool = Path(_build._nvcc()).with_name("cuobjdump")
     text = subprocess.run([str(tool), "-sass", str(lib_path)], capture_output=True, text=True,
                           check=True).stdout
     funcs, cur = {}, None
     for line in text.splitlines():
         if "Function :" in line:
-            m = re.search(r"sweep_(fwd|bwd|bwd_img)_kernelI((?:L[ib]\d+E)+)E", line)
+            m = re.search(r"(sweep|warp2d)_(fwd|bwd|bwd_img)_kernelI((?:L[ib]\d+E)+)"
+                          r"(f|13__nv_bfloat16)?E", line)
             cur = None
             if m:
-                args = [int(a) for a in re.findall(r"L[ib](\d+)E", m.group(2))]
-                kind = ("bwd_img" if m.group(1) == "bwd_img" or args[2:] == [1]
-                        else m.group(1))
-                cur = f"{kind}<{args[0]},{args[1] if len(args) > 1 else 1}>"
+                args = [int(a) for a in re.findall(r"L[ib](\d+)E", m.group(3))]
+                # the float instances keep the names of a source without the
+                # element type; the bf16 ones are new
+                bf16 = ",bf16" if m.group(4) == "13__nv_bfloat16" else ""
+                if m.group(1) == "warp2d":
+                    cur = f"warp_{m.group(2)}<{args[0]}{bf16}>"
+                else:
+                    kind = ("bwd_img" if m.group(2) == "bwd_img" or args[2:] == [1]
+                            else m.group(2))
+                    cur = f"{kind}<{args[0]},{args[1] if len(args) > 1 else 1}{bf16}>"
                 funcs[cur] = []
             continue
         ins = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)
@@ -441,10 +449,13 @@ def sweep_sass(lib_path) -> dict:
     return funcs
 
 
-def compare_sass(this_path, other_path) -> dict:
-    """Each plane-sweep kernel instance of either library: its instruction
-    counts and whether the two are the same but for constant-bank offsets."""
-    this, other = sweep_sass(this_path), sweep_sass(other_path)
+def compare_sass(this_path, *other_paths) -> dict:
+    """Each plane-sweep and 2-D warp kernel instance of this library and of
+    the other's: its instruction counts and whether the two are the same
+    but for constant-bank offsets."""
+    this, other = sweep_sass(this_path), {}
+    for path in other_paths:
+        other.update(sweep_sass(path))
     return {k: {"this": len(this.get(k, ())), "other": len(other.get(k, ())),
                 "same": this.get(k) == other.get(k)}
             for k in sorted(set(this) | set(other))}
@@ -485,7 +496,8 @@ def main():
                                                 pad, dev)})
         torch.cuda.empty_cache()
     sass = compare_sass(_build.library_path(),
-                        REPO / "build" / "compare_sweep" / "libother_plane_sweep.so")
+                        *(REPO / "build" / "compare_sweep" / f"libother_{name}.so"
+                          for name in ("plane_sweep", "warp2d")))
     report = {"card": card, "other": str(args.other), "cases": cases,
               "img_bwd_vs_plain": held, "sass": sass}
     os.makedirs(os.path.dirname(args.out), exist_ok=True)

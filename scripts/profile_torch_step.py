@@ -1,8 +1,9 @@
 """Where the time of the port's training step goes on one NVIDIA GPU.
 
-    python scripts/profile_torch_step.py [--recipe stage1|stage3|mono|falnet|pladenet|render|yz|self] [--steps 3]
+    python scripts/profile_torch_step.py [--recipe stage1|stage3|mono|falnet|pladenet|render|yz|self] [--steps 3] [--no_bf16]
 
-Runs one recipe's step with seeded random weights, float32, TF32 off:
+Runs one recipe's step with seeded random weights, in bf16 (the default, as
+in the JAX package) or float32 with ``--no_bf16``, TF32 off:
 ``stage1`` is ``stage1_config()`` (ResNet-50, DenseASPP, 49+14 planes, VGG19
 perceptual loss, Adam; 8 images at 640x192), ``stage3`` is
 ``self_distillation_config()`` (the same model and loss at 1280x384, batch 4,
@@ -131,6 +132,7 @@ def main():
     parser = argparse.ArgumentParser()
     parser.add_argument("--recipe", choices=sorted(RECIPES), default="stage1")
     parser.add_argument("--steps", type=int, default=3)
+    parser.add_argument("--no_bf16", action="store_true", help="float32 networks and kernels")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_step: needs an NVIDIA GPU")
@@ -143,8 +145,9 @@ def main():
 
     preset, parts = RECIPES[args.recipe]
     # seeded random weights: no converted ImageNet files in the checkout
-    full = make_step(preset(allow_random_pc=True), device)
-    reduced = {part: make_step(preset(allow_random_pc=True, **kw), device)
+    full = make_step(preset(allow_random_pc=True, bf16=not args.no_bf16), device)
+    reduced = {part: make_step(preset(allow_random_pc=True, bf16=not args.no_bf16, **kw),
+                               device)
                for part, kw in parts.items()}
     for step in (full, *reduced.values()):
         timed(step, 3)                      # warm-up: cuDNN picks its algorithms

@@ -31,8 +31,7 @@ from planedepth_tpu_torch.data.kitti_tree import write_tree
 
 torch.set_num_threads(1)
 CPU = torch.device("cpu")
-TPU_ONLY = {"no_bf16", "remat_warp", "rowshift_warp", "warp_sample_bf16", "fused_head",
-            "s2d_tail", "remat"}
+TPU_ONLY = {"remat_warp", "rowshift_warp", "fused_head", "s2d_tail", "remat"}
 REFUSED = TPU_ONLY                         # JAX flags that the port's parser refuses
 
 
@@ -81,7 +80,11 @@ def test_parser_and_flag_map_equal_jax():
      "5", "--warp_type", "homography_warp", "--automask", "--dataset", "kitti_odom"],
     ["--fused_sweep", "--remat", "--remat_warp", "--warp_sample_bf16", "--no_bf16",
      "--s2d_tail", "off", "--fused_head", "interpret", "--rowshift_warp"],
-], ids=["defaults", "flags", "stage1", "hr_override", "distill_restore", "mono", "tpu_only"])
+    ["--no_bf16"],
+    ["--stage", "stage1", "--warp_sample_bf16"],
+    ["--stage", "self_distillation", "--no_bf16", "--warp_sample_bf16"],
+], ids=["defaults", "flags", "stage1", "hr_override", "distill_restore", "mono", "tpu_only",
+        "no_bf16", "warp_sample_bf16", "distill_f32"])
 def test_flags_give_the_jax_config(argv):
     """The refused flags (``tpu_only``) stop the port's parser; without them
     the port's config equals the JAX config of the whole argv: they set no
@@ -107,6 +110,22 @@ def test_refused_flag_is_named(flag, capsys):
     with pytest.raises(SystemExit):
         toptions.build_parser().parse_args(argv)
     assert f"unrecognized arguments: --{flag}" in capsys.readouterr().err
+
+
+def test_bf16_defaults_and_a_jax_opt_json_keep_bf16():
+    """``bf16`` defaults to True and ``warp_sample_bf16`` to False, as in the
+    JAX package, in its field order; ``from_dict`` of a JAX ``opt.json``
+    keeps both."""
+    from planedepth_tpu import config as jcfg
+
+    assert tcfg.TrainConfig().bf16 is True and tcfg.TrainConfig().warp_sample_bf16 is False
+    names = lambda cls: [f.name for f in dataclasses.fields(cls)]   # noqa: E731
+    jnames = [n for n in names(jcfg.TrainConfig) if n in names(tcfg.TrainConfig)]
+    assert jnames == [n for n in names(tcfg.TrainConfig) if n in jnames]
+    for bf16, sample in ((False, True), (True, False)):
+        opt = json.loads(jcfg.stage1_config(bf16=bf16, warp_sample_bf16=sample).to_json())
+        got = tcfg.TrainConfig.from_dict(opt)
+        assert (got.bf16, got.warp_sample_bf16) == (bf16, sample)
 
 
 def test_apply_checkpoint_meta_equals_jax():

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card, each held to its plain PyTorch version
-(the plane sweep and the 2-D warp in both of their modes, the head epilogue
-with N and N - 1 logit planes; the sweep's image-gradient backward), and one
+(the plane sweep and the 2-D warp in both of their modes and in float32 and
+bf16, the head epilogue with N and N - 1 logit planes; the sweep's
+image-gradient backward and its rows wider than one launch), and one
 stage-1 (fused and oracle), one stage-3, one mono, one FalNet, one
 render_probability, one yz-plane and one yz-plane stage-3 training step on
 the card held to the same step on the CPU.
@@ -162,7 +163,8 @@ def test_plane_sweep_kernels_match_plain(cuda, shape, with_auto):
 @pytest.mark.parametrize("mixture", [True, False])
 def test_plane_sweep_backward_is_deterministic(cuda, mixture):
     """No atomics and fixed-order d_shift sums: two backward runs are
-    bit-identical; a row wider than the kernels take raises."""
+    bit-identical; a row wider than one launch takes runs in two column
+    segments (C10) and matches the plain version."""
     inputs = sweep_inputs((2, 63, 4, 1280), 3, cuda)
     if not mixture:
         inputs[3] = None
@@ -173,8 +175,13 @@ def test_plane_sweep_backward_is_deterministic(cuda, mixture):
     second = torch.autograd.grad(outs, heads, cts)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
     wide = sweep_inputs((1, 3, 2, 2052), 3, cuda)
-    with pytest.raises(ValueError, match="wider"):
-        plane_sweep(*wide, 328, False, True)
+    if not mixture:
+        wide[3] = None
+    launches = plane_sweep.fwd_launches + plane_sweep.nomix_fwd_launches
+    got = plane_sweep(*wide, 328, False, True)
+    assert plane_sweep.fwd_launches + plane_sweep.nomix_fwd_launches == launches + 2
+    for g, w in zip(got, plane_sweep_plain(*wide, 328, False, True)):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
 
 
 # the image-gradient backward: one, two and four pixels a thread (W up to
@@ -267,6 +274,7 @@ def test_train_step_on_cuda_matches_cpu(cuda):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = stage1_config(
+        bf16=False,
         model=ModelConfig(num_layers=18, planes=PlaneConfig(disp_levels=7, disp_max=24,
                                                             xz_levels=3)),
         loss=LossConfig(automask=True), data=DataConfig(64, 96), batch_size=2)
@@ -287,6 +295,7 @@ def test_oracle_step_on_cuda_matches_cpu(cuda):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = stage1_config(
+        bf16=False,
         model=ModelConfig(num_layers=18, planes=PlaneConfig(disp_levels=7, disp_max=24,
                                                             xz_levels=3)),
         loss=LossConfig(automask=True, use_mom=True), data=DataConfig(64, 96), batch_size=2,
@@ -341,6 +350,7 @@ def test_distillation_step_on_cuda_matches_cpu(cuda):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = self_distillation_config(
+        bf16=False,
         model=ModelConfig(num_layers=18, planes=PlaneConfig(disp_levels=7, disp_max=24,
                                                             xz_levels=3)),
         data=DataConfig(64, 96), batch_size=2)
@@ -474,7 +484,7 @@ def test_rescue_step_on_cuda_matches_cpu(cuda, model_kw):
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = stage1_config(model=ModelConfig(num_layers=18, **model_kw),
+    cfg = stage1_config(bf16=False, model=ModelConfig(num_layers=18, **model_kw),
                         loss=LossConfig(automask=True), data=DataConfig(64, 128),
                         batch_size=2)
     before = _rescue_counts()
@@ -494,6 +504,7 @@ def test_yz_distillation_step_on_cuda_matches_cpu(cuda):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = self_distillation_config(
+        bf16=False,
         model=ModelConfig(num_layers=18, planes=PlaneConfig(disp_levels=7, disp_max=24,
                                                             xz_levels=3, yz_levels=4,
                                                             yz_min=1.0)),
@@ -612,6 +623,7 @@ def test_mono_step_on_cuda_matches_cpu(cuda):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = mono_config(
+        bf16=False,
         model=ModelConfig(num_layers=18, planes=PlaneConfig(disp_levels=7, disp_max=24,
                                                             xz_levels=3)),
         data=DataConfig(64, 128), batch_size=2)
@@ -697,6 +709,7 @@ def test_falnet_step_on_cuda_matches_cpu(cuda):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = stage1_config(
+        bf16=False,
         model=ModelConfig(net_type="FalNet", use_mixture_loss=False, plane_residual=False,
                           planes=PlaneConfig(disp_levels=7, disp_max=24, xz_levels=0)),
         loss=LossConfig(automask=True), data=DataConfig(64, 96), batch_size=2)
@@ -710,3 +723,77 @@ def test_falnet_step_on_cuda_matches_cpu(cuda):
     torch.cuda.synchronize()
     assert tuple(a - b for a, b in zip(counts(), before)) == (1, 1, 0, 0, 0)
     assert worst["share_of_weights_held_at_atol"] > 0.5
+
+
+# bf16, the JAX package's default (TrainConfig.bf16): the sweep's and the 2-D
+# warp's bf16 instances against their plain versions (chip_smoke.HeldBf16:
+# bf16 outputs within one bf16 ulp plus the float32 tolerance, float32
+# outputs at it), and rows wider than one sweep launch (C10)
+# (H >= 6: chip_smoke.seeded_sweep_inputs masks row 5 whole)
+@pytest.mark.parametrize("shape,mixture", [((2, 6, 8, 64), True), ((1, 63, 6, 640), True),
+                                           ((1, 9, 6, 1501), True), ((2, 7, 6, 37), False),
+                                           ((1, 49, 6, 640), False), ((1, 3, 6, 2048), True)])
+def test_plane_sweep_bf16_kernels_match_plain(cuda, shape, mixture):
+    from chip_smoke import HeldBf16, as_bf16, seeded_sweep_inputs
+
+    inputs = as_bf16(seeded_sweep_inputs(shape, sum(shape), cuda), (4, 5))
+    if not mixture:
+        inputs[3] = None
+    name = "bf16_fwd_launches" if mixture else "bf16_nomix_fwd_launches"
+    before = getattr(plane_sweep, name)
+    got = plane_sweep(*inputs, 328, mixture, True)
+    assert getattr(plane_sweep, name) == before + 1 and got[0].dtype == torch.bfloat16
+    # the gradients against the plain version anchored at the kernel's rounded
+    # reconstruction, which the backward reads (chip_smoke.phase_sweep_bf16)
+    HeldBf16().hold(
+        got, plane_sweep_plain(*inputs, 328, mixture, True), inputs,
+        (2, 3, 4) if mixture else (2, 4),
+        ("d_logits", "d_sigma", "d_shift") if mixture else ("d_logits", "d_shift"), 0,
+        plain_grad_out=plane_sweep_plain(*inputs, 328, mixture, True, rounded_rgb=got[0]))
+
+
+@pytest.mark.parametrize("shape,with_sigma", [((2, 5, 7, 200), True), ((1, 3, 16, 130), False),
+                                              ((2, 63, 6, 640), True)])
+def test_warp2d_bf16_kernels_match_plain(cuda, shape, with_sigma):
+    from chip_smoke import HeldBf16, as_bf16, seeded_warp_inputs
+
+    inputs = as_bf16(seeded_warp_inputs(shape, sum(shape), cuda, degenerate=True), (3, 4, 5))
+    if not with_sigma:
+        inputs[2] = None
+    name = "bf16_fwd_launches" if with_sigma else "bf16_nosigma_fwd_launches"
+    before = getattr(warp2d, name)
+    got = warp2d(*inputs)
+    assert getattr(warp2d, name) == before + 1 and got[0].dtype == torch.bfloat16
+    HeldBf16().hold(got, warp2d_plain(*inputs), inputs,
+                    (1, 2, 3, 4) if with_sigma else (1, 3, 4),
+                    ("d_logits", "d_sigma", "d_dx", "d_dy") if with_sigma
+                    else ("d_logits", "d_dx", "d_dy"), 0)
+
+
+@pytest.mark.parametrize("shape", [(1, 63, 6, 2560), (1, 14, 6, 4096)])
+def test_plane_sweep_wide_rows_match_plain(cuda, shape):
+    """C10: the forward, the head-only backward (float32 and bf16) and the
+    image-gradient backward of rows wider than one launch, in column
+    segments with a right halo, against the plain version."""
+    from chip_smoke import Held, HeldBf16, as_bf16, image_grad_inputs, seeded_sweep_inputs
+
+    names = ("d_logits", "d_sigma", "d_shift")
+    inputs = seeded_sweep_inputs(shape, sum(shape), cuda)
+    fwd = plane_sweep.fwd_launches
+    got = plane_sweep(*inputs, 328, True, True)
+    assert plane_sweep.fwd_launches - fwd >= 2
+    Held().hold(got, plane_sweep_plain(*inputs, 328, True, True), inputs, (2, 3, 4), names, 0)
+    inputs = as_bf16(inputs, (4, 5))
+    fwd = plane_sweep.bf16_fwd_launches
+    got = plane_sweep(*inputs, 328, True, True)
+    assert plane_sweep.bf16_fwd_launches - fwd >= 2 and got[0].dtype == torch.bfloat16
+    HeldBf16().hold(got, plane_sweep_plain(*inputs, 328, True, True), inputs, (2, 3, 4), names,
+                    2, segmented=True,
+                    plain_grad_out=plane_sweep_plain(*inputs, 328, True, True,
+                                                     rounded_rgb=got[0]))
+    inputs = image_grad_inputs(shape, sum(shape) + 1, cuda)
+    img = plane_sweep.img_bwd_launches
+    Held().hold(plane_sweep(*inputs, 328, True, True),
+                plane_sweep_plain(*inputs, 328, True, True), inputs, (0, 1, 2, 3, 4),
+                ("d_src", "d_tgt") + names, 1)
+    assert plane_sweep.img_bwd_launches - img >= 2          # one a segment

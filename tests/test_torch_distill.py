@@ -152,6 +152,7 @@ def _configs(recipe):
         optim=jcfg.OptimConfig(learning_rate=1e-4), bf16=False,
         allow_random_pc=True, **common)
     t = tcfg.TrainConfig(
+        bf16=False,
         model=tcfg.ModelConfig(planes=tcfg.PlaneConfig(**planes), **model),
         loss=tcfg.LossConfig(**loss), data=tcfg.DataConfig(height=SH, width=SW),
         optim=tcfg.OptimConfig(learning_rate=1e-4), **common)

@@ -96,6 +96,7 @@ def _configs(warp_type="homography_warp", no_stereo=False, alpha_pc=0.1, mixture
         optim=jcfg.OptimConfig(learning_rate=1e-4), bf16=False, fused_sweep=False,
         allow_random_pc=True, **common)
     t = tcfg.TrainConfig(
+        bf16=False,
         model=tcfg.ModelConfig(planes=tcfg.PlaneConfig(**planes), **model),
         loss=tcfg.LossConfig(alpha_pc=alpha_pc, automask=True),
         data=tcfg.DataConfig(height=H, width=W),

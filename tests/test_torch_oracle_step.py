@@ -67,7 +67,8 @@ def _configs():
     j = jcfg.TrainConfig(model=jcfg.ModelConfig(planes=jcfg.PlaneConfig(**PLANES), **MODEL),
                          loss=jcfg.LossConfig(**LOSS), data=jcfg.DataConfig(height=H, width=W),
                          bf16=False, **common)
-    t = tcfg.TrainConfig(model=tcfg.ModelConfig(planes=tcfg.PlaneConfig(**PLANES), **MODEL),
+    t = tcfg.TrainConfig(bf16=False,
+                         model=tcfg.ModelConfig(planes=tcfg.PlaneConfig(**PLANES), **MODEL),
                          loss=tcfg.LossConfig(**LOSS), data=tcfg.DataConfig(height=H, width=W),
                          **common)
     return j, t

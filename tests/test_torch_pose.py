@@ -241,7 +241,8 @@ def test_colmap_poses_match_jax():
     common = dict(warp_type="homography_warp", novel_frame_ids=(-1, 1), fused_sweep=True)
     jc = jcfg.TrainConfig(data=jcfg.DataConfig(height=32, width=64, use_colmap=True),
                           **common)
-    tc = tcfg.TrainConfig(model=tcfg.ModelConfig(num_layers=18, use_denseaspp=False),
+    tc = tcfg.TrainConfig(bf16=False,
+                          model=tcfg.ModelConfig(num_layers=18, use_denseaspp=False),
                           data=tcfg.DataConfig(height=32, width=64, use_colmap=True),
                           **common)
     batch = make_stereo_batch(2, 32, 64, seed=2, novel_frame_ids=(-1, 1))

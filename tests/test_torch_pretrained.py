@@ -52,6 +52,7 @@ def _configs(weights_dir, alpha_pc=0.1):
         data=jcfg.DataConfig(height=H, width=W), bf16=False, weights_dir=weights_dir,
         **COMMON)
     t = tcfg.TrainConfig(
+        bf16=False,
         model=tcfg.ModelConfig(planes=tcfg.PlaneConfig(**PLANES), **MODEL),
         loss=tcfg.LossConfig(alpha_pc=alpha_pc, automask=True),
         data=tcfg.DataConfig(height=H, width=W), fused_sweep=True, weights_dir=weights_dir,

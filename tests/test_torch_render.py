@@ -91,6 +91,7 @@ def _configs(render=False, yz=0, mixture=True, net_type="ResNet", distill=0.0):
         loss=jcfg.LossConfig(alpha_pc=0.0, automask=True, self_distillation=distill),
         data=jcfg.DataConfig(height=H, width=W), bf16=False, fused_sweep=False, **common)
     t = tcfg.TrainConfig(
+        bf16=False,
         model=tcfg.ModelConfig(planes=tcfg.PlaneConfig(**planes), **model),
         loss=tcfg.LossConfig(alpha_pc=0.0, automask=True, self_distillation=distill),
         data=tcfg.DataConfig(height=H, width=W), fused_sweep=True, **common)

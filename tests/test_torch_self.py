@@ -134,6 +134,7 @@ def _configs(warp_type, use_ssim):
         # the sweep: the JAX fused step; the 2-D warp: the JAX oracle step
         fused_sweep=warp_type == "disp_warp", **common)
     t = tcfg.TrainConfig(
+        bf16=False,
         model=tcfg.ModelConfig(planes=tcfg.PlaneConfig(**planes), **model),
         loss=tcfg.LossConfig(**loss), data=tcfg.DataConfig(height=H, width=W),
         fused_sweep=True, **common)

@@ -83,6 +83,7 @@ def _configs(automask):
         optim=jcfg.OptimConfig(learning_rate=1e-4), bf16=False,
         allow_random_pc=True, **common)
     t = tcfg.TrainConfig(
+        bf16=False,
         model=tcfg.ModelConfig(planes=tcfg.PlaneConfig(**planes), **model),
         loss=tcfg.LossConfig(alpha_pc=0.1, automask=automask),
         data=tcfg.DataConfig(height=H, width=W),
