@@ -173,7 +173,9 @@ Phases, each printing a line:
      ulp plus the float32 instance's tolerance, float32 outputs at it (the
      sweep's gradients against the plain version anchored at the kernel's
      rounded reconstruction, which its backward reads); each kernel alone
-     timed beside its float32 instance, its bound in bf16 bytes;
+     timed beside its float32 instance, its bound in bf16 bytes, the
+     sweep's with both instances' registers, blocks an SM and shared
+     bytes, the warp's beside F.grid_sample on bf16 operands;
   bf16_recipes (last): through the Trainer in bf16, stage 1 (13 steps),
      stage 2 -> stage 3 with the teacher (2 + 13), mono (13), mono without
      the mixture, FalNet and PladeNet (2 each), each step held to its bf16
@@ -385,13 +387,15 @@ def mufu_floor_ms(pixel_planes, ops):
     return pixel_planes * ops / MUFU_OPS_PER_S * 1e3
 
 
-def sweep_kernel_info(backward, mix, N, W, image_grads=False):
+def sweep_kernel_info(backward, mix, N, W, image_grads=False, bf16=False):
     """The compiler's and the occupancy calculator's view of the sweep
     kernel instance that a launch at (N, W) takes (``image_grads``: the
-    backward's image-gradient instance)."""
+    backward's image-gradient instance; ``bf16``: the bf16 instance)."""
     out = (ctypes.c_int * 5)()
-    rc = _build.load_library().pdt_plane_sweep_kernel_info(
-        int(backward), int(mix), int(image_grads), N, W, out)
+    lib = _build.load_library()
+    rc = (lib.pdt_plane_sweep_kernel_info_bf16(int(backward), int(mix), N, W, out) if bf16
+          else lib.pdt_plane_sweep_kernel_info(int(backward), int(mix), int(image_grads), N,
+                                               W, out))
     if rc != 0:
         raise RuntimeError(f"pdt_plane_sweep_kernel_info: CUDA error {rc}")
     return dict(zip(("registers", "spill_bytes", "threads", "blocks_per_sm", "smem_bytes"),
@@ -1708,6 +1712,35 @@ def disp_kernel_info(N, W):
                      "planes_a_chunk"), out))
 
 
+def grid_sample_ms(src, heads, dx, dy):
+    """The library call beside the 2-D warp: F.grid_sample on (B*N, C, H,
+    W) [rgb | logit (| sigma)] with a prebuilt normalised grid, both built
+    outside the timed region, in src's dtype (grid_sample takes one dtype,
+    so under bf16 a bf16 grid); its backward also computes the rgb input's
+    gradient, which the kernel skips.  Returns the forward's ms and the
+    forward+backward's."""
+    B, N, H, W = dx.shape
+    channels = 3 + len(heads)
+    with torch.no_grad():
+        x = torch.arange(W, device=dx.device, dtype=torch.float32)
+        y = torch.arange(H, device=dx.device, dtype=torch.float32)[:, None]
+        grid = torch.stack([(dx + x) * (2.0 / (W - 1)) - 1.0,
+                            (dy + y) * (2.0 / (H - 1)) - 1.0], -1).view(B * N, H, W, 2)
+        grid = grid.to(src.dtype)
+        stack = torch.cat([src[:, None].expand(B, N, 3, H, W),
+                           *(t[:, :, None] for t in heads)], 2).view(B * N, channels, H, W)
+    grid.requires_grad_()
+    stack.requires_grad_()
+    sample = lambda: F.grid_sample(stack, grid, mode="bilinear", padding_mode="zeros",
+                                   align_corners=True)
+    with torch.no_grad():
+        fwd_ms = cuda_ms(sample)
+    ct = torch.randn_like(sample())
+    total_ms = cuda_ms(lambda: torch.autograd.grad(sample(), (stack, grid), ct))
+    del grid, stack, ct
+    return fwd_ms, total_ms
+
+
 def phase_warp2d(card, shape=SWEEP_SHAPE, dev=torch.device("cuda"), with_sigma=True):
     """The 2-D warp kernels against their twin on small odd shapes and at
     the mono step's shape, then timed there; returns the JSON fields of
@@ -1773,29 +1806,10 @@ def phase_warp2d(card, shape=SWEEP_SHAPE, dev=torch.device("cuda"), with_sigma=T
     bwd_bound = bound(bwd_bytes, 100 * dx.numel())
     del out, cts
 
-    # the library call: F.grid_sample on (B*N, C, H, W) [rgb | logit (| sigma)]
-    # with a prebuilt normalised grid, both built outside the timed region;
-    # its backward also computes the rgb input's gradient, which the
-    # kernel skips
     heads = [logits] + ([sigma] if with_sigma else [])
     channels = 3 + len(heads)
-    with torch.no_grad():
-        x = torch.arange(W, device=dev, dtype=torch.float32)
-        y = torch.arange(H, device=dev, dtype=torch.float32)[:, None]
-        grid = torch.stack([(dx + x) * (2.0 / (W - 1)) - 1.0,
-                            (dy + y) * (2.0 / (H - 1)) - 1.0], -1).view(B * N, H, W, 2)
-        stack = torch.cat([src[:, None].expand(B, N, 3, H, W),
-                           *(t[:, :, None] for t in heads)], 2).view(B * N, channels, H, W)
-    grid.requires_grad_()
-    stack.requires_grad_()
-    sample = lambda: F.grid_sample(stack, grid, mode="bilinear", padding_mode="zeros",
-                                   align_corners=True)
-    with torch.no_grad():
-        lib_fwd_ms = cuda_ms(sample)
-    lib_out = sample()
-    lib_ct = torch.randn_like(lib_out)
-    lib_ms = cuda_ms(lambda: torch.autograd.grad(sample(), (stack, grid), lib_ct))
-    del grid, stack, lib_out, lib_ct, inputs, wrt, heads
+    lib_fwd_ms, lib_ms = grid_sample_ms(src, heads, dx, dy)
+    del inputs, wrt, heads
     free_cache()
     tag = "warp2d" if with_sigma else "warp2d_nosigma"
     info = warp_kernel_info(with_sigma)
@@ -2888,12 +2902,14 @@ def time_sweep_bf16(inputs32, inputs16, pad):
     values, their plain version, and the bounds in the bf16 instance's
     bytes (the disp on, the automask off, as the stage-1 and FalNet steps
     launch them)."""
-    times = {}
+    times = {"info": {}}
     for tag, inputs in (("f32", inputs32), ("bf16", inputs16)):
         src, tgt, logits, sigma, shift, mask = inputs
         B, N, H, W = logits.shape
         mix = sigma is not None
         suffix = "_bf16" if tag == "bf16" else ""
+        times["info"][tag] = {d: sweep_kernel_info(d == "bwd", mix, N, W, bf16=bool(suffix))
+                              for d in ("fwd", "bwd")}
         with torch.no_grad():
             rgb = torch.empty((B, 3, H, W), dtype=logits.dtype, device=logits.device)
             new = lambda *size: torch.empty(size, device=logits.device)
@@ -2933,25 +2949,37 @@ def bf16_fields(held, t, extra=None):
     more = lambda d: {"at": [{"shape": list(at), "ms": x[f"bf16_{d}_ms"],
                               "float32_ms": x[f"f32_{d}_ms"], "bound_ms": x[f"{d}_bound"][0]}
                              for at, x in (extra or {}).items()]}
+    info = lambda d: ({"kernel_info": t["info"]["bf16"][d],
+                       "float32_kernel_info": t["info"]["f32"][d]} if "info" in t else {})
     fwd = {"max_abs_err": held.fwd, "max_ulps": held.fwd_ulps, "ms": t["bf16_fwd_ms"],
            "float32_ms": t["f32_fwd_ms"], "plain_ms": t["plain_fwd_ms"],
-           "bound_ms": t["fwd_bound"][0], "bound_by": t["fwd_bound"][1], "library_ms": None,
-           **more("fwd")}
+           "bound_ms": t["fwd_bound"][0], "bound_by": t["fwd_bound"][1],
+           "library_ms": t.get("lib_fwd_ms"), **info("fwd"), **more("fwd")}
     bwd = {"max_abs_err": max(held.abs.values()), "max_rel_err": max(held.rel.values()),
            "max_ulps": max(held.ulps.values()), "ms": t["bf16_bwd_ms"],
            "float32_ms": t["f32_bwd_ms"], "plain_ms": t["plain_bwd_ms"],
-           "bound_ms": t["bwd_bound"][0], "bound_by": t["bwd_bound"][1], "library_ms": None,
-           **more("bwd")}
+           "bound_ms": t["bwd_bound"][0], "bound_by": t["bwd_bound"][1],
+           "library_ms": t.get("lib_bwd_ms"), **info("bwd"), **more("bwd")}
     return fwd, bwd
 
 
 def print_bf16_times(tag, at, t, card):
     for d in ("fwd", "bwd"):
         b = t[f"{d}_bound"][0]
+        lib = (f"F.grid_sample on bf16 ({'forward' if d == 'fwd' else 'forward+backward less '
+               'forward, also the rgb gradient'}) {t[f'lib_{d}_ms']:.4f} ms"
+               if f"lib_{d}_ms" in t else "no single PyTorch call computes it")
+        info = ""
+        if "info" in t:
+            i16, i32 = t["info"]["bf16"][d], t["info"]["f32"][d]
+            info = (f"; bf16 instance {i16['registers']} registers (spills "
+                    f"{i16['spill_bytes']} B), {i16['blocks_per_sm']} blocks an SM, "
+                    f"{i16['smem_bytes']} B shared, float32 {i32['registers']} / "
+                    f"{i32['spill_bytes']} B / {i32['blocks_per_sm']} / {i32['smem_bytes']} B")
         print(f"[{tag}] at {at}: {d} kernel alone bf16 {t[f'bf16_{d}_ms']:.4f} ms beside "
               f"float32 {t[f'f32_{d}_ms']:.4f} ms in this call (bf16 bound {b:.4f} ms of "
               f"{t[f'{d}_bytes'] / 1e6:.0f} MB, {b / t[f'bf16_{d}_ms']:.1%} of it); plain "
-              f"{t[f'plain_{d}_ms']:.2f} ms; no single PyTorch call computes it | {card}")
+              f"{t[f'plain_{d}_ms']:.2f} ms; {lib}{info} | {card}")
 
 
 def phase_sweep_bf16(card, shapes=(SWEEP_SHAPE, SHIFT_SHAPE), dev=torch.device("cuda")):
@@ -3056,7 +3084,13 @@ def phase_warp2d_bf16(card, shape=SWEEP_SHAPE, dev=torch.device("cuda")):
         n = inputs16[3].numel()
         t["fwd_bound"] = bound(t["fwd_bytes"], 60 * n)
         t["bwd_bound"] = bound(t["bwd_bytes"], 100 * n)
-        del out, cts, wrt, inputs32, inputs16
+        del out, cts, wrt
+        # the library call on bf16 operands: (B*N, 5 or 4, H, W)
+        src, logits, sigma, dx, dy, _ = inputs16
+        t["lib_fwd_ms"], lib_ms = grid_sample_ms(
+            src, [logits] + ([sigma] if with_sigma else []), dx, dy)
+        t["lib_bwd_ms"] = lib_ms - t["lib_fwd_ms"]
+        del inputs32, inputs16, src, logits, sigma, dx, dy
         free_cache()
         tag = "warp2d_bf16" if with_sigma else "warp2d_nosigma_bf16"
         print(f"[{tag}] warp2d on bf16 src and heads vs plain at (2, 5, 7, 200) with "

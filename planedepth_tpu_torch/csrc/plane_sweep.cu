@@ -38,12 +38,12 @@
 // on T, the type of the images, the plane heads, the reconstruction and the
 // head gradients: float, or bf16 (the JAX package's default arithmetic,
 // _fwd_call and _bwd_call on bf16 operands, pallas_sweep.py:1023-1026,
-// 1102-1103).  A bf16 instance reads bf16 and widens it as it stages it, so
-// its arithmetic, shared memory and ring are the float instance's; it
-// rounds rgb, d_logits and d_sigma to bf16 (nearest even) as it writes
-// them, and nll, nll_auto, disp, stats and d_shift stay float32.  Its bytes
-// are the float instance's less half of the images, heads and their
-// gradients.
+// 1102-1103).  A bf16 instance's arithmetic is the float instance's: it
+// stages its logits and sigma rows raw into a ring of bf16 rows and widens
+// each tap exactly as it reads it; it rounds rgb, d_logits and d_sigma to
+// bf16 (nearest even) as it writes them, and nll, nll_auto, disp, stats and
+// d_shift stay float32.  Its bytes are the float instance's less half of
+// the images, heads and their gradients.
 // The image-gradient backward (sweep_bwd_img_kernel, pallas_sweep.py:540-882 with
 // image_grads=True; the mixture with the automask only, as JAX asserts)
 // also writes d_src and d_tgt: d_tgt += -sgn(c_n - tgt) de_n / 3 at x;
@@ -77,7 +77,8 @@
 //   a pixel.  At PX = 1 the register budget leaves 2 blocks (40 warps) an SM.
 // - Each plane's logits row (and sigma row under MIX) streams into a ring of
 //   shared-memory slots by cp.async (16-byte granules when the rows are
-//   16-byte aligned, 4-byte otherwise), counted in commit groups: a group
+//   16-byte aligned, 4-byte otherwise; bf16 rows, below), counted in commit
+//   groups: a group
 //   of planes a block barrier (forward 4, backward 2; with the image
 //   gradients 1 or 2), the ring prefetching
 //   two groups ahead, so later planes load while plane n computes.  Every
@@ -91,6 +92,15 @@
 //   (Tile<PX>::stride: the widest row + 2, rounded up), whose entries W and W + 1 are 0: a
 //   tap past the edge is one clamped index, and all twelve loads of a
 //   pixel-plane share one address with immediate offsets.
+// - bf16 rows stay bf16 in the ring (Ring<PX, bf16>: rows of 648, 1288 or
+//   2056 elements, each 16-byte aligned), staged by the same cp.async
+//   pipeline in 16-byte granules of 8 when W % 8 == 0 and the bases are
+//   16-byte aligned (the recipes' case), else loaded and stored by each
+//   thread an element at a time; a tap is a 16-bit shared load and one shift
+//   (bf16 -> float is exact), so the ring prefetches two groups ahead on half
+//   the float ring's shared bytes.  Per-thread cp.async rather than TMA bulk
+//   copies: at W <= 640 a group's copies are one granule a thread, a few
+//   instructions against the group's few hundred of taps and algebra.
 // - The backward is pipelined by one group: after the barrier of group j,
 //   each thread gathers group j's reverse windows from the adjoint rows
 //   that group j staged (dl m, dsg m, double-buffered, two zeros in front
@@ -154,6 +164,20 @@ template <> struct Tile<1> { static constexpr int threads = 640, blocks = 2, str
 template <> struct Tile<2> { static constexpr int threads = 640, blocks = 1, stride = 1284; };
 template <> struct Tile<4> { static constexpr int threads = 512, blocks = 1, stride = 2052; };
 
+// The ring of plane rows at element type T: its element (float, or the raw
+// bits of a bf16, widened at the taps) and its row stride in elements.  A
+// float ring row has the source rows' stride; a bf16 one the widest row + 2
+// rounded up to 8 elements (648, 1288, 2056), so that each row starts on 16
+// bytes for cp.async.
+template <int PX, typename T> struct Ring {
+  using E = float;
+  static constexpr int stride = Tile<PX>::stride;
+};
+template <int PX> struct Ring<PX, __nv_bfloat16> {
+  using E = unsigned short;
+  static constexpr int stride = (Tile<PX>::stride + 7) & ~7;
+};
+
 // The image-gradient backward at PX pixels a thread: its planes a barrier,
 // and whether it is lean, keeping the pixel's d_tgt, automask sum and head
 // constants in shared rows rather than registers (at one pixel a thread,
@@ -171,6 +195,13 @@ int row_stride(int W) {
   return px == 1 ? Tile<1>::stride : px == 2 ? Tile<2>::stride : Tile<4>::stride;
 }
 
+// A bf16 ring row's stride in floats.
+int ring_floats_bf16(int W) {
+  using bf = __nv_bfloat16;
+  const int px = pixels_per_thread(W);
+  return (px == 1 ? Ring<1, bf>::stride : px == 2 ? Ring<2, bf>::stride : Ring<4, bf>::stride) / 2;
+}
+
 __host__ __device__ __forceinline__ int round4(int v) { return (v + 3) & ~3; }
 
 // Shared-memory layout, in floats, rows of stride S: clipped shifts and
@@ -179,8 +210,9 @@ __host__ __device__ __forceinline__ int round4(int v) { return (v + 3) & ~3; }
 // position, the channels and a 0), under img float4 rows of the target
 // pixels ((tgt, -e_auto log2 e), (g_rgb, 0); lean also (d_tgt, sum_n pi_n
 // r_n^2 exp(-e_auto r_n)) and the head constants (Ls, inv_u, dM, dU), (Sg,
-// L0, gu0, disp0)), the ring of plane slots (logits, then sigma under MIX),
-// then for the backward the double-buffered adjoint rows (dl m, and dsg m
+// L0, gu0, disp0)), the ring of plane slots (logits, then sigma under MIX;
+// a bf16 ring's rows are Ring<PX, bf16>::stride elements, half as many
+// floats), then for the backward the double-buffered adjoint rows (dl m, and dsg m
 // under MIX: 2 x group rows each; under img the dl m row holds a float4 a
 // position, (dl m, dc_0, dc_1, dc_2)), all contiguous, and the d_shift
 // partials (2 x group x 32 warps).
@@ -199,11 +231,31 @@ struct Layout {
     red = adj_s + (bwd && mix ? 2 * group * S : 0);
     total = red + (bwd ? 2 * group * 32 : 0);
   }
+  // the same with a bf16 ring, whose rows are ring_floats floats apart
+  __host__ __device__ Layout(int N, int S, bool mix, int slots, int group, bool bwd,
+                             int ring_floats)
+      : Layout(N, S, mix, slots, group, bwd) {
+    slot = ring_floats * (mix ? 2 : 1);
+    adj_l = ring + slots * slot;
+    adj_s = adj_l + (bwd ? 2 * group * S : 0);
+    red = adj_s + (bwd && mix ? 2 * group * S : 0);
+    total = red + (bwd ? 2 * group * 32 : 0);
+  }
   // the head-only backward's adjoint rows (each with its two leading zeros)
   // from adj_l to red
   __host__ __device__ int adj_rows(int S) const { return (red - adj_l) / S; }
   size_t bytes() const { return (size_t)total * sizeof(float); }
 };
+
+// The layout of the sweep kernels at PX and element type T (a bf16 ring's
+// rows half as many floats as its elements).
+template <int PX, typename T>
+__device__ __forceinline__ Layout layout(int N, bool mix, int slots, int group, bool bwd) {
+  if constexpr (std::is_same<T, float>::value)
+    return Layout(N, Tile<PX>::stride, mix, slots, group, bwd);
+  else
+    return Layout(N, Tile<PX>::stride, mix, slots, group, bwd, Ring<PX, T>::stride / 2);
+}
 
 __device__ __forceinline__ float clip_sigma(float v) {
   return fminf(fmaxf(v, 0.01f), 1.f);
@@ -244,6 +296,12 @@ __device__ __forceinline__ float frcp(float v) {
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 
+// A ring element as a float: a bf16's bits are a float's upper half.
+__device__ __forceinline__ float ring_f(float v) { return v; }
+__device__ __forceinline__ float ring_f(unsigned short v) {
+  return __uint_as_float((unsigned)v << 16);
+}
+
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
@@ -267,6 +325,11 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
 }
 
+__device__ __forceinline__ void cp_async16(unsigned short* dst, const __nv_bfloat16* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
@@ -282,8 +345,9 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Loads the row's clipped shifts and masks and its source pixels (0 from W
-// on), and zeroes entries W and W + 1 of every ring row.
-template <int S, typename T>
+// on), and zeroes entries W and W + 1 of every ring row (rows RS elements
+// apart: bf16 zeros in a bf16 ring).
+template <int S, int RS, typename T>
 __device__ __forceinline__ void load_row(const float* shift, const float* mask,
                                          const T* src, float* smem,
                                          const Layout& L, int slot_rows,
@@ -298,8 +362,10 @@ __device__ __forceinline__ void load_row(const float* shift, const float* mask,
     const int c = i / S, x = i - c * S;
     smem[L.src + i] = x < W ? to_f(src[(((int64_t)b * 3 + c) * H + h) * W + x]) : 0.f;
   }
+  using R = typename Ring<1, T>::E;
+  R* ring = reinterpret_cast<R*>(smem + L.ring);
   for (int r = threadIdx.x; r < 2 * slot_rows; r += blockDim.x)
-    smem[L.ring + (r >> 1) * S + W + (r & 1)] = 0.f;
+    ring[(r >> 1) * RS + W + (r & 1)] = R(0);
 }
 
 // load_row for the image-gradient backward: the plane table of two float4
@@ -344,13 +410,22 @@ struct CopyPlan {
   }
 };
 
-// Issues the copies of group j (planes j*G ..) into its ring slots and
-// commits them as one group (an empty group past the last plane keeps the
-// wait counts uniform).  bf16 rows are widened to float as they are staged:
-// each thread loads its share (8 elements, one 16-byte load, when vec; else
-// one) and stores the floats itself, so they are published by the same
-// barrier as the copies, and the ring and everything that reads it are the
-// float kernel's.
+// The copy plan of a ring at element type T: 16-byte granules of 4 floats,
+// or of 8 bf16 (half as many as 4 floats of a row half as wide).
+template <typename T>
+__device__ __forceinline__ CopyPlan copy_plan(int W, int rows, bool vec) {
+  if constexpr (std::is_same<T, float>::value)
+    return CopyPlan(W, rows, vec);
+  else
+    return CopyPlan(vec ? W >> 1 : W, rows, vec);
+}
+
+// Issues the copies of group j (planes j*G ..) into its ring slots (rows S
+// elements apart) and commits them as one group (an empty group past the
+// last plane keeps the wait counts uniform).  bf16 rows are staged raw into
+// a bf16 ring: 16-byte cp.async granules of 8 when vec, else each element
+// loaded and stored by the thread itself, published by the same barrier as
+// the copies.
 template <int S, int G, int P, bool MIX, typename T>
 __device__ __forceinline__ void issue_group(float* smem, const Layout& L,
                                             const CopyPlan& cp,
@@ -358,62 +433,32 @@ __device__ __forceinline__ void issue_group(float* smem, const Layout& L,
                                             const T* sigma, int64_t rowbase,
                                             int64_t plane, int j, int N,
                                             bool vec) {
-  if constexpr (!std::is_same<T, float>::value) {
-    if (j * G < N) {
-      float* slots = smem + L.ring + (j % P) * G * L.slot;
-      // the row width, from the plan the kernel made for it (W >> 2 granules
-      // when vec, which for bf16 also means W % 8 == 0)
-      const int width = vec ? cp.nq << 2 : cp.nq;
-      const int per = vec ? 8 : 1, nq = width / per;
-      const int total = G * (MIX ? 2 : 1) * nq;
-      for (int t = threadIdx.x; t < total; t += blockDim.x) {
-        const int r = t / nq, q = t - r * nq;
-        const int g = MIX ? r >> 1 : r;
-        const int n = j * G + g;
-        if (n >= N) continue;
+  using R = typename Ring<1, T>::E;
+  constexpr int per = 16 / sizeof(T);   // elements a 16-byte granule
+  if (j * G < N) {
+    R* slots = reinterpret_cast<R*>(smem + L.ring + (j % P) * G * L.slot);
+    const int slot = L.slot * (int)(sizeof(float) / sizeof(R));   // in ring elements
+    int r = cp.r0, q = cp.q0;
+    for (int t = threadIdx.x; t < cp.total; t += blockDim.x) {
+      const int g = MIX ? r >> 1 : r;
+      const int n = j * G + g;
+      if (n < N) {
         const bool sg = MIX && (r & 1);
         const T* row = (sg ? sigma : logits) + rowbase + n * plane;
-        float* dst = slots + g * L.slot + (sg ? S : 0) + q * per;
-        if (vec) {
-          const uint4 v = *reinterpret_cast<const uint4*>(row + q * per);
-          const unsigned w[4] = {v.x, v.y, v.z, v.w};
-          float o[8];
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            o[2 * e] = __uint_as_float(w[e] << 16);
-            o[2 * e + 1] = __uint_as_float(w[e] & 0xffff0000u);
-          }
-          reinterpret_cast<float4*>(dst)[0] = make_float4(o[0], o[1], o[2], o[3]);
-          reinterpret_cast<float4*>(dst)[1] = make_float4(o[4], o[5], o[6], o[7]);
-        } else {
-          dst[0] = to_f(row[q]);
-        }
+        R* dst = slots + g * slot + (sg ? S : 0);
+        if (vec)
+          cp_async16(dst + per * q, row + per * q);
+        else if constexpr (std::is_same<T, float>::value)
+          cp_async4(dst + q, row + q);
+        else
+          dst[q] = __bfloat16_as_ushort(row[q]);
       }
+      r += cp.dr;
+      q += cp.dq;
+      if (q >= cp.nq) { q -= cp.nq; ++r; }
     }
-    cp_async_commit();
-  } else {
-    if (j * G < N) {
-      float* slots = smem + L.ring + (j % P) * G * L.slot;
-      int r = cp.r0, q = cp.q0;
-      for (int t = threadIdx.x; t < cp.total; t += blockDim.x) {
-        const int g = MIX ? r >> 1 : r;
-        const int n = j * G + g;
-        if (n < N) {
-          const bool sg = MIX && (r & 1);
-          const float* row = (sg ? sigma : logits) + rowbase + n * plane;
-          float* dst = slots + g * L.slot + (sg ? S : 0);
-          if (vec)
-            cp_async16(dst + 4 * q, row + 4 * q);
-          else
-            cp_async4(dst + q, row + q);
-        }
-        r += cp.dr;
-        q += cp.dq;
-        if (q >= cp.nq) { q -= cp.nq; ++r; }
-      }
-    }
-    cp_async_commit();
   }
+  cp_async_commit();
 }
 
 // A pixel's constants of the backward, from the forward statistics
@@ -451,14 +496,14 @@ __device__ __forceinline__ PlaneGrads plane_grads(float l, float sg, float err, 
 // sigma gate is on the RAW centre sigma.  Without the mixture the weights
 // carry neither mask nor sigma, but l0 = L m still chains the mask into
 // d_logits.
-template <bool MIX, int S>
-__device__ __forceinline__ float centre_disp(const float* lr_x, float m, float s,
+template <bool MIX, int S, typename R>
+__device__ __forceinline__ float centre_disp(const R* lr_x, float m, float s,
                                              const HeadConsts& h, float& dl0, float& ds0) {
-  const float l0 = lr_x[0] * m;
+  const float l0 = ring_f(lr_x[0]) * m;
   const float p0 = fexp(l0 - h.L0);
   const float du0 = h.gu0 * (s - h.disp0);
   if (MIX) {
-    const float s0raw = lr_x[S];
+    const float s0raw = ring_f(lr_x[S]);
     const float r0 = frcp(clip_sigma(s0raw));
     dl0 = p0 * (du0 * m * r0);
     ds0 = (s0raw > 0.01f && s0raw < 1.f) ? -du0 * p0 * m * (r0 * r0) : 0.f;
@@ -497,21 +542,24 @@ __device__ __forceinline__ void sum_partials(const float* red, float* d_shift, i
 // The backward's pipeline over ngroups groups in a ring of P, once groups
 // 0 .. P-2 are issued: after the barrier of group i, issue group i + P,
 // gather group i and compute group i + 1, so one barrier serves a group.
-template <int P, class Issue, class Compute, class Gather>
+// With G > 0 the first argument is the planes, group i of G running while
+// i G < N: a bound that the kernel's parameters hold, so that no register
+// holds the group count (the bf16 instance at PX = 1 spilled it).
+template <int P, int G = 0, class Issue, class Compute, class Gather>
 __device__ __forceinline__ void run_pipeline(int ngroups, Issue&& issue, Compute&& compute,
                                              Gather&& gather) {
   cp_async_wait<P - 2>();     // group 0 has landed
   __syncthreads();            // everyone's copies, and load_row's stores
   issue(P - 1);
   compute(0);
-  for (int i = 0; i < ngroups; ++i) {
+  for (int i = 0; G ? i * G < ngroups : i < ngroups; ++i) {
     // group i's adjoints and group i+1's rows are complete; group i's ring
     // slots and buffer i+1 (read by gather(i-1)) are free
     cp_async_wait<P - 2>();
     __syncthreads();
     issue(i + P);
     gather(i);
-    if (i + 1 < ngroups) compute(i + 1);
+    if (G ? (i + 1) * G < ngroups : i + 1 < ngroups) compute(i + 1);
   }
   cp_async_wait<0>();
 }
@@ -536,20 +584,23 @@ sweep_fwd_kernel(const T* __restrict__ src, const T* __restrict__ tgt,
                  int H, int W, float shift_max, int with_auto, int with_disp,
                  int vec) {
   constexpr int G = kFwdGroup, P = kFwdRingGroups, S = Tile<PX>::stride;
+  // the ring's element and row stride (RS = S for float)
+  using R = typename Ring<PX, T>::E;
+  constexpr int RS = Ring<PX, T>::stride;
   extern __shared__ __align__(16) float smem[];
-  const Layout L(N, S, MIX, G * P, G, false);
+  const Layout L = layout<PX, T>(N, MIX, G * P, G, false);
   const int h = blockIdx.x, b = blockIdx.y;
-  load_row<S>(shift, mask, src, smem, L, G * P * (MIX ? 2 : 1), b, h, N, H, W,
-              shift_max);
+  load_row<S, RS>(shift, mask, src, smem, L, G * P * (MIX ? 2 : 1), b, h, N, H, W,
+                  shift_max);
 
   const int64_t plane = (int64_t)H * W;
   const int64_t pix_row = (int64_t)h * W;   // offset of row h in one plane
   const int64_t rowbase = (int64_t)b * N * plane + pix_row;
   const int ngroups = (N + G - 1) / G;
-  const CopyPlan cp(W, G * (MIX ? 2 : 1), vec);
+  const CopyPlan cp = copy_plan<T>(W, G * (MIX ? 2 : 1), vec);
 #pragma unroll
   for (int j = 0; j < P - 1; ++j)
-    issue_group<S, G, P, MIX>(smem, L, cp, logits, sigma, rowbase, plane, j, N, vec);
+    issue_group<RS, G, P, MIX>(smem, L, cp, logits, sigma, rowbase, plane, j, N, vec);
 
   const float* sh_src = smem + L.src;
   __syncthreads();                          // load_row's stores
@@ -574,8 +625,8 @@ sweep_fwd_kernel(const T* __restrict__ src, const T* __restrict__ tgt,
   for (int i = 0; i < ngroups; ++i) {
     cp_async_wait<P - 2>();   // this thread's copies of group i have landed
     __syncthreads();          // everyone's; group i-1's slots are free
-    issue_group<S, G, P, MIX>(smem, L, cp, logits, sigma, rowbase, plane,
-                              i + P - 1, N, vec);
+    issue_group<RS, G, P, MIX>(smem, L, cp, logits, sigma, rowbase, plane,
+                               i + P - 1, N, vec);
 #pragma unroll
     for (int g = 0; g < G; ++g) {
       const int n = i * G + g;
@@ -583,16 +634,17 @@ sweep_fwd_kernel(const T* __restrict__ src, const T* __restrict__ tgt,
       const float s = smem[L.shift + n];
       const int k = (int)floorf(s);
       const float f = s - (float)k, w0 = 1.f - f, m = smem[L.mask + n];
-      const float* lr = smem + L.ring + ((i % P) * G + g) * L.slot;
+      const R* lr = reinterpret_cast<const R*>(smem + L.ring + ((i % P) * G + g) * L.slot);
 #pragma unroll
       for (int p = 0; p < PX; ++p) {
         const int x = (int)(threadIdx.x + p * blockDim.x);
         if (x >= W) continue;
         const int i0 = min(x + k, W);     // entries W, W + 1 are 0
-        const float* a = lr + i0;
+        const R* a = lr + i0;
         const float* cs = sh_src + i0;
-        const float l = (w0 * a[0] + f * a[1]) * m;
-        const float sg = MIX ? clip_sigma((w0 * a[S] + f * a[S + 1]) * m) : 1.f;
+        const float l = (w0 * ring_f(a[0]) + f * ring_f(a[1])) * m;
+        const float sg =
+            MIX ? clip_sigma((w0 * ring_f(a[RS]) + f * ring_f(a[RS + 1])) * m) : 1.f;
         float c[3], err = 0.f;
 #pragma unroll
         for (int ch = 0; ch < 3; ++ch) {
@@ -611,8 +663,8 @@ sweep_fwd_kernel(const T* __restrict__ src, const T* __restrict__ tgt,
         us[p] = us[p] * corr + u;
         if (with_auto) Ma[p] = Ma[p] * corr + e * 0.5f * fexp(-e_auto[p] * r) * r;
         if (with_disp) {
-          const float l0 = lr[x] * m;
-          const float s0 = MIX ? clip_sigma(lr[S + x]) : 1.f;
+          const float l0 = ring_f(lr[x]) * m;
+          const float s0 = MIX ? clip_sigma(ring_f(lr[RS + x])) : 1.f;
           float corr0, e0;
           online(l0, mx0[p], &corr0, &e0);
           // no mixture: the plain softmax expectation, no mask in the weights
@@ -683,11 +735,13 @@ sweep_bwd_kernel(const T* __restrict__ src, const T* __restrict__ tgt,
                  float* __restrict__ d_shift, int N, int H, int W,
                  float shift_max, int with_disp, int vec) {
   constexpr int G = kBwdGroup, P = kBwdRingGroups, S = Tile<PX>::stride;
+  using R = typename Ring<PX, T>::E;
+  constexpr int RS = Ring<PX, T>::stride;
   extern __shared__ __align__(16) float smem[];
-  const Layout L(N, S, MIX, G * P, G, true);
+  const Layout L = layout<PX, T>(N, MIX, G * P, G, true);
   const int h = blockIdx.x, b = blockIdx.y;
-  load_row<S>(shift, mask, src, smem, L, G * P * (MIX ? 2 : 1), b, h, N, H, W,
-              shift_max);
+  load_row<S, RS>(shift, mask, src, smem, L, G * P * (MIX ? 2 : 1), b, h, N, H, W,
+                  shift_max);
   // positions -2 and -1 of every adjoint row are 0 (the reverse window's
   // taps left of the row)
   for (int r = threadIdx.x; r < 2 * L.adj_rows(S); r += blockDim.x)
@@ -698,10 +752,10 @@ sweep_bwd_kernel(const T* __restrict__ src, const T* __restrict__ tgt,
   const int64_t row = (int64_t)b * H + h;
   const int64_t rowbase = (int64_t)b * N * plane + pix_row;
   const int ngroups = (N + G - 1) / G;
-  const CopyPlan cp(W, G * (MIX ? 2 : 1), vec);
+  const CopyPlan cp = copy_plan<T>(W, G * (MIX ? 2 : 1), vec);
 #pragma unroll
   for (int j = 0; j < P - 1; ++j)
-    issue_group<S, G, P, MIX>(smem, L, cp, logits, sigma, rowbase, plane, j, N, vec);
+    issue_group<RS, G, P, MIX>(smem, L, cp, logits, sigma, rowbase, plane, j, N, vec);
 
   const int nst = with_disp ? 7 : 4;
   const float* sh_src = smem + L.src;
@@ -764,21 +818,21 @@ sweep_bwd_kernel(const T* __restrict__ src, const T* __restrict__ tgt,
         const float s = smem[L.shift + n];
         const int k = (int)floorf(s);
         const float f = s - (float)k, w0 = 1.f - f, m = smem[L.mask + n];
-        const float* lr = smem + L.ring + ((j % P) * G + g) * L.slot;
+        const R* lr = reinterpret_cast<const R*>(smem + L.ring + ((j % P) * G + g) * L.slot);
 #pragma unroll
         for (int p = 0; p < PX; ++p) {
           const int x = (int)(threadIdx.x + p * blockDim.x);
           if (x >= W) continue;
           const HeadConsts h = {Ls[p], inv_u[p], dM[p], dU[p], Sg[p], L0[p], gu0[p], disp0[p]};
           const int i0 = min(x + k, W);     // entries W, W + 1 are 0
-          const float* a = lr + i0;
+          const R* a = lr + i0;
           const float* cs = sh_src + i0;
-          const float lt0 = a[0], lt1 = a[1];
+          const float lt0 = ring_f(a[0]), lt1 = ring_f(a[1]);
           const float l = (w0 * lt0 + f * lt1) * m;
           const float ld = (lt1 - lt0) * m;
           float sg = 1.f, sd = 0.f;
           if (MIX) {
-            const float st0 = a[S], st1 = a[S + 1];
+            const float st0 = ring_f(a[RS]), st1 = ring_f(a[RS + 1]);
             sg = clip_sigma((w0 * st0 + f * st1) * m);
             sd = (st1 - st0) * m;
           }
@@ -801,7 +855,7 @@ sweep_bwd_kernel(const T* __restrict__ src, const T* __restrict__ tgt,
             dc_cd += dc * cd[ch];
           }
           dsh += q.dl * ld + q.dsg * sd + dc_cd;
-          if (with_disp) dsh += centre_disp<MIX, S>(lr + x, m, s, h, dl0[g][p], ds0[g][p]);
+          if (with_disp) dsh += centre_disp<MIX, RS>(lr + x, m, s, h, dl0[g][p], ds0[g][p]);
           adj_l[g * S + x] = q.dl * m;
           if (MIX) adj_s[g * S + x] = q.dsg * m;
         }
@@ -839,8 +893,10 @@ sweep_bwd_kernel(const T* __restrict__ src, const T* __restrict__ tgt,
     sum_partials<G>(smem + L.red + (j & 1) * G * 32, d_shift, row, j, N, lane, warp, nwarps);
   };
 
-  run_pipeline<P>(ngroups, [&](int j) {
-    issue_group<S, G, P, MIX>(smem, L, cp, logits, sigma, rowbase, plane, j, N, vec);
+  // bf16: the loop's bound from N (run_pipeline)
+  constexpr int BY_N = std::is_same<T, float>::value ? 0 : G;
+  run_pipeline<P, BY_N>(BY_N ? N : ngroups, [&](int j) {
+    issue_group<RS, G, P, MIX>(smem, L, cp, logits, sigma, rowbase, plane, j, N, vec);
   }, compute, gather);
 }
 
@@ -1145,12 +1201,18 @@ sweep_bwd_img_kernel(const float* __restrict__ src, const float* __restrict__ tg
 
 namespace {
 
-size_t smem_bytes(int backward, int mix, int N, int W, int img = 0) {
+// elem: the operands' element size (4 float, 2 bf16: a bf16 ring); the
+// image-gradient backward is float only.
+size_t smem_bytes(int backward, int mix, int N, int W, int img = 0, int elem = 4) {
   const int S = row_stride(W), px = pixels_per_thread(W);
-  if (!backward)
-    return Layout(N, S, mix, kFwdGroup * kFwdRingGroups, kFwdGroup, false).bytes();
-  if (!img)
-    return Layout(N, S, mix, kBwdGroup * kBwdRingGroups, kBwdGroup, true).bytes();
+  if (!img) {
+    const int slots = backward ? kBwdGroup * kBwdRingGroups : kFwdGroup * kFwdRingGroups;
+    const int group = backward ? kBwdGroup : kFwdGroup;
+    const Layout L = elem == 2
+        ? Layout(N, S, mix, slots, group, backward, ring_floats_bf16(W))
+        : Layout(N, S, mix, slots, group, backward);
+    return L.bytes();
+  }
 #define PDT_IMG_LAYOUT(PX)                                                       \
   Layout(N, S, mix, ImgTile<PX>::group * kBwdRingGroups, ImgTile<PX>::group, true, \
          true, ImgTile<PX>::lean).bytes()
@@ -1187,7 +1249,7 @@ int launch_fwd(const T* src, const T* tgt, const T* logits,
                T* rgb, float* nll, float* nll_auto, float* disp,
                float* stats, int B, int N, int H, int W, float shift_max,
                int with_auto, int with_disp, int vec, cudaStream_t st) {
-  const size_t smem = smem_bytes(0, MIX, N, W);
+  const size_t smem = smem_bytes(0, MIX, N, W, 0, sizeof(T));
   const cudaError_t e = allow_smem(sweep_fwd_kernel<PX, MIX, T>, smem);
   if (e != cudaSuccess) return (int)e;
   sweep_fwd_kernel<PX, MIX, T><<<dim3(H, B), block_for(W), smem, st>>>(
@@ -1203,7 +1265,7 @@ int launch_bwd(const T* src, const T* tgt, const T* logits,
                const float* g_nll, const float* g_disp, T* d_logits, T* d_sigma,
                float* d_shift, int B, int N, int H, int W, float shift_max,
                int with_disp, int vec, cudaStream_t st) {
-  const size_t smem = smem_bytes(1, MIX, N, W);
+  const size_t smem = smem_bytes(1, MIX, N, W, 0, sizeof(T));
   const cudaError_t e = allow_smem(sweep_bwd_kernel<PX, MIX, T>, smem);
   if (e != cudaSuccess) return (int)e;
   sweep_bwd_kernel<PX, MIX, T><<<dim3(H, B), block_for(W), smem, st>>>(
@@ -1382,16 +1444,56 @@ extern "C" int pdt_plane_sweep_bwd_img(const float* src, const float* tgt,
 }
 
 // Dynamic shared memory, in bytes, that one launch of the forward (backward
-// 0) or backward (1) kernel needs at (N, W), of the backward's
-// image-gradient mode with image_grads 1 (either element type: bf16 rows are
-// widened as they are staged); a row wider than kMaxW runs in segments of
-// kMaxW columns, whose launches need the bytes at kMaxW.  -1 when W < 1.
+// 0) or backward (1) kernel needs at (N, W) with operands of elem_bytes (4:
+// float, 2: bf16, whose ring holds raw bf16 rows), of the backward's
+// image-gradient mode with image_grads 1 (float only); a row wider than
+// kMaxW runs in segments of kMaxW columns, whose launches need the bytes at
+// kMaxW.  -1 when W < 1, elem_bytes is neither or bf16 asks for the image
+// gradients.
 extern "C" long long pdt_plane_sweep_smem_bytes(int backward, int with_mixture,
-                                                int image_grads, int N, int W) {
-  if (W < 1) return -1;
-  return (long long)smem_bytes(backward, with_mixture, N, W < kMaxW ? W : kMaxW,
-                               backward && image_grads);
+                                                int image_grads, int elem_bytes, int N,
+                                                int W) {
+  const int img = backward && image_grads;
+  if (W < 1 || (elem_bytes != 4 && elem_bytes != 2) || (img && elem_bytes != 4)) return -1;
+  return (long long)smem_bytes(backward, with_mixture, N, W < kMaxW ? W : kMaxW, img,
+                               elem_bytes);
 }
+
+namespace {
+
+// kernel_info of the function fn, launched at (N, W) with smem bytes.
+int kernel_info(const void* fn, size_t smem, bool most_smem, int W, int* out) {
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, fn);
+  if (e != cudaSuccess) return (int)e;
+  e = allow_smem(fn, smem, most_smem);
+  if (e != cudaSuccess) return (int)e;
+  const int threads = (int)block_for(W).x;
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, threads, smem);
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = threads;
+  out[3] = blocks;
+  out[4] = (int)smem;
+  return (int)e;
+}
+
+// The forward (backward 0) or head-only backward instance at element type T
+// that a launch at W takes.
+template <typename T>
+const void* sweep_instance(int backward, int with_mixture, int W) {
+  const int px = pixels_per_thread(W);
+#define PDT_PICK(P)                                                           \
+  (backward ? (with_mixture ? (const void*)sweep_bwd_kernel<P, true, T>       \
+                            : (const void*)sweep_bwd_kernel<P, false, T>)     \
+            : (with_mixture ? (const void*)sweep_fwd_kernel<P, true, T>       \
+                            : (const void*)sweep_fwd_kernel<P, false, T>))
+  return px == 1 ? PDT_PICK(1) : px == 2 ? PDT_PICK(2) : PDT_PICK(4);
+#undef PDT_PICK
+}
+
+}  // namespace
 
 // What the compiler and the occupancy calculator say of the kernel instance
 // a launch at (N, W) takes (image_grads 1: the backward's image-gradient
@@ -1404,36 +1506,21 @@ extern "C" int pdt_plane_sweep_kernel_info(int backward, int with_mixture,
   const int img = backward && image_grads;
   if (W < 1 || W > kMaxW || (img && !with_mixture))
     return (int)cudaErrorInvalidValue;
-  const void* fn;
   const int px = pixels_per_thread(W);
-#define PDT_PICK(P)                                                                \
-  fn = backward ? (with_mixture ? (const void*)sweep_bwd_kernel<P, true, float>    \
-                                : (const void*)sweep_bwd_kernel<P, false, float>)  \
-                : (with_mixture ? (const void*)sweep_fwd_kernel<P, true, float>    \
-                                : (const void*)sweep_fwd_kernel<P, false, float>)
-  if (img)
-    fn = px == 1   ? (const void*)sweep_bwd_img_kernel<1>
-         : px == 2 ? (const void*)sweep_bwd_img_kernel<2>
-                   : (const void*)sweep_bwd_img_kernel<4>;
-  else if (px == 1) PDT_PICK(1);
-  else if (px == 2) PDT_PICK(2);
-  else PDT_PICK(4);
-#undef PDT_PICK
-  cudaFuncAttributes attr;
-  cudaError_t e = cudaFuncGetAttributes(&attr, fn);
-  if (e != cudaSuccess) return (int)e;
-  const size_t smem = smem_bytes(backward, with_mixture, N, W, img);
-  e = allow_smem(fn, smem, img);
-  if (e != cudaSuccess) return (int)e;
-  const int threads = (int)block_for(W).x;
-  int blocks = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, threads, smem);
-  out[0] = attr.numRegs;
-  out[1] = (int)attr.localSizeBytes;
-  out[2] = threads;
-  out[3] = blocks;
-  out[4] = (int)smem;
-  return (int)e;
+  const void* fn = !img ? sweep_instance<float>(backward, with_mixture, W)
+                   : px == 1 ? (const void*)sweep_bwd_img_kernel<1>
+                   : px == 2 ? (const void*)sweep_bwd_img_kernel<2>
+                             : (const void*)sweep_bwd_img_kernel<4>;
+  return kernel_info(fn, smem_bytes(backward, with_mixture, N, W, img), img, W, out);
+}
+
+// pdt_plane_sweep_kernel_info of the bf16 instances (forward, or the
+// head-only backward).
+extern "C" int pdt_plane_sweep_kernel_info_bf16(int backward, int with_mixture, int N, int W,
+                                                int* out) {
+  if (W < 1 || W > kMaxW) return (int)cudaErrorInvalidValue;
+  return kernel_info(sweep_instance<__nv_bfloat16>(backward, with_mixture, W),
+                     smem_bytes(backward, with_mixture, N, W, 0, 2), false, W, out);
 }
 
 // The current card's opt-in limit of dynamic shared memory a block, bytes.

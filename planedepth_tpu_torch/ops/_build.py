@@ -125,7 +125,7 @@ def load_library() -> ctypes.CDLL:
     lib.pdt_plane_sweep_bwd_bf16.restype = i
     lib.pdt_plane_sweep_bwd_img.argtypes = [p] * 17 + [i, i, i, i, f, i, p]
     lib.pdt_plane_sweep_bwd_img.restype = i
-    lib.pdt_plane_sweep_smem_bytes.argtypes = [i, i, i, i, i]
+    lib.pdt_plane_sweep_smem_bytes.argtypes = [i, i, i, i, i, i]
     lib.pdt_plane_sweep_smem_bytes.restype = ctypes.c_longlong
     lib.pdt_plane_sweep_smem_limit.argtypes = []
     lib.pdt_plane_sweep_max_w.argtypes = []
@@ -133,6 +133,8 @@ def load_library() -> ctypes.CDLL:
     lib.pdt_plane_sweep_smem_limit.restype = i
     lib.pdt_plane_sweep_kernel_info.argtypes = [i, i, i, i, i, p]
     lib.pdt_plane_sweep_kernel_info.restype = i
+    lib.pdt_plane_sweep_kernel_info_bf16.argtypes = [i, i, i, i, p]
+    lib.pdt_plane_sweep_kernel_info_bf16.restype = i
     lib.pdt_row_shift_fwd.argtypes = [p, p, p, i, i, i, i, f, p]
     lib.pdt_row_shift_fwd.restype = i
     lib.pdt_head_epilogue_fwd.argtypes = [p] * 5 + [i] * 6 + [p]

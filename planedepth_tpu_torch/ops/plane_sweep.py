@@ -197,7 +197,8 @@ def _check(src, tgt, logits, sigma, shift, mask, image_grads=False):
         raise ValueError(f"(N, H, W) = ({N}, {H}, {seg_w}): the image-gradient backward "
                          "addresses a launch's planes with 32-bit offsets")
     mix = int(sigma is not None)
-    need = max(lib.pdt_plane_sweep_smem_bytes(bwd, mix, int(image_grads), N, W)
+    need = max(lib.pdt_plane_sweep_smem_bytes(bwd, mix, int(image_grads),
+                                              logits.element_size(), N, W)
                for bwd in (0, 1))
     limit = lib.pdt_plane_sweep_smem_limit()
     if need > limit:

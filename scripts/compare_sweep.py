@@ -38,10 +38,29 @@ equal the head-only instance's bit for bit and its repeat run its first.
 Both image-gradient backwards are also held to the plain version's
 autograd on ``chip_smoke.py:phase_sweep_img``'s cases (the same inputs and
 cotangents), each gradient's max error over its largest magnitude side by
-side.  Last, ``cuobjdump -sass`` of both libraries' plane-sweep and 2-D warp kernels:
-each instance's instruction count, and whether its instructions are the
-other's but for constant-bank offsets (the parameter lists differ).  Prints one JSON object, also written to ``--out``, with the card's
-name and power limit.
+side.
+
+The sweep's bf16 instances (``pdt_plane_sweep_{fwd,bwd}_bf16``), with and
+without the mixture, at stage 1's, stage 3's and FalNet's shapes on the
+same operands in bf16 (shift and mask float32), the disp on and the
+automask off as ``chip_smoke.py:time_sweep_bf16`` launches them: each
+library's forward and backward in turns, other, this, this, other, beside
+this tree's float32 instance on the float32 operands in the same turns.
+Both libraries' bf16 outputs and head gradients are held to the plain
+version as ``chip_smoke.py:HeldBf16`` holds them (the gradients anchored at
+that library's rounded reconstruction), with seeded cotangents; whether
+the two libraries' outputs are bit-identical is reported, and two backward
+runs of this tree's must be.
+
+Last, ``cuobjdump -sass`` of both libraries' plane-sweep and 2-D warp kernels:
+each instance's instruction count, whether its instructions are the
+other's but for constant-bank offsets (the parameter lists differ), and
+the instructions of its outermost loop (the sweep's loop over groups of
+planes, every runtime branch included) over the planes a group and the
+pixels a thread: the static SASS instructions a pixel-plane, whose issue
+floor (one warp instruction a clock on each of an SM's four schedulers)
+stands beside each bf16 case's bound.  Prints one JSON object, also
+written to ``--out``, with the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -77,6 +96,16 @@ WARP_CASES = (("warp2d_bwd sigma", True, 30.0), ("warp2d_bwd nosigma", False, 30
 IMG_CASES = (("img_bwd stage1", cs.SWEEP_SHAPE), ("img_bwd stage3", cs.SHIFT_SHAPE),
              ("img_bwd wide", (2, 63, 96, 2048)))
 IMG_NAMES = ("d_src", "d_tgt", "d_logits", "d_sigma", "d_shift")
+# the bf16 instances: (name, shape, mixture), the disp on, the automask off
+BF16_CASES = (("stage1 mixture bf16", cs.SWEEP_SHAPE, True),
+              ("stage3 mixture bf16", cs.SHIFT_SHAPE, True),
+              ("falnet no mixture bf16", cs.FALNET_SHAPE, False))
+# planes a group of the sweep's forward and backward (csrc/plane_sweep.cu:
+# kFwdGroup, kBwdGroup)
+GROUP = {"fwd": 4, "bwd": 2}
+# thread-instructions a second: one warp instruction a clock on each of the
+# four schedulers of the H100 SXM's 132 SMs at its 1.98 GHz boost clock
+INSTR_PER_S = 132 * 4 * 32 * 1.98e9
 
 
 def build_other(checkout: Path) -> dict:
@@ -104,6 +133,10 @@ def build_other(checkout: Path) -> dict:
     lib.pdt_plane_sweep_fwd.restype = i
     lib.pdt_plane_sweep_bwd.argtypes = [p] * 14 + [i, i, i, i, f, i, i, p]
     lib.pdt_plane_sweep_bwd.restype = i
+    lib.pdt_plane_sweep_fwd_bf16.argtypes = [p] * 11 + [i, i, i, i, f, i, i, i, p]
+    lib.pdt_plane_sweep_fwd_bf16.restype = i
+    lib.pdt_plane_sweep_bwd_bf16.argtypes = [p] * 14 + [i, i, i, i, f, i, i, p]
+    lib.pdt_plane_sweep_bwd_bf16.restype = i
     lib.pdt_plane_sweep_bwd_img.argtypes = [p] * 17 + [i, i, i, i, f, i, p]
     lib.pdt_plane_sweep_bwd_img.restype = i
     lib.pdt_plane_sweep_kernel_info.argtypes = [i, i, i, i, i, p]
@@ -192,6 +225,110 @@ def run_case(libs, shape, mix, with_disp, limit, dev):
             "kernel_info": {d: cs.sweep_kernel_info(d == "bwd", mix, N, W)
                             for d in ("fwd", "bwd")},
             "fwd_excess_over_rtol": fwd_err, "grad_max_rel_diff": grad_rel,
+            "bwd_repeat_bit_identical": identical}
+
+
+def bf16_excess(outs, grads, inputs16, cts, pad):
+    """A library's bf16 sweep outputs (rgb, nll, disp) and head gradients
+    against the plain version, as ``chip_smoke.py:HeldBf16`` bounds them:
+    each one's worst excess over its bound (<= 0: within it); the gradients
+    against the plain version anchored at the library's rounded rgb."""
+    ops = [None if t is None else t.detach().requires_grad_(i in (2, 3, 4))
+           for i, t in enumerate(inputs16)]
+    wrt = [t for t in ops[2:5] if t is not None]
+    excess = {}
+    with torch.no_grad():
+        plain = plane_sweep_plain(*ops, pad, False, True)
+    for name, a, b in zip(("rgb", "nll", "disp"), outs, plain):
+        err = (a.float() - b.float()).abs()
+        tol = cs.TOL["atol"] + cs.TOL["rtol"] * b.float().abs()
+        ulp = cs.bf16_ulp(b) if a.dtype == cs.BF16 else 0.0
+        excess[name] = float((err - ulp - tol).max())
+    del plain
+    anchored = plane_sweep_plain(*ops, pad, False, True, rounded_rgb=outs[0])
+    want = torch.autograd.grad(anchored, wrt, cts)
+    del anchored
+    names = ("d_logits", "d_sigma", "d_shift") if len(wrt) == 3 else ("d_logits", "d_shift")
+    for name, a, b in zip(names, [g for g in grads if g is not None], want):
+        err = (a.float() - b.float()).abs()
+        ulp = cs.bf16_ulp(b) if a.dtype == cs.BF16 else 0.0
+        excess[name] = float((err - ulp).max()) - cs.GRAD_TOL * float(b.float().abs().max())
+    return excess
+
+
+def run_case_bf16(libs, shape, mix, limit, pad, loops, dev):
+    """The bf16 sweep instances of both libraries at ``shape``, beside this
+    tree's float32 instance on the same values; ``loops``: the static SASS
+    instructions a pixel-plane of each library's instances."""
+    inputs32 = [t.detach() for t in cs.seeded_sweep_inputs(shape, 1, dev)]
+    if not mix:
+        inputs32[3] = None
+    inputs16 = [None if t is None else t.detach() for t in cs.as_bf16(inputs32, (4, 5))]
+    B, N, H, W = shape
+    new = lambda *size: torch.empty(size, device=dev)
+    g = torch.Generator(device=dev).manual_seed(2)
+    cts = (torch.randn((B, 3, H, W), generator=g, device=dev).to(cs.BF16),
+           torch.randn((B, H, W), generator=g, device=dev),
+           torch.randn((B, H, W), generator=g, device=dev))
+
+    def entries(lib, suffix, ops, g_rgb):
+        logits, shift = ops[2], ops[4]
+        outs = (torch.empty((B, 3, H, W), dtype=logits.dtype, device=dev), new(B, H, W),
+                new(B, H, W))
+        stats = new(B, 7, H, W)
+        grads = (torch.empty_like(logits), torch.empty_like(logits) if mix else None,
+                 torch.empty_like(shift))
+        fwd = lambda: call(lib, f"pdt_plane_sweep_fwd{suffix}", *ops, outs[0], outs[1], None,
+                           outs[2], stats, B, N, H, W, limit, 0, 1, int(mix))
+        bwd = lambda: call(lib, f"pdt_plane_sweep_bwd{suffix}", *ops, stats, outs[0], g_rgb,
+                           cts[1], cts[2], *grads, B, N, H, W, limit, 1, int(mix))
+        fwd()
+        bwd()
+        torch.cuda.synchronize(dev)
+        return dict(fwd=fwd, bwd=bwd, outs=outs, grads=grads)
+
+    res = {who: entries(lib, "_bf16", inputs16, cts[0]) for who, lib in libs.items()}
+    f32 = entries(libs["this"], "", inputs32, cts[0].float())
+    excess = {who: bf16_excess(r["outs"], r["grads"], inputs16, cts, pad)
+              for who, r in res.items()}
+    this, other = res["this"], res["other"]
+    same = all(torch.equal(a, b) for a, b in zip((*this["outs"], *this["grads"]),
+                                                 (*other["outs"], *other["grads"]))
+               if a is not None)
+    first = [t.clone() for t in this["grads"] if t is not None]
+    this["bwd"]()
+    torch.cuda.synchronize(dev)
+    identical = all(torch.equal(a, b) for a, b in
+                    zip(first, [t for t in this["grads"] if t is not None]))
+    worst = max(max(e.values()) for e in excess.values())
+    if worst > 0 or not identical:
+        raise AssertionError(f"bf16 {shape} mixture={mix}: excess over the bounds {excess}, "
+                             f"repeat bit-identical {identical}")
+    fns = {f"{who}_{d}": (who, r[d]) for who, r in res.items() for d in ("fwd", "bwd")}
+    fns.update({f"this_f32_{d}": ("this", f32[d]) for d in ("fwd", "bwd")})
+    times = in_turns(fns)
+    fwd_bytes, bwd_bytes = cs.sweep_bytes(inputs16, True)
+    n = inputs16[2].numel()
+    px = 1 if W <= 640 else 2 if W <= 1280 else 4
+    issue = {}
+    for who in libs:
+        for d in ("fwd", "bwd"):
+            per = loops[who].get(f"{d}<{px},{int(mix)},bf16>")
+            issue[f"{who}_{d}"] = (None if per is None else
+                                   {"sass_per_pixel_plane": per,
+                                    "issue_floor_ms": n * per / INSTR_PER_S * 1e3})
+    return {"shape": list(shape), "mixture": mix, "with_disp": True, "ms": times,
+            "bytes": {"fwd": fwd_bytes, "bwd": bwd_bytes},
+            "bound_ms": {"fwd": cs.bound(fwd_bytes, 60 * n)[0],
+                         "bwd": cs.bound(bwd_bytes, 100 * n)[0]},
+            "mufu_floor_ms": {d: cs.mufu_floor_ms(n, cs.sweep_mufu(mix, True, d))
+                              for d in ("fwd", "bwd")},
+            "issue": issue,
+            "kernel_info": {d: cs.sweep_kernel_info(d == "bwd", mix, N, W, bf16=True)
+                            for d in ("fwd", "bwd")},
+            "float32_kernel_info": {d: cs.sweep_kernel_info(d == "bwd", mix, N, W)
+                                    for d in ("fwd", "bwd")},
+            "excess_over_bounds": excess, "bit_identical_to_other": same,
             "bwd_repeat_bit_identical": identical}
 
 
@@ -418,12 +555,17 @@ def run_disp(libs, shape, dev):
 def sweep_sass(lib_path) -> dict:
     """The plane-sweep and 2-D warp kernels of a library as ``cuobjdump
     -sass`` prints them: "fwd|bwd|bwd_img<PX,MIX>" and "warp_fwd|warp_bwd<
-    SIGMA>" -> instruction texts, constant-bank offsets blanked; the bf16
-    instances (a later source's element type) with ",bf16" in the key.  An
-    earlier source's sweep_bwd_kernel<PX, MIX, IMG> holds both backwards."""
+    SIGMA>" -> (address, instruction text) pairs, constant-bank offsets
+    blanked; the bf16 instances (a later source's element type) with ",bf16"
+    in the key.  An earlier source's sweep_bwd_kernel<PX, MIX, IMG> holds
+    both backwards."""
     tool = Path(_build._nvcc()).with_name("cuobjdump")
-    text = subprocess.run([str(tool), "-sass", str(lib_path)], capture_output=True, text=True,
-                          check=True).stdout
+    return parse_sass(subprocess.run([str(tool), "-sass", str(lib_path)], capture_output=True,
+                                     text=True, check=True).stdout)
+
+
+def parse_sass(text) -> dict:
+    """:func:`sweep_sass` of ``cuobjdump -sass``'s text."""
     funcs, cur = {}, None
     for line in text.splitlines():
         if "Function :" in line:
@@ -443,10 +585,61 @@ def sweep_sass(lib_path) -> dict:
                     cur = f"{kind}<{args[0]},{args[1] if len(args) > 1 else 1}{bf16}>"
                 funcs[cur] = []
             continue
-        ins = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)
+        ins = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
         if cur and ins:
-            funcs[cur].append(re.sub(r"c\[0x0\]\[0x[0-9a-f]+\]", "c[0x0][.]", ins.group(1)))
+            funcs[cur].append((int(ins.group(1), 16),
+                               re.sub(r"c\[0x0\]\[0x[0-9a-f]+\]", "c[0x0][.]", ins.group(2))))
     return funcs
+
+
+def loop_per_pixel_plane(key, code):
+    """The static instructions of a sweep instance's loop over groups of
+    planes a pixel-plane: the instructions on a cycle through the head of
+    its longest backward branch (the loop's body with its out-of-line
+    blocks and inner loops, each once, both arms of every runtime branch)
+    over the pixel-planes that body computes.  A bf16 instance's ring taps
+    are its only 16-bit shared loads, 6 a pixel-plane with the mixture and
+    3 without (the two taps and the centre sample of each row), so they
+    count its pixel-plane bodies, which a loop the compiler versions holds
+    twice; a float instance's are taken as its planes a group times pixels
+    a thread.  None for other kernels or without a loop."""
+    m = re.match(r"(fwd|bwd)<(\d+),(\d)(,bf16)?>", key)
+    if not m or not code:
+        return None
+    at = {a: i for i, (a, _) in enumerate(code)}
+    succ, back = [[] for _ in code], []
+    for i, (a, ins) in enumerate(code):
+        b = re.search(r"\bBRA\b.*?0x([0-9a-f]+)\s*$", ins)
+        if b and int(b.group(1), 16) in at:
+            succ[i].append(at[int(b.group(1), 16)])
+            if int(b.group(1), 16) < a:
+                back.append((i - at[int(b.group(1), 16)], at[int(b.group(1), 16)]))
+        ends = (b or re.match(r"(EXIT|RET)\b", ins)) and not ins.startswith("@")
+        if not ends and i + 1 < len(code):
+            succ[i].append(i + 1)
+    if not back:
+        return None
+    head = max(back)[1]
+    pred = [[] for _ in code]
+    for i, nxt in enumerate(succ):
+        for j in nxt:
+            pred[j].append(i)
+
+    def reach(edges):
+        seen, todo = {head}, [head]
+        while todo:
+            for j in edges[todo.pop()]:
+                if j not in seen:
+                    seen.add(j)
+                    todo.append(j)
+        return seen
+    body = reach(succ) & reach(pred)
+    if m.group(4):
+        taps = sum(1 for i in body if "LDS.U16" in code[i][1])
+        bodies = taps / (6 if m.group(3) == "1" else 3)
+    else:
+        bodies = GROUP[m.group(1)] * int(m.group(2))
+    return len(body) / bodies if bodies else None
 
 
 def compare_sass(this_path, *other_paths) -> dict:
@@ -456,8 +649,12 @@ def compare_sass(this_path, *other_paths) -> dict:
     this, other = sweep_sass(this_path), {}
     for path in other_paths:
         other.update(sweep_sass(path))
+    texts = lambda code: None if code is None else [ins for _, ins in code]   # noqa: E731
+    loop = lambda k, code: None if code is None else loop_per_pixel_plane(k, code)  # noqa: E731
     return {k: {"this": len(this.get(k, ())), "other": len(other.get(k, ())),
-                "same": this.get(k) == other.get(k)}
+                "same": texts(this.get(k)) == texts(other.get(k)),
+                "loop_per_pixel_plane": {"this": loop(k, this.get(k)),
+                                         "other": loop(k, other.get(k))}}
             for k in sorted(set(this) | set(other))}
 
 
@@ -476,9 +673,18 @@ def main():
     other = build_other(args.other)
     pad = sweep_pad(stage1_config())
     limit = shift_max(pad)
+    sass = compare_sass(_build.library_path(),
+                        *(REPO / "build" / "compare_sweep" / f"libother_{name}.so"
+                          for name in ("plane_sweep", "warp2d")))
+    loops = {who: {k: v["loop_per_pixel_plane"][who] for k, v in sass.items()}
+             for who in ("this", "other")}
     cases = {name: run_case({"this": this, "other": other["sweep"]}, shape, mix, with_disp,
                             limit, dev)
              for name, shape, mix, with_disp in CASES}
+    for name, shape, mix in BF16_CASES:
+        cases[name] = run_case_bf16({"other": other["sweep"], "this": this}, shape, mix, limit,
+                                    pad, loops, dev)
+        torch.cuda.empty_cache()
     warp_libs = {"this": this, "other": other["warp2d"]}
     for name, with_sigma, zoom in WARP_CASES:
         cases[name] = run_warp(warp_libs, cs.SWEEP_SHAPE, with_sigma, zoom, dev)
@@ -495,9 +701,6 @@ def main():
                      "rel_err": img_twin_errors(img_libs, shape, seed, ct_seed, with_disp,
                                                 pad, dev)})
         torch.cuda.empty_cache()
-    sass = compare_sass(_build.library_path(),
-                        *(REPO / "build" / "compare_sweep" / f"libother_{name}.so"
-                          for name in ("plane_sweep", "warp2d")))
     report = {"card": card, "other": str(args.other), "cases": cases,
               "img_bwd_vs_plain": held, "sass": sass}
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
@@ -505,6 +708,19 @@ def main():
         json.dump(report, f, indent=1)
     for name, c in cases.items():
         t = c["ms"]
+        if "this_f32_fwd" in t:
+            for d in ("fwd", "bwd"):
+                issue = {who: f["issue_floor_ms"] for who, f in c["issue"].items()
+                         if who.endswith(d) and f}
+                print(f"[compare] {name} {tuple(c['shape'])} {d}: bf16 this {t[f'this_{d}']} "
+                      f"other {t[f'other_{d}']} ms, float32 this {t[f'this_f32_{d}']} ms "
+                      f"(bound {c['bound_ms'][d]:.4f} of {c['bytes'][d] / 1e6:.0f} MB, MUFU "
+                      f"floor {c['mufu_floor_ms'][d]:.4f}, issue floor {json.dumps(issue)}; "
+                      f"{json.dumps(c['kernel_info'][d])}) | {card}")
+            print(f"[compare] {name}: excess over HeldBf16's bounds "
+                  f"{json.dumps(c['excess_over_bounds'])}, bit-identical to the other's "
+                  f"{c['bit_identical_to_other']} | {card}")
+            continue
         if "this_fwd" not in t:
             refused = (f"; refused by {json.dumps(c['refused'])}" if c.get("refused") else "")
             print(f"[compare] {name} {tuple(c['shape'])}: {json.dumps(t)} (bound "

@@ -160,12 +160,18 @@ def test_plane_sweep_kernels_match_plain(cuda, shape, with_auto):
         torch.testing.assert_close(g, w, rtol=0, atol=1e-4 * float(w.abs().max()))
 
 
-@pytest.mark.parametrize("mixture", [True, False])
-def test_plane_sweep_backward_is_deterministic(cuda, mixture):
+@pytest.mark.parametrize("mixture,bf16", [(True, False), (False, False), (True, True),
+                                          (False, True)])
+def test_plane_sweep_backward_is_deterministic(cuda, mixture, bf16):
     """No atomics and fixed-order d_shift sums: two backward runs are
-    bit-identical; a row wider than one launch takes runs in two column
-    segments (C10) and matches the plain version."""
+    bit-identical, in float32 and in bf16; a float32 row wider than one
+    launch takes runs in two column segments (C10) and matches the plain
+    version (bf16 rows in segments: test_plane_sweep_wide_rows_match_plain)."""
+    from chip_smoke import as_bf16
+
     inputs = sweep_inputs((2, 63, 4, 1280), 3, cuda)
+    if bf16:
+        inputs = as_bf16(inputs, (4, 5))
     if not mixture:
         inputs[3] = None
     heads = [t for t in inputs[2:5] if t is not None]
@@ -174,6 +180,9 @@ def test_plane_sweep_backward_is_deterministic(cuda, mixture):
     first = torch.autograd.grad(outs, heads, cts, retain_graph=True)
     second = torch.autograd.grad(outs, heads, cts)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+    assert first[0].dtype == (torch.bfloat16 if bf16 else torch.float32)
+    if bf16:
+        return
     wide = sweep_inputs((1, 3, 2, 2052), 3, cuda)
     if not mixture:
         wide[3] = None
@@ -729,14 +738,27 @@ def test_falnet_step_on_cuda_matches_cpu(cuda):
 # warp's bf16 instances against their plain versions (chip_smoke.HeldBf16:
 # bf16 outputs within one bf16 ulp plus the float32 tolerance, float32
 # outputs at it), and rows wider than one sweep launch (C10)
-# (H >= 6: chip_smoke.seeded_sweep_inputs masks row 5 whole)
-@pytest.mark.parametrize("shape,mixture", [((2, 6, 8, 64), True), ((1, 63, 6, 640), True),
-                                           ((1, 9, 6, 1501), True), ((2, 7, 6, 37), False),
-                                           ((1, 49, 6, 640), False), ((1, 3, 6, 2048), True)])
-def test_plane_sweep_bf16_kernels_match_plain(cuda, shape, mixture):
+# (H >= 6: chip_smoke.seeded_sweep_inputs masks row 5 whole); one, two and
+# four pixels a thread with rows staged by 16-byte copies (W % 8 == 0,
+# aligned), and element by element (W odd or not a multiple of 8, or
+# ``offset``: logits and sigma 2 bytes off a 16-byte boundary at W = 640)
+@pytest.mark.parametrize("shape,mixture,offset", [
+    ((2, 6, 8, 64), True, 0), ((1, 63, 6, 640), True, 0), ((1, 9, 6, 1501), True, 0),
+    ((2, 7, 6, 37), False, 0), ((1, 49, 6, 640), False, 0), ((1, 3, 6, 2048), True, 0),
+    ((1, 14, 6, 1280), True, 0), ((1, 14, 6, 1280), False, 0), ((1, 63, 6, 2048), True, 0),
+    ((1, 63, 6, 100), True, 0), ((1, 9, 6, 640), True, 1), ((1, 9, 6, 640), False, 1)])
+def test_plane_sweep_bf16_kernels_match_plain(cuda, shape, mixture, offset):
     from chip_smoke import HeldBf16, as_bf16, seeded_sweep_inputs
 
     inputs = as_bf16(seeded_sweep_inputs(shape, sum(shape), cuda), (4, 5))
+    if offset:
+        # views of flat buffers at storage offset 1: contiguous, so the
+        # wrapper passes them as they are, 2 bytes off 16
+        for i in (2, 3):
+            buf = torch.zeros(inputs[i].numel() + offset, dtype=torch.bfloat16, device=cuda)
+            buf[offset:] = inputs[i].detach().flatten()
+            inputs[i] = buf[offset:].view(shape).detach().requires_grad_()
+            assert inputs[i].is_contiguous() and inputs[i].data_ptr() % 16 == 2
     if not mixture:
         inputs[3] = None
     name = "bf16_fwd_launches" if mixture else "bf16_nomix_fwd_launches"
