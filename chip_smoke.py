@@ -235,6 +235,7 @@ from planedepth_tpu_torch.ops.disp_head import disp_head, disp_head_plain
 from planedepth_tpu_torch.ops.head_epilogue import head_epilogue, head_epilogue_plain
 from planedepth_tpu_torch.ops.plane_sweep import plane_sweep, plane_sweep_plain, shift_max
 from planedepth_tpu_torch.ops.row_shift import row_shift, row_shift_plain, shift_limit
+from planedepth_tpu_torch.ops.warp2d import scratch_bytes as warp2d_scratch_bytes
 from planedepth_tpu_torch.ops.warp2d import warp2d, warp2d_plain
 from planedepth_tpu_torch.train.distill import generate_post_process_disp
 from planedepth_tpu_torch.train.state import make_optimizer
@@ -1692,12 +1693,14 @@ def launch_ms(fn, tensors, *sizes):
     return cuda_ms(lambda: _build.launch(fn, *ptrs, *sizes))
 
 
-def warp_kernel_info(with_sigma):
-    """Registers, spills, block and occupancy of the warp backward kernel."""
+def warp_kernel_info(with_sigma, bf16=False):
+    """Registers, spills, block and occupancy of the warp backward kernel
+    (``bf16``: of the bf16 instance's scatter kernel)."""
     out = (ctypes.c_int * 4)()
-    rc = _build.load_library().pdt_warp2d_bwd_kernel_info(int(with_sigma), out)
+    name = "pdt_warp2d_bwd_kernel_info" + ("_bf16" if bf16 else "")
+    rc = getattr(_build.load_library(), name)(int(with_sigma), out)
     if rc != 0:
-        raise RuntimeError(f"pdt_warp2d_bwd_kernel_info: CUDA error {rc}")
+        raise RuntimeError(f"{name}: CUDA error {rc}")
     return dict(zip(("registers", "spill_bytes", "threads", "blocks_per_sm"), out))
 
 
@@ -2950,7 +2953,8 @@ def bf16_fields(held, t, extra=None):
                               "float32_ms": x[f"f32_{d}_ms"], "bound_ms": x[f"{d}_bound"][0]}
                              for at, x in (extra or {}).items()]}
     info = lambda d: ({"kernel_info": t["info"]["bf16"][d],
-                       "float32_kernel_info": t["info"]["f32"][d]} if "info" in t else {})
+                       "float32_kernel_info": t["info"]["f32"][d]}
+                      if d in t.get("info", {}).get("bf16", {}) else {})
     fwd = {"max_abs_err": held.fwd, "max_ulps": held.fwd_ulps, "ms": t["bf16_fwd_ms"],
            "float32_ms": t["f32_fwd_ms"], "plain_ms": t["plain_fwd_ms"],
            "bound_ms": t["fwd_bound"][0], "bound_by": t["fwd_bound"][1],
@@ -2970,12 +2974,15 @@ def print_bf16_times(tag, at, t, card):
                'forward, also the rgb gradient'}) {t[f'lib_{d}_ms']:.4f} ms"
                if f"lib_{d}_ms" in t else "no single PyTorch call computes it")
         info = ""
-        if "info" in t:
+        if d in t.get("info", {}).get("bf16", {}):
             i16, i32 = t["info"]["bf16"][d], t["info"]["f32"][d]
             info = (f"; bf16 instance {i16['registers']} registers (spills "
                     f"{i16['spill_bytes']} B), {i16['blocks_per_sm']} blocks an SM, "
-                    f"{i16['smem_bytes']} B shared, float32 {i32['registers']} / "
-                    f"{i32['spill_bytes']} B / {i32['blocks_per_sm']} / {i32['smem_bytes']} B")
+                    f"{i16.get('smem_bytes', 0)} B shared, float32 {i32['registers']} / "
+                    f"{i32['spill_bytes']} B / {i32['blocks_per_sm']} / "
+                    f"{i32.get('smem_bytes', 0)} B")
+            if d == "bwd" and "scratch_bytes" in t:
+                info += f"; scratch {t['scratch_bytes']} B (float32 tap sums)"
         print(f"[{tag}] at {at}: {d} kernel alone bf16 {t[f'bf16_{d}_ms']:.4f} ms beside "
               f"float32 {t[f'f32_{d}_ms']:.4f} ms in this call (bf16 bound {b:.4f} ms of "
               f"{t[f'{d}_bytes'] / 1e6:.0f} MB, {b / t[f'bf16_{d}_ms']:.1%} of it); plain "
@@ -3027,24 +3034,65 @@ def phase_sweep_bf16(card, shapes=(SWEEP_SHAPE, SHIFT_SHAPE), dev=torch.device("
     return fields
 
 
+# the bf16 warp's held cases beside the mono shape: odd shapes with degenerate
+# coordinates (W odd: the rounding one pixel a thread), planes of only
+# degenerate samples, a zoom of 200 px, more planes than a launch's grid
+# takes (B * N > 65535: launches in whole images)
+WARP_BF16_HELD = (((2, 5, 7, 200), dict(degenerate=True)),
+                  ((2, 63, 9, 97), dict(degenerate=True)),
+                  ((2, 3, 24, 100), dict(degenerate=True, dead_plane=True)),
+                  ((2, 3, 48, 200), dict(zoom=200.0)), ((2, 33000, 2, 5), {}))
+
+
+def writes_every_element(inputs16, got, with_sigma):
+    """The bf16 backward's entry point on outputs filled with NaN and a
+    scratch of garbage, under seeded cotangents: no NaN left in d_logits,
+    d_sigma, d_dx and d_dy, and d_dx, d_dy equal to those the autograd
+    wrapper's launch gives for the same cotangents."""
+    B, N, H, W = inputs16[3].shape
+    g = torch.Generator(device=got[0].device).manual_seed(7)
+    cts = [torch.randn(o.shape, generator=g, device=o.device).to(o.dtype) for o in got]
+    wrt = [t for t in inputs16[1:5] if t is not None]
+    want = torch.autograd.grad(got, wrt, cts, retain_graph=True)
+    nan = lambda t: torch.full_like(t, float("nan"))                  # noqa: E731
+    ops = [None if t is None else t.detach() for t in inputs16]
+    outs = [nan(ops[1]), nan(ops[2]) if with_sigma else None, nan(ops[3]), nan(ops[4])]
+    scratch = torch.full((warp2d_scratch_bytes(B, N, H, W, with_sigma),), 0xA5,
+                         dtype=torch.uint8, device=ops[3].device)
+    _build.launch("pdt_warp2d_bwd_bf16", *ops, *(cts + [None] * (3 - len(cts))), *outs,
+                  scratch, B, N, H, W, int(with_sigma))
+    torch.cuda.synchronize()
+    outs = [o for o in outs if o is not None]
+    if any(bool(torch.isnan(o).any()) for o in outs):
+        raise AssertionError(f"bf16 warp backward at {(B, N, H, W)}: an element not written")
+    if not (torch.equal(outs[-2], want[-2]) and torch.equal(outs[-1], want[-1])):
+        raise AssertionError(f"bf16 warp backward at {(B, N, H, W)}: d_dx, d_dy differ "
+                             "between two launches")
+
+
 def phase_warp2d_bf16(card, shape=SWEEP_SHAPE, dev=torch.device("cuda")):
     """The 2-D warp's bf16 instances (src, heads and the three stacks bf16,
     dx, dy and their gradients float32) against their plain version with
-    and without sigma, on a small odd shape with degenerate coordinates and
-    at the mono step's shape; then each timed beside its float32 instance.
-    Returns the kernels line's four entries."""
+    and without sigma, on WARP_BF16_HELD's cases and at the mono step's
+    shape, each with a plane masked whole, and the backward's entry point on
+    outputs filled with NaN (every element written); then each timed beside
+    its float32 instance.  Returns the kernels line's four entries."""
     fields = {}
     for with_sigma in (True, False):
         held = HeldBf16()
         diff = (1, 2, 3, 4) if with_sigma else (1, 3, 4)
         names = (("d_logits", "d_sigma", "d_dx", "d_dy") if with_sigma
                  else ("d_logits", "d_dx", "d_dy"))
-        for i, (at, degenerate) in enumerate((((2, 5, 7, 200), True), (shape, False))):
-            inputs32 = seeded_warp_inputs(at, 30 + i, dev, degenerate)
+        for i, (at, kw) in enumerate(WARP_BF16_HELD + ((shape, {}),)):
+            inputs32 = seeded_warp_inputs(at, 30 + i, dev, **kw)
             if not with_sigma:
                 inputs32[2] = None
+            inputs32[5][0, 1 % at[1]] = 0.0               # a plane masked whole
             inputs16 = as_bf16(inputs32, (3, 4, 5))
-            held.hold(warp2d(*inputs16), warp2d_plain(*inputs16), inputs16, diff, names, i)
+            got = warp2d(*inputs16)
+            writes_every_element(inputs16, got, with_sigma)
+            held.hold(got, warp2d_plain(*inputs16), inputs16, diff, names, i)
+            del got
             free_cache()
         B, N, H, W = shape
         t = {}
@@ -3058,16 +3106,36 @@ def phase_warp2d_bf16(card, shape=SWEEP_SHAPE, dev=torch.device("cuda")):
                 t[f"{tag}_fwd_ms"] = launch_ms(f"pdt_warp2d_fwd{suffix}", (*inputs, *outs),
                                                B, N, H, W, int(with_sigma))
                 cts = [None if o is None else torch.randn_like(o) for o in outs]
-                acc = [torch.zeros(logits.shape, device=dev),
-                       torch.zeros(logits.shape, device=dev) if with_sigma else None]
                 d_xy = [torch.empty_like(dx), torch.empty_like(dy)]
-                heads_out = ([torch.empty_like(logits), torch.empty_like(logits)
-                              if with_sigma else None] if tag == "bf16" else [])
-                t[f"{tag}_bwd_ms"] = launch_ms(f"pdt_warp2d_bwd{suffix}",
-                                               (*inputs, *cts, *acc, *heads_out, *d_xy),
+                if tag == "bf16":
+                    # the bf16 entry clears its own scratch: timed with it
+                    scratch = torch.empty(warp2d_scratch_bytes(B, N, H, W, with_sigma),
+                                          dtype=torch.uint8, device=dev)
+                    heads_out = [torch.empty_like(logits),
+                                 torch.empty_like(logits) if with_sigma else None]
+                    args = (*inputs, *cts, *heads_out, *d_xy, scratch)
+                    t["scratch_bytes"] = scratch.numel()
+                else:
+                    # the float32 entry adds into buffers its wrapper zeroes:
+                    # timed alone, on buffers zeroed once
+                    heads_out = [torch.zeros(logits.shape, device=dev),
+                                 torch.zeros(logits.shape, device=dev) if with_sigma else None]
+                    args = (*inputs, *cts, *heads_out, *d_xy)
+                t[f"{tag}_bwd_ms"] = launch_ms(f"pdt_warp2d_bwd{suffix}", args,
                                                B, N, H, W, int(with_sigma))
-                del outs, cts, acc, d_xy, heads_out
+                t.setdefault("info", {})[tag] = {
+                    "bwd": warp_kernel_info(with_sigma, bf16=tag == "bf16")}
+                del outs, cts, d_xy, heads_out, args
         wrt = [inputs16[i] for i in diff]
+        # the wrapper's backward through autograd: the entry (its scratch
+        # cleared inside), the scratch's allocation and autograd's own work
+        out = warp2d(*inputs16)
+        cts = [torch.randn_like(o) for o in out]
+        t["autograd_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(out, wrt, cts,
+                                                                   retain_graph=True))
+        t["autograd_loop_ms"] = loop_ms(lambda: torch.autograd.grad(out, wrt, cts,
+                                                                    retain_graph=True))
+        del out, cts
         with torch.no_grad():
             t["plain_fwd_ms"] = cuda_ms(lambda: warp2d_plain(*inputs16), warmup=1, reps=3)
         out = warp2d_plain(*inputs16)
@@ -3093,10 +3161,17 @@ def phase_warp2d_bf16(card, shape=SWEEP_SHAPE, dev=torch.device("cuda")):
         del inputs32, inputs16, src, logits, sigma, dx, dy
         free_cache()
         tag = "warp2d_bf16" if with_sigma else "warp2d_nosigma_bf16"
-        print(f"[{tag}] warp2d on bf16 src and heads vs plain at (2, 5, 7, 200) with "
-              f"degenerate coordinates and at {shape}: {held.describe()} | {card}")
+        print(f"[{tag}] warp2d on bf16 src and heads vs plain at "
+              f"{', '.join(str(at) for at, _ in WARP_BF16_HELD)} (degenerate coordinates, "
+              f"dead planes, zoom 200, > 65535 planes) and at {shape}, a plane masked whole "
+              f"in each; every backward element written (NaN-filled outputs): "
+              f"{held.describe()} | {card}")
         print_bf16_times(tag, shape, t, card)
+        print(f"[{tag}] at {shape}: bf16 backward through autograd {t['autograd_bwd_ms']:.4f} "
+              f"ms ({t['autograd_loop_ms']:.4f} ms a call in a run of 20) | {card}")
         fwd, bwd = bf16_fields(held, t)
+        bwd.update(autograd_ms=t["autograd_bwd_ms"], autograd_loop_ms=t["autograd_loop_ms"],
+                   scratch_bytes=t["scratch_bytes"])
         fields[f"{tag}_fwd"], fields[f"{tag}_bwd"] = fwd, bwd
     return fields
 

@@ -82,10 +82,38 @@
 // or bf16, the JAX package's default arithmetic (pallas_warp2d.py:369-370,
 // 505, 516, 532: bf16 stacks from bf16 operands).  A bf16 instance widens
 // every load to float and rounds each stored stack element to bf16 (nearest
-// even); dx, dy, mask, d_dx and d_dy stay float32.  The backward's tap sums
-// are float atomics into float32 buffers in both types; for bf16 a second
-// kernel rounds them into the bf16 d_logits and d_sigma.  Its bytes are the
-// float instance's less half of src, the heads and the stacks.
+// even); dx, dy, mask, d_dx and d_dy stay float32.  Its bytes are the float
+// instance's less half of src, the heads and the stacks.
+//
+// The bf16 backward (pdt_warp2d_bwd_bf16) sums the taps in float32 as the JAX
+// kernel does (pallas_warp2d.py:_bwd_kernel's float32 d_ls block, rounded
+// once by _w2d_bwd), in a scratch the entry clears, then rounds them into the
+// bf16 d_logits and d_sigma, each element written once.  With sigma a tap's
+// logit and sigma sums sit side by side, (B, N, H, W, 2), so one
+// red.global.add.v2.f32 adds both where the float instance issues two scalar
+// atomics, and the lanes of a 16 x 2 tile combine the taps they share across
+// rows as well as along them (warp2d_bwd_tile_kernel); without sigma
+// warp2d_bwd_kernel<false, bf16> adds into a (B, N, H, W) scratch.  The
+// rounding pass reads the sums 16 bytes a load.  Bytes at (8, 63, 192, 640):
+// the bound's 2.36 GB with sigma (1.99 GB without) plus the scratch's
+// clearing, its atomics' lines and its read-back, ~1.49 GB (~0.74 GB).
+// Measured on NVIDIA H100 80GB HBM3, 700 W, at (8, 63, 192, 640),
+// scripts/compare_sweep.py's warp inputs, alone (the entry, its clearing
+// included): 2.10-2.13 ms with sigma and 1.42-1.44 ms without, against an
+// earlier design's float32 atomics into two caller-zeroed maps and a rounding
+// pass, 2.25-2.29 ms and 1.40-1.43 ms alone, 2.39-2.41 ms and 1.47-1.48 ms
+// with the zeroing.  Measured and dropped (scripts/warp_bwd_variants.py, same
+// card; 2.10 and 1.43 ms for this design in that call):
+//  - the sums of each plane in one slot of a ring of 16 L2-resident plane
+//    slots, rounded and cleared inside the same launch, work taken in
+//    tickets from a counter, every wait on earlier tickets' counts: 2.67 ms
+//    with sigma, 2.28 without; with no waits and no counts at all (wrong
+//    sums, a probe of the floor) still 2.31 and 1.74.  Polling the counts
+//    with acquire loads invalidates the SM's L1, which holds the gathers,
+//    and one counter line serialises every count: both were slower still;
+//    a slot read and cleared in the same ticket stalls on the load;
+//  - tiles of 1 x 32 and 4 x 8 lanes: 2.14 and 2.24 ms (the taller tile
+//    issues fewer reductions but loads partial sectors).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -325,11 +353,157 @@ warp2d_bwd_kernel(const T* __restrict__ src, const T* __restrict__ logits,
   }
 }
 
-// Rounds n float32 sums to bf16 (the bf16 backward's d_logits, d_sigma).
-__global__ void round_bf16_kernel(const float* __restrict__ in, __nv_bfloat16* __restrict__ out,
-                                  int64_t n) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) out[i] = __float2bfloat16_rn(in[i]);
+// The bf16 backward with sigma on a tile of ROWS rows a warp (32 / ROWS
+// columns each; four warps side by side a block), so that vertically
+// neighbouring lanes also share taps: in a smooth warp a sample's bottom
+// taps are the top taps of the sample below.  Each lane below takes the
+// bottom taps of the lane above where they fall on its own top taps; then
+// each lane takes its left neighbour's right taps within the row (as
+// warp2d_bwd_kernel's lanes do; the bottom-right one only where it still
+// holds its own bottom-left one), and only the lanes left holding a tap add
+// it, one v2 reduction a tap for the logit and sigma sums side by side:
+// about 1.6 reductions a sample at ROWS = 2 (16 x 2 lanes), against about 2
+// on one row of 32.  The per-sample arithmetic, d_dx and d_dy are
+// warp2d_bwd_kernel's.
+constexpr int kTileRows = 2;   // rows a warp's tile
+
+template <int ROWS>
+__global__ void __launch_bounds__(kBwdThreads, kBwdMinBlocks)
+warp2d_bwd_tile_kernel(const __nv_bfloat16* __restrict__ src,
+                       const __nv_bfloat16* __restrict__ logits,
+                       const __nv_bfloat16* __restrict__ sigma, const float* __restrict__ dx,
+                       const float* __restrict__ dy, const float* __restrict__ mask,
+                       const __nv_bfloat16* __restrict__ g_rgb,
+                       const __nv_bfloat16* __restrict__ g_logit,
+                       const __nv_bfloat16* __restrict__ g_sigma, float* __restrict__ acc,
+                       float* __restrict__ d_dx, float* __restrict__ d_dy, int N, int H,
+                       int W) {
+  using T = __nv_bfloat16;
+  constexpr int COLS = 32 / ROWS;            // columns a warp
+  const int lane = threadIdx.x & 31;
+  const int col = lane % COLS, row = lane / COLS;
+  const int x = (blockIdx.x * (kBwdThreads / 32) + (threadIdx.x >> 5)) * COLS + col;
+  const int y = blockIdx.y * ROWS + row;
+  const int bn = blockIdx.z;
+  const int plane = H * W;                   // < 2^31: the wrapper checks
+  const int64_t base = (int64_t)bn * plane;
+  const int at = y * W + x;
+  float* accp = acc + 2 * base;
+  Taps32 t;
+  float wl[4] = {0.f, 0.f, 0.f, 0.f}, ws[4] = {0.f, 0.f, 0.f, 0.f};
+  bool live = false;
+  if (x < W && y < H) {
+    const float xs = x + dx[base + at], ys = y + dy[base + at];
+    const bool valid = xs > -1.f && xs < (float)W && ys > -1.f && ys < (float)H;
+    const float m = valid ? mask[base + at] : 0.f;
+    float gx = 0.f, gy = 0.f;
+    if (m != 0.f) {
+      live = true;
+      t = make_taps32(xs, ys, H, W);
+      const T* srcb = src + (int64_t)(bn / N) * 3 * plane;
+      const T* grp = g_rgb + 3 * base + at;
+      float v[4];
+      for (int c = 0; c < 3; ++c) {
+        corners32(srcb + c * plane, t, v);
+        add_coord_grads(v, m * to_f(grp[c * plane]), t.fx, t.fy, gx, gy);
+      }
+      const float gl = m * to_f(g_logit[base + at]);
+      corners32(logits + base, t, v);
+      add_coord_grads(v, gl, t.fx, t.fy, gx, gy);
+      const float gs = m * to_f(g_sigma[base + at]);
+      corners32(sigma + base, t, v);
+      add_coord_grads(v, gs, t.fx, t.fy, gx, gy);
+      for (int k = 0; k < 4; ++k) {
+        const float w = t.in[k] ? ((k & 1) ? t.fx : 1.f - t.fx) *
+                                      ((k & 2) ? t.fy : 1.f - t.fy)
+                                : 0.f;
+        wl[k] = w * gl;
+        ws[k] = w * gs;
+      }
+    }
+    d_dx[base + at] = gx;
+    d_dy[base + at] = gy;
+  }
+  // (y0 + 1)(W + 2) + x0 + 1 keeps a row's keys apart from the next row's; a
+  // lane without taps holds a key no neighbour's can match
+  const int key = live ? (t.y0 + 1) * (W + 2) + t.x0 + 1 : -(1 << 30);
+  // the lane above's bottom taps, where they are this lane's top taps
+  const bool vtake = __shfl_up_sync(0xffffffffu, key, COLS) + (W + 2) == key && row > 0;
+  const float a2 = __shfl_up_sync(0xffffffffu, wl[2], COLS);
+  const float a3 = __shfl_up_sync(0xffffffffu, wl[3], COLS);
+  const float b2 = __shfl_up_sync(0xffffffffu, ws[2], COLS);
+  const float b3 = __shfl_up_sync(0xffffffffu, ws[3], COLS);
+  const bool vgive = __shfl_down_sync(0xffffffffu, (int)vtake, COLS) && row < ROWS - 1;
+  if (vtake) {
+    wl[0] += a2;
+    wl[1] += a3;
+    ws[0] += b2;
+    ws[1] += b3;
+  }
+  if (vgive) {
+    wl[2] = wl[3] = ws[2] = ws[3] = 0.f;
+  }
+  // then the left neighbour's right taps, within the row: its top-right
+  // tap always (this lane's top-left one stays), its bottom-right one only
+  // where this lane still holds its own bottom-left one
+  const bool htake = __shfl_up_sync(0xffffffffu, key, 1) + 1 == key && col > 0;
+  const bool htake3 = htake && !vgive;
+  const float c1 = __shfl_up_sync(0xffffffffu, wl[1], 1);
+  const float c3 = __shfl_up_sync(0xffffffffu, wl[3], 1);
+  const float d1 = __shfl_up_sync(0xffffffffu, ws[1], 1);
+  const float d3 = __shfl_up_sync(0xffffffffu, ws[3], 1);
+  const bool give1 = __shfl_down_sync(0xffffffffu, (int)htake, 1) && col < COLS - 1;
+  const bool give3 = __shfl_down_sync(0xffffffffu, (int)htake3, 1) && col < COLS - 1;
+  if (!live) return;
+  if (htake) {
+    wl[0] += c1;
+    ws[0] += d1;
+  }
+  if (htake3) {
+    wl[2] += c3;
+    ws[2] += d3;
+  }
+  const bool gone[4] = {false, give1, vgive, vgive || give3};
+  for (int k = 0; k < 4; ++k) {
+    if (!t.in[k] || gone[k]) continue;
+    asm volatile("red.global.add.v2.f32 [%0], {%1, %2};" ::"l"(accp + 2 * t.off[k]),
+                 "f"(wl[k]), "f"(ws[k])
+                 : "memory");
+  }
+}
+
+// Rounds the accumulator into the bf16 d_logits (and d_sigma), four pixels a
+// thread: 16-byte loads, 4-byte bf16 pair stores (n a multiple of 4, the
+// outputs 8-byte aligned: the entry checks; else one pixel a thread).
+template <bool SIGMA, bool VEC>
+__global__ void round_sums_kernel(const float* __restrict__ acc,
+                                  __nv_bfloat16* __restrict__ d_logits,
+                                  __nv_bfloat16* __restrict__ d_sigma, int64_t n) {
+  const int64_t i = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) * (VEC ? 4 : 1);
+  if (i >= n) return;
+  if (!VEC) {
+    d_logits[i] = __float2bfloat16_rn(acc[(SIGMA ? 2 : 1) * i]);
+    if (SIGMA) d_sigma[i] = __float2bfloat16_rn(acc[2 * i + 1]);
+    return;
+  }
+  auto* dl = reinterpret_cast<__nv_bfloat162*>(d_logits + i);
+  if (SIGMA) {
+    const float4 a = __ldcs(reinterpret_cast<const float4*>(acc + 2 * i));
+    const float4 b = __ldcs(reinterpret_cast<const float4*>(acc + 2 * i) + 1);
+    auto* ds = reinterpret_cast<__nv_bfloat162*>(d_sigma + i);
+    dl[0] = __floats2bfloat162_rn(a.x, a.z);
+    dl[1] = __floats2bfloat162_rn(b.x, b.z);
+    ds[0] = __floats2bfloat162_rn(a.y, a.w);
+    ds[1] = __floats2bfloat162_rn(b.y, b.w);
+  } else {
+    const float4 a = __ldcs(reinterpret_cast<const float4*>(acc + i));
+    dl[0] = __floats2bfloat162_rn(a.x, a.y);
+    dl[1] = __floats2bfloat162_rn(a.z, a.w);
+  }
+}
+
+int64_t bf16_bwd_scratch_bytes(int B, int N, int H, int W, int with_sigma) {
+  return (int64_t)B * N * H * W * (with_sigma ? 2 : 1) * (int64_t)sizeof(float);
 }
 
 template <typename T>
@@ -385,6 +559,56 @@ int warp_bwd(const T* src, const T* logits, const T* sigma, const float* dx, con
   return (int)cudaSuccess;
 }
 
+// The bf16 backward: clears the accumulator (the scratch), scatters into it
+// (at most 65535 planes a launch, in whole images: with sigma the tile
+// kernel, without it warp2d_bwd_kernel's instance, whose tap sums need no
+// pairing), then rounds it.
+int warp_bwd_bf16(const __nv_bfloat16* src, const __nv_bfloat16* logits,
+                  const __nv_bfloat16* sigma, const float* dx, const float* dy,
+                  const float* mask, const __nv_bfloat16* g_rgb, const __nv_bfloat16* g_logit,
+                  const __nv_bfloat16* g_sigma, __nv_bfloat16* d_logits, __nv_bfloat16* d_sigma,
+                  float* d_dx, float* d_dy, void* scratch, int B, int N, int H, int W,
+                  int with_sigma, cudaStream_t st) {
+  if (N > 65535 || H > 65535) return (int)cudaErrorInvalidValue;
+  const int64_t plane = (int64_t)H * W, n = (int64_t)B * N * plane;
+  const int C = with_sigma ? 2 : 1;
+  float* acc = (float*)scratch;
+  cudaError_t e = cudaMemsetAsync(acc, 0, bf16_bwd_scratch_bytes(B, N, H, W, with_sigma), st);
+  if (e != cudaSuccess) return (int)e;
+  const int images = 65535 / N;              // whole images a launch
+  for (int b0 = 0; b0 < B; b0 += images) {
+    const int nb = std::min(images, B - b0);
+    const int64_t o = (int64_t)b0 * N * plane;
+    const __nv_bfloat16* s = src + (int64_t)b0 * 3 * plane;
+    if (with_sigma) {
+      constexpr int cols = kBwdThreads / kTileRows;      // a block's tile columns
+      const dim3 grid((W + cols - 1) / cols, (H + kTileRows - 1) / kTileRows, nb * N);
+      warp2d_bwd_tile_kernel<kTileRows><<<grid, kBwdThreads, 0, st>>>(
+          s, logits + o, sigma + o, dx + o, dy + o, mask + o, g_rgb + 3 * o, g_logit + o,
+          g_sigma + o, acc + C * o, d_dx + o, d_dy + o, N, H, W);
+    } else {                                 // warp2d_bwd_kernel's instance, into acc
+      const dim3 grid((W + kBwdThreads - 1) / kBwdThreads, H, nb * N);
+      warp2d_bwd_kernel<false, __nv_bfloat16><<<grid, kBwdThreads, 0, st>>>(
+          s, logits + o, nullptr, dx + o, dy + o, mask + o, g_rgb + 3 * o, g_logit + o,
+          nullptr, acc + o, nullptr, d_dx + o, d_dy + o, N, H, W);
+    }
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  }
+  const bool vec = n % 4 == 0 && (uintptr_t)d_logits % 8 == 0 &&
+                   (!with_sigma || (uintptr_t)d_sigma % 8 == 0) && (uintptr_t)acc % 16 == 0;
+  const int threads = 256;
+  const unsigned blocks = (unsigned)(((vec ? n / 4 : n) + threads - 1) / threads);
+  if (with_sigma && vec)
+    round_sums_kernel<true, true><<<blocks, threads, 0, st>>>(acc, d_logits, d_sigma, n);
+  else if (with_sigma)
+    round_sums_kernel<true, false><<<blocks, threads, 0, st>>>(acc, d_logits, d_sigma, n);
+  else if (vec)
+    round_sums_kernel<false, true><<<blocks, threads, 0, st>>>(acc, d_logits, nullptr, n);
+  else
+    round_sums_kernel<false, false><<<blocks, threads, 0, st>>>(acc, d_logits, nullptr, n);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // src: (B, 3, H, W); logits, sigma, dx, dy, mask: (B, N, H, W); outputs rgb:
@@ -430,29 +654,33 @@ extern "C" int pdt_warp2d_bwd(const float* src, const float* logits, const float
                          (cudaStream_t)stream);
 }
 
-// pdt_warp2d_bwd in bf16: src, logits, sigma and the cotangents g_rgb,
-// g_logit, g_sigma are bf16; the tap sums go into the float32 acc_logits,
-// acc_sigma, which the caller zeroes, and are then rounded into the bf16
-// d_logits, d_sigma; d_dx, d_dy are float32.
+// pdt_warp2d_bwd in bf16: src, logits, sigma, the cotangents g_rgb,
+// g_logit, g_sigma and the outputs d_logits, d_sigma are bf16, each element
+// of the latter written once (the float32 sum of its taps, rounded to
+// nearest even); d_dx, d_dy are float32.  `scratch`: at least
+// pdt_warp2d_bwd_bf16_scratch_bytes(B, N, H, W, with_sigma) bytes of device
+// memory, 16-byte aligned, which the entry clears on `stream` and the
+// kernels use for the float32 tap sums (contents on entry do not matter).
+// Refuses N or H above 65535 with cudaErrorInvalidValue.  Launches on
+// `stream`; returns cudaGetLastError().
 extern "C" int pdt_warp2d_bwd_bf16(const void* src, const void* logits, const void* sigma,
                                    const float* dx, const float* dy, const float* mask,
                                    const void* g_rgb, const void* g_logit,
-                                   const void* g_sigma, float* acc_logits, float* acc_sigma,
-                                   void* d_logits, void* d_sigma, float* d_dx, float* d_dy,
-                                   int B, int N, int H, int W, int with_sigma,
-                                   void* stream) {
+                                   const void* g_sigma, void* d_logits, void* d_sigma,
+                                   float* d_dx, float* d_dy, void* scratch, int B, int N,
+                                   int H, int W, int with_sigma, void* stream) {
   using bf = __nv_bfloat16;
-  const cudaStream_t st = (cudaStream_t)stream;
-  int e = warp_bwd<bf>((const bf*)src, (const bf*)logits, (const bf*)sigma, dx, dy, mask,
-                       (const bf*)g_rgb, (const bf*)g_logit, (const bf*)g_sigma, acc_logits,
-                       acc_sigma, d_dx, d_dy, B, N, H, W, with_sigma, st);
-  if (e != 0) return e;
-  const int64_t n = (int64_t)B * N * H * W;
-  const int threads = 256;
-  const unsigned blocks = (unsigned)((n + threads - 1) / threads);
-  round_bf16_kernel<<<blocks, threads, 0, st>>>(acc_logits, (bf*)d_logits, n);
-  if (with_sigma) round_bf16_kernel<<<blocks, threads, 0, st>>>(acc_sigma, (bf*)d_sigma, n);
-  return (int)cudaGetLastError();
+  return warp_bwd_bf16((const bf*)src, (const bf*)logits, (const bf*)sigma, dx, dy, mask,
+                       (const bf*)g_rgb, (const bf*)g_logit, (const bf*)g_sigma,
+                       (bf*)d_logits, (bf*)d_sigma, d_dx, d_dy, scratch, B, N, H, W,
+                       with_sigma, (cudaStream_t)stream);
+}
+
+// The scratch pdt_warp2d_bwd_bf16 takes: the float32 tap sums, 2 (with
+// sigma) or 1 a pixel.
+extern "C" long long pdt_warp2d_bwd_bf16_scratch_bytes(int B, int N, int H, int W,
+                                                       int with_sigma) {
+  return bf16_bwd_scratch_bytes(B, N, H, W, with_sigma);
 }
 
 // The backward kernel as the compiler and the occupancy calculator see it:
@@ -460,6 +688,20 @@ extern "C" int pdt_warp2d_bwd_bf16(const void* src, const void* logits, const vo
 extern "C" int pdt_warp2d_bwd_kernel_info(int with_sigma, int* out) {
   const void* fn = with_sigma ? (const void*)warp2d_bwd_kernel<true, float>
                               : (const void*)warp2d_bwd_kernel<false, float>;
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, fn);
+  if (e != cudaSuccess) return (int)e;
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kBwdThreads, 0);
+  const int vals[4] = {attr.numRegs, (int)attr.localSizeBytes, kBwdThreads, blocks};
+  for (int i = 0; i < 4; ++i) out[i] = vals[i];
+  return (int)e;
+}
+
+// pdt_warp2d_bwd_kernel_info of the bf16 backward's scatter kernel.
+extern "C" int pdt_warp2d_bwd_kernel_info_bf16(int with_sigma, int* out) {
+  const void* fn = with_sigma ? (const void*)warp2d_bwd_tile_kernel<kTileRows>
+                              : (const void*)warp2d_bwd_kernel<false, __nv_bfloat16>;
   cudaFuncAttributes attr;
   cudaError_t e = cudaFuncGetAttributes(&attr, fn);
   if (e != cudaSuccess) return (int)e;

@@ -22,6 +22,10 @@ logits, sigma, dx and dy; ``src`` and ``mask`` get none, as in the JAX
 package's VJP (``_w2d_bwd``).  src, logits and sigma are float32 or all
 bf16 (the JAX package's default: its stacks and head gradients are then
 bf16, every sum float32); dx, dy, mask and their gradients are float32.
+The float32 backward adds into d_logits and d_sigma, which the wrapper
+zeroes; the bf16 one sums the taps in float32 in a scratch of
+:func:`scratch_bytes` (logit and sigma side by side), which its entry point
+clears, and rounds them once into the bf16 gradients.
 """
 from __future__ import annotations
 
@@ -29,7 +33,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from planedepth_tpu_torch.ops._build import launch
+from planedepth_tpu_torch.ops._build import launch, load_library
 
 
 def _fold(dx: torch.Tensor, dy: torch.Tensor, mask: torch.Tensor):
@@ -140,23 +144,31 @@ class _Warp2d(torch.autograd.Function):
         src, logits, sigma, dx, dy, mask = ctx.saved_tensors
         B, N, H, W = dx.shape
         with_sigma, bf16 = ctx.with_sigma, logits.dtype == torch.bfloat16
-        zeros = lambda t: torch.zeros(t.shape, dtype=torch.float32, device=t.device)  # noqa
-        acc_logits = zeros(logits)
-        acc_sigma = zeros(sigma) if with_sigma else None
         d_dx, d_dy = torch.empty_like(dx), torch.empty_like(dy)
         cts = (g_rgb.contiguous(), g_logit.contiguous(),
                g_sigma.contiguous() if with_sigma else None)
         if bf16:
+            # every element written once; the float32 tap sums go to the
+            # scratch, which the entry point clears
             d_logits = torch.empty_like(logits)
             d_sigma = torch.empty_like(sigma) if with_sigma else None
-            launch("pdt_warp2d_bwd_bf16", src, logits, sigma, dx, dy, mask, *cts, acc_logits,
-                   acc_sigma, d_logits, d_sigma, d_dx, d_dy, B, N, H, W, int(with_sigma))
+            scratch = torch.empty(scratch_bytes(B, N, H, W, with_sigma), dtype=torch.uint8,
+                                  device=dx.device)
+            launch("pdt_warp2d_bwd_bf16", src, logits, sigma, dx, dy, mask, *cts, d_logits,
+                   d_sigma, d_dx, d_dy, scratch, B, N, H, W, int(with_sigma))
         else:
-            d_logits, d_sigma = acc_logits, acc_sigma
+            d_logits = torch.zeros_like(logits)
+            d_sigma = torch.zeros_like(sigma) if with_sigma else None
             launch("pdt_warp2d_bwd", src, logits, sigma, dx, dy, mask, *cts, d_logits,
                    d_sigma, d_dx, d_dy, B, N, H, W, int(with_sigma))
         _count("bwd_launches", with_sigma, bf16)
         return None, d_logits, d_sigma, d_dx, d_dy, None
+
+
+def scratch_bytes(B: int, N: int, H: int, W: int, with_sigma: bool) -> int:
+    """Bytes of device scratch the bf16 backward takes: its float32 tap
+    sums, logit and sigma side by side (``csrc/warp2d.cu``)."""
+    return int(load_library().pdt_warp2d_bwd_bf16_scratch_bytes(B, N, H, W, int(with_sigma)))
 
 
 def warp2d(src: torch.Tensor, logits: torch.Tensor, sigma: Optional[torch.Tensor],

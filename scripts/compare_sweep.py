@@ -40,6 +40,16 @@ autograd on ``chip_smoke.py:phase_sweep_img``'s cases (the same inputs and
 cotangents), each gradient's max error over its largest magnitude side by
 side.
 
+The 2-D warp's bf16 backward (``pdt_warp2d_bwd_bf16``) with and without
+sigma at the mono step's shape, at a zoom of 200 px and at stage 3's
+(4, 63, 384, 1280), on the warp inputs in bf16 (dx, dy, mask float32): this
+tree's entry, which takes a scratch it clears itself, against the other's,
+which may be the earlier one adding into two float32 buffers its caller
+zeroes (timed alone, and with that zeroing), beside this tree's float32
+instance, in turns; both held to the plain version's autograd (the heads'
+gradients within one bf16 ulp plus 1e-4 of their largest magnitude), d_dx
+and d_dy bit-identical between the two.
+
 The sweep's bf16 instances (``pdt_plane_sweep_{fwd,bwd}_bf16``), with and
 without the mixture, at stage 1's, stage 3's and FalNet's shapes on the
 same operands in bf16 (shift and mask float32), the disp on and the
@@ -82,6 +92,7 @@ import chip_smoke as cs                                   # noqa: E402
 from planedepth_tpu_torch.config import stage1_config     # noqa: E402
 from planedepth_tpu_torch.ops import _build               # noqa: E402
 from planedepth_tpu_torch.ops.plane_sweep import plane_sweep_plain, shift_max  # noqa: E402
+from planedepth_tpu_torch.ops.warp2d import warp2d_plain  # noqa: E402
 from planedepth_tpu_torch.train.step import sweep_pad     # noqa: E402
 
 # (name, shape, mixture, with_disp): the main paths' calls
@@ -92,6 +103,14 @@ CASES = (("stage1 mixture", cs.SWEEP_SHAPE, True, True),
 # zoom whose taps cross far into the neighbouring blocks' bands
 WARP_CASES = (("warp2d_bwd sigma", True, 30.0), ("warp2d_bwd nosigma", False, 30.0),
               ("warp2d_bwd sigma zoom 200", True, 200.0))
+# the bf16 warp backward: (name, shape, with_sigma, zoom): the mono step's, a
+# zoom whose taps cross far into the neighbouring blocks' bands, and stage
+# 3's width
+WARP_BF16_CASES = (("warp2d_bwd_bf16 sigma", cs.SWEEP_SHAPE, True, 30.0),
+                   ("warp2d_bwd_bf16 nosigma", cs.SWEEP_SHAPE, False, 30.0),
+                   ("warp2d_bwd_bf16 sigma zoom 200", cs.SWEEP_SHAPE, True, 200.0),
+                   ("warp2d_bwd_bf16 sigma wide", cs.SHIFT_SHAPE, True, 30.0),
+                   ("warp2d_bwd_bf16 nosigma wide", cs.SHIFT_SHAPE, False, 30.0))
 # the image-gradient backward: stage 1, stage 3, and a row wider than 1280
 IMG_CASES = (("img_bwd stage1", cs.SWEEP_SHAPE), ("img_bwd stage3", cs.SHIFT_SHAPE),
              ("img_bwd wide", (2, 63, 96, 2048)))
@@ -141,8 +160,15 @@ def build_other(checkout: Path) -> dict:
     lib.pdt_plane_sweep_bwd_img.restype = i
     lib.pdt_plane_sweep_kernel_info.argtypes = [i, i, i, i, i, p]
     lib.pdt_plane_sweep_kernel_info.restype = i
-    libs["warp2d"].pdt_warp2d_bwd.argtypes = [p] * 13 + [i] * 5 + [p]
-    libs["warp2d"].pdt_warp2d_bwd.restype = i
+    lib = libs["warp2d"]
+    lib.pdt_warp2d_bwd.argtypes = [p] * 13 + [i] * 5 + [p]
+    lib.pdt_warp2d_bwd.restype = i
+    # an earlier bf16 entry adds into two float32 buffers that its caller
+    # zeroes (acc_logits, acc_sigma before d_logits); this tree's takes a
+    # scratch it clears itself, after d_dy
+    scratch = hasattr(lib, "pdt_warp2d_bwd_bf16_scratch_bytes")
+    lib.pdt_warp2d_bwd_bf16.argtypes = [p] * (14 if scratch else 15) + [i] * 5 + [p]
+    lib.pdt_warp2d_bwd_bf16.restype = i
     lib = libs["disp_head"]
     scratch = hasattr(lib, "pdt_disp_head_bwd_scratch_floats")
     lib.pdt_disp_head_bwd.argtypes = [p] * (9 if scratch else 8) + [i] * 4 + [p]
@@ -398,6 +424,90 @@ def run_warp(libs, shape, with_sigma, zoom, dev):
             "kernel_info": dict(zip(("registers", "spill_bytes", "threads", "blocks_per_sm"),
                                     info)),
             "grad_max_rel_diff": grad_rel, "bwd_repeat_bit_identical": repeat_identical}
+
+
+def run_warp_bf16(libs, shape, with_sigma, zoom, dev):
+    """The bf16 warp backward of both libraries at ``shape`` beside this
+    tree's float32 instance on the same values, each entry alone in turns
+    (an earlier bf16 entry's float32 sums zeroed once, and also timed with
+    the zeroing its wrapper runs; this tree's entry clears its own scratch);
+    both held to the plain version's autograd as ``chip_smoke.py:HeldBf16``
+    bounds the heads' gradients (one bf16 ulp plus 1e-4 of the largest
+    magnitude), d_dx and d_dy compared bit for bit."""
+    inputs32 = [None if t is None else t.detach()
+                for t in cs.seeded_warp_inputs(shape, 20, dev, zoom=zoom)]
+    if not with_sigma:
+        inputs32[2] = None
+    ins16 = [None if t is None else t.detach() for t in cs.as_bf16(inputs32, (3, 4, 5))]
+    B, N, H, W = shape
+    g = torch.Generator(device=dev).manual_seed(2)
+    cts32 = [torch.randn((B, N, 3, H, W), generator=g, device=dev),
+             torch.randn(shape, generator=g, device=dev),
+             torch.randn(shape, generator=g, device=dev) if with_sigma else None]
+    cts16 = [None if c is None else c.to(cs.BF16) for c in cts32]
+    fns, grads = {}, {}
+    for who, lib in libs.items():
+        heads = [torch.empty_like(ins16[1]), torch.empty_like(ins16[1]) if with_sigma else None]
+        d_xy = [torch.empty(shape, device=dev), torch.empty(shape, device=dev)]
+        if hasattr(lib, "pdt_warp2d_bwd_bf16_scratch_bytes"):
+            scratch = torch.empty(lib.pdt_warp2d_bwd_bf16_scratch_bytes(B, N, H, W,
+                                                                        int(with_sigma)),
+                                  dtype=torch.uint8, device=dev)
+            fns[f"{who}_ms"] = (who, lambda lib=lib, h=heads, d=d_xy, sc=scratch: call(
+                lib, "pdt_warp2d_bwd_bf16", *ins16, *cts16, *h, *d, sc, B, N, H, W,
+                int(with_sigma)))
+        else:
+            acc = [torch.zeros(shape, device=dev),
+                   torch.zeros(shape, device=dev) if with_sigma else None]
+            alone = lambda lib=lib, h=heads, d=d_xy, acc=acc: call(
+                lib, "pdt_warp2d_bwd_bf16", *ins16, *cts16, *acc, *h, *d, B, N, H, W,
+                int(with_sigma))
+
+            def zeroed(alone=alone, acc=acc):
+                for a in acc:
+                    if a is not None:
+                        a.zero_()
+                alone()
+            fns[f"{who}_ms"] = (who, alone)
+            fns[f"{who}_with_zeroing_ms"] = (who, zeroed)
+        (fns.get(f"{who}_with_zeroing_ms") or fns[f"{who}_ms"])[1]()
+        grads[who] = heads + d_xy
+    f32 = [torch.zeros(shape, device=dev), torch.zeros(shape, device=dev) if with_sigma else None,
+           torch.empty(shape, device=dev), torch.empty(shape, device=dev)]
+    fns["this_float32_ms"] = ("this", lambda: call(libs["this"], "pdt_warp2d_bwd", *inputs32,
+                                                   *cts32, *f32, B, N, H, W, int(with_sigma)))
+    torch.cuda.synchronize(dev)
+    ops = [None if t is None else t.detach().requires_grad_(i in (1, 2, 3, 4))
+           for i, t in enumerate(ins16)]
+    wrt = [t for t in ops[1:5] if t is not None]
+    out = warp2d_plain(*ops)
+    want = torch.autograd.grad(out, wrt, [c for c in cts16 if c is not None])
+    del out
+    names = ("d_logits", "d_sigma", "d_dx", "d_dy")
+    excess = {}
+    for who, got in grads.items():
+        got = [x for x in got if x is not None]
+        excess[who] = {}
+        for name, a, b in zip([n for n, x in zip(names, grads[who]) if x is not None], got,
+                              want):
+            err = (a.float() - b.float()).abs()
+            ulp = cs.bf16_ulp(b) if a.dtype == cs.BF16 else 0.0
+            excess[who][name] = (float((err - ulp).max())
+                                 - cs.GRAD_TOL * float(b.float().abs().max()))
+    d_xy_same = all(torch.equal(a, b) for a, b in zip(grads["this"][2:], grads["other"][2:]))
+    worst = max(max(e.values()) for e in excess.values())
+    if worst > 0 or not d_xy_same:
+        raise AssertionError(f"bf16 warp {shape} sigma={with_sigma}: excess over the bounds "
+                             f"{excess}, d_dx/d_dy bit-identical {d_xy_same}")
+    times = in_turns(fns)
+    moved = cs.nbytes(*ins16, *cts16, *wrt)
+    info = (ctypes.c_int * 4)()
+    _build.load_library().pdt_warp2d_bwd_kernel_info_bf16(int(with_sigma), info)
+    return {"shape": list(shape), "with_sigma": with_sigma, "zoom_px": zoom, "ms": times,
+            "bytes": moved, "bound_ms": cs.bound(moved, 100 * B * N * H * W)[0],
+            "kernel_info": dict(zip(("registers", "spill_bytes", "threads", "blocks_per_sm"),
+                                    info)),
+            "excess_over_bounds": excess, "d_dx_d_dy_bit_identical_to_other": d_xy_same}
 
 
 def sweep_info(lib, N, W, image_grads):
@@ -689,6 +799,10 @@ def main():
     for name, with_sigma, zoom in WARP_CASES:
         cases[name] = run_warp(warp_libs, cs.SWEEP_SHAPE, with_sigma, zoom, dev)
         torch.cuda.empty_cache()
+    for name, shape, with_sigma, zoom in WARP_BF16_CASES:
+        cases[name] = run_warp_bf16({"other": other["warp2d"], "this": this}, shape,
+                                    with_sigma, zoom, dev)
+        torch.cuda.empty_cache()
     cases["disp_head_bwd"] = run_disp({"this": this, "other": other["disp_head"]},
                                       cs.SWEEP_SHAPE, dev)
     img_libs = {"other": other["sweep"], "this": this}
@@ -736,6 +850,11 @@ def main():
               f"{json.dumps(h['rel_err'])} | {card}")
     print(f"[compare] SASS, instructions this/other and the same but for constant-bank "
           f"offsets: {json.dumps(sass)}")
+    same = {k: v["same"] for k, v in sass.items() if v["this"] and v["other"]}
+    print(f"[compare] instances in both libraries, the same SASS but for constant-bank "
+          f"offsets: {sum(same.values())} of {len(same)}; differing: "
+          f"{json.dumps([k for k, v in same.items() if not v])}; only in one: "
+          f"{json.dumps([k for k, v in sass.items() if not (v['this'] and v['other'])])}")
     print(json.dumps(report))
 
 

@@ -174,9 +174,10 @@ def stereo_step_pair(jc, tc, height, width, seed=0):
     stats_np = {"model": _perturb(jax.tree.map(np.asarray, stats["model"]), rng, _stats_rule)}
     pc_np = _perturb(jax.tree.map(np.asarray, pc), rng, _param_rule) if pc else None
     tx = jax_make_optimizer(jc, 10)
-    state = create_train_state(
-        jax.tree.map(jnp.asarray, params_np), jax.tree.map(jnp.asarray, stats_np), tx,
-        pc_params=None if pc_np is None else jax.tree.map(jnp.asarray, pc_np))
+    # under jit: Adam's zero moments as one program, not one a leaf shape
+    state = jax.jit(lambda p, s, pc: create_train_state(p, s, tx, pc_params=pc))(
+        jax.tree.map(jnp.asarray, params_np), jax.tree.map(jnp.asarray, stats_np),
+        None if pc_np is None else jax.tree.map(jnp.asarray, pc_np))
     batch = make_stereo_batch(1, height, width, seed=4)
     new_state, metrics = jax.jit(jax_make_train_step(bundle, tx))(
         state, {k: jnp.asarray(v) for k, v in batch.items()}, jax.random.PRNGKey(0))

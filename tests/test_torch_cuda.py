@@ -792,6 +792,58 @@ def test_warp2d_bf16_kernels_match_plain(cuda, shape, with_sigma):
                     else ("d_logits", "d_dx", "d_dy"), 0)
 
 
+# the bf16 backward (csrc/warp2d.cu:warp2d_bwd_pair_kernel and its rounding):
+# odd shapes with degenerate coordinates (W odd: the rounding one pixel a
+# thread); planes of only degenerate samples and a plane masked whole; a
+# zoom of 200 px; more planes than 65535 (launches in whole images); the
+# mono step's shape
+@pytest.mark.parametrize("shape,kw", [
+    ((2, 5, 7, 200), dict(degenerate=True)), ((1, 3, 16, 130), dict(degenerate=True)),
+    ((2, 3, 24, 100), dict(degenerate=True, dead_plane=True)),
+    ((2, 3, 48, 200), dict(zoom=200.0)), ((2, 63, 9, 97), {}), ((2, 33000, 2, 5), {}),
+    ((8, 63, 192, 640), {})])
+@pytest.mark.parametrize("with_sigma", [True, False])
+def test_warp2d_bf16_backward_writes_every_element(cuda, shape, kw, with_sigma):
+    """The bf16 backward's entry point on outputs filled with NaN and a
+    scratch of garbage: no NaN left, d_logits and d_sigma within one bf16
+    ulp plus 1e-4 of their largest magnitude of the plain version's
+    autograd (chip_smoke.HeldBf16's bound), d_dx and d_dy within 1e-4 of
+    theirs; plane 1 of the first image is masked whole (its gradients 0)."""
+    from chip_smoke import GRAD_TOL, as_bf16, bf16_ulp, seeded_warp_inputs
+    from planedepth_tpu_torch.ops import _build
+    from planedepth_tpu_torch.ops.warp2d import scratch_bytes
+
+    inputs = as_bf16(seeded_warp_inputs(shape, sum(shape), cuda, **kw), (3, 4, 5))
+    if not with_sigma:
+        inputs[2] = None
+    inputs[5][0, 1 % shape[1]] = 0.0
+    src, logits, sigma, dx, dy, mask = inputs
+    wrt = [t for t in inputs[1:5] if t is not None]
+    want_out = warp2d_plain(*inputs)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    cts = [torch.randn(o.shape, generator=gen, device=cuda).to(o.dtype) for o in want_out]
+    want = torch.autograd.grad(want_out, wrt, cts)
+    del want_out
+    B, N, H, W = shape
+    nan = lambda t: torch.full_like(t, float("nan"))
+    got = [nan(logits), nan(sigma) if with_sigma else None, nan(dx), nan(dy)]
+    scratch = torch.full((scratch_bytes(B, N, H, W, with_sigma),), 0xA5, dtype=torch.uint8,
+                         device=cuda)
+    cts = cts + [None] * (3 - len(cts))
+    _build.launch("pdt_warp2d_bwd_bf16", *(t.detach() if t is not None else None
+                                           for t in (src, logits, sigma, dx, dy, mask)),
+                  *cts, *got, scratch, B, N, H, W, int(with_sigma))
+    torch.cuda.synchronize()
+    for name, a, b in zip(("d_logits", "d_sigma", "d_dx", "d_dy"),
+                          [g for g in got if g is not None], want):
+        assert a.dtype == b.dtype and not torch.isnan(a).any(), name
+        err = (a.float() - b.float()).abs()
+        ulp = bf16_ulp(b) if a.dtype == torch.bfloat16 else 0.0
+        over = float((err - ulp).max()) - GRAD_TOL * float(b.float().abs().max())
+        assert over <= 0, (name, over)
+    assert (got[0][0, 1 % N] == 0).all()
+
+
 @pytest.mark.parametrize("shape", [(1, 63, 6, 2560), (1, 14, 6, 4096)])
 def test_plane_sweep_wide_rows_match_plain(cuda, shape):
     """C10: the forward, the head-only backward (float32 and bf16) and the

@@ -87,8 +87,8 @@ def test_generate_post_process_disp_matches_jax():
                 "probability": nchw(base_prob) * (1.0 + a),
                 "disp": nchw(base_disp) + 4.0 * a, "disp_rows": torch.from_numpy(rows)}
 
-    want = jdistill.generate_post_process_disp(jax_teacher, jnp.asarray(image),
-                                               jnp.asarray(grid), 0)
+    want = jax.jit(lambda i, g: jdistill.generate_post_process_disp(jax_teacher, i, g, 0))(
+        jnp.asarray(image), jnp.asarray(grid))
     launches = row_shift.launches
     got = distill.generate_post_process_disp(port_teacher, nchw(image), nchw(grid), PAD)
     assert row_shift.launches == launches                       # CPU: the twin
@@ -120,7 +120,7 @@ def test_fused_mom_mask_novel_matches_jax(use_mixture_loss):
     pmask = (rng.uniform(0, 1, (2 * B, H, 1, N)) > 0.25).astype(np.float32)
     logits *= pmask
     rows = _rows(rng, 2 * B)
-    want = jdistill.fused_mom_mask_novel(
+    want = jax.jit(jdistill.fused_mom_mask_novel, static_argnums=1)(
         {"logits": jnp.asarray(logits), "sigma": jnp.asarray(sigma),
          "padding_mask": jnp.asarray(pmask),
          "disp_layered": jnp.asarray(rows)[:, :, None, :]}, use_mixture_loss)
@@ -192,8 +192,8 @@ def steps(request, jax_init):
              if pc_params is not None else None)
     tx = jax_make_optimizer(jc, 10)
     to_j = lambda t: None if t is None else jax.tree.map(jnp.asarray, t)
-    state = create_train_state(to_j(params_np), to_j(stats_np), tx, teacher=to_j(teacher),
-                               pc_params=to_j(pc_np))
+    state = jax.jit(lambda p, s, t, pc: create_train_state(p, s, tx, teacher=t, pc_params=pc))(
+        to_j(params_np), to_j(stats_np), to_j(teacher), to_j(pc_np))
     batch = make_stereo_batch(jc.per_step_batch, SH, SW, seed=4)
     new_state, metrics = jax.jit(jax_make_train_step(bundle, tx))(
         state, {k: jnp.asarray(v) for k, v in batch.items()}, jax.random.PRNGKey(0))

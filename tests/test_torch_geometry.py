@@ -5,6 +5,7 @@ libraries) and the padding mask exactly.
 """
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -43,8 +44,8 @@ def test_plane_volume_matches_jax(yz_levels, residual):
     if residual:
         res = np.random.default_rng(4).uniform(
             -0.5, 0.5, (B, cfg_t.all_levels)).astype(np.float32)
-    vj = jax_volume(jnp.asarray(grid), cfg_j, 1280,
-                    None if res is None else jnp.asarray(res))
+    vj = jax.jit(jax_volume, static_argnums=(1, 2))(
+        jnp.asarray(grid), cfg_j, 1280, None if res is None else jnp.asarray(res))
     vt = build_plane_volume(torch.from_numpy(grid).permute(0, 3, 1, 2), cfg_t,
                             1280, None if res is None else torch.from_numpy(res))
     w_b = 1 if yz_levels == 0 else W

@@ -6,6 +6,7 @@ and disp agree at rtol = atol = 1e-3, the tolerance
 tests/test_reference_parity.py holds the JAX package to the reference
 torch code with (f32 convolutions in two libraries, through a ResNet).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -72,7 +73,8 @@ def test_resize_ops_match_jax():
     for size in ((5, 7), (10, 14), (24, 40), (3, 4)):
         np.testing.assert_allclose(
             resize_bilinear_align_corners(nchw(x), size).numpy(),
-            np.moveaxis(np.asarray(jax_bilinear(jnp.asarray(x), size)), -1, 1),
+            np.moveaxis(np.asarray(jax.jit(jax_bilinear, static_argnums=1)(jnp.asarray(x),
+                                                                           size)), -1, 1),
             rtol=1e-6, atol=1e-6, err_msg=str(size))
 
 

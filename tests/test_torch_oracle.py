@@ -275,18 +275,20 @@ def test_samplers_match_jax(scene):
     rng = np.random.default_rng(9)
     image = scene["batch"]["color_l"]                                      # (B, H, W, 3)
     shift = rng.uniform(-30.0, 30.0, (B, N, H, W)).astype(np.float32)
-    want = np.asarray(jsampling.shift_sample_x(jnp.asarray(image), jnp.asarray(shift)))
+    want = np.asarray(jax.jit(jsampling.shift_sample_x)(jnp.asarray(image),
+                                                         jnp.asarray(shift)))
     got = sampling.shift_sample_x(torch.from_numpy(np.moveaxis(image, -1, 1)),
                                   torch.from_numpy(shift))
     np.testing.assert_allclose(got.numpy(), np.moveaxis(want, -1, 2), **TOL)
     coords = rng.uniform(-1.3, 1.3, (B, N, H, W, 2)).astype(np.float32)
-    want = np.asarray(jsampling.grid_sample_planes(jnp.asarray(image), jnp.asarray(coords)))
+    want = np.asarray(jax.jit(jsampling.grid_sample_planes)(jnp.asarray(image),
+                                                             jnp.asarray(coords)))
     got = sampling.grid_sample_planes(torch.from_numpy(np.moveaxis(image, -1, 1)),
                                       torch.from_numpy(coords))
     np.testing.assert_allclose(got.numpy(), np.moveaxis(want, -1, 2), **TOL)
     for mode in ("zeros", "border"):
-        want = np.asarray(jsampling.grid_sample(jnp.asarray(image), jnp.asarray(coords[:, 0]),
-                                                mode))
+        want = np.asarray(jax.jit(jsampling.grid_sample, static_argnums=2)(
+            jnp.asarray(image), jnp.asarray(coords[:, 0]), mode))
         got = sampling.grid_sample(torch.from_numpy(np.moveaxis(image, -1, 1)),
                                    torch.from_numpy(coords[:, 0]), mode)
         np.testing.assert_allclose(got.numpy(), np.moveaxis(want, -1, 1), err_msg=mode, **TOL)
@@ -295,7 +297,7 @@ def test_samplers_match_jax(scene):
 def test_resnet18_features_match_jax(resnet18_pc):
     net, variables, port = resnet18_pc
     image = np.random.default_rng(10).random((2, 32, 48, 3), dtype=np.float32)
-    want = net.apply(variables, jnp.asarray(image))
+    want = jax.jit(net.apply)(variables, jnp.asarray(image))
     got = port(torch.from_numpy(np.ascontiguousarray(np.moveaxis(image, -1, 1))))
     assert len(got) == len(want) == 3
     for i, (g, w) in enumerate(zip(got, want)):

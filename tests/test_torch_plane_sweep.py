@@ -81,8 +81,8 @@ def test_plain_forward_matches_jax_oracle_and_kernel(data, with_auto):
 
     clipped = np.clip(shift, 0.0, shift_max(PAD))
     jin = [jnp.asarray(a) for a in (src, tgt, logits, sigma, clipped, mask)]
-    rgb, nll, nlla = oracle_dense(*jin)
-    disp = oracle_disp_center(jin[2], jin[3], jin[4], jin[5])
+    rgb, nll, nlla, disp = jax.jit(lambda s, t, lg, sg, sh, m: (
+        *oracle_dense(s, t, lg, sg, sh, m), oracle_disp_center(lg, sg, sh, m)))(*jin)
     want = [rgb, nll] + ([nlla] if with_auto else []) + [disp]
     for name, g, w in zip(("rgb", "nll", "nll_auto", "disp")[: len(got)], got, want):
         np.testing.assert_allclose(g, np.asarray(w), err_msg=f"oracle {name}", **TOL)

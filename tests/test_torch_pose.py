@@ -55,7 +55,7 @@ def _pose_params(seed, b=3):
 def test_rot_from_axisangle_matches_jax():
     aa, _ = _pose_params(0)
     np.testing.assert_allclose(tpose.rot_from_axisangle(_t(aa)).numpy(),
-                               np.asarray(jpose.rot_from_axisangle(jnp.asarray(aa))),
+                               np.asarray(jax.jit(jpose.rot_from_axisangle)(jnp.asarray(aa))),
                                **POSE_TOL)
 
 
@@ -63,8 +63,8 @@ def test_rot_from_axisangle_matches_jax():
 def test_transformation_from_parameters_matches_jax(invert):
     aa, t = _pose_params(1)
     got = tpose.transformation_from_parameters(_t(aa), _t(t), invert=invert)
-    want = jpose.transformation_from_parameters(jnp.asarray(aa), jnp.asarray(t),
-                                                invert=invert)
+    want = jax.jit(jpose.transformation_from_parameters, static_argnames="invert")(
+        jnp.asarray(aa), jnp.asarray(t), invert=invert)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **POSE_TOL)
 
 
@@ -84,12 +84,12 @@ def _grid(b, h, w, seed):
 def test_rc_correction_and_apply_rc_match_jax(rotate_translation):
     grid = _grid(3, 12, 20, 2)
     aa, t = _pose_params(3)
-    Rt = jpose.transformation_from_parameters(jnp.asarray(aa), jnp.asarray(t))
-    rc_want = jpose.rc_correction(jnp.asarray(grid))
+    Rt = jax.jit(jpose.transformation_from_parameters)(jnp.asarray(aa), jnp.asarray(t))
+    rc_want = jax.jit(jpose.rc_correction)(jnp.asarray(grid))
     rc_got = tpose.rc_correction(nchw(grid))
     np.testing.assert_allclose(rc_got.numpy(), np.asarray(rc_want), **POSE_TOL)
     got = tpose.apply_rc(_t(np.asarray(Rt)), rc_got, rotate_translation)
-    want = jpose.apply_rc(Rt, rc_want, rotate_translation)
+    want = jax.jit(jpose.apply_rc, static_argnums=2)(Rt, rc_want, rotate_translation)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **POSE_TOL)
     assert (got[:, 3] == 0).all()                     # the reference's T[3, 3] = 0
     if not rotate_translation:
@@ -100,7 +100,8 @@ def test_inv3x3_matches_jax():
     rng = np.random.default_rng(4)
     m = (np.eye(3) + rng.uniform(-0.5, 0.5, (5, 3, 3))).astype(np.float32)
     np.testing.assert_allclose(twarp.inv3x3(_t(m)).numpy(),
-                               np.asarray(jwarp.inv3x3(jnp.asarray(m))), rtol=1e-5, atol=1e-6)
+                               np.asarray(jax.jit(jwarp.inv3x3)(jnp.asarray(m))), rtol=1e-5,
+                               atol=1e-6)
 
 
 def _camera(b, h, w):
@@ -119,14 +120,15 @@ def test_camera_grids_and_projection_match_jax():
                                np.asarray(jcam.identity_norm_grid(H, W)), rtol=0, atol=1.2e-7)
     depth = np.random.default_rng(11).uniform(0.5, 20.0, (2, H, W)).astype(np.float32)
     aa, t = _pose_params(12, 2)
-    T = np.asarray(jpose.transformation_from_parameters(jnp.asarray(aa), jnp.asarray(t)))
+    T = np.asarray(jax.jit(jpose.transformation_from_parameters)(jnp.asarray(aa),
+                                                                 jnp.asarray(t)))
     K, inv_K = _camera(2, H, W)
     points = tcam.backproject_depth(_t(depth), _t(inv_K))
-    jpoints = jcam.backproject_depth(jnp.asarray(depth), jnp.asarray(inv_K))
+    jpoints = jax.jit(jcam.backproject_depth)(jnp.asarray(depth), jnp.asarray(inv_K))
     np.testing.assert_allclose(points.numpy(), np.asarray(jpoints), rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(tcam.project_3d(points, _t(K), _t(T), H, W).numpy(),
-                               np.asarray(jcam.project_3d(jpoints, jnp.asarray(K),
-                                                          jnp.asarray(T), H, W)),
+                               np.asarray(jax.jit(jcam.project_3d, static_argnums=(3, 4))(
+                                   jpoints, jnp.asarray(K), jnp.asarray(T), H, W)),
                                **COORD_TOL)
 
 
@@ -143,7 +145,8 @@ def test_homography_warp_coords_match_jax():
     normal = (normal / np.linalg.norm(normal, axis=-1, keepdims=True)).astype(np.float32)
     aa = rng.uniform(-0.05, 0.05, (B, 1, 3)).astype(np.float32)
     t = np.array([[[0.02, -0.01, 0.3]], [[-0.05, 0.02, -0.4]]], np.float32)
-    T = np.asarray(jpose.transformation_from_parameters(jnp.asarray(aa), jnp.asarray(t)))
+    T = np.asarray(jax.jit(jpose.transformation_from_parameters)(jnp.asarray(aa),
+                                                                 jnp.asarray(t)))
     K, inv_K = _camera(B, H, W)
     coords, mask = twarp.homography_warp_coords(_t(distance), _t(normal), _t(T), _t(K),
                                                 _t(inv_K), H, W)
@@ -162,10 +165,11 @@ def test_depth_warp_coords_match_jax():
     rng = np.random.default_rng(6)
     disp = rng.uniform(2.0, 30.0, (B, N, H, 1)).astype(np.float32)
     aa, t = _pose_params(7, B)
-    T = np.asarray(jpose.transformation_from_parameters(jnp.asarray(aa), jnp.asarray(t)))
+    T = np.asarray(jax.jit(jpose.transformation_from_parameters)(jnp.asarray(aa),
+                                                                 jnp.asarray(t)))
     K, inv_K = _camera(B, H, W)
     got = twarp.depth_warp_coords(_t(disp), _t(T), _t(K), _t(inv_K), W)
-    want = jwarp.depth_warp_coords(
+    want = jax.jit(jwarp.depth_warp_coords, static_argnums=4)(
         jnp.asarray(np.broadcast_to(np.moveaxis(disp, 1, -1), (B, H, W, N))),
         *(jnp.asarray(a) for a in (T, K, inv_K)), W)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **COORD_TOL)
@@ -175,13 +179,15 @@ def test_coords_to_disp_matches_jax():
     rng = np.random.default_rng(8)
     coords = rng.uniform(-1.3, 1.3, (2, 3, 10, 24, 2)).astype(np.float32)
     for got, want in zip(_coords_to_disp(_t(coords), 10, 24),
-                         jax_coords_to_disp(jnp.asarray(coords), 10, 24)):
+                         jax.jit(jax_coords_to_disp, static_argnums=(1, 2))(
+                             jnp.asarray(coords), 10, 24)):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-5)
 
 
 def test_temporal_flip_matches_jax():
     batch = make_stereo_batch(2, 16, 24, seed=1, novel_frame_ids=(-1, 1))
-    want = jax_flip({k: jnp.asarray(v) for k, v in batch.items()}, (-1, 1))
+    want = jax.jit(jax_flip, static_argnums=1)({k: jnp.asarray(v) for k, v in batch.items()},
+                                               (-1, 1))
     got = add_flip_right_inputs(batch_to_tensors(batch, CPU), (-1, 1))
     assert set(got) == set(want)
     for k, v in got.items():

@@ -75,6 +75,7 @@ def _jax_quad(data, with_auto, with_disp):
     srcq, tgtq = q.s2d_image(jnp.asarray(src)), q.s2d_image(jnp.asarray(tgt))
     mask2 = q.split_rows(jnp.asarray(mask))
 
+    @jax.jit
     def run(ls_, sh2):
         return q.fused_plane_sweep_quad_s2d(
             srcq, tgtq, ls_, sh2, mask2, jnp.asarray(bias), PAD, True, NV, with_disp,

@@ -127,7 +127,7 @@ def test_render_probability_from_logits_matches_jax():
     logits, dists = _logits_dists()
     ct = np.random.default_rng(1).normal(size=(2, 7, 5, 7)).astype(np.float32)
     to_nhwc = lambda a: jnp.asarray(np.moveaxis(a, 1, -1))
-    want, vjp = jax.vjp(jax_render, to_nhwc(logits), to_nhwc(dists))
+    want, vjp = jax.vjp(jax.jit(jax_render), to_nhwc(logits), to_nhwc(dists))
     d_want = [np.moveaxis(np.asarray(d), -1, 1) for d in vjp(to_nhwc(ct))]
     lt, dt = (torch.from_numpy(a).requires_grad_() for a in (logits, dists))
     got = render_probability_from_logits(lt, dt)
@@ -147,7 +147,7 @@ def test_plane_dists_matches_jax(full):
     disp = rng.uniform(2.0, 40.0, (B, N, h, w if full else 1)).astype(np.float32)
     ct = rng.normal(size=(B, N - 1, h, w)).astype(np.float32)
     jd = jnp.asarray(np.moveaxis(np.broadcast_to(disp, (B, N, h, w)), 1, -1))
-    want, vjp = jax.vjp(lambda d: jax_plane_dists(d, w, h), jd)
+    want, vjp = jax.vjp(jax.jit(lambda d: jax_plane_dists(d, w, h)), jd)
     (d_want,) = vjp(jnp.asarray(np.moveaxis(ct, 1, -1)))
     dt = torch.from_numpy(disp).requires_grad_()
     got = plane_dists(dt, w, h)
@@ -168,7 +168,7 @@ def test_disp_warp_coords_match_jax(side, full):
     rng = np.random.default_rng(3)
     B, N, h, w = 2, 5, 6, 9
     disp = rng.uniform(0.5, 12.0, (B, N, h, w if full else 1)).astype(np.float32)
-    want = jax_disp_warp_coords(
+    want = jax.jit(jax_disp_warp_coords, static_argnums=(1, 2, 3))(
         jnp.asarray(np.moveaxis(np.broadcast_to(disp, (B, N, h, w)), 1, -1)), side, w, h)
     got = disp_warp_coords(torch.from_numpy(disp), side, w, h)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)
@@ -183,8 +183,8 @@ def test_shift_per_pixel_matches_jax():
     B, N, h, w = 2, 3, 5, 11
     maps = rng.random((B, N, h, w), dtype=np.float32)
     shift = rng.uniform(-14.0, 14.0, (B, N, h, w)).astype(np.float32)
-    want = jax.vmap(lambda m, s: shift_sample_x(m[..., None], s[:, None])[:, 0, ..., 0],
-                    in_axes=(1, 1), out_axes=1)(jnp.asarray(maps), jnp.asarray(shift))
+    want = jax.jit(jax.vmap(lambda m, s: shift_sample_x(m[..., None], s[:, None])[:, 0, ..., 0],
+                            in_axes=(1, 1), out_axes=1))(jnp.asarray(maps), jnp.asarray(shift))
     got = shift_sample_planes(torch.from_numpy(maps), torch.from_numpy(shift))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)
 

@@ -63,9 +63,14 @@ def _images(seed, shape=(2, 9, 11, 3)):
 
 
 def _vjp_nchw(fn, *arrays, ct):
-    """A JAX NHWC function's value and VJP at NCHW numpy arrays, NCHW."""
-    out, vjp = jax.vjp(fn, *(jnp.asarray(np.moveaxis(a, 1, -1)) for a in arrays))
-    grads = vjp(jnp.asarray(np.moveaxis(ct, 1, -1)))
+    """A JAX NHWC function's value and VJP at NCHW numpy arrays, NCHW, under
+    ``jax.jit`` (one compiled program rather than one an operation)."""
+    @jax.jit
+    def value_and_vjp(args, ct):
+        out, vjp = jax.vjp(fn, *args)
+        return out, vjp(ct)
+    out, grads = value_and_vjp(tuple(jnp.asarray(np.moveaxis(a, 1, -1)) for a in arrays),
+                               jnp.asarray(np.moveaxis(ct, 1, -1)))
     return np.moveaxis(np.asarray(out), -1, 1), [np.moveaxis(np.asarray(g), -1, 1)
                                                  for g in grads]
 

@@ -102,9 +102,9 @@ def steps(request):
     stats_np = {"model": _perturb(jax.tree.map(np.asarray, stats["model"]), rng, _stats_rule)}
     pc_np = _perturb(jax.tree.map(np.asarray, pc_params), rng, _param_rule)
     tx = jax_make_optimizer(jc, 10)
-    state = create_train_state(jax.tree.map(jnp.asarray, params_np),
-                               jax.tree.map(jnp.asarray, stats_np), tx,
-                               pc_params=jax.tree.map(jnp.asarray, pc_np))
+    state = jax.jit(lambda p, s, pc: create_train_state(p, s, tx, pc_params=pc))(
+        jax.tree.map(jnp.asarray, params_np), jax.tree.map(jnp.asarray, stats_np),
+        jax.tree.map(jnp.asarray, pc_np))
     batch = make_stereo_batch(1, H, W, seed=4)
     new_state, metrics = jax.jit(jax_make_train_step(bundle, tx))(
         state, {k: jnp.asarray(v) for k, v in batch.items()}, jax.random.PRNGKey(0))
@@ -152,7 +152,7 @@ def test_eval_step_metrics_are_finite(steps):
 
 def test_flip_right_matches_jax():
     batch = make_stereo_batch(2, 32, 48, seed=1)
-    want = jax_flip({k: jnp.asarray(v) for k, v in batch.items()})
+    want = jax.jit(jax_flip)({k: jnp.asarray(v) for k, v in batch.items()})
     got = add_flip_right_inputs(batch_to_tensors(batch, CPU))
     assert set(got) == set(want)
     for k, v in got.items():
@@ -168,7 +168,8 @@ def test_smooth_loss_matches_jax(gamma):
     img = rng.uniform(0, 1, (2, 12, 20, 3)).astype(np.float32)
     np.testing.assert_allclose(
         float(smooth_loss_disp(nchw(disp), nchw(img), gamma)),
-        float(jax_smooth(jnp.asarray(disp), jnp.asarray(img), gamma)), rtol=1e-6)
+        float(jax.jit(jax_smooth, static_argnums=2)(jnp.asarray(disp), jnp.asarray(img),
+                                                     gamma)), rtol=1e-6)
 
 
 @pytest.fixture(scope="module")
@@ -225,7 +226,8 @@ def test_depth_metrics_match_jax(stereo_scale):
     gt[:, :, :5] = 0.0                                          # invalid GT
     gx, gy = np.meshgrid(np.linspace(-0.8, 0.9, 40), np.linspace(-1, 1, 24))
     grid = np.broadcast_to(np.stack([gx, gy], -1), (2, 24, 40, 2)).astype(np.float32)
-    want = jax_metrics(jnp.asarray(pred), jnp.asarray(gt), jnp.asarray(grid), stereo_scale)
+    want = jax.jit(jax_metrics, static_argnums=3)(jnp.asarray(pred), jnp.asarray(gt),
+                                                  jnp.asarray(grid), stereo_scale)
     got = compute_depth_metrics(nchw(pred), nchw(gt), nchw(grid), stereo_scale)
     assert set(got) == set(want)
     for k in got:
@@ -242,8 +244,8 @@ def test_denseaspp_train_mode_matches_jax():
         jax.random.PRNGKey(2))
     params = _perturb(jax.tree.map(np.asarray, variables["params"]), rng, _param_rule)
     stats = _perturb(jax.tree.map(np.asarray, variables["batch_stats"]), rng, _stats_rule)
-    out, mut = net.apply({"params": params, "batch_stats": stats}, jnp.asarray(x),
-                         train=True, mutable=["batch_stats"])
+    out, mut = jax.jit(lambda v, x: net.apply(v, x, train=True, mutable=["batch_stats"]))(
+        {"params": params, "batch_stats": stats}, jnp.asarray(x))
 
     port = DenseAspp(16, dropout=0.0)
     trees = {"params": params, "batch_stats": stats}

@@ -8,10 +8,13 @@ bounds of tests/test_pallas_warp2d.py, inside the kernel's envelope.  The
 forward at atol 5e-5 (that test's tolerance; normalised float32 coordinates
 lose ~2e-5 px at W = 128); gradients with respect to logits, sigma, dx and
 dy against ``jax.vjp`` of the oracle at 1e-4 of each gradient's largest
-magnitude.  The mode without sigma (``sigma=None``, the twin of
+magnitude.  The JAX functions run under ``jax.jit``: one compiled program a
+call rather than one an operation.  The mode without sigma (``sigma=None``, the twin of
 ``with_sigma=False``) is held the same way.  tests/test_torch_cuda.py holds
 the CUDA kernels to ``warp2d_plain`` on the card.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -50,6 +53,7 @@ def _inputs(shape, seed, spread, degenerate=False):
     return src, logits, sigma, dx, dy, mask
 
 
+@jax.jit
 def _jax_oracle(src, logits, sigma, dx, dy, mask):
     """oracle_warp2d on the folded coordinates, split into the port's
     outputs; ``sigma=None`` warps the logits alone (``with_sigma=False``)."""
@@ -57,6 +61,14 @@ def _jax_oracle(src, logits, sigma, dx, dy, mask):
     ls = logits if sigma is None else jnp.stack([logits, sigma], 2).reshape(B, 2 * N, H, W)
     dxp, dyp, mp = prepare_coords(dx, dy, mask, H, W, rows=8)
     return oracle_warp2d(src, ls, dxp, dyp, mp, with_sigma=sigma is not None)
+
+
+@functools.partial(jax.jit, static_argnames="with_sigma")
+def _jax_kernel(src, ls, dx, dy, mask, with_sigma):
+    """The Pallas kernel in interpret mode at tests/test_pallas_warp2d.py's
+    tap bounds (sx = 6, sy = 4, rows 8), compiled as one program."""
+    return warp2d_sample(src, ls, dx, dy, mask, rows=8, sx=6, sy=4, with_sigma=with_sigma,
+                         interpret=True)
 
 
 def _torch(*arrays):
@@ -90,9 +102,8 @@ def test_plain_matches_pallas_kernel_inside_its_envelope():
     dy = (1.5 * rng.randn(B, N, 1, 1) + 0.6 * rng.rand(B, N, H, W) - 0.3).astype(np.float32)
     mask = np.ones((B, N, H, W), np.float32)
     ls = jnp.stack([jnp.asarray(logits), jnp.asarray(sigma)], 2).reshape(B, 2 * N, H, W)
-    want = warp2d_sample(jnp.asarray(src), ls, jnp.asarray(dx), jnp.asarray(dy),
-                         jnp.asarray(mask), rows=8, sx=6, sy=4, with_sigma=True,
-                         interpret=True)
+    want = _jax_kernel(jnp.asarray(src), ls, jnp.asarray(dx), jnp.asarray(dy),
+                       jnp.asarray(mask), with_sigma=True)
     got = warp2d_plain(*_torch(src, logits, sigma, dx, dy, mask))
     for name, g, w in zip(("rgb", "logit", "sigma"), got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=FWD_ATOL,
@@ -162,8 +173,8 @@ def test_nosigma_plain_matches_pallas_kernel_inside_its_envelope():
     dx = (4.0 * rng.rand(B, N, 1, 1) + 1.2 * rng.rand(B, N, H, W) - 2.0).astype(np.float32)
     dy = (1.5 * rng.randn(B, N, 1, 1) + 0.6 * rng.rand(B, N, H, W) - 0.3).astype(np.float32)
     mask = (rng.rand(B, N, H, W) > 0.1).astype(np.float32)
-    want = warp2d_sample(*(jnp.asarray(a) for a in (src, logits, dx, dy, mask)), rows=8,
-                         sx=6, sy=4, with_sigma=False, interpret=True)
+    want = _jax_kernel(*(jnp.asarray(a) for a in (src, logits, dx, dy, mask)),
+                       with_sigma=False)
     got = warp2d_plain(*_torch(src, logits), None, *_torch(dx, dy, mask))
     assert len(want) == 2
     for name, g, w in zip(("rgb", "logit"), got, want):
