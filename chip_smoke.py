@@ -172,10 +172,13 @@ Phases, each printing a line:
      plain versions with seeded cotangents: bf16 outputs within one bf16
      ulp plus the float32 instance's tolerance, float32 outputs at it (the
      sweep's gradients against the plain version anchored at the kernel's
-     rounded reconstruction, which its backward reads); each kernel alone
-     timed beside its float32 instance, its bound in bf16 bytes, the
-     sweep's with both instances' registers, blocks an SM and shared
-     bytes, the warp's beside F.grid_sample on bf16 operands;
+     rounded reconstruction, which its backward reads); the warp also at W
+     odd and W = 3 mod 4 with taps at the image's edges and on src and heads
+     passed as views that end their allocation, both its entries over
+     NaN-filled outputs; each kernel alone timed beside its float32
+     instance, its bound in bf16 bytes, the sweep's with both instances'
+     registers, blocks an SM and shared bytes, the warp's (with its
+     forward's packing) beside F.grid_sample on bf16 operands;
   bf16_recipes (last): through the Trainer in bf16, stage 1 (13 steps),
      stage 2 -> stage 3 with the teacher (2 + 13), mono (13), mono without
      the mixture, FalNet and PladeNet (2 each), each step held to its bf16
@@ -235,6 +238,7 @@ from planedepth_tpu_torch.ops.disp_head import disp_head, disp_head_plain
 from planedepth_tpu_torch.ops.head_epilogue import head_epilogue, head_epilogue_plain
 from planedepth_tpu_torch.ops.plane_sweep import plane_sweep, plane_sweep_plain, shift_max
 from planedepth_tpu_torch.ops.row_shift import row_shift, row_shift_plain, shift_limit
+from planedepth_tpu_torch.ops.warp2d import fwd_scratch_bytes as warp2d_fwd_scratch_bytes
 from planedepth_tpu_torch.ops.warp2d import scratch_bytes as warp2d_scratch_bytes
 from planedepth_tpu_torch.ops.warp2d import warp2d, warp2d_plain
 from planedepth_tpu_torch.train.distill import generate_post_process_disp
@@ -1596,7 +1600,8 @@ def phase_mom(card, dev=torch.device("cuda"), steps=2):
           f"per step {nonzero(per_step)}, losses {json.dumps(losses[-1])} | {card}")
 
 
-def seeded_warp_inputs(shape, seed, dev, degenerate=False, zoom=30.0, dead_plane=False):
+def seeded_warp_inputs(shape, seed, dev, degenerate=False, zoom=30.0, dead_plane=False,
+                       edges=False):
     """2-D warp operands like a mono step's: per plane a zoom about the
     image centre (up to ``zoom`` px at the edges: ~30, the near planes under
     forward motion) plus a shift and sub-pixel noise, so that samples leave
@@ -1604,8 +1609,11 @@ def seeded_warp_inputs(shape, seed, dev, degenerate=False, zoom=30.0, dead_plane
     of the samples at 1e12 / -3e9 and a row of NaN, as a near-singular
     homography gives them; with ``dead_plane`` the last plane of the first
     image wholly at 1e12 and the first half of the rows of the last plane
-    of the last image NaN (bands of only degenerate samples).  logits and
-    sigma require grad, as do dx, dy."""
+    of the last image NaN (bands of only degenerate samples); with
+    ``edges`` (H >= 4) the samples of rows 0 to 3 of every plane moved to
+    x in (W - 1, W), x in (-1, 0), y in (H - 1, H) and y in (-1, 0): taps at
+    x0 = W - 1 and -1, y0 = H - 1 and -1, each with one tap pair outside.
+    logits and sigma require grad, as do dx, dy."""
     B, N, H, W = shape
     g = torch.Generator(device=dev).manual_seed(seed)
     rand = lambda *size: torch.rand(size, generator=g, device=dev)
@@ -1626,6 +1634,13 @@ def seeded_warp_inputs(shape, seed, dev, degenerate=False, zoom=30.0, dead_plane
     src = rand(B, 3, H, W)
     logits = 2.0 * torch.randn((B, N, H, W), generator=g, device=dev)
     sigma = 0.01 + 0.99 * rand(B, N, H, W)
+    if edges:
+        u = 0.05 + 0.9 * rand(B, N, 4, W)                       # in (0.05, 0.95)
+        x = torch.arange(W, device=dev, dtype=torch.float32)
+        dx[:, :, 0] = W - 1 + u[:, :, 0] - x
+        dx[:, :, 1] = u[:, :, 1] - 1 - x
+        dy[:, :, 2] = H - 1 + u[:, :, 2] - 2
+        dy[:, :, 3] = u[:, :, 3] - 1 - 3
     return [src, logits.requires_grad_(), sigma.requires_grad_(),
             dx.contiguous().requires_grad_(), dy.contiguous().requires_grad_(), mask]
 
@@ -1693,11 +1708,12 @@ def launch_ms(fn, tensors, *sizes):
     return cuda_ms(lambda: _build.launch(fn, *ptrs, *sizes))
 
 
-def warp_kernel_info(with_sigma, bf16=False):
+def warp_kernel_info(with_sigma, bf16=False, forward=False):
     """Registers, spills, block and occupancy of the warp backward kernel
-    (``bf16``: of the bf16 instance's scatter kernel)."""
+    (``bf16``: of the bf16 instance's scatter kernel; ``forward``: of the
+    forward kernel)."""
     out = (ctypes.c_int * 4)()
-    name = "pdt_warp2d_bwd_kernel_info" + ("_bf16" if bf16 else "")
+    name = f"pdt_warp2d_{'fwd' if forward else 'bwd'}_kernel_info" + ("_bf16" if bf16 else "")
     rc = getattr(_build.load_library(), name)(int(with_sigma), out)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc}")
@@ -1768,12 +1784,16 @@ def phase_warp2d(card, shape=SWEEP_SHAPE, dev=torch.device("cuda"), with_sigma=T
             held.hold(warp2d(*inputs), warp2d_plain(*inputs), inputs, diff, names, i)
     # zooms up to 200 px at the edges (taps far from the sample's own row and
     # column); planes and half-planes of only degenerate samples; more planes
-    # than the grid's z axis takes (B * N > 65535: launches of whole images)
+    # than the grid's z axis takes (B * N > 65535: launches of whole images);
+    # the bf16 forward's edge cases, and src and the heads as views ending
+    # their allocation
     extras = (((2, 3, 96, 330), dict(zoom=200.0)),
               ((2, 3, 24, 100), dict(degenerate=True, dead_plane=True)),
-              ((2, 33000, 2, 5), {}))
+              ((2, 33000, 2, 5), {})) + WARP_FWD_EDGES + (WARP_VIEW_CASE,)
     for i, (small, kw) in enumerate(extras):
         inputs = warp_inputs(small, 15 + i, **kw)
+        if (small, kw) == WARP_VIEW_CASE:
+            inputs[:3] = [None if t is None else at_allocation_end(t) for t in inputs[:3]]
         held.hold(warp2d(*inputs), warp2d_plain(*inputs), inputs, diff, names, 5 + i)
     del inputs
     free_cache()
@@ -1816,15 +1836,19 @@ def phase_warp2d(card, shape=SWEEP_SHAPE, dev=torch.device("cuda"), with_sigma=T
     free_cache()
     tag = "warp2d" if with_sigma else "warp2d_nosigma"
     info = warp_kernel_info(with_sigma)
+    fwd_info = warp_kernel_info(with_sigma, forward=True)
     print(f"[{tag}] warp2d vs plain on {', '.join(map(str, smalls))}, each with and "
           f"without degenerate coordinates, on {extras[0][0]} at zoom 200, {extras[1][0]} "
-          f"with degenerate planes, {extras[2][0]} (B * N > 65535), and at {shape}: "
+          f"with degenerate planes, {extras[2][0]} (B * N > 65535), "
+          f"{', '.join(str(at) for at, _ in extras[3:])} with taps at the image's edges (the "
+          f"last with src and heads as views ending their allocation), and at {shape}: "
           f"{held.describe()}; {'d_logits and d_sigma sum' if with_sigma else 'd_logits sums'}"
           f" by float atomics{' (neighbouring lanes combined)' if with_sigma else ''} in no "
           f"fixed order | {card}")
-    print(f"[{tag}] backward kernel: {info['registers']} registers (spills "
-          f"{info['spill_bytes']} B), {info['threads']} threads a block, "
-          f"{info['blocks_per_sm']} blocks an SM, no shared memory | {card}")
+    for what, i in (("forward", fwd_info), ("backward", info)):
+        print(f"[{tag}] {what} kernel: {i['registers']} registers (spills "
+              f"{i['spill_bytes']} B), {i['threads']} threads a block, "
+              f"{i['blocks_per_sm']} blocks an SM, no shared memory | {card}")
     print(f"[{tag}] at {shape}: forward kernel {fwd_ms:.4f} ms ({fwd_bytes / fwd_ms / 1e9:.2f} "
           f"TB/s of {fwd_bytes / 1e6:.0f} MB, {fwd_bound[0] / fwd_ms:.1%} of the bound "
           f"{fwd_bound[0]:.4f} ms), backward kernel alone {bwd_ms:.4f} ms ("
@@ -1839,7 +1863,7 @@ def phase_warp2d(card, shape=SWEEP_SHAPE, dev=torch.device("cuda"), with_sigma=T
     return {
         f"{tag}_fwd": {"max_abs_err": held.fwd, "ms": fwd_ms, "plain_ms": plain_fwd_ms,
                        "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
-                       "library_ms": lib_fwd_ms},
+                       "library_ms": lib_fwd_ms, "kernel_info": fwd_info},
         f"{tag}_bwd": {**held.bwd_fields(), "ms": bwd_ms, "autograd_ms": autograd_bwd_ms,
                        "autograd_loop_ms": autograd_loop_ms, "kernel_info": info,
                        # the twin's and the library's backward: forward+backward less forward
@@ -2983,6 +3007,8 @@ def print_bf16_times(tag, at, t, card):
                     f"{i32.get('smem_bytes', 0)} B")
             if d == "bwd" and "scratch_bytes" in t:
                 info += f"; scratch {t['scratch_bytes']} B (float32 tap sums)"
+            if d == "fwd" and "fwd_scratch_bytes" in t:
+                info += f"; scratch {t['fwd_scratch_bytes']} B (src pixel-interleaved)"
         print(f"[{tag}] at {at}: {d} kernel alone bf16 {t[f'bf16_{d}_ms']:.4f} ms beside "
               f"float32 {t[f'f32_{d}_ms']:.4f} ms in this call (bf16 bound {b:.4f} ms of "
               f"{t[f'{d}_bytes'] / 1e6:.0f} MB, {b / t[f'bf16_{d}_ms']:.1%} of it); plain "
@@ -3044,6 +3070,43 @@ WARP_BF16_HELD = (((2, 5, 7, 200), dict(degenerate=True)),
                   ((2, 3, 48, 200), dict(zoom=200.0)), ((2, 33000, 2, 5), {}))
 
 
+# the bf16 forward's edge cases beside WARP_BF16_HELD (whose (2, 63, 9, 97)
+# has W odd): W odd (61: the last thread of a row has one column) and W = 3
+# mod 4 (99), with taps at x0 = W - 1 and -1, y0 = H - 1 and -1
+WARP_FWD_EDGES = (((2, 5, 7, 61), dict(edges=True)),
+                  ((2, 4, 6, 99), dict(edges=True, degenerate=True)))
+# src, logits and sigma passed as views whose last element ends their allocation
+WARP_VIEW_CASE = ((2, 3, 8, 131), dict(edges=True))
+
+
+def at_allocation_end(t):
+    """``t``'s values in a view of a buffer one element longer, at storage
+    offset 1, so that its last element ends the buffer (in bf16 2 bytes off
+    a 4-byte boundary); a leaf that requires grad where ``t`` does."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:] = t.detach().flatten()
+    return buf[1:].view(t.shape).detach().requires_grad_(t.requires_grad)
+
+
+def fwd_writes_every_element(inputs16, got, with_sigma):
+    """The bf16 forward's entry point on outputs filled with NaN and a
+    scratch of garbage: no NaN left, and every output the autograd
+    wrapper's ``got`` bit for bit."""
+    B, N, H, W = inputs16[3].shape
+    ops = [None if t is None else t.detach() for t in inputs16]
+    outs = [torch.full_like(o, float("nan")) for o in got]
+    scratch = torch.full((warp2d_fwd_scratch_bytes(B, H, W),), 0xA5, dtype=torch.uint8,
+                         device=ops[3].device)
+    _build.launch("pdt_warp2d_fwd_bf16", *ops, *(outs + [None] * (3 - len(outs))), scratch,
+                  B, N, H, W, int(with_sigma))
+    torch.cuda.synchronize()
+    for a, b in zip(outs, got):
+        if bool(torch.isnan(a).any()) or not torch.equal(a.view(torch.int16),
+                                                         b.detach().view(torch.int16)):
+            raise AssertionError(f"bf16 warp forward at {(B, N, H, W)}: an element not "
+                                 "written, or not the wrapper's")
+
+
 def writes_every_element(inputs16, got, with_sigma):
     """The bf16 backward's entry point on outputs filled with NaN and a
     scratch of garbage, under seeded cotangents: no NaN left in d_logits,
@@ -3073,23 +3136,30 @@ def writes_every_element(inputs16, got, with_sigma):
 def phase_warp2d_bf16(card, shape=SWEEP_SHAPE, dev=torch.device("cuda")):
     """The 2-D warp's bf16 instances (src, heads and the three stacks bf16,
     dx, dy and their gradients float32) against their plain version with
-    and without sigma, on WARP_BF16_HELD's cases and at the mono step's
-    shape, each with a plane masked whole, and the backward's entry point on
-    outputs filled with NaN (every element written); then each timed beside
-    its float32 instance.  Returns the kernels line's four entries."""
+    and without sigma, on WARP_BF16_HELD's and WARP_FWD_EDGES' cases,
+    WARP_VIEW_CASE (src and the heads as views at the end of their
+    allocation) and at the mono step's shape, each with a plane masked
+    whole, and both entry points on outputs filled with NaN (every element
+    written; the forward's the wrapper's bit for bit); then each timed
+    beside its float32 instance.  Returns the kernels line's four entries."""
     fields = {}
+    cases = WARP_BF16_HELD + WARP_FWD_EDGES + (WARP_VIEW_CASE, (shape, {}))
     for with_sigma in (True, False):
         held = HeldBf16()
         diff = (1, 2, 3, 4) if with_sigma else (1, 3, 4)
         names = (("d_logits", "d_sigma", "d_dx", "d_dy") if with_sigma
                  else ("d_logits", "d_dx", "d_dy"))
-        for i, (at, kw) in enumerate(WARP_BF16_HELD + ((shape, {}),)):
+        for i, (at, kw) in enumerate(cases):
             inputs32 = seeded_warp_inputs(at, 30 + i, dev, **kw)
             if not with_sigma:
                 inputs32[2] = None
             inputs32[5][0, 1 % at[1]] = 0.0               # a plane masked whole
             inputs16 = as_bf16(inputs32, (3, 4, 5))
+            if (at, kw) == WARP_VIEW_CASE:
+                inputs16[:3] = [None if t is None else at_allocation_end(t)
+                                for t in inputs16[:3]]
             got = warp2d(*inputs16)
+            fwd_writes_every_element(inputs16, got, with_sigma)
             writes_every_element(inputs16, got, with_sigma)
             held.hold(got, warp2d_plain(*inputs16), inputs16, diff, names, i)
             del got
@@ -3103,9 +3173,14 @@ def phase_warp2d_bf16(card, shape=SWEEP_SHAPE, dev=torch.device("cuda")):
                 outs = [torch.empty((B, N, 3, H, W), dtype=logits.dtype, device=dev),
                         torch.empty_like(logits),
                         torch.empty_like(logits) if with_sigma else None]
+                if tag == "bf16":
+                    # the bf16 entry packs src into its scratch: timed with it
+                    outs.append(torch.empty(warp2d_fwd_scratch_bytes(B, H, W),
+                                            dtype=torch.uint8, device=dev))
+                    t["fwd_scratch_bytes"] = outs[-1].numel()
                 t[f"{tag}_fwd_ms"] = launch_ms(f"pdt_warp2d_fwd{suffix}", (*inputs, *outs),
                                                B, N, H, W, int(with_sigma))
-                cts = [None if o is None else torch.randn_like(o) for o in outs]
+                cts = [None if o is None else torch.randn_like(o) for o in outs[:3]]
                 d_xy = [torch.empty_like(dx), torch.empty_like(dy)]
                 if tag == "bf16":
                     # the bf16 entry clears its own scratch: timed with it
@@ -3124,7 +3199,8 @@ def phase_warp2d_bf16(card, shape=SWEEP_SHAPE, dev=torch.device("cuda")):
                 t[f"{tag}_bwd_ms"] = launch_ms(f"pdt_warp2d_bwd{suffix}", args,
                                                B, N, H, W, int(with_sigma))
                 t.setdefault("info", {})[tag] = {
-                    "bwd": warp_kernel_info(with_sigma, bf16=tag == "bf16")}
+                    d: warp_kernel_info(with_sigma, bf16=tag == "bf16", forward=d == "fwd")
+                    for d in ("fwd", "bwd")}
                 del outs, cts, d_xy, heads_out, args
         wrt = [inputs16[i] for i in diff]
         # the wrapper's backward through autograd: the entry (its scratch
@@ -3162,14 +3238,17 @@ def phase_warp2d_bf16(card, shape=SWEEP_SHAPE, dev=torch.device("cuda")):
         free_cache()
         tag = "warp2d_bf16" if with_sigma else "warp2d_nosigma_bf16"
         print(f"[{tag}] warp2d on bf16 src and heads vs plain at "
-              f"{', '.join(str(at) for at, _ in WARP_BF16_HELD)} (degenerate coordinates, "
-              f"dead planes, zoom 200, > 65535 planes) and at {shape}, a plane masked whole "
-              f"in each; every backward element written (NaN-filled outputs): "
-              f"{held.describe()} | {card}")
+              f"{', '.join(str(at) for at, _ in cases)} (degenerate coordinates, "
+              f"dead planes, zoom 200, > 65535 planes, W odd and W = 3 mod 4 with taps at "
+              f"x0 = W - 1, -1 and y0 = H - 1, -1, src and heads as views ending their "
+              f"allocation at {WARP_VIEW_CASE[0]}), a plane masked whole in each; every "
+              f"forward and backward element written (NaN-filled outputs), the forward "
+              f"entry's the wrapper's bit for bit: {held.describe()} | {card}")
         print_bf16_times(tag, shape, t, card)
         print(f"[{tag}] at {shape}: bf16 backward through autograd {t['autograd_bwd_ms']:.4f} "
               f"ms ({t['autograd_loop_ms']:.4f} ms a call in a run of 20) | {card}")
         fwd, bwd = bf16_fields(held, t)
+        fwd.update(scratch_bytes=t["fwd_scratch_bytes"])
         bwd.update(autograd_ms=t["autograd_bwd_ms"], autograd_loop_ms=t["autograd_loop_ms"],
                    scratch_bytes=t["scratch_bytes"])
         fields[f"{tag}_fwd"], fields[f"{tag}_bwd"] = fwd, bwd

@@ -33,11 +33,58 @@
 // 8 maps forward (~1.99 GB, ~0.60 ms), 11 backward (~2.74 GB, ~0.82 ms).
 // Neither direction holds a matrix product, so no tensor cores.
 //
-// Forward design: one thread per output element, threads along W, so the
-// loads of dx, dy, mask and every store are coalesced; the taps of a smooth
-// warp are neighbours of the neighbouring threads' taps, and src (11.8 MB)
-// stays in L2.  The entry point launches at most 65535 planes (the grid's
-// z axis) at a time, in whole images.
+// Forward design (float32): one thread per output element, threads along W,
+// so the loads of dx, dy, mask and every store are coalesced; the taps of a
+// smooth warp are neighbours of the neighbouring threads' taps, and src
+// (11.8 MB) stays in L2.  The entry point launches at most 65535 planes (the
+// grid's z axis) at a time, in whole images.
+//
+// The bf16 forward (pdt_warp2d_fwd_bf16, redesigned; its one-thread-an-
+// element predecessor was this file's float32 kernel on bf16) is bound by
+// its load and store instructions and their latency, not by its bytes: one
+// thread an element issued 16 predicated 2-byte gathers a sample without
+// sigma (4 taps x 3 rgb planes + 4 logit taps; 20 with sigma) and 4 (5)
+// 2-byte stores, and bf16 saved only 9-25% of the float32 instance's time
+// on half its bytes.  So the entry first packs src, once a call, pixel-
+// interleaved with a zero border (pack_pixels_kernel: (B, H + 2, W + 2)
+// entries of r, g, b, 0, 7.97 MB at the mono shape, in L2 while the 63
+// planes of an image read it): one 8-byte load gives a tap's three
+// channels, and the border reads 0 where a tap leaves the image, so the rgb
+// taps need no bounds test.  Then each thread warps four adjacent columns
+// of a row: one float4 load each of dx, dy and mask, one 8-byte store of
+// four bf16 to each output plane; a sample's four rgb taps are four 8-byte
+// loads and its head taps the 2-byte predicated loads they were (no load
+// outside a plane), with 32-bit offsets within a plane.  Where W % 4 != 0
+// or a float32 map or an output is not aligned to its vector, the whole
+// launch loads and stores element by element.  Blocks of 32 x 4 threads
+// (128 columns of 4 rows), at most 48 registers: 10 blocks, 40 warps an
+// SM.  The per-sample arithmetic is the float32 kernel's (the same lerp2
+// and m *), so the outputs are the parent's bit for bit.  Gathers a sample
+// 16 -> 8 without sigma, 20 -> 12 with it; stores a sample 4 -> 1 (5 ->
+// 1.25).  Bytes at (8, 63, 192, 640): the bound's 1.37 GB without sigma
+// (1.62 GB with), plus the packing's ~14 MB.  Measured on NVIDIA H100 80GB
+// HBM3, 700.00 W, the packing included, alone, scripts/compare_sweep.py's
+// warp inputs: 0.5154-0.5204 ms without sigma (79% of the 0.4085 ms bound)
+// against the parent's 0.8824-0.8868; 0.6401-0.6426 ms with sigma (75% of
+// 0.4824) against 0.9612-0.9688; zoom 200: 0.4983-0.4998 / 0.5903-0.5960
+// against 0.7867-0.7892 / 0.8535-0.8541; (4, 63, 384, 1280): 0.9845-0.9936
+// / 1.2342-1.2353 against 1.7054-1.7122 / 1.8971-1.9025.  Measured and
+// dropped (scripts/warp_fwd_variants.py, same card, one call: this design
+// 0.5107 ms without sigma, 0.6363 with, 0.4920 at zoom 200), each slower
+// without sigma or within 3% either way:
+//  - a row's head tap pair one 4-byte load where it is inside and 4-byte
+//    aligned, else two 2-byte loads: 0.6249 / 0.8007 / 0.5580 ms (the lanes
+//    of a warp split by their taps' parity and issue both paths);
+//  - src in 16-byte pairs of horizontally neighbouring pixels, a sample's
+//    rgb two 16-byte loads (16 MB of scratch): 0.5196 / 0.6272 / 0.5108;
+//    with two columns a thread in blocks of 64 x 2 (the first design):
+//    0.5738 / 0.6735 / 0.5165;
+//  - two and one columns a thread (64 x 2, 64 x 4, 128 x 1 threads):
+//    0.5428 / 0.7276, 0.5322 / 0.7191, 0.6606 / 0.7911 ms;
+//  - no minimum of blocks an SM (48 / 40 registers), 12 blocks (40):
+//    0.5388 / 0.6340, 0.5401 / 0.6580; blocks of 32 x 8 and 16 x 8 threads:
+//    0.5243 / 0.6171, 0.5097 / 0.6418;
+//  - streaming cache hints on dx, dy, mask and the stores: 0.5599 / 0.6881.
 //
 // Backward design.  A homography has no reverse window to gather over, so
 // the adjoint of the taps is a scatter, and its sums are float atomics into
@@ -77,13 +124,15 @@
 //    0.15 ms less, so the atomics cost their issue and L2 work, not HBM.
 // The order of the f32 sums at a tap is not fixed from run to run.
 //
-// Element types.  Both kernels are templates on T, the type of src, the
-// plane heads and the three warped stacks (and of their cotangents): float,
-// or bf16, the JAX package's default arithmetic (pallas_warp2d.py:369-370,
-// 505, 516, 532: bf16 stacks from bf16 operands).  A bf16 instance widens
-// every load to float and rounds each stored stack element to bf16 (nearest
-// even); dx, dy, mask, d_dx and d_dy stay float32.  Its bytes are the float
-// instance's less half of src, the heads and the stacks.
+// Element types.  The float32 kernels are templates on T, the type of src,
+// the plane heads and the three warped stacks (and of their cotangents):
+// float, or bf16, the JAX package's default arithmetic (pallas_warp2d.py:
+// 369-370, 505, 516, 532: bf16 stacks from bf16 operands); the bf16 forward
+// (above) and the bf16 backward's tile kernel are kernels of their own.  A
+// bf16 kernel widens every load to float and rounds each stored stack
+// element to bf16 (nearest even); dx, dy, mask, d_dx and d_dy stay float32.
+// Its bytes are the float instance's less half of src, the heads and the
+// stacks.
 //
 // The bf16 backward (pdt_warp2d_bwd_bf16) sums the taps in float32 as the JAX
 // kernel does (pallas_warp2d.py:_bwd_kernel's float32 d_ls block, rounded
@@ -506,6 +555,212 @@ int64_t bf16_bwd_scratch_bytes(int B, int N, int H, int W, int with_sigma) {
   return (int64_t)B * N * H * W * (with_sigma ? 2 : 1) * (int64_t)sizeof(float);
 }
 
+// The bf16 forward.  Its source is packed once a call, pixel-interleaved
+// with a zero border: entry (b, yy, xx) of a (B, H + 2, W + 2) grid holds
+// pixel (yy - 1, xx - 1) of image b as r, g, b, 0 (8 bytes), every channel 0
+// outside the image, so that one 8-byte load gives a tap's three channels
+// and a sample's four taps, at entries (y0 + 1, x0 + 1) to (y0 + 2, x0 + 2),
+// need no bounds test.  A thread warps kFwdCols adjacent columns of one row.
+constexpr int kFwdCols = 4;                       // columns a thread
+constexpr int kFwdLanes = 32;                     // threads along a row
+constexpr int kFwdRows = 4;                       // rows a block
+constexpr int kFwdThreads = kFwdLanes * kFwdRows;
+constexpr int kFwdMinBlocks = 10;                 // blocks an SM: at most 48 registers
+constexpr int kPackThreads = 256;
+
+int64_t bf16_fwd_scratch_bytes(int B, int H, int W) {
+  return (int64_t)B * (H + 2) * (W + 2) * (int64_t)sizeof(uint2);
+}
+
+__global__ void pack_pixels_kernel(const __nv_bfloat16* __restrict__ src,
+                                   uint2* __restrict__ pix, int H, int W, int64_t n) {
+  const int64_t i = (int64_t)blockIdx.x * kPackThreads + threadIdx.x;
+  if (i >= n) return;
+  const int img = (H + 2) * (W + 2);              // < 2^31: the entry checks
+  const int64_t b = i / img;
+  const int j = (int)(i - b * img);
+  const int y = j / (W + 2) - 1, x = j % (W + 2) - 1;
+  unsigned int c[3] = {0u, 0u, 0u};
+  if (y >= 0 && y < H && x >= 0 && x < W) {
+    const unsigned short* s = reinterpret_cast<const unsigned short*>(src) + b * 3 * H * W;
+    for (int ch = 0; ch < 3; ++ch) c[ch] = __ldg(s + ((int64_t)ch * H + y) * W + x);
+  }
+  pix[i] = make_uint2(c[0] | c[1] << 16, c[2]);
+}
+
+// bf16 bits in the low or high half of a word, widened (exactly) to float.
+__device__ __forceinline__ float bf_lo(unsigned int w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf_hi(unsigned int w) { return __uint_as_float(w & 0xffff0000u); }
+
+// kFwdCols floats from p (VEC: one aligned vector load), or `cnt` scalars.
+template <bool VEC>
+__device__ __forceinline__ void load_cols(const float* p, int cnt, float (&v)[kFwdCols]) {
+  if (VEC) {
+    if constexpr (kFwdCols == 4) {
+      const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+      v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+    } else if constexpr (kFwdCols == 2) {
+      const float2 a = __ldg(reinterpret_cast<const float2*>(p));
+      v[0] = a.x, v[1] = a.y;
+    } else {
+      v[0] = __ldg(p);
+    }
+    return;
+  }
+  for (int k = 0; k < kFwdCols; ++k) v[k] = k < cnt ? __ldg(p + k) : 0.f;
+}
+
+// kFwdCols values rounded to bf16 into p (VEC: one aligned vector store).
+template <bool VEC>
+__device__ __forceinline__ void store_cols(__nv_bfloat16* p, int cnt,
+                                           const float (&v)[kFwdCols]) {
+  if (VEC) {
+    if constexpr (kFwdCols == 4) {
+      const __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
+      const __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
+      uint2 w;
+      w.x = *reinterpret_cast<const unsigned int*>(&a);
+      w.y = *reinterpret_cast<const unsigned int*>(&b);
+      *reinterpret_cast<uint2*>(p) = w;
+    } else if constexpr (kFwdCols == 2) {
+      *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v[0], v[1]);
+    } else {
+      *p = __float2bfloat16_rn(v[0]);
+    }
+    return;
+  }
+  for (int k = 0; k < kFwdCols; ++k)
+    if (k < cnt) p[k] = __float2bfloat16_rn(v[k]);
+}
+
+// VEC: W a multiple of kFwdCols and every float32 map and output aligned to
+// its vector (the entry decides), so no row ends inside a thread's columns.
+template <bool SIGMA, bool VEC>
+__device__ __forceinline__ void warp_fwd_bf16_cols(
+    const uint2* __restrict__ pix, const __nv_bfloat16* __restrict__ lp,
+    const __nv_bfloat16* __restrict__ sp, const float* __restrict__ dx,
+    const float* __restrict__ dy, const float* __restrict__ mask,
+    __nv_bfloat16* __restrict__ rgb, __nv_bfloat16* __restrict__ logit_out,
+    __nv_bfloat16* __restrict__ sigma_out, int x, int y, int cnt, int H, int W,
+    int64_t plane) {
+  float ddx[kFwdCols], ddy[kFwdCols], mk[kFwdCols];
+  load_cols<VEC>(dx, cnt, ddx);
+  load_cols<VEC>(dy, cnt, ddy);
+  load_cols<VEC>(mask, cnt, mk);
+  float out[5][kFwdCols];
+#pragma unroll
+  for (int k = 0; k < kFwdCols; ++k) {
+    for (int c = 0; c < 5; ++c) out[c][k] = 0.f;
+    const float xs = (x + k) + ddx[k], ys = y + ddy[k];
+    const bool valid = xs > -1.f && xs < (float)W && ys > -1.f && ys < (float)H;
+    const float m = valid ? mk[k] : 0.f;
+    if (m == 0.f) continue;
+    const Taps32 t = make_taps32(xs, ys, H, W);
+    const uint2* q = pix + (t.y0 + 1) * (W + 2) + (t.x0 + 1);
+    const uint2 p[4] = {__ldg(q), __ldg(q + 1), __ldg(q + (W + 2)), __ldg(q + (W + 3))};
+    float v[4] = {bf_lo(p[0].x), bf_lo(p[1].x), bf_lo(p[2].x), bf_lo(p[3].x)};
+    out[0][k] = m * lerp2(v, t.fx, t.fy);
+    for (int i = 0; i < 4; ++i) v[i] = bf_hi(p[i].x);
+    out[1][k] = m * lerp2(v, t.fx, t.fy);
+    for (int i = 0; i < 4; ++i) v[i] = bf_lo(p[i].y);
+    out[2][k] = m * lerp2(v, t.fx, t.fy);
+    corners32(lp, t, v);
+    out[3][k] = m * lerp2(v, t.fx, t.fy);
+    if (SIGMA) {
+      corners32(sp, t, v);
+      out[4][k] = m * lerp2(v, t.fx, t.fy);
+    }
+  }
+  for (int c = 0; c < 3; ++c) store_cols<VEC>(rgb + c * plane, cnt, out[c]);
+  store_cols<VEC>(logit_out, cnt, out[3]);
+  if (SIGMA) store_cols<VEC>(sigma_out, cnt, out[4]);
+}
+
+// grid (column groups of kFwdLanes * kFwdCols, row groups of kFwdRows,
+// planes of this launch); `pix` is the packed source of this launch's first
+// image.
+template <bool SIGMA>
+__global__ void __launch_bounds__(kFwdThreads, kFwdMinBlocks)
+warp2d_fwd_bf16_kernel(const uint2* __restrict__ pix,
+                       const __nv_bfloat16* __restrict__ logits,
+                       const __nv_bfloat16* __restrict__ sigma, const float* __restrict__ dx,
+                       const float* __restrict__ dy, const float* __restrict__ mask,
+                       __nv_bfloat16* __restrict__ rgb, __nv_bfloat16* __restrict__ logit_out,
+                       __nv_bfloat16* __restrict__ sigma_out, int N, int H, int W, int vec) {
+  const int x = (blockIdx.x * kFwdLanes + threadIdx.x) * kFwdCols;
+  const int y = blockIdx.y * kFwdRows + threadIdx.y;
+  const int bn = blockIdx.z;                     // b * N + n
+  if (x >= W || y >= H) return;
+  const int64_t plane = (int64_t)H * W;
+  const int64_t base = bn * plane;
+  const int at = y * W + x;
+  const int cnt = min(kFwdCols, W - x);
+  const uint2* pp = pix + (int64_t)(bn / N) * (H + 2) * (W + 2);
+  const __nv_bfloat16* sp = SIGMA ? sigma + base : nullptr;
+  __nv_bfloat16* so = SIGMA ? sigma_out + base + at : nullptr;
+  if (vec)
+    warp_fwd_bf16_cols<SIGMA, true>(pp, logits + base, sp, dx + base + at, dy + base + at,
+                                    mask + base + at, rgb + 3 * base + at,
+                                    logit_out + base + at, so, x, y, cnt, H, W, plane);
+  else
+    warp_fwd_bf16_cols<SIGMA, false>(pp, logits + base, sp, dx + base + at, dy + base + at,
+                                     mask + base + at, rgb + 3 * base + at,
+                                     logit_out + base + at, so, x, y, cnt, H, W, plane);
+}
+
+// Packs src into the scratch, then warps at most 65535 planes a launch, in
+// whole images.
+int warp_fwd_bf16(const __nv_bfloat16* src, const __nv_bfloat16* logits,
+                  const __nv_bfloat16* sigma, const float* dx, const float* dy,
+                  const float* mask, __nv_bfloat16* rgb, __nv_bfloat16* logit_out,
+                  __nv_bfloat16* sigma_out, void* scratch, int B, int N, int H, int W,
+                  int with_sigma, cudaStream_t st) {
+  if (N > 65535 || H > 65535 || (int64_t)(H + 2) * (W + 2) >= (int64_t)1 << 31 ||
+      (uintptr_t)scratch % 8 != 0)
+    return (int)cudaErrorInvalidValue;
+  uint2* pix = (uint2*)scratch;
+  const int64_t img = (int64_t)(H + 2) * (W + 2), n = B * img;
+  pack_pixels_kernel<<<(unsigned)((n + kPackThreads - 1) / kPackThreads), kPackThreads, 0,
+                       st>>>(src, pix, H, W, n);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const auto al = [](const void* p, int bytes) { return (uintptr_t)p % bytes == 0; };
+  const int fb = 4 * kFwdCols, bb = 2 * kFwdCols;  // a vector of floats, of bf16
+  const int vec = W % kFwdCols == 0 && al(dx, fb) && al(dy, fb) && al(mask, fb) &&
+                  al(rgb, bb) && al(logit_out, bb) && (!with_sigma || al(sigma_out, bb));
+  const int64_t plane = (int64_t)H * W;
+  const int images = 65535 / N;                  // whole images a launch
+  const dim3 block(kFwdLanes, kFwdRows);
+  for (int b0 = 0; b0 < B; b0 += images) {
+    const int nb = std::min(images, B - b0);
+    const int64_t o = (int64_t)b0 * N * plane;
+    const dim3 grid((W + kFwdLanes * kFwdCols - 1) / (kFwdLanes * kFwdCols),
+                    (H + kFwdRows - 1) / kFwdRows, nb * N);
+    if (with_sigma)
+      warp2d_fwd_bf16_kernel<true><<<grid, block, 0, st>>>(
+          pix + b0 * img, logits + o, sigma + o, dx + o, dy + o, mask + o, rgb + 3 * o,
+          logit_out + o, sigma_out + o, N, H, W, vec);
+    else
+      warp2d_fwd_bf16_kernel<false><<<grid, block, 0, st>>>(
+          pix + b0 * img, logits + o, nullptr, dx + o, dy + o, mask + o, rgb + 3 * o,
+          logit_out + o, nullptr, N, H, W, vec);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  }
+  return (int)cudaSuccess;
+}
+
+// registers, spill bytes, threads a block and blocks an SM of `fn`.
+int kernel_info(const void* fn, int threads, int* out) {
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, fn);
+  if (e != cudaSuccess) return (int)e;
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, threads, 0);
+  const int vals[4] = {attr.numRegs, (int)attr.localSizeBytes, threads, blocks};
+  for (int i = 0; i < 4; ++i) out[i] = vals[i];
+  return (int)e;
+}
+
 template <typename T>
 int warp_fwd(const T* src, const T* logits, const T* sigma, const float* dx, const float* dy,
              const float* mask, T* rgb, T* logit_out, T* sigma_out, int B, int N, int H,
@@ -626,15 +881,25 @@ extern "C" int pdt_warp2d_fwd(const float* src, const float* logits, const float
 }
 
 // pdt_warp2d_fwd in bf16: src, logits, sigma and the three outputs are bf16
-// (__nv_bfloat16), dx, dy and mask float32.
+// (__nv_bfloat16), dx, dy and mask float32; every output element written,
+// each the float32 sample rounded once to nearest even.  `scratch`: at least
+// pdt_warp2d_fwd_bf16_scratch_bytes(B, H, W) bytes of device memory, 8-byte
+// aligned, into which the entry packs src (contents on entry do not matter).
+// Also refuses (H + 2)(W + 2) >= 2^31 and a misaligned scratch.
 extern "C" int pdt_warp2d_fwd_bf16(const void* src, const void* logits, const void* sigma,
                                    const float* dx, const float* dy, const float* mask,
-                                   void* rgb, void* logit_out, void* sigma_out, int B, int N,
-                                   int H, int W, int with_sigma, void* stream) {
+                                   void* rgb, void* logit_out, void* sigma_out, void* scratch,
+                                   int B, int N, int H, int W, int with_sigma, void* stream) {
   using bf = __nv_bfloat16;
-  return warp_fwd<bf>((const bf*)src, (const bf*)logits, (const bf*)sigma, dx, dy, mask,
-                      (bf*)rgb, (bf*)logit_out, (bf*)sigma_out, B, N, H, W, with_sigma,
-                      (cudaStream_t)stream);
+  return warp_fwd_bf16((const bf*)src, (const bf*)logits, (const bf*)sigma, dx, dy, mask,
+                       (bf*)rgb, (bf*)logit_out, (bf*)sigma_out, scratch, B, N, H, W,
+                       with_sigma, (cudaStream_t)stream);
+}
+
+// The scratch pdt_warp2d_fwd_bf16 takes: src pixel-interleaved, 8 bytes an
+// entry of a (B, H + 2, W + 2) grid.
+extern "C" long long pdt_warp2d_fwd_bf16_scratch_bytes(int B, int H, int W) {
+  return bf16_fwd_scratch_bytes(B, H, W);
 }
 
 // Inputs as pdt_warp2d_fwd's plus the cotangents g_rgb: (B, N, 3, H, W),
@@ -686,28 +951,28 @@ extern "C" long long pdt_warp2d_bwd_bf16_scratch_bytes(int B, int N, int H, int 
 // The backward kernel as the compiler and the occupancy calculator see it:
 // out = {registers, spill bytes, threads a block, blocks an SM}.
 extern "C" int pdt_warp2d_bwd_kernel_info(int with_sigma, int* out) {
-  const void* fn = with_sigma ? (const void*)warp2d_bwd_kernel<true, float>
-                              : (const void*)warp2d_bwd_kernel<false, float>;
-  cudaFuncAttributes attr;
-  cudaError_t e = cudaFuncGetAttributes(&attr, fn);
-  if (e != cudaSuccess) return (int)e;
-  int blocks = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kBwdThreads, 0);
-  const int vals[4] = {attr.numRegs, (int)attr.localSizeBytes, kBwdThreads, blocks};
-  for (int i = 0; i < 4; ++i) out[i] = vals[i];
-  return (int)e;
+  return kernel_info(with_sigma ? (const void*)warp2d_bwd_kernel<true, float>
+                                : (const void*)warp2d_bwd_kernel<false, float>,
+                     kBwdThreads, out);
 }
 
 // pdt_warp2d_bwd_kernel_info of the bf16 backward's scatter kernel.
 extern "C" int pdt_warp2d_bwd_kernel_info_bf16(int with_sigma, int* out) {
-  const void* fn = with_sigma ? (const void*)warp2d_bwd_tile_kernel<kTileRows>
-                              : (const void*)warp2d_bwd_kernel<false, __nv_bfloat16>;
-  cudaFuncAttributes attr;
-  cudaError_t e = cudaFuncGetAttributes(&attr, fn);
-  if (e != cudaSuccess) return (int)e;
-  int blocks = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kBwdThreads, 0);
-  const int vals[4] = {attr.numRegs, (int)attr.localSizeBytes, kBwdThreads, blocks};
-  for (int i = 0; i < 4; ++i) out[i] = vals[i];
-  return (int)e;
+  return kernel_info(with_sigma ? (const void*)warp2d_bwd_tile_kernel<kTileRows>
+                                : (const void*)warp2d_bwd_kernel<false, __nv_bfloat16>,
+                     kBwdThreads, out);
+}
+
+// pdt_warp2d_bwd_kernel_info of the float32 forward kernel.
+extern "C" int pdt_warp2d_fwd_kernel_info(int with_sigma, int* out) {
+  return kernel_info(with_sigma ? (const void*)warp2d_fwd_kernel<true, float>
+                                : (const void*)warp2d_fwd_kernel<false, float>,
+                     kThreads, out);
+}
+
+// pdt_warp2d_bwd_kernel_info of the bf16 forward's warp kernel.
+extern "C" int pdt_warp2d_fwd_kernel_info_bf16(int with_sigma, int* out) {
+  return kernel_info(with_sigma ? (const void*)warp2d_fwd_bf16_kernel<true>
+                                : (const void*)warp2d_fwd_bf16_kernel<false>,
+                     kFwdThreads, out);
 }

@@ -109,8 +109,10 @@ def load_library() -> ctypes.CDLL:
     lib.pdt_warp2d_fwd.restype = i
     lib.pdt_warp2d_bwd.argtypes = [p] * 13 + [i] * 5 + [p]
     lib.pdt_warp2d_bwd.restype = i
-    lib.pdt_warp2d_fwd_bf16.argtypes = [p] * 9 + [i] * 5 + [p]
+    lib.pdt_warp2d_fwd_bf16.argtypes = [p] * 10 + [i] * 5 + [p]
     lib.pdt_warp2d_fwd_bf16.restype = i
+    lib.pdt_warp2d_fwd_bf16_scratch_bytes.argtypes = [i] * 3
+    lib.pdt_warp2d_fwd_bf16_scratch_bytes.restype = ctypes.c_longlong
     lib.pdt_warp2d_bwd_bf16.argtypes = [p] * 14 + [i] * 5 + [p]
     lib.pdt_warp2d_bwd_bf16.restype = i
     lib.pdt_warp2d_bwd_bf16_scratch_bytes.argtypes = [i] * 5
@@ -119,6 +121,10 @@ def load_library() -> ctypes.CDLL:
     lib.pdt_warp2d_bwd_kernel_info.restype = i
     lib.pdt_warp2d_bwd_kernel_info_bf16.argtypes = [i, p]
     lib.pdt_warp2d_bwd_kernel_info_bf16.restype = i
+    lib.pdt_warp2d_fwd_kernel_info.argtypes = [i, p]
+    lib.pdt_warp2d_fwd_kernel_info.restype = i
+    lib.pdt_warp2d_fwd_kernel_info_bf16.argtypes = [i, p]
+    lib.pdt_warp2d_fwd_kernel_info_bf16.restype = i
     lib.pdt_plane_sweep_fwd.argtypes = [p] * 11 + [i, i, i, i, f, i, i, i, p]
     lib.pdt_plane_sweep_fwd.restype = i
     lib.pdt_plane_sweep_bwd.argtypes = [p] * 14 + [i, i, i, i, f, i, i, p]

@@ -25,7 +25,9 @@ bf16, every sum float32); dx, dy, mask and their gradients are float32.
 The float32 backward adds into d_logits and d_sigma, which the wrapper
 zeroes; the bf16 one sums the taps in float32 in a scratch of
 :func:`scratch_bytes` (logit and sigma side by side), which its entry point
-clears, and rounds them once into the bf16 gradients.
+clears, and rounds them once into the bf16 gradients.  The bf16 forward
+packs src into a scratch of :func:`fwd_scratch_bytes` (pixel-interleaved,
+8 bytes a pixel, with a zero border), allocated for the call.
 """
 from __future__ import annotations
 
@@ -105,8 +107,8 @@ def _check(src, logits, sigma, dx, dy, mask):
             raise TypeError(f"{name}: dtype {t.dtype}, the kernels take {dtype} here")
     if N > 65535 or H > 65535:
         raise ValueError(f"(N, H) = ({N}, {H}) exceed the kernels' grid (65535)")
-    if (H + 1) * (W + 2) >= 2 ** 31:
-        raise ValueError(f"an ({H}, {W}) plane exceeds the backward's 32-bit offsets")
+    if (H + 2) * (W + 2) >= 2 ** 31:
+        raise ValueError(f"an ({H}, {W}) plane exceeds the kernels' 32-bit offsets")
     if src.requires_grad or mask.requires_grad:
         raise NotImplementedError("warp2d: the kernels take no gradient through "
                                   "src or mask")
@@ -132,8 +134,15 @@ class _Warp2d(torch.autograd.Function):
         rgb = torch.empty((B, N, 3, H, W), dtype=logits.dtype, device=dx.device)
         logit = torch.empty_like(logits)
         sig = torch.empty_like(sigma) if with_sigma else None
-        launch("pdt_warp2d_fwd_bf16" if bf16 else "pdt_warp2d_fwd", src, logits, sigma, dx,
-               dy, mask, rgb, logit, sig, B, N, H, W, int(with_sigma))
+        if bf16:
+            # the entry packs src here, pixel-interleaved
+            scratch = torch.empty(fwd_scratch_bytes(B, H, W), dtype=torch.uint8,
+                                  device=dx.device)
+            launch("pdt_warp2d_fwd_bf16", src, logits, sigma, dx, dy, mask, rgb, logit, sig,
+                   scratch, B, N, H, W, int(with_sigma))
+        else:
+            launch("pdt_warp2d_fwd", src, logits, sigma, dx, dy, mask, rgb, logit, sig,
+                   B, N, H, W, int(with_sigma))
         _count("fwd_launches", with_sigma, bf16)
         ctx.save_for_backward(src, logits, sigma, dx, dy, mask)
         ctx.with_sigma = with_sigma
@@ -169,6 +178,12 @@ def scratch_bytes(B: int, N: int, H: int, W: int, with_sigma: bool) -> int:
     """Bytes of device scratch the bf16 backward takes: its float32 tap
     sums, logit and sigma side by side (``csrc/warp2d.cu``)."""
     return int(load_library().pdt_warp2d_bwd_bf16_scratch_bytes(B, N, H, W, int(with_sigma)))
+
+
+def fwd_scratch_bytes(B: int, H: int, W: int) -> int:
+    """Bytes of device scratch the bf16 forward takes: src pixel-interleaved,
+    8 bytes an entry of a (B, H + 2, W + 2) grid (``csrc/warp2d.cu``)."""
+    return int(load_library().pdt_warp2d_fwd_bf16_scratch_bytes(B, H, W))
 
 
 def warp2d(src: torch.Tensor, logits: torch.Tensor, sigma: Optional[torch.Tensor],

@@ -1,11 +1,13 @@
-"""Time the plane-sweep, 2-D warp backward and disp-head backward kernels of this tree against another checkout's, on one card, in one process.
+"""Time the plane-sweep, 2-D warp and disp-head backward kernels of this tree against another checkout's, on one card, in one process.
 
     python scripts/compare_sweep.py --other <checkout> [--out build/compare_sweep.json]
+                                    [--only sweep,sweep_bf16,warp_bwd,warp_bwd_bf16,
+                                            warp_fwd_bf16,disp_head,img_bwd]
 
-Builds this tree's kernels (``planedepth_tpu_torch/ops/_build.py``) and the
-other checkout's ``planedepth_tpu_torch/csrc/plane_sweep.cu``,
-``warp2d.cu`` and ``disp_head.cu``, each alone into a library of its own
-(one nvcc each, started together).  The sweep's C entry points have this
+Builds this tree's kernels (``planedepth_tpu_torch/ops/_build.py``) and each
+of the other checkout's ``planedepth_tpu_torch/csrc/*.cu`` alone into a
+library of its own (one nvcc each, started together).  ``--only`` runs the
+named groups of cases (all by default).  The sweep's C entry points have this
 tree's signature in both, and so do the warp backward's.  The other
 disp-head backward may be the earlier one without a scratch argument (no
 ``pdt_disp_head_bwd_scratch_floats``), and is called as it was.
@@ -62,9 +64,23 @@ that library's rounded reconstruction), with seeded cotangents; whether
 the two libraries' outputs are bit-identical is reported, and two backward
 runs of this tree's must be.
 
-Last, ``cuobjdump -sass`` of both libraries' plane-sweep and 2-D warp kernels:
-each instance's instruction count, whether its instructions are the
-other's but for constant-bank offsets (the parameter lists differ), and
+The 2-D warp's bf16 forward (``pdt_warp2d_fwd_bf16``, group
+``warp_fwd_bf16``) with and without sigma at the mono step's shape, at a
+zoom of 200 px, at stage 3's (4, 63, 384, 1280) and on degenerate inputs
+with planes of only degenerate samples: each library's entry alone (this
+tree's packing src into its scratch; an earlier entry without a scratch
+called as it was) into NaN-filled outputs, in turns beside this tree's
+float32 instance; every output of this tree's the other's bit for bit,
+none left NaN and within ``chip_smoke.py:HeldBf16``'s forward bound of the
+plain version; the same, untimed, on ``chip_smoke.py``'s WARP_BF16_HELD and
+WARP_FWD_EDGES cases.
+
+Last, whatever the groups, ``cuobjdump -sass`` of both libraries: every
+kernel by name (the anonymous namespace's hash dropped), the same but for
+constant-bank offsets, differing, or only in one; and of the plane-sweep
+and 2-D warp kernels each instance's instruction count, whether its
+instructions are the other's but for constant-bank offsets (the parameter
+lists differ), and
 the instructions of its outermost loop (the sweep's loop over groups of
 planes, every runtime branch included) over the planes a group and the
 pixels a thread: the static SASS instructions a pixel-plane, whose issue
@@ -111,6 +127,23 @@ WARP_BF16_CASES = (("warp2d_bwd_bf16 sigma", cs.SWEEP_SHAPE, True, 30.0),
                    ("warp2d_bwd_bf16 sigma zoom 200", cs.SWEEP_SHAPE, True, 200.0),
                    ("warp2d_bwd_bf16 sigma wide", cs.SHIFT_SHAPE, True, 30.0),
                    ("warp2d_bwd_bf16 nosigma wide", cs.SHIFT_SHAPE, False, 30.0))
+# the bf16 warp forward: (name, shape, with_sigma, seeded_warp_inputs' options)
+# in both modes: the mono step's, a zoom of 200 px, stage 3's width, and
+# degenerate coordinates with planes and half-planes of only degenerate samples
+WARP_FWD_BF16_CASES = tuple(
+    (f"warp2d_fwd_bf16 {'sigma' if sig else 'nosigma'}{tag}", shape, sig, kw)
+    for tag, shape, kw in (("", cs.SWEEP_SHAPE, {}), (" zoom 200", cs.SWEEP_SHAPE,
+                                                      dict(zoom=200.0)),
+                           (" wide", cs.SHIFT_SHAPE, {}),
+                           (" degenerate", cs.SWEEP_SHAPE, dict(degenerate=True,
+                                                               dead_plane=True)))
+    for sig in (False, True))
+# the other checkout's sources, each built alone: (key, csrc/<name>.cu)
+OTHER_SOURCES = (("sweep", "plane_sweep"), ("warp2d", "warp2d"), ("disp_head", "disp_head"),
+                 ("row_shift", "row_shift"), ("head_epilogue", "head_epilogue"))
+# the groups of cases --only may name
+GROUPS = ("sweep", "sweep_bf16", "warp_bwd", "warp_bwd_bf16", "warp_fwd_bf16", "disp_head",
+          "img_bwd")
 # the image-gradient backward: stage 1, stage 3, and a row wider than 1280
 IMG_CASES = (("img_bwd stage1", cs.SWEEP_SHAPE), ("img_bwd stage3", cs.SHIFT_SHAPE),
              ("img_bwd wide", (2, 63, 96, 2048)))
@@ -128,13 +161,12 @@ INSTR_PER_S = 132 * 4 * 32 * 1.98e9
 
 
 def build_other(checkout: Path) -> dict:
-    """The other checkout's plane_sweep.cu, warp2d.cu and disp_head.cu, each
-    alone as a shared library: {"sweep", "warp2d", "disp_head"}."""
+    """Each of the other checkout's OTHER_SOURCES alone as a shared library:
+    {"sweep", "warp2d", "disp_head", "row_shift", "head_epilogue"}."""
     out_dir = REPO / "build" / "compare_sweep"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for key, name in (("sweep", "plane_sweep"), ("warp2d", "warp2d"),
-                      ("disp_head", "disp_head")):
+    for key, name in OTHER_SOURCES:
         src = checkout / "planedepth_tpu_torch" / "csrc" / f"{name}.cu"
         out = out_dir / f"libother_{name}.so"
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(out), str(src)]
@@ -169,6 +201,16 @@ def build_other(checkout: Path) -> dict:
     scratch = hasattr(lib, "pdt_warp2d_bwd_bf16_scratch_bytes")
     lib.pdt_warp2d_bwd_bf16.argtypes = [p] * (14 if scratch else 15) + [i] * 5 + [p]
     lib.pdt_warp2d_bwd_bf16.restype = i
+    lib.pdt_warp2d_fwd.argtypes = [p] * 9 + [i] * 5 + [p]
+    lib.pdt_warp2d_fwd.restype = i
+    # an earlier bf16 forward takes no scratch; this tree's packs src into
+    # one, after sigma_out
+    scratch = hasattr(lib, "pdt_warp2d_fwd_bf16_scratch_bytes")
+    lib.pdt_warp2d_fwd_bf16.argtypes = [p] * (10 if scratch else 9) + [i] * 5 + [p]
+    lib.pdt_warp2d_fwd_bf16.restype = i
+    if scratch:
+        lib.pdt_warp2d_fwd_bf16_scratch_bytes.argtypes = [i] * 3
+        lib.pdt_warp2d_fwd_bf16_scratch_bytes.restype = ctypes.c_longlong
     lib = libs["disp_head"]
     scratch = hasattr(lib, "pdt_disp_head_bwd_scratch_floats")
     lib.pdt_disp_head_bwd.argtypes = [p] * (9 if scratch else 8) + [i] * 4 + [p]
@@ -510,6 +552,114 @@ def run_warp_bf16(libs, shape, with_sigma, zoom, dev):
             "excess_over_bounds": excess, "d_dx_d_dy_bit_identical_to_other": d_xy_same}
 
 
+def warp_fwd_bf16_entry(lib, ins16, outs, shape, with_sigma):
+    """A call of ``lib``'s bf16 warp forward into ``outs``, with the scratch
+    its entry takes where it takes one."""
+    B, N, H, W = shape
+    scratch = ()
+    if hasattr(lib, "pdt_warp2d_fwd_bf16_scratch_bytes"):
+        scratch = (torch.empty(lib.pdt_warp2d_fwd_bf16_scratch_bytes(B, H, W),
+                               dtype=torch.uint8, device=ins16[3].device),)
+    return lambda: call(lib, "pdt_warp2d_fwd_bf16", *ins16, *outs, *scratch, B, N, H, W,
+                        int(with_sigma))
+
+
+def bits_equal(a, b):
+    """Whether two bf16 tensors hold the same bits (NaN included)."""
+    return torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+def warp_fwd_bf16_outputs(shape, with_sigma, dev):
+    B, N, H, W = shape
+    new = lambda *size: torch.full(size, float("nan"), dtype=cs.BF16, device=dev)  # noqa: E731
+    return [new(B, N, 3, H, W), new(B, N, H, W), new(B, N, H, W) if with_sigma else None]
+
+
+def run_warp_fwd_bf16(libs, shape, with_sigma, kw, dev, timed=True):
+    """The bf16 warp forward of both libraries at ``shape`` on
+    ``chip_smoke.py``'s warp inputs in bf16 (dx, dy, mask float32), into
+    NaN-filled outputs: whether every output of this tree's equals the
+    other's bit for bit and none is left NaN, this tree's worst excess over
+    ``chip_smoke.py:HeldBf16``'s forward bound against the plain version;
+    with ``timed``, each entry alone (this tree's with its packing) in
+    turns beside this tree's float32 instance on the same values."""
+    inputs32 = [None if t is None else t.detach()
+                for t in cs.seeded_warp_inputs(shape, 20, dev, **kw)]
+    if not with_sigma:
+        inputs32[2] = None
+    ins16 = [None if t is None else t.detach() for t in cs.as_bf16(inputs32, (3, 4, 5))]
+    B, N, H, W = shape
+    fns, outs = {}, {}
+    for who, lib in libs.items():
+        outs[who] = warp_fwd_bf16_outputs(shape, with_sigma, dev)
+        fns[f"{who}_ms"] = (who, warp_fwd_bf16_entry(lib, ins16, outs[who], shape, with_sigma))
+        fns[f"{who}_ms"][1]()
+    torch.cuda.synchronize(dev)
+    live = lambda o: [t for t in o if t is not None]                      # noqa: E731
+    identical = all(bits_equal(a, b) for a, b in zip(live(outs["this"]), live(outs["other"])))
+    written = not any(bool(torch.isnan(t).any()) for t in live(outs["this"]))
+    excess = 0.0
+    with torch.no_grad():
+        for a, b in zip(live(outs["this"]), warp2d_plain(*ins16)):
+            err = (a.float() - b.float()).abs()
+            tol = cs.TOL["atol"] + cs.TOL["rtol"] * b.float().abs()
+            excess = max(excess, float((err - cs.bf16_ulp(b) - tol).max()))
+    if not (identical and written) or excess > 0:
+        raise AssertionError(f"bf16 warp forward {shape} sigma={with_sigma} {kw}: bit-identical "
+                             f"{identical}, every element written {written}, excess over "
+                             f"the bound {excess:.3e}")
+    res = {"shape": list(shape), "with_sigma": with_sigma, "inputs": kw,
+           "bit_identical_to_other": identical, "excess_over_bound": excess}
+    if not timed:
+        return res
+    f32 = [torch.empty((B, N, 3, H, W), device=dev), torch.empty(shape, device=dev),
+           torch.empty(shape, device=dev) if with_sigma else None]
+    fns["this_float32_ms"] = ("this", lambda: call(libs["this"], "pdt_warp2d_fwd", *inputs32,
+                                                   *f32, B, N, H, W, int(with_sigma)))
+    times = in_turns(fns)
+    moved = cs.nbytes(*ins16, *live(outs["this"]))
+    info = (ctypes.c_int * 4)()
+    _build.load_library().pdt_warp2d_fwd_kernel_info_bf16(int(with_sigma), info)
+    res.update(ms=times, bytes=moved, bound_ms=cs.bound(moved, 60 * B * N * H * W)[0],
+               kernel_info=dict(zip(("registers", "spill_bytes", "threads", "blocks_per_sm"),
+                                    info)))
+    return res
+
+
+def kernel_sass(lib_path) -> dict:
+    """Every kernel of a library as ``cuobjdump -sass`` prints it: mangled
+    name -> (address, instruction text) pairs, constant-bank offsets
+    blanked; the name's anonymous namespace (a hash of the source's path)
+    dropped."""
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(tool), "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True).stdout
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            cur = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "_ZN",
+                         line.split("Function :", 1)[1].strip())
+            funcs[cur] = []
+            continue
+        ins = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if cur and ins:
+            funcs[cur].append((int(ins.group(1), 16),
+                               re.sub(r"c\[0x0\]\[0x[0-9a-f]+\]", "c[0x0][.]", ins.group(2))))
+    return funcs
+
+
+def compare_all_sass(this, other) -> dict:
+    """Every kernel of this library and of the other's (:func:`kernel_sass`
+    of each) by mangled name: whether the two compile to the same SASS but
+    for constant-bank offsets, and the kernels only one of them has."""
+    texts = lambda code: [ins for _, ins in code]                       # noqa: E731
+    both = sorted(set(this) & set(other))
+    return {"same": [k for k in both if texts(this[k]) == texts(other[k])],
+            "differing": [k for k in both if texts(this[k]) != texts(other[k])],
+            "only_this": sorted(set(this) - set(other)),
+            "only_other": sorted(set(other) - set(this))}
+
+
 def sweep_info(lib, N, W, image_grads):
     """``pdt_plane_sweep_kernel_info`` of ``lib``'s mixture backward (its
     image-gradient instance with ``image_grads``), None where it refuses."""
@@ -662,44 +812,29 @@ def run_disp(libs, shape, dev):
             "grad_max_rel_diff": grad_rel, "bwd_repeat_bit_identical": identical}
 
 
-def sweep_sass(lib_path) -> dict:
-    """The plane-sweep and 2-D warp kernels of a library as ``cuobjdump
-    -sass`` prints them: "fwd|bwd|bwd_img<PX,MIX>" and "warp_fwd|warp_bwd<
-    SIGMA>" -> (address, instruction text) pairs, constant-bank offsets
-    blanked; the bf16 instances (a later source's element type) with ",bf16"
-    in the key.  An earlier source's sweep_bwd_kernel<PX, MIX, IMG> holds
-    both backwards."""
-    tool = Path(_build._nvcc()).with_name("cuobjdump")
-    return parse_sass(subprocess.run([str(tool), "-sass", str(lib_path)], capture_output=True,
-                                     text=True, check=True).stdout)
-
-
-def parse_sass(text) -> dict:
-    """:func:`sweep_sass` of ``cuobjdump -sass``'s text."""
-    funcs, cur = {}, None
-    for line in text.splitlines():
-        if "Function :" in line:
-            m = re.search(r"(sweep|warp2d)_(fwd|bwd|bwd_img)_kernelI((?:L[ib]\d+E)+)"
-                          r"(f|13__nv_bfloat16)?E", line)
-            cur = None
-            if m:
-                args = [int(a) for a in re.findall(r"L[ib](\d+)E", m.group(3))]
-                # the float instances keep the names of a source without the
-                # element type; the bf16 ones are new
-                bf16 = ",bf16" if m.group(4) == "13__nv_bfloat16" else ""
-                if m.group(1) == "warp2d":
-                    cur = f"warp_{m.group(2)}<{args[0]}{bf16}>"
-                else:
-                    kind = ("bwd_img" if m.group(2) == "bwd_img" or args[2:] == [1]
-                            else m.group(2))
-                    cur = f"{kind}<{args[0]},{args[1] if len(args) > 1 else 1}{bf16}>"
-                funcs[cur] = []
+def sweep_sass(funcs) -> dict:
+    """The plane-sweep and 2-D warp kernels of :func:`kernel_sass`'s
+    ``funcs``, keyed "fwd|bwd|bwd_img<PX,MIX>" and "warp_fwd|warp_bwd<SIGMA>";
+    the bf16 instances (a later source's element type) with ",bf16" in the
+    key.  An earlier source's sweep_bwd_kernel<PX, MIX, IMG> holds both
+    backwards."""
+    out = {}
+    for name, code in funcs.items():
+        m = re.search(r"(sweep|warp2d)_(fwd|bwd|bwd_img)_kernelI((?:L[ib]\d+E)+)"
+                      r"(f|13__nv_bfloat16)?E", name)
+        if not m:
             continue
-        ins = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
-        if cur and ins:
-            funcs[cur].append((int(ins.group(1), 16),
-                               re.sub(r"c\[0x0\]\[0x[0-9a-f]+\]", "c[0x0][.]", ins.group(2))))
-    return funcs
+        args = [int(a) for a in re.findall(r"L[ib](\d+)E", m.group(3))]
+        # the float instances keep the names of a source without the element
+        # type; the bf16 ones are new
+        bf16 = ",bf16" if m.group(4) == "13__nv_bfloat16" else ""
+        if m.group(1) == "warp2d":
+            key = f"warp_{m.group(2)}<{args[0]}{bf16}>"
+        else:
+            kind = "bwd_img" if m.group(2) == "bwd_img" or args[2:] == [1] else m.group(2)
+            key = f"{kind}<{args[0]},{args[1] if len(args) > 1 else 1}{bf16}>"
+        out[key] = code
+    return out
 
 
 def loop_per_pixel_plane(key, code):
@@ -752,13 +887,11 @@ def loop_per_pixel_plane(key, code):
     return len(body) / bodies if bodies else None
 
 
-def compare_sass(this_path, *other_paths) -> dict:
+def compare_sass(this, other) -> dict:
     """Each plane-sweep and 2-D warp kernel instance of this library and of
-    the other's: its instruction counts and whether the two are the same
-    but for constant-bank offsets."""
-    this, other = sweep_sass(this_path), {}
-    for path in other_paths:
-        other.update(sweep_sass(path))
+    the other's (:func:`kernel_sass` of each): its instruction counts and
+    whether the two are the same but for constant-bank offsets."""
+    this, other = sweep_sass(this), sweep_sass(other)
     texts = lambda code: None if code is None else [ins for _, ins in code]   # noqa: E731
     loop = lambda k, code: None if code is None else loop_per_pixel_plane(k, code)  # noqa: E731
     return {k: {"this": len(this.get(k, ())), "other": len(other.get(k, ())),
@@ -772,7 +905,13 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", required=True, type=Path)
     ap.add_argument("--out", default=str(REPO / "build" / "compare_sweep.json"))
+    ap.add_argument("--only", default=",".join(GROUPS),
+                    help=f"comma-separated groups of cases to run, of {', '.join(GROUPS)} "
+                         "(default all; the SASS comparisons always run)")
     args = ap.parse_args()
+    only = set(args.only.split(","))
+    if not only <= set(GROUPS):
+        raise SystemExit(f"compare_sweep: unknown groups {sorted(only - set(GROUPS))}")
     if not torch.cuda.is_available():
         raise SystemExit("compare_sweep: needs an NVIDIA GPU")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -783,40 +922,63 @@ def main():
     other = build_other(args.other)
     pad = sweep_pad(stage1_config())
     limit = shift_max(pad)
-    sass = compare_sass(_build.library_path(),
-                        *(REPO / "build" / "compare_sweep" / f"libother_{name}.so"
-                          for name in ("plane_sweep", "warp2d")))
+    others = {name: REPO / "build" / "compare_sweep" / f"libother_{name}.so"
+              for _, name in OTHER_SOURCES}
+    this_sass, other_sass = kernel_sass(_build.library_path()), {}
+    for path in others.values():
+        other_sass.update(kernel_sass(path))
+    sass = compare_sass(this_sass, other_sass)
+    all_sass = compare_all_sass(this_sass, other_sass)
     loops = {who: {k: v["loop_per_pixel_plane"][who] for k, v in sass.items()}
              for who in ("this", "other")}
-    cases = {name: run_case({"this": this, "other": other["sweep"]}, shape, mix, with_disp,
-                            limit, dev)
-             for name, shape, mix, with_disp in CASES}
-    for name, shape, mix in BF16_CASES:
-        cases[name] = run_case_bf16({"other": other["sweep"], "this": this}, shape, mix, limit,
-                                    pad, loops, dev)
-        torch.cuda.empty_cache()
+    cases = {}
+    if "sweep" in only:
+        for name, shape, mix, with_disp in CASES:
+            cases[name] = run_case({"this": this, "other": other["sweep"]}, shape, mix,
+                                   with_disp, limit, dev)
+    if "sweep_bf16" in only:
+        for name, shape, mix in BF16_CASES:
+            cases[name] = run_case_bf16({"other": other["sweep"], "this": this}, shape, mix,
+                                        limit, pad, loops, dev)
+            torch.cuda.empty_cache()
     warp_libs = {"this": this, "other": other["warp2d"]}
-    for name, with_sigma, zoom in WARP_CASES:
-        cases[name] = run_warp(warp_libs, cs.SWEEP_SHAPE, with_sigma, zoom, dev)
-        torch.cuda.empty_cache()
-    for name, shape, with_sigma, zoom in WARP_BF16_CASES:
-        cases[name] = run_warp_bf16({"other": other["warp2d"], "this": this}, shape,
-                                    with_sigma, zoom, dev)
-        torch.cuda.empty_cache()
-    cases["disp_head_bwd"] = run_disp({"this": this, "other": other["disp_head"]},
-                                      cs.SWEEP_SHAPE, dev)
-    img_libs = {"other": other["sweep"], "this": this}
-    for name, shape in IMG_CASES:
-        cases[name] = run_img(img_libs, shape, limit, dev)
-        torch.cuda.empty_cache()
+    if "warp_bwd" in only:
+        for name, with_sigma, zoom in WARP_CASES:
+            cases[name] = run_warp(warp_libs, cs.SWEEP_SHAPE, with_sigma, zoom, dev)
+            torch.cuda.empty_cache()
+    if "warp_bwd_bf16" in only:
+        for name, shape, with_sigma, zoom in WARP_BF16_CASES:
+            cases[name] = run_warp_bf16({"other": other["warp2d"], "this": this}, shape,
+                                        with_sigma, zoom, dev)
+            torch.cuda.empty_cache()
+    fwd_edges = []
+    if "warp_fwd_bf16" in only:
+        for name, shape, with_sigma, kw in WARP_FWD_BF16_CASES:
+            cases[name] = run_warp_fwd_bf16({"other": other["warp2d"], "this": this}, shape,
+                                            with_sigma, kw, dev)
+            torch.cuda.empty_cache()
+        # bit-identity alone on chip_smoke.py's held edge cases
+        for shape, kw in cs.WARP_BF16_HELD + cs.WARP_FWD_EDGES:
+            for with_sigma in (True, False):
+                fwd_edges.append(run_warp_fwd_bf16(warp_libs, shape, with_sigma, kw, dev,
+                                                   timed=False))
+    if "disp_head" in only:
+        cases["disp_head_bwd"] = run_disp({"this": this, "other": other["disp_head"]},
+                                          cs.SWEEP_SHAPE, dev)
     held = []
-    for shape, seed, ct_seed, with_disp in cs.SWEEP_IMG_HELD:
-        held.append({"shape": list(shape), "with_disp": with_disp,
-                     "rel_err": img_twin_errors(img_libs, shape, seed, ct_seed, with_disp,
-                                                pad, dev)})
-        torch.cuda.empty_cache()
+    if "img_bwd" in only:
+        img_libs = {"other": other["sweep"], "this": this}
+        for name, shape in IMG_CASES:
+            cases[name] = run_img(img_libs, shape, limit, dev)
+            torch.cuda.empty_cache()
+        for shape, seed, ct_seed, with_disp in cs.SWEEP_IMG_HELD:
+            held.append({"shape": list(shape), "with_disp": with_disp,
+                         "rel_err": img_twin_errors(img_libs, shape, seed, ct_seed, with_disp,
+                                                    pad, dev)})
+            torch.cuda.empty_cache()
     report = {"card": card, "other": str(args.other), "cases": cases,
-              "img_bwd_vs_plain": held, "sass": sass}
+              "img_bwd_vs_plain": held, "warp_fwd_bf16_edges": fwd_edges, "sass": sass,
+              "all_sass": all_sass}
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(report, f, indent=1)
@@ -837,8 +999,12 @@ def main():
             continue
         if "this_fwd" not in t:
             refused = (f"; refused by {json.dumps(c['refused'])}" if c.get("refused") else "")
+            ident = (f"; bit-identical to the other's {c['bit_identical_to_other']}, excess "
+                     f"over HeldBf16's bound {c['excess_over_bound']:.3e}"
+                     if "bit_identical_to_other" in c else "")
             print(f"[compare] {name} {tuple(c['shape'])}: {json.dumps(t)} (bound "
-                  f"{c['bound_ms']:.4f} ms; {json.dumps(c['kernel_info'])}{refused}) | {card}")
+                  f"{c['bound_ms']:.4f} ms; {json.dumps(c['kernel_info'])}{refused}{ident}) | "
+                  f"{card}")
             continue
         print(f"[compare] {name} {tuple(c['shape'])}: forward this {t['this_fwd']} other "
               f"{t['other_fwd']} ms (bound {c['bound_ms']['fwd']:.4f}, MUFU floor "
@@ -848,6 +1014,10 @@ def main():
     for h in held:
         print(f"[compare] img_bwd vs plain {tuple(h['shape'])} disp={h['with_disp']}: "
               f"{json.dumps(h['rel_err'])} | {card}")
+    if fwd_edges:
+        print(f"[compare] warp2d_fwd_bf16 bit-identical to the other's, every element written "
+              f"and within HeldBf16's bound on "
+              f"{', '.join(str(tuple(e['shape'])) for e in fwd_edges[::2])}, both modes")
     print(f"[compare] SASS, instructions this/other and the same but for constant-bank "
           f"offsets: {json.dumps(sass)}")
     same = {k: v["same"] for k, v in sass.items() if v["this"] and v["other"]}
@@ -855,6 +1025,10 @@ def main():
           f"offsets: {sum(same.values())} of {len(same)}; differing: "
           f"{json.dumps([k for k, v in same.items() if not v])}; only in one: "
           f"{json.dumps([k for k, v in sass.items() if not (v['this'] and v['other'])])}")
+    print(f"[compare] every kernel of both libraries: {len(all_sass['same'])} the same SASS "
+          f"but for constant-bank offsets, differing {json.dumps(all_sass['differing'])}, "
+          f"only this tree's {json.dumps(all_sass['only_this'])}, only the other's "
+          f"{json.dumps(all_sass['only_other'])}")
     print(json.dumps(report))
 
 

@@ -792,6 +792,48 @@ def test_warp2d_bf16_kernels_match_plain(cuda, shape, with_sigma):
                     else ("d_logits", "d_dx", "d_dy"), 0)
 
 
+# the bf16 forward (csrc/warp2d.cu:warp2d_fwd_bf16_kernel: src packed
+# pixel-interleaved with a zero border, four columns a thread with vector
+# loads and stores, element by element where W % 4 != 0 or a map is
+# misaligned): W odd (61, 97), W = 3 mod 4 (99) and W = 2 mod 4 (130) with
+# taps at x0 = W - 1 and -1, y0 = H - 1 and -1, degenerate coordinates,
+# more planes than 65535, the mono step's shape; src and the heads
+# (``views`` (0, 1, 2)), and dx, dy and mask too, as views whose last
+# element ends their allocation
+@pytest.mark.parametrize("shape,kw,views", [
+    ((2, 5, 7, 61), dict(edges=True), ()),
+    ((2, 4, 6, 99), dict(edges=True, degenerate=True), ()),
+    ((2, 63, 9, 97), dict(degenerate=True), ()), ((1, 3, 16, 130), dict(edges=True), ()),
+    ((2, 3, 24, 100), dict(degenerate=True, dead_plane=True), ()), ((2, 33000, 2, 5), {}, ()),
+    ((2, 3, 8, 131), dict(edges=True), (0, 1, 2)), ((2, 3, 8, 128), dict(edges=True), (0, 1, 2)),
+    ((2, 3, 8, 128), dict(edges=True), (0, 1, 2, 3, 4, 5)), ((8, 63, 192, 640), {}, ())])
+@pytest.mark.parametrize("with_sigma", [True, False])
+def test_warp2d_bf16_forward_edges_views_and_repeat(cuda, shape, kw, views, with_sigma):
+    """The forward twice (bit-identical), its entry over NaN-filled outputs
+    and a garbage scratch (every element written, the wrapper's bits), and
+    both directions against the plain version at chip_smoke.HeldBf16's
+    bounds; plane 1 of the first image masked whole."""
+    from chip_smoke import (HeldBf16, as_bf16, at_allocation_end, fwd_writes_every_element,
+                            seeded_warp_inputs)
+
+    inputs = as_bf16(seeded_warp_inputs(shape, sum(shape), cuda, **kw), (3, 4, 5))
+    if not with_sigma:
+        inputs[2] = None
+    inputs[5][0, 1 % shape[1]] = 0.0
+    for i in views:
+        if inputs[i] is not None:
+            inputs[i] = at_allocation_end(inputs[i])
+    got = warp2d(*inputs)
+    again = warp2d(*inputs)
+    assert all(torch.equal(a.view(torch.int16), b.view(torch.int16)) for a, b in zip(got, again))
+    fwd_writes_every_element(inputs, got, with_sigma)
+    assert (got[1][0, 1 % shape[1]] == 0).all()
+    HeldBf16().hold(got, warp2d_plain(*inputs), inputs,
+                    (1, 2, 3, 4) if with_sigma else (1, 3, 4),
+                    ("d_logits", "d_sigma", "d_dx", "d_dy") if with_sigma
+                    else ("d_logits", "d_dx", "d_dy"), 0)
+
+
 # the bf16 backward (csrc/warp2d.cu:warp2d_bwd_pair_kernel and its rounding):
 # odd shapes with degenerate coordinates (W odd: the rounding one pixel a
 # thread); planes of only degenerate samples and a plane masked whole; a
