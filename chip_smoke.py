@@ -194,6 +194,7 @@ float32 phases compute in float32 throughout; they pass bf16=False
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import ctypes
 import dataclasses
@@ -1126,8 +1127,10 @@ def phase_train(card, dev=torch.device("cuda"), warmup=3, steps=10):
         if i == warmup:
             torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
-        losses.append(train_step(batch))          # floats: the step has synchronised
+        out = train_step(batch)
+        torch.cuda.synchronize(dev)               # the losses stay on the device
         times.append(time.perf_counter() - t0)
+        losses.append(host_losses(out))
     launches = launch_counts()
     n = warmup + steps
     want = only(plane_sweep_fwd=n, plane_sweep_bwd=n, head_epilogue_fwd=n,
@@ -1222,8 +1225,8 @@ def check_step_against_cpu(cfg, dev, seed=1):
     losses = []
     for bundle in bundles:
         opt, sched = make_optimizer(cfg, bundle.parameters(), 1000)
-        losses.append(make_train_step(bundle, opt, sched)(
-            batch_to_tensors(batch, bundle.device)))
+        losses.append(host_losses(make_train_step(bundle, opt, sched)(
+            batch_to_tensors(batch, bundle.device))))
     for k, v in losses[1].items():
         if not math.isclose(losses[0][k], v, rel_tol=STEP_LOSS_RTOL, abs_tol=1e-7):
             raise AssertionError(f"{k}: card {losses[0][k]} vs CPU {v}")
@@ -1459,6 +1462,12 @@ class SyntheticStereo:
         return {k: v[0] for k, v in batch.items()}
 
 
+def host_losses(losses):
+    """A step's losses as floats: ``make_train_step`` returns them on the
+    device, so reading them waits for the step."""
+    return {k: float(v) for k, v in losses.items()}
+
+
 def check_losses(losses, cfg):
     for ls in losses:
         if not all(math.isfinite(v) for v in ls.values()):
@@ -1518,12 +1527,13 @@ def phase_distill(card, dev=torch.device("cuda"), warmup=3, steps=10):
                 torch.cuda.reset_peak_memory_stats(dev)
             before = launch_counts()
             t0 = time.perf_counter()
-            out = step_fn(batch)                  # floats: the step has synchronised
+            out = step_fn(batch)
+            torch.cuda.synchronize(dev)           # the losses stay on the device
             times.append(time.perf_counter() - t0)
             delta = {k: v - before[k] for k, v in launch_counts().items()}
             if delta != DISTILL_STEP:
                 raise AssertionError(f"stage-3 step launches {delta}, want {DISTILL_STEP}")
-            losses.append(out)
+            losses.append(host_losses(out))
             return out
 
         trainer.train_step = timed_step
@@ -2084,15 +2094,15 @@ def trainer_run(cfg, dev, warmup, steps, per_step, after_val, panels=False):
             start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             t0 = time.perf_counter()
             start.record()
-            out = step_fn(batch)                  # floats: the step has synchronised
+            out = step_fn(batch)
             end.record()
-            end.synchronize()
+            end.synchronize()                     # the losses stay on the device
             times.append(time.perf_counter() - t0)
             event_ms.append(start.elapsed_time(end))
             delta = {k: v - before[k] for k, v in launch_counts().items()}
             if delta != per_step:
                 raise AssertionError(f"{cfg.model_name} step launches {delta}, want {per_step}")
-            losses.append(out)
+            losses.append(host_losses(out))
             return out
 
         trainer.train_step = timed_step
@@ -2333,7 +2343,7 @@ def fused_vs_oracle(cfg, dev, seed=0):
             bundle.model.load_state_dict(weights)
         optimizer, scheduler = make_optimizer(c, bundle.parameters(), 1000)
         reset_launch_counts()
-        losses = make_train_step(bundle, optimizer, scheduler)(batch)
+        losses = host_losses(make_train_step(bundle, optimizer, scheduler)(batch))
         out[name] = (losses, nonzero(launch_counts()))
         del bundle, optimizer, scheduler
         free_cache()
@@ -2515,10 +2525,11 @@ def steps_held(cfg, per_step, dev, steps=2):
         before = launch_counts()
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record()
-        losses.append(train_step(batch))
+        out = train_step(batch)
         end.record()
         end.synchronize()
         event_ms.append(start.elapsed_time(end))
+        losses.append(host_losses(out))
         delta = {k: v - before[k] for k, v in launch_counts().items()}
         if delta != per_step:
             raise AssertionError(f"{cfg.model_name} step launches {delta}, want {per_step}")
@@ -2606,7 +2617,8 @@ def step_device_busy(prof, label):
     windows, device = [], []
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            if e.name != label:                  # not the range's own device annotation
+            # kernels and copies, not the device annotations of ranges
+            if e.name != label and not getattr(e, "is_user_annotation", False):
                 device.append((e.time_range.start, e.time_range.end))
         elif e.name == label:
             windows.append((e.time_range.start, e.time_range.end))
@@ -2619,6 +2631,48 @@ def step_device_busy(prof, label):
                 busy += b - max(a, reach)
                 reach = b
         out.append(((end - start) / 1e3, busy / 1e3))
+    return out
+
+
+MARKER = "spin_kernel"                 # torch.cuda._sleep's kernel
+
+
+def device_step_windows(prof):
+    """The device's side of steps that run ahead of the card, each bounded
+    by a ``torch.cuda._sleep`` marker kernel before and after its launches:
+    each step's window on the device's clock (first marker's start to the
+    second's end) and the ms the device was busy in it (the union of its
+    other kernels and copies), and the card's idle share of the wall from
+    the second window's start to the last's end, inside the windows and
+    between them."""
+    markers, device = [], []
+    for e in prof.events():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):   # kernels and copies
+            span = (e.time_range.start, e.time_range.end)
+            (markers if MARKER in e.name else device).append(span)
+    markers.sort()
+    device.sort()
+    windows = [(markers[i][0], markers[i + 1][1]) for i in range(0, len(markers) - 1, 2)]
+
+    def busy(start, end):
+        total, reach = 0.0, start
+        for a, b in device:
+            if a >= end:
+                break
+            if b > reach:
+                total += min(b, end) - max(a, reach)
+                reach = min(b, end)
+        return total
+
+    out = {"markers": len(markers), "busy": [busy(a, b) / 1e3 for a, b in windows],
+           "idle_in": 0.0, "idle_between": 0.0}
+    if len(windows) > 1:
+        wall = windows[-1][1] - windows[1][0]
+        out["idle_in"] = sum(b - a - busy(a, b) for a, b in windows[1:]) / wall
+        out["idle_between"] = sum(max(0.0, b - a) - busy(a, b) for a, b in
+                                  zip((w[1] for w in windows[1:-1]),
+                                      (w[0] for w in windows[2:]))) / wall
     return out
 
 
@@ -2665,15 +2719,19 @@ def phase_kitti(card, dev=torch.device("cuda")):
             step = make_step(*args, **kwargs)
 
             def timed(batch):
+                # no wait here: the Trainer reads the losses on log steps only;
+                # a marker kernel before and after the step's launches bounds
+                # its window on the device's clock
                 start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
                     enable_timing=True)
                 t = time.perf_counter()
                 with torch.profiler.record_function(KITTI_STEP):
+                    torch.cuda._sleep(1)
                     start.record()
-                    out = step(batch)                 # floats: the step has synchronised
+                    out = step(batch)
                     end.record()
-                    end.synchronize()
-                steps.append((t, time.perf_counter(), start.elapsed_time(end), out))
+                    torch.cuda._sleep(1)
+                steps.append((t, time.perf_counter(), start, end, out))
                 return out
             return timed
 
@@ -2689,6 +2747,7 @@ def phase_kitti(card, dev=torch.device("cuda")):
             t0 = time.perf_counter()
             with torch.profiler.profile(activities=activities) as prof:
                 trainer = cli_train.main(argv)
+                torch.cuda.synchronize(dev)
             train_s = time.perf_counter() - t0
             train_launches = launch_counts()
         finally:
@@ -2703,7 +2762,8 @@ def phase_kitti(card, dev=torch.device("cuda")):
         if train_launches != want or len(steps) != n_steps or trainer.step_count != n_steps:
             raise AssertionError(f"kitti training: launches {train_launches} in {len(steps)} "
                                  f"steps, want {want} in {n_steps}")
-        check_losses([s[3] for s in steps], cfg)
+        losses = [host_losses(s[4]) for s in steps]
+        check_losses(losses, cfg)
         ckpt = os.path.join(log_dir, cfg.model_name, "last_models")
         saved = sorted(os.listdir(ckpt))
         if cfg.model_name != "kitti_ResNet" or saved != ["adam.pth", "depth.pth", "encoder.pth"]:
@@ -2712,17 +2772,12 @@ def phase_kitti(card, dev=torch.device("cuda")):
             raise AssertionError("validation saved no best_models")
         del trainer
         free_cache()
-        step_ms = [s[2] for s in steps]
-        traced = step_device_busy(prof, KITTI_STEP)
+        step_ms = [s[2].elapsed_time(s[3]) for s in steps]
+        traced = device_step_windows(prof)
         del prof
-        if len(traced) != n_steps or (dev.type == "cuda" and not all(b for _, b in traced)):
+        if traced["markers"] != 2 * n_steps or not all(traced["busy"]):
             raise AssertionError(f"kitti training: the trace has {traced} for {n_steps} steps")
-        # the card's idle over steps 2..n: inside the steps (the span less
-        # the device's busy time) and between them (waiting for the next batch)
         waits = [steps[i][0] - steps[i - 1][1] for i in range(1, len(steps))]
-        wall = sum(waits) + sum(s[1] - s[0] for s in steps[1:])
-        idle_in = sum(span - busy for span, busy in traced[1:]) / 1e3 / wall
-        idle_between = sum(waits) / wall
 
         # ground truth, then the evaluate CLI's first part and evaluate
         os.makedirs(os.path.join(splits_dir, "eigen_raw"))
@@ -2781,18 +2836,21 @@ def phase_kitti(card, dev=torch.device("cuda")):
           f"VGG19, {cfg.data.width}x{cfg.data.height}, batch {cfg.per_step_batch} flipped to "
           f"{cfg.effective_batch}): {n_steps} steps and {n_val} validation batches in "
           f"{train_s:.1f} s, launches {train_launches} (want {want}); first/last losses "
-          f"{json.dumps(steps[0][3])} {json.dumps(steps[-1][3])}; saved {saved}")
+          f"{json.dumps(losses[0])} {json.dumps(losses[-1])}; saved {saved}")
     print(f"[kitti] loader host ms per batch of {cfg.per_step_batch} (decode + resize + "
           f"augmentation, {cfg.data.num_workers} threads): median "
           f"{statistics.median(batch_s) * 1e3:.2f}, all {[round(b * 1e3, 1) for b in batch_s]}; "
-          f"under torch.profiler: step span ms (CUDA events around the synchronised step) "
-          f"median {statistics.median(step_ms):.2f}, all {[round(t, 1) for t in step_ms]}; "
-          f"device busy ms in each step (kernels and copies) median "
-          f"{statistics.median(b for _, b in traced):.2f}, all "
-          f"{[round(b, 1) for _, b in traced]}; wait for the next batch between steps median "
-          f"{statistics.median(waits) * 1e3:.2f} ms; the card's idle share of steps "
-          f"2-{n_steps}'s wall {idle_in + idle_between:.4f} = {idle_in:.4f} inside the steps "
-          f"+ {idle_between:.4f} between them | {card}")
+          f"under torch.profiler, the steps unsynchronised (device prefetch, losses read on "
+          f"log steps): step span ms (CUDA events around the step's launches) median "
+          f"{statistics.median(step_ms):.2f}, all {[round(t, 1) for t in step_ms]}; "
+          f"device busy ms in each step's device window (between marker kernels before "
+          f"and after its launches; kernels and copies) median "
+          f"{statistics.median(traced['busy']):.2f}, all "
+          f"{[round(b, 1) for b in traced['busy']]}; host gap between the steps' launches "
+          f"median {statistics.median(waits) * 1e3:.2f} ms; the card's idle share of steps "
+          f"2-{n_steps}'s device wall {traced['idle_in'] + traced['idle_between']:.4f} = "
+          f"{traced['idle_in']:.4f} inside the steps + {traced['idle_between']:.4f} between "
+          f"them | {card}")
     print(f"[kitti] export_eigen_raw_gt: {n_frames} frames in {export_s:.1f} s -> {gt_path}")
     print(f"[kitti] evaluate (cli.evaluate.load + evaluate, eigen_raw, post_process, batch 4 "
           f"doubled to 8, {ecfg.data.width}x{ecfg.data.height}): {n_frames} frames in "
@@ -3334,7 +3392,8 @@ def bf16_vs_f32_step(cfg, dev, seed=1):
         bundle = ModelBundle(c, dev)
         distinct_teacher(bundle, c.seed + 1)
         opt, sched = make_optimizer(c, bundle.parameters(), 1000)
-        losses.append(make_train_step(bundle, opt, sched)(batch_to_tensors(batch, dev)))
+        losses.append(host_losses(make_train_step(bundle, opt, sched)(
+            batch_to_tensors(batch, dev))))
         del bundle, opt, sched
         free_cache()
     rtol, atol = BF16_STEP_LOSS_TOL
@@ -3495,6 +3554,284 @@ def eval_forward_bf16(card, f32_ms, dev, batch=4):
           + f" | {card}")
 
 
+# ---------------------------------------------------------------------------
+# data parallelism (parallel/mesh.py): two ranks on the one card, and one
+# NCCL rank through the train CLI under the launcher's environment
+# ---------------------------------------------------------------------------
+
+DDP_STEPS = 3
+DDP_RANKS = 2
+ADAM_FLOOR = 1e-7                     # 10 x Adam's eps (train/state.py)
+DDP_STEP_F32 = only(plane_sweep_fwd=1, plane_sweep_bwd=1, head_epilogue_fwd=1,
+                    head_epilogue_bwd=1)
+DDP_STEP = bf16_step(DDP_STEP_F32)
+DDP_TRAIN = [f"{KITTI_DRIVE} {i} l" for i in range(10200, 10208)]
+DDP_VAL = [f"{KITTI_DRIVE} {i} l" for i in range(10300, 10304)]
+
+
+def ddp_steps(dev, rank, size, profile=False, bf16=True):
+    """``DDP_STEPS`` stage-1 steps (seeded weights, the global batch
+    ``make_stereo_batch(4, 192, 640)``) on this rank's rows of the batch,
+    each synchronised: the losses, the depth model's parameters after the
+    first step and its final state on the host, the first step's gradients
+    (rank 0), the launch counts and, under ``profile``, the sweep kernels the
+    profiler saw launched."""
+    cfg = stage1_config(allow_random_pc=True, bf16=bf16)
+    bundle = ModelBundle(cfg, dev)
+    optimizer, scheduler = make_optimizer(cfg, bundle.parameters(), 1000)
+    step = make_train_step(bundle, optimizer, scheduler)
+    full = make_stereo_batch(cfg.per_step_batch, cfg.data.height, cfg.data.width, seed=0)
+    b = cfg.per_step_batch // size
+    batch = batch_to_tensors({k: v[rank * b:(rank + 1) * b] for k, v in full.items()}, dev)
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    losses, first, grads = [], {}, {}
+    reset_launch_counts()
+    with torch.profiler.profile(activities=activities) if profile else contextlib.nullcontext() \
+            as prof:
+        for t in range(DDP_STEPS):
+            out = step(batch)
+            torch.cuda.synchronize(dev)
+            losses.append(host_losses(out))
+            if t == 0:
+                first = {k: p.detach().cpu() for k, p in bundle.model.named_parameters()}
+                if rank == 0:
+                    grads = {k: p.grad.detach().cpu() for k, p in
+                             bundle.model.named_parameters() if p.grad is not None}
+    kernels = {}
+    if profile:
+        for e in prof.key_averages():
+            for name in ("sweep_fwd_kernel", "sweep_bwd_kernel"):
+                if name in e.key:
+                    kernels[name] = kernels.get(name, 0) + e.count
+    return {"losses": losses, "first": first, "grads": grads, "launches": launch_counts(),
+            "kernels": kernels, "lr": cfg.optim.learning_rate,
+            "state": {k: v.detach().cpu() for k, v in bundle.model.state_dict().items()}}
+
+
+def ddp_rank(rank, size, tmp):
+    """Rank ``rank`` of ``size`` on the one card: the launcher's
+    environment, the group (gloo: the ranks share the card), the steps in
+    bf16 and then in float32."""
+    from planedepth_tpu_torch.parallel.mesh import init_distributed
+    import torch.distributed as dist
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(size), LOCAL_RANK=str(rank),
+                      LOCAL_WORLD_SIZE=str(size))
+    torch.backends.cudnn.allow_tf32 = False           # as phase_device sets this process
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    init_distributed(dev, init_method=f"file://{tmp}/pg")
+    try:
+        for bf16 in (True, False):
+            torch.save(ddp_steps(dev, rank, size, profile=rank == 0, bf16=bf16),
+                       os.path.join(tmp, f"rank{rank}_{'bf16' if bf16 else 'float32'}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ddp_ranks(dev):
+    """``DDP_RANKS`` gloo ranks of ``ddp_steps`` on the card, in bf16 and in
+    float32, and, while they run, one process on the global batch in each;
+    returns, by arithmetic, rank 0's, rank 1's and the one process's run."""
+    import torch.multiprocessing as mp
+
+    tags = {True: "bf16", False: "float32"}
+    with tempfile.TemporaryDirectory(prefix="pdt_chip_smoke_ddp_") as tmp:
+        ranks = mp.spawn(ddp_rank, args=(DDP_RANKS, tmp), nprocs=DDP_RANKS, join=False)
+        try:
+            one = {tag: ddp_steps(dev, 0, 1, bf16=bf16) for bf16, tag in tags.items()}
+            deadline = time.monotonic() + 600
+            while not ranks.join(timeout=10):
+                if time.monotonic() > deadline:
+                    raise TimeoutError("the ddp ranks are still running after 600 s")
+        finally:
+            for proc in ranks.processes:
+                if proc.is_alive():
+                    proc.kill()
+                    proc.join(10)
+        return {tag: tuple(torch.load(os.path.join(tmp, f"rank{r}_{tag}.pt"), weights_only=False)
+                           for r in range(DDP_RANKS)) + (one[tag],)
+                for tag in tags.values()}
+
+
+def loss_rel_diffs(a, b):
+    """Each step's largest relative difference of ``a``'s losses from ``b``'s."""
+    return [max(abs(x[k] / v - 1) for k, v in y.items() if v) for x, y in
+            zip(a["losses"], b["losses"])]
+
+
+def first_step_c4(r0, one):
+    """The C4 rule of ``check_step_against_cpu`` on the first step, the
+    ranks' (averaged) gradients and post-Adam weights against one
+    process's: each leaf's gradient within 0.1 relative L2 (float32 rounding
+    through train-mode BatchNorm leaves ResNet-50's encoder gradients ~2% off
+    float64 in either run); the weights at STEP_PARAM_ATOL where the step's
+    direction is fixed, within one Adam step each way elsewhere.  Adam's
+    first update is lr g / (|g| + eps): where both gradients share a sign and
+    pass ADAM_FLOOR the two updates agree within 10% of lr, under it they may
+    part by up to lr.  Many of ResNet-50's gradients at its seeded init lie
+    under it, so a third of the weights must be held at the atol, as
+    tests/_torch_parity.py holds the CPU step to JAX's."""
+    worst, grad_rel, checked, total = 0.0, 0.0, 0, 0
+    for k, g1 in one["grads"].items():
+        g2 = r0["grads"][k]
+        if g1.abs().max().item() > 1e-6:    # else mathematically zero (bias under BN)
+            rel = ((g2 - g1).norm() / g1.norm()).item()
+            grad_rel = max(grad_rel, rel)
+            if rel > 0.1:
+                raise AssertionError(f"ddp first step {k}: gradient off by {rel:.3e} (L2)")
+        err = (r0["first"][k].double() - one["first"][k].double()).abs()
+        fixed = g1.abs() > (g1 - g2).abs() + ADAM_FLOOR
+        fixed_err = err[fixed].max().item() if bool(fixed.any()) else 0.0
+        if fixed_err > STEP_PARAM_ATOL or err.max().item() > 2 * one["lr"] + STEP_PARAM_ATOL:
+            raise AssertionError(f"ddp first step {k}: parameters differ by "
+                                 f"{err.max().item():.3e}")
+        worst = max(worst, fixed_err)
+        checked += int(fixed.sum())
+        total += err.numel()
+    if checked < total // 3:
+        raise AssertionError(f"ddp: only {checked} of {total} weights have a fixed direction")
+    return {"grad_l2_rel": grad_rel, "param_err": worst,
+            "share_of_weights_held_at_atol": checked / total}
+
+
+def ddp_ranks_vs_one(dev):
+    """Phase (a): two gloo ranks on the card against one process on the
+    global batch, in bf16 (the default) and in float32 (TF32 off).  Held in
+    both: the first step's losses, from equal weights, at rtol 2e-4; over
+    the ``DDP_STEPS`` steps, the ranks' states (parameters and BatchNorm
+    statistics) bit-equal, every loss finite and summing to its total, each
+    step's launches, and rank 0's sweep kernels as torch.profiler saw them.
+    In float32 also the first step's gradients and post-Adam weights
+    (:func:`first_step_c4`): in bf16 the encoder's BatchNorm gradients are
+    rounding in either run (scripts/ddp_spread.py).  Later steps' losses
+    part from one process's by rounding that Adam's first steps amplify
+    (each weight moves by ~lr sign(g)): printed."""
+    n = DDP_STEPS
+    out, runs = {}, run_ddp_ranks(dev)
+    for bf16, per_step in ((True, DDP_STEP), (False, DDP_STEP_F32)):
+        tag = "bf16" if bf16 else "float32"
+        r0, r1, one = runs.pop(tag)
+        want = {k: v * n for k, v in per_step.items()}
+        for name, run in (("one process", one), ("rank 0", r0), ("rank 1", r1)):
+            if run["launches"] != want:
+                raise AssertionError(f"ddp {tag} {name}: launches {run['launches']}, "
+                                     f"want {want}")
+            check_losses(run["losses"], stage1_config(bf16=bf16))
+        if r0["kernels"] != {"sweep_fwd_kernel": n, "sweep_bwd_kernel": n}:
+            raise AssertionError(f"ddp {tag} rank 0: the profiler saw sweep kernels "
+                                 f"{r0['kernels']}")
+        if r0["losses"] != r1["losses"]:
+            raise AssertionError(f"ddp {tag}: the ranks' losses differ")
+        for k in one["state"]:
+            if not torch.equal(r0["state"][k], r1["state"][k]):
+                raise AssertionError(f"ddp {tag}: the ranks' {k} differ after {n} steps")
+        for k, v in one["losses"][0].items():
+            if not math.isclose(r0["losses"][0][k], v, rel_tol=2e-4, abs_tol=1e-7):
+                raise AssertionError(f"ddp {tag} first step {k}: ranks {r0['losses'][0][k]} "
+                                     f"vs {v}")
+        out[tag] = {"loss_rel_diff_by_step": loss_rel_diffs(r0, one),
+                    "bn_stats_vs_one_after": max(
+                        (r0["state"][k].double() - v.double()).abs().max().item()
+                        for k, v in one["state"].items() if "running" in k),
+                    "launches": nonzero(r0["launches"]), "kernels": r0["kernels"],
+                    "one_total_loss": [s["loss/total_loss"] for s in one["losses"]]}
+        if not bf16:
+            out[tag]["first_step_c4"] = first_step_c4(r0, one)
+        del r0, r1, one
+        free_cache()
+    return out
+
+
+def free_port():
+    """A free TCP port on localhost for the process group's rendezvous."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def ddp_cli(card):
+    """Phase (b): one NCCL rank through ``cli.train.main`` under the
+    launcher's environment: stage 1 on a small KITTI-shaped tree, 2 steps
+    and validation, the group joined and left by the CLI."""
+    import torch.distributed as dist
+    from planedepth_tpu_torch.parallel.mesh import choose_backend
+
+    if choose_backend(torch.device("cuda", 0), 1) != "nccl":
+        raise AssertionError("one rank on its own card must take NCCL")
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "LOCAL_WORLD_SIZE": "1",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port())}
+    with tempfile.TemporaryDirectory(prefix="pdt_chip_smoke_ddp_cli_") as tmp:
+        root, split, log_dir = (os.path.join(tmp, d) for d in ("kitti", "split", "log"))
+        write_tree(root, DDP_VAL, scan_points=KITTI_SCAN_POINTS)
+        write_tree(root, DDP_TRAIN)
+        os.makedirs(split)
+        for name, lines in (("train", DDP_TRAIN), ("val", DDP_VAL)):
+            with open(os.path.join(split, f"{name}_files.txt"), "w") as f:
+                f.write("".join(f"{ln}\n" for ln in lines))
+        argv = ["--stage", "stage1", "--data_path", root, "--split", split, "--png",
+                "--allow_random_pc", "--num_epochs", "1", "--log_dir", log_dir,
+                "--model_name", "ddp"]
+        saved_env = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            trainer = cli_train.main(argv)
+        finally:
+            for k, v in saved_env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        run_s = time.perf_counter() - t0
+        launches = launch_counts()
+        saved = sorted(os.listdir(os.path.join(log_dir, "ddp_ResNet", "last_models")))
+        best = os.path.isdir(os.path.join(log_dir, "ddp_ResNet", "best_models"))
+    steps = len(DDP_TRAIN) // trainer.cfg.per_step_batch
+    n_val = -(-len(DDP_VAL) // trainer.cfg.per_step_batch)
+    want = with_panels(only(plane_sweep_bf16_fwd=steps, plane_sweep_bf16_bwd=steps,
+                            head_epilogue_fwd=steps + n_val, head_epilogue_bwd=steps,
+                            disp_head_fwd=n_val),
+                       {"disp_head_fwd": 1, "head_epilogue_fwd": 1})
+    if (launches != want or trainer.step_count != steps or trainer.world != 1
+            or not trainer.bundle.ddp or dist.is_initialized()
+            or saved != ["adam.pth", "depth.pth", "encoder.pth"] or not best):
+        raise AssertionError(f"ddp CLI: launches {launches} (want {want}), steps "
+                             f"{trainer.step_count}, world {trainer.world}, wrapped "
+                             f"{sorted(trainer.bundle.ddp)}, group left "
+                             f"{not dist.is_initialized()}, saved {saved}, best_models {best}")
+    del trainer
+    free_cache()
+    return {"launches": launches, "steps": steps, "n_val": n_val, "seconds": run_s,
+            "saved": saved}
+
+
+def phase_ddp(card, dev=torch.device("cuda")):
+    """Data parallelism: (a) two gloo ranks on the one card held to one
+    process on the global batch, in bf16 and float32, rank 0's sweep kernels
+    counted under torch.profiler; (b) one NCCL rank through the train CLI."""
+    free_cache()
+    t0 = time.perf_counter()
+    a = ddp_ranks_vs_one(dev)
+    a_s = time.perf_counter() - t0
+    b = ddp_cli(card)
+    for tag, run in a.items():
+        print(f"[ddp] (a) {DDP_RANKS} gloo ranks on one card (the launcher's environment, "
+              f"file rendezvous), stage1_config {tag} (ResNet-50, DenseASPP, 49+14 planes, "
+              f"VGG19, 640x192), global batch 4 flipped to 8, {DDP_STEPS} steps under DDP "
+              f"with global BatchNorm moments, against one process on the global batch: "
+              f"{json.dumps(run)}; both ranks' states bit-equal after the steps ({a_s:.1f} s "
+              f"for both arithmetics) | {card}")
+    print(f"[ddp] (b) one NCCL rank through cli.train.main --stage stage1 --png under "
+          f"RANK/WORLD_SIZE/LOCAL_RANK/MASTER_ADDR/MASTER_PORT: {b['steps']} steps and "
+          f"{b['n_val']} validation batch in {b['seconds']:.1f} s, launches "
+          f"{nonzero(b['launches'])}, saved {b['saved']} and best_models; the group left "
+          f"after | {card}")
+
+
 def main():
     t_start = time.perf_counter()
 
@@ -3549,6 +3886,7 @@ def main():
                                          ("pladenet", "pladenet"), ("eval", "eval"))}
     launches.update(run(phase_bf16_recipes, card, {k: v for k, v in f32.items() if k != "eval"}
                         | {"eval": f32["eval"][0]}))
+    run(phase_ddp, card)
     print(f"[time] all phases: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,

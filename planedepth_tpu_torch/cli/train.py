@@ -1,10 +1,16 @@
 """Training CLI (reference train.py:14-21; ``planedepth_tpu/cli/train.py``).
 
     python -m planedepth_tpu_torch.cli.train --stage stage1 --data_path ./kitti_data --png
+    python -m torch.distributed.run --nproc_per_node 4 -m planedepth_tpu_torch.cli.train \
+        --stage stage1 --data_path ./kitti_data --png
 
 Stage presets: ``--stage stage1|hr_finetune|self_distillation`` applies the
 reference README recipe, then individual flags override.  The Trainer runs
 on the card; ``main(argv, device=torch.device("cpu"))`` runs it on the CPU.
+Under a launcher (the reference's ``torchrun --nproc_per_node=4``,
+``train_ResNet.sh``) each rank joins the process group its environment
+names before the Trainer is built and leaves it after; ``--batch_size`` is
+then the global batch, shared by the ranks.
 """
 from __future__ import annotations
 
@@ -12,6 +18,7 @@ import sys
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from planedepth_tpu_torch.cli.options import (
     args_to_config,
@@ -19,6 +26,7 @@ from planedepth_tpu_torch.cli.options import (
     parse_with_explicit,
 )
 from planedepth_tpu_torch.config import STAGE_PRESETS
+from planedepth_tpu_torch.parallel.mesh import init_distributed
 from planedepth_tpu_torch.train.trainer import Trainer
 
 
@@ -31,9 +39,14 @@ def main(argv=None, device: Optional[torch.device] = None) -> Trainer:
     cfg = args_to_config(args, explicit=explicit, stage=args.stage)
     # append net_type to the run name (reference train.py:19)
     cfg = cfg.replace(model_name=f"{cfg.model_name}_{cfg.model.net_type}")
-    trainer = Trainer(cfg, device=device)
-    trainer.train()
-    trainer.close()
+    joined = init_distributed(device)
+    try:
+        trainer = Trainer(cfg, device=device)
+        trainer.train()
+        trainer.close()
+    finally:
+        if joined:
+            dist.destroy_process_group()
     return trainer
 
 

@@ -1,11 +1,12 @@
-"""Deterministic batch loader with background prefetch, for one process
-(``planedepth_tpu/data/loader.py`` at one host, which the tests hold it to).
+"""Deterministic host-sharded batch loader with background prefetch
+(``planedepth_tpu/data/loader.py``, which the tests hold it to).
 
-Replaces the reference's DataLoader + rmnone_collate stack
+Replaces the reference's DataLoader + DistributedSampler + rmnone_collate stack
 (trainer.py:136-150, utils.py:141-194):
 
-  * ``EpochSampler`` — a per-epoch permutation from (seed, epoch), cut or
-    padded to whole batches, as a pure function of the epoch;
+  * ``EpochSampler`` — the DistributedSampler semantics (a per-epoch
+    permutation from (seed, epoch), cut or padded to a multiple of
+    num_hosts x batch, sliced per host) as a pure function of the epoch;
   * ``BatchLoader`` — a thread pool decodes/augments samples and a
     double-buffered prefetcher overlaps host work with device steps;
   * samples of a training set that fail to load (the reference's
@@ -28,48 +29,59 @@ PREFETCH = 2          # batches made ahead of the step
 
 
 class EpochSampler:
-    """Deterministic per-epoch permutation, in batches."""
+    """Deterministic per-epoch permutation, sharded across hosts (the JAX
+    sampler, bit for bit): the global order is padded or cut to whole
+    chunks of ``num_hosts * batch_size``, and host ``host_id`` takes its
+    ``batch_size`` columns of each chunk."""
 
     def __init__(
         self,
         num_samples: int,
         batch_size: int,
+        num_hosts: int = 1,
+        host_id: int = 0,
         shuffle: bool = True,
         seed: int = 1,
         drop_last: bool = True,
     ):
         self.num_samples = num_samples
         self.batch_size = batch_size
+        self.num_hosts = num_hosts
+        self.host_id = host_id
         self.shuffle = shuffle
         self.seed = seed
         self.drop_last = drop_last
 
     def epoch_indices(self, epoch: int) -> np.ndarray:
-        """The epoch's sample order."""
+        """Global sample order for an epoch (same on every host)."""
         if self.shuffle:
             rng = np.random.default_rng([self.seed, epoch])
             order = rng.permutation(self.num_samples)
         else:
             order = np.arange(self.num_samples)
+        chunk = self.batch_size * self.num_hosts
         if self.drop_last:
-            usable = (len(order) // self.batch_size) * self.batch_size
+            usable = (len(order) // chunk) * chunk
             order = order[:usable]
         else:
-            pad = (-len(order)) % self.batch_size
+            pad = (-len(order)) % chunk
             if pad:
                 # cyclic repeat: order[:pad] is too short when the split
-                # is smaller than one batch (tiny val splits)
+                # is smaller than one global chunk (tiny val splits)
                 order = np.concatenate([order, np.resize(order, pad)])
         return order
 
-    def batches(self, epoch: int) -> np.ndarray:
-        """(steps, batch_size) index matrix."""
-        return self.epoch_indices(epoch).reshape(-1, self.batch_size)
+    def host_batches(self, epoch: int) -> np.ndarray:
+        """(steps, batch_size) index matrix for this host."""
+        order = self.epoch_indices(epoch)
+        order = order.reshape(-1, self.num_hosts, self.batch_size)
+        return order[:, self.host_id, :]
 
     def steps_per_epoch(self) -> int:
+        chunk = self.batch_size * self.num_hosts
         if self.drop_last:
-            return self.num_samples // self.batch_size
-        return -(-self.num_samples // self.batch_size)
+            return self.num_samples // chunk
+        return -(-self.num_samples // chunk)
 
 
 def collate(samples: Sequence[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
@@ -127,7 +139,7 @@ class BatchLoader:
         return collate(out)
 
     def epoch(self, epoch: int) -> Iterator[Dict[str, np.ndarray]]:
-        batches = self.sampler.batches(epoch)
+        batches = self.sampler.host_batches(epoch)
         fallback = self.sampler.epoch_indices(epoch)
         pool = ThreadPoolExecutor(self.num_workers)
         q: "queue.Queue" = queue.Queue(maxsize=PREFETCH)

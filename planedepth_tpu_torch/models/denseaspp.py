@@ -11,7 +11,7 @@ compute dtype of ``models/layers.py``.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 import torch.nn as nn
@@ -23,19 +23,37 @@ DILATIONS = (3, 6, 12, 18, 24)
 NUM_FEATURES, D_FEATURE0, D_FEATURE1, DROPOUT0 = 256, 512, 128, 0.1
 
 
+class DropoutRows:
+    """A rank's rows of the global network batch, for dropout masks drawn
+    over that batch: ``generator`` draws the ``(size, C)`` mask a
+    single-process step on the global batch draws, and the rank keeps
+    ``rows`` (a CPU index tensor), so the ranks' masks together are that
+    step's (``train/step.py:make_train_step`` builds it)."""
+
+    def __init__(self, generator: torch.Generator, rows: torch.Tensor, size: int):
+        self.generator, self.rows, self.size = generator, rows, size
+
+
 def channel_dropout(x: torch.Tensor, rate: float, training: bool,
-                    generator: Optional[torch.Generator]) -> torch.Tensor:
+                    generator: Union[torch.Generator, DropoutRows, None]) -> torch.Tensor:
     """``F.dropout2d`` with its per-sample channel mask drawn from
     ``generator`` (flax ``nn.Dropout(broadcast_dims=(1, 2))`` in NHWC).  The
     ``(B, C)`` mask is drawn in float32 on the generator's device and moved to
     x's, so a CPU generator gives the same masks on the card and on the CPU,
-    in any dtype."""
+    in any dtype.  A :class:`DropoutRows` draws the global batch's mask and
+    keeps this rank's rows."""
     if not training or rate == 0.0:
         return x
     if generator is None:
         raise ValueError("DenseASPP dropout in training needs a torch.Generator")
-    keep = torch.full(x.shape[:2] + (1, 1), 1.0 - rate, device=generator.device)
-    keep = torch.bernoulli(keep, generator=generator).to(x.device, x.dtype)
+    rows, size = None, x.shape[0]
+    if isinstance(generator, DropoutRows):
+        generator, rows, size = generator.generator, generator.rows, generator.size
+    keep = torch.full((size, x.shape[1], 1, 1), 1.0 - rate, device=generator.device)
+    keep = torch.bernoulli(keep, generator=generator)
+    if rows is not None:
+        keep = keep[rows]
+    keep = keep.to(x.device, x.dtype)
     return x * keep / scalar(1.0 - rate, x)
 
 

@@ -26,6 +26,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from planedepth_tpu_torch.parallel.mesh import global_moments, world
+
 
 def upcast(x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     """A bf16 (or fp16) tensor in float32, any other as it is: the JAX
@@ -90,9 +92,15 @@ class BatchNorm2d(nn.BatchNorm2d):
     eps)) + bias`` in float32, rounded once to the input's dtype, on every
     device.  torch's CPU kernel folds the mean into the bias, ``x * a +
     (bias - mean * a)``, which cancels where the mean is large beside the
-    spread and so rounds elsewhere.  Training and float32 inputs take ``nn.BatchNorm2d``."""
+    spread and so rounds elsewhere.  Training in a process group of more
+    than one rank normalises by the global batch's moments
+    (``parallel/mesh.py:global_moments``) in the same order, and updates the
+    running variance with the global count's n / (n - 1).  Other training
+    and float32 inputs take ``nn.BatchNorm2d``."""
 
     def forward(self, x):
+        if self.training and world()[1] > 1:
+            return self._global_batch_forward(x)
         if self.training or x.dtype not in (torch.bfloat16, torch.float16):
             return super().forward(x)
         view = lambda t: t[:, None, None]      # noqa: E731
@@ -100,6 +108,18 @@ class BatchNorm2d(nn.BatchNorm2d):
         # x - mean promotes to float32 in one pass, as flax upcasts x
         return torch.addcmul(view(self.bias), x - view(self.running_mean),
                              view(mul)).to(x.dtype)
+
+    def _global_batch_forward(self, x):
+        view = lambda t: t[:, None, None]      # noqa: E731
+        wide = upcast(x)
+        mean, var, n = global_moments(wide)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var * (n / (n - 1)), alpha=m)
+            self.num_batches_tracked.add_(1)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return torch.addcmul(view(self.bias), wide - view(mean), view(mul)).to(x.dtype)
 
 
 class Conv3x3(nn.Module):

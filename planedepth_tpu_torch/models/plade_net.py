@@ -120,8 +120,8 @@ class PladeNet(nn.Module):
         super().__init__()
         if planes.yz_levels > 0:
             raise NotImplementedError(
-                "PladeNet with yz side planes is not ported (ROADMAP A10; the JAX "
-                "module asserts yz_levels == 0)")
+                "PladeNet with yz side planes is left out on purpose: the JAX module "
+                "asserts yz_levels == 0 (planedepth_tpu/models/plade_net.py:173)")
         n = planes.disp_levels + planes.xz_levels
         no_out = n - 1 if render_probability else n
         self.planes = planes

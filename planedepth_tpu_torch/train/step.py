@@ -26,9 +26,8 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Callable, Dict, Iterator, Mapping, Optional, Tuple
+from typing import Callable, Dict, Iterator, Optional, Tuple
 
-import numpy as np
 import torch
 import torch.nn as nn
 
@@ -38,6 +37,7 @@ from planedepth_tpu_torch.geometry.pose import (
     rc_correction,
     transformation_from_parameters,
 )
+from planedepth_tpu_torch.models.denseaspp import DropoutRows
 from planedepth_tpu_torch.models.factory import DepthModel, build_depth_model, init_weights_
 from planedepth_tpu_torch.models.layers import to_dtype, upcast
 from planedepth_tpu_torch.models.perceptual import make_perceptual_net
@@ -45,6 +45,14 @@ from planedepth_tpu_torch.models.pose_net import PoseDecoder
 from planedepth_tpu_torch.models.resnet import ResnetPoseEncoder
 from planedepth_tpu_torch.ops.losses import smooth_loss_disp
 from planedepth_tpu_torch.ops.plane_sweep import plane_sweep
+from planedepth_tpu_torch.parallel.mesh import (
+    ddp_wrap,
+    distributed,
+    gather_batch,
+    mean_over_ranks,
+    shard_batch,
+    world,
+)
 from planedepth_tpu_torch.train.distill import (
     fused_mom_mask_novel,
     generate_post_process_disp,
@@ -140,6 +148,10 @@ class ModelBundle:
                 PoseDecoder(self.pose_encoder.num_ch_enc, cfg.model.pose_num_ep,
                             dtype=self.dtype), g).to(self.device)
         self.teacher: Optional[DepthModel] = None
+        # the trained networks under DDP, by name, in a process group
+        # (make_train_step wraps them); the step calls these, every other
+        # forward (evaluation, panels, the teacher's copy) the modules
+        self.ddp: Dict[str, nn.Module] = {}
 
     def nets(self) -> Dict[str, nn.Module]:
         """The trained networks: ``model`` and, under ``use_pose_net``,
@@ -158,6 +170,11 @@ class ModelBundle:
         for name, net in self.nets().items():
             for k, p in net.named_parameters():
                 yield f"{name}.{k}", p
+
+    def trained(self, name: str) -> nn.Module:
+        """The network ``name`` as the training step calls it: its DDP
+        wrapper in a process group, else the module."""
+        return self.ddp.get(name) or getattr(self, name)
 
     def train(self, mode: bool = True) -> "ModelBundle":
         for net in self.nets().values():
@@ -187,8 +204,8 @@ class ModelBundle:
             else:
                 pair = ([batch[f"color_aug_{f}"], batch["color_aug_l"]] if f < 0
                         else [batch["color_aug_l"], batch[f"color_aug_{f}"]])
-                axisangle, translation = self.pose(self.pose_encoder(torch.cat(pair, 1)),
-                                                   batch["grid"])
+                axisangle, translation = self.trained("pose")(
+                    self.trained("pose_encoder")(torch.cat(pair, 1)), batch["grid"])
                 Rt = transformation_from_parameters(axisangle[:, 0], translation[:, 0],
                                                     invert=f < 0)
             poses[f] = apply_rc(Rt, rc_correction(batch["grid"]),
@@ -196,14 +213,8 @@ class ModelBundle:
         return poses
 
 
-def batch_to_tensors(batch: Mapping[str, np.ndarray],
-                     device: torch.device) -> Dict[str, torch.Tensor]:
-    """NHWC numpy batch (``data/synthetic.py`` keys) -> NCHW tensors on device."""
-    out = {}
-    for k, v in batch.items():
-        t = torch.from_numpy(np.ascontiguousarray(v)).to(device)
-        out[k] = t.permute(0, 3, 1, 2).contiguous() if t.dim() == 4 else t
-    return out
+# NHWC numpy batch (``data/synthetic.py`` keys) -> NCHW tensors on a device
+batch_to_tensors = shard_batch
 
 
 def fused_stereo_losses(bundle: ModelBundle, outputs: Dict[str, torch.Tensor],
@@ -296,7 +307,7 @@ def process_batch(bundle: ModelBundle, batch: Dict[str, torch.Tensor],
                                "bundle.freeze_teacher() once the student's weights are final")
         targets["disp_pp"], targets["mask_novel"] = generate_post_process_disp(
             bundle.teacher, batch["color_aug_l"], batch["grid"], sweep_pad(cfg))
-    outputs = bundle.model(batch["color_aug_l"], batch["grid"], generator)
+    outputs = bundle.trained("model")(batch["color_aug_l"], batch["grid"], generator)
     outputs.update(targets)
     poses = bundle.predict_poses(batch)
     if cfg.loss.use_mom and cfg.flip_right and (fused_sweep_ok(cfg) or fused_mixed_ok(cfg)):
@@ -350,41 +361,71 @@ def oracle_losses(bundle: ModelBundle, outputs: Dict[str, torch.Tensor],
                           cfg.model.use_mixture_loss, pc_remat=cfg.pc_remat)
 
 
+def network_rows(batch: int, rank: int, size: int, flip_right: bool) -> Tuple[torch.Tensor, int]:
+    """This rank's rows of the global network batch and that batch's size:
+    rank r holds rows ``[r b, (r + 1) b)`` of the global batch, and under
+    ``flip_right`` the network batch is ``[B; flip(B)]`` globally against
+    ``[b_r; flip(b_r)]`` on the rank."""
+    own = torch.arange(rank * batch, (rank + 1) * batch)
+    if flip_right:
+        return torch.cat([own, own + size * batch]), 2 * size * batch
+    return own, size * batch
+
+
 def make_train_step(bundle: ModelBundle, optimizer: torch.optim.Optimizer,
                     scheduler, step: int = 0
-                    ) -> Callable[[Dict[str, torch.Tensor]], Dict[str, float]]:
-    """``train_step(batch) -> {loss name: float}``: forward, backward, Adam
-    step, LR schedule step.  Step t (counted from ``step``) draws its dropout
-    masks from a CPU generator seeded with ``(cfg.seed, t)``: the same masks
-    on any device."""
+                    ) -> Callable[[Dict[str, torch.Tensor]], Dict[str, torch.Tensor]]:
+    """``train_step(batch) -> {loss name: 0-d tensor}``: forward, backward,
+    Adam step, LR schedule step; the losses stay on the device, detached,
+    as the JAX step returns device arrays (reading one waits for the step).
+    Step t (counted from ``step``) draws its dropout masks from a CPU
+    generator seeded with ``(cfg.seed, t)``: the same masks on any device.
+
+    In a process group (``parallel/mesh.py``) ``batch`` is this rank's share
+    of the global batch: the trained networks run under DDP, BatchNorm
+    normalises by the global batch's moments, the dropout masks are the
+    global batch's rows of this rank (:func:`network_rows`), and the losses
+    are their means over the ranks: every rank computes what one process
+    computes on the global batch."""
     cfg = bundle.cfg
     state = {"step": step}
+    rank, size = world()
+    if distributed():
+        bundle.ddp = {name: ddp_wrap(net) for name, net in bundle.nets().items()}
 
-    def train_step(batch: Dict[str, torch.Tensor]) -> Dict[str, float]:
+    def train_step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         bundle.train()
         g = torch.Generator().manual_seed((cfg.seed << 32) + state["step"])
+        if size > 1:
+            g = DropoutRows(g, *network_rows(batch["color_aug_l"].shape[0], rank, size,
+                                             cfg.flip_right))
         optimizer.zero_grad(set_to_none=True)
         losses = process_batch(bundle, batch, g)
         losses["loss/total_loss"].backward()
         optimizer.step()
         scheduler.step()
         state["step"] += 1
-        return {k: float(v.detach()) for k, v in losses.items()}
+        return mean_over_ranks({k: v.detach() for k, v in losses.items()})
 
     return train_step
 
 
 def make_eval_step(bundle: ModelBundle) -> Callable[[Dict[str, torch.Tensor]], Dict[str, float]]:
     """Validation forward (eval mode: the decoder's disp head) + depth
-    metrics (reference trainer.py:468-508)."""
+    metrics (reference trainer.py:468-508).  In a process group the depth,
+    ground truth and grid of every rank are gathered first, so that the
+    metrics are the global batch's on every rank (JAX's global
+    ``eval_step``; the mono median ratio is a median over the global
+    batch, which no sum of the ranks' metrics gives)."""
     cfg = bundle.cfg
 
     def eval_step(batch: Dict[str, torch.Tensor]) -> Dict[str, float]:
         bundle.model.eval()
         with torch.inference_mode():
             out = bundle.model(batch["color_aug_l"], batch["grid"])
-            metrics = compute_depth_metrics(out["depth"], batch["depth_gt_l"],
-                                            batch["grid"],
+            metrics = compute_depth_metrics(gather_batch(out["depth"]),
+                                            gather_batch(batch["depth_gt_l"]),
+                                            gather_batch(batch["grid"]),
                                             stereo_scale=not cfg.no_stereo)
         return {k: float(v) for k, v in metrics.items()}
 

@@ -13,7 +13,17 @@ depth model; TensorBoard image panels (reference trainer.py:831-856: the
 inputs, side 'r' synthesised by the oracle view synthesis in eval mode, and
 the normalised disparity) on the epoch's first batch and every
 ``log_img_frequency`` steps, and on every ``log_img_frequency``-th
-validation batch, when a writer exists.  One card, one process.
+validation batch, when a writer exists.
+
+Data parallel as the reference's ``torchrun`` runs it (JAX: the trainer's
+mesh): each rank is a process with a card, its sampler's share of every
+global batch (``data/loader.py``), the step under DDP with global BatchNorm
+moments (``train/step.py``, ``parallel/mesh.py``) and validation on the
+global batch, so that every rank decides ``best_models`` alike; rank 0
+alone logs, writes the run's files and checkpoints and builds panels.  A
+single process is the group of one.  The next batch's device copy overlaps
+the current step (:func:`parallel.mesh.prefetch_to_device`), and the losses
+are read to the host on log steps only.
 """
 from __future__ import annotations
 
@@ -30,6 +40,13 @@ import planedepth_tpu_torch
 from planedepth_tpu_torch.config import TrainConfig
 from planedepth_tpu_torch.data.kitti import DATASETS, readlines, split_path
 from planedepth_tpu_torch.data.loader import BatchLoader, EpochSampler
+from planedepth_tpu_torch.parallel.mesh import (
+    all_ranks,
+    default_device,
+    make_mesh,
+    prefetch_to_device,
+    replicate_state,
+)
 from planedepth_tpu_torch.train.state import fast_forward_schedule, make_optimizer
 from planedepth_tpu_torch.train.step import (
     ModelBundle,
@@ -76,32 +93,34 @@ class Trainer:
     epochs.  Without ``datasets`` it reads the split's KITTI frames
     (:func:`split_datasets`); ``datasets=(train, val)`` follow the JAX
     package's protocol (``__len__`` and ``getitem(index, epoch)`` returning
-    one NHWC numpy sample).  ``device`` is the card unless the caller names
-    another."""
+    one NHWC numpy sample).  ``device`` is this rank's card
+    (``cuda:LOCAL_RANK`` under a launcher) unless the caller names another.
+    In a process group ``cfg.per_step_batch`` is the global batch, which
+    the ranks share evenly."""
 
     def __init__(self, cfg: TrainConfig, datasets=None,
                  device: Optional[torch.device] = None):
-        if device is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError("Trainer: CUDA is not available; pass "
-                                   "device=torch.device('cpu') to run on the CPU")
-            device = torch.device("cuda")
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = torch.device(device) if device is not None else default_device()
+        self.rank, self.world = make_mesh()
+        self.is_chief = self.rank == 0
+        if cfg.per_step_batch % self.world:
+            raise ValueError(f"per_step_batch {cfg.per_step_batch} must be divisible by "
+                             f"the {self.world} ranks; set --batch_size accordingly")
         self.log_path = os.path.join(cfg.log_dir, cfg.model_name)
 
-        # data ---------------------------------------------------------------
+        # data: this rank's share of every global batch -------------------
         self.train_dataset, self.val_dataset = datasets or split_datasets(cfg)
-        b = cfg.per_step_batch
+        b = cfg.per_step_batch // self.world
         self.train_loader = BatchLoader(
             self.train_dataset,
-            EpochSampler(len(self.train_dataset), b, shuffle=True, seed=cfg.seed,
-                         drop_last=True),
+            EpochSampler(len(self.train_dataset), b, self.world, self.rank, shuffle=True,
+                         seed=cfg.seed, drop_last=True),
             num_workers=cfg.data.num_workers)
         self.val_loader = BatchLoader(
             self.val_dataset,
-            EpochSampler(len(self.val_dataset), b, shuffle=False, seed=cfg.seed,
-                         drop_last=False),
+            EpochSampler(len(self.val_dataset), b, self.world, self.rank, shuffle=False,
+                         seed=cfg.seed, drop_last=False),
             num_workers=cfg.data.num_workers)
         self.steps_per_epoch = self.train_loader.sampler.steps_per_epoch()
 
@@ -126,6 +145,12 @@ class Trainer:
             # the frozen teacher is the (just restored) student
             # (reference trainer.py:109-112)
             self.bundle.freeze_teacher()
+        # rank 0's weights on every rank (the nets' DDP wrappers would
+        # broadcast them too; the teacher has none)
+        nets = list(self.bundle.nets().values())
+        if self.bundle.teacher is not None:
+            nets.append(self.bundle.teacher)
+        replicate_state(nets)
 
         # resume fast-forward (reference trainer.py:242-244 replays the LR
         # scheduler): the step count, the schedule and the dropout seeds
@@ -136,10 +161,11 @@ class Trainer:
                                           step=self.step_count)
         self.eval_step = make_eval_step(self.bundle)
 
-        # logging ------------------------------------------------------------
-        self.logger = Logger(self.log_path)
-        self.logger.save_config(cfg.to_json())
-        self._save_provenance()
+        # logging: rank 0's ---------------------------------------------------
+        self.logger = Logger(self.log_path, enabled=self.is_chief)
+        if self.is_chief:
+            self.logger.save_config(cfg.to_json())
+            self._save_provenance()
         self.best_absrel = 10.0
         self._val_panel_step = 0
         self.meter = ThroughputMeter(self.steps_per_epoch * cfg.optim.num_epochs,
@@ -149,20 +175,34 @@ class Trainer:
     def train(self) -> None:
         for epoch in range(self.cfg.optim.start_epoch, self.cfg.optim.num_epochs):
             self.run_epoch(epoch)
-            self.save("last_models")
+            if self.is_chief:
+                self.save("last_models")
+
+    def device_batches(self, epoch: int):
+        """``(host batch, device batch)`` of the epoch, this rank's share,
+        the next batch's copy overlapping the current step (JAX
+        ``trainer.py:_device_prefetch``)."""
+        return prefetch_to_device(self.train_loader.epoch(epoch), self.device)
+
+    @staticmethod
+    def read_metrics(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
+        """The step's losses on the host: the one place a training step
+        waits for the device, on log steps only."""
+        return {k: float(v) for k, v in metrics.items()}
 
     def run_epoch(self, epoch: int) -> None:
         cfg = self.cfg
-        for batch_idx, batch in enumerate(self.train_loader.epoch(epoch)):
+        for batch_idx, (batch, device_batch) in enumerate(self.device_batches(epoch)):
             t0 = time.time()
-            metrics = self.train_step(batch_to_tensors(batch, self.device))
+            metrics = self.train_step(device_batch)
             early = batch_idx % 100 == 0 and self.step_count < cfg.log_frequency
-            if early or self.step_count % cfg.log_frequency == 0:
+            if self.is_chief and (early or self.step_count % cfg.log_frequency == 0):
+                values = self.read_metrics(metrics)
                 line = self.meter.log_line(epoch, batch_idx, self.step_count,
-                                           time.time() - t0, metrics["loss/total_loss"])
+                                           time.time() - t0, values["loss/total_loss"])
                 print(line)
                 self.logger.text(line)
-                self.logger.scalars("train", metrics, self.step_count)
+                self.logger.scalars("train", values, self.step_count)
             # train panels every log_img_frequency steps (reference
             # trainer.py:316-320), and on the epoch's first batch
             if batch_idx == 0 or self.step_count % cfg.log_img_frequency == 0:
@@ -173,11 +213,14 @@ class Trainer:
     def val(self, epoch: int) -> Dict[str, float]:
         """Validation over the val split (reference trainer.py:468-521):
         the batch-size-weighted mean of each metric; a new best
-        ``de/abs_rel`` saves ``best_models``."""
+        ``de/abs_rel`` saves ``best_models``.  Each step's metrics are the
+        global batch's on every rank (the reference's ``all_reduce``,
+        trainer.py:504-508), so the ranks' means, and their choice of
+        ``best_models``, are alike."""
         total: Dict[str, float] = {}
         n = 0
         for batch_idx, batch in enumerate(self.val_loader.epoch(0)):
-            if "depth_gt_l" not in batch:
+            if not all_ranks("depth_gt_l" in batch, self.device):
                 continue
             metrics = self.eval_step(batch_to_tensors(batch, self.device))
             # val panels every log_img_frequency batches, on their own step
@@ -194,7 +237,8 @@ class Trainer:
         metrics = {k: v / n for k, v in total.items()}
         if metrics.get("de/abs_rel", 10.0) < self.best_absrel:
             self.best_absrel = metrics["de/abs_rel"]
-            self.save("best_models")
+            if self.is_chief:
+                self.save("best_models")
         self.logger.scalars("val", metrics, self.step_count)
         self.logger.metric_row(metrics)
         return metrics
@@ -234,7 +278,7 @@ class Trainer:
                    step: Optional[int] = None) -> None:
         """The panels of ``batch`` to the ``mode`` writer (reference
         trainer.py:831-856); without a writer (no ``tensorboardX``) nothing
-        is computed."""
+        is computed (nor on ranks other than 0, whose logger has none)."""
         if self.logger.has_writer(mode):
             self.logger.images(mode, self.panels(batch),
                                self.step_count if step is None else step)

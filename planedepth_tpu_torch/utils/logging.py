@@ -29,12 +29,18 @@ def normalize_image(x: np.ndarray) -> np.ndarray:
 
 
 class Logger:
-    """Text and TensorBoard logging of one run under ``log_path``."""
+    """Text and TensorBoard logging of one run under ``log_path``.  A
+    disabled logger (a rank other than 0) makes no directory, writer or
+    file, and every call does nothing."""
 
-    def __init__(self, log_path: str):
+    def __init__(self, log_path: str, enabled: bool = True):
         self.log_path = log_path
-        os.makedirs(log_path, exist_ok=True)
+        self.enabled = enabled
         self.writers = {}
+        self.log_file = None
+        if not enabled:
+            return
+        os.makedirs(log_path, exist_ok=True)
         try:
             from tensorboardX import SummaryWriter
         except ImportError:
@@ -61,10 +67,13 @@ class Logger:
                 w.add_image(k, np.moveaxis(v, -1, 0), step)
 
     def text(self, line: str) -> None:
-        print(line, file=self.log_file, flush=True)
+        if self.enabled:
+            print(line, file=self.log_file, flush=True)
 
     def metric_row(self, metrics: Dict[str, float]) -> None:
         """LaTeX-ready 7-metric row (reference trainer.py:516-517)."""
+        if not self.enabled:
+            return
         header = "\n  " + ("{:>8} | " * 7).format(
             "abs_rel", "sq_rel", "rmse", "rmse_log", "a1", "a2", "a3")
         row = ("&{: 8.4f}  " * 7).format(
@@ -74,13 +83,16 @@ class Logger:
             self.text(line)
 
     def save_config(self, config_json: str) -> None:
+        if not self.enabled:
+            return
         with open(os.path.join(self.log_path, "opt.json"), "w") as f:
             f.write(config_json)
 
     def close(self) -> None:
         for w in self.writers.values():
             w.close()
-        self.log_file.close()
+        if self.log_file is not None:
+            self.log_file.close()
 
 
 class ThroughputMeter:

@@ -123,7 +123,8 @@ def timed(step, reps):
     times = []
     for _ in range(reps):
         t0 = time.perf_counter()
-        step()                              # returns floats: synchronised
+        step()
+        torch.cuda.synchronize()            # the step's losses stay on the device
         times.append((time.perf_counter() - t0) * 1e3)
     return times
 

@@ -109,7 +109,7 @@ def bn_sizes(model):
     return sizes
 
 
-def assert_step_matches(model, want, before, sizes, lr, min_share=0.3):
+def assert_step_matches(model, want, before, sizes, lr, min_share=0.3, c3_visible=True):
     """Post-Adam parameters of ``model`` against the JAX step's (``want``, a
     port state dict) at atol 5e-5 wherever the step's direction is
     determined; BatchNorm statistics with torch's unbiased variance.
@@ -120,7 +120,9 @@ def assert_step_matches(model, want, before, sizes, lr, min_share=0.3):
     |g| (ROADMAP C4), so where |g| is under 5% of the leaf's largest the
     sign, and with it the step, is not fixed: there the two may differ by
     one step each way, 2 * lr.  At least ``min_share`` of the weights must
-    be held at 5e-5.  Returns their number.
+    be held at 5e-5.  Returns their number.  ``c3_visible`` also requires
+    torch's and flax's running variances to differ beyond ``allclose``,
+    which over a large batch (the correction ~0.1 var / n) they do not.
     """
     got = model.state_dict()
     grads = {k: p.grad for k, p in model.named_parameters()}
@@ -135,7 +137,7 @@ def assert_step_matches(model, want, before, sizes, lr, min_share=0.3):
             term = want[key] - 0.9 * rv0                  # ResNet BN momentum 0.1
             expect = 0.9 * rv0 + term * n / (n - 1)
             torch.testing.assert_close(value, expect, rtol=0, atol=5e-5, msg=key)
-            assert not torch.allclose(want[key], expect), key
+            assert not c3_visible or not torch.allclose(want[key], expect), key
             continue
         err = (value - want[key]).abs()
         if key in grads:

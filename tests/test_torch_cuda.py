@@ -4,7 +4,8 @@ bf16, the head epilogue with N and N - 1 logit planes; the sweep's
 image-gradient backward and its rows wider than one launch), and one
 stage-1 (fused and oracle), one stage-3, one mono, one FalNet, one
 render_probability, one yz-plane and one yz-plane stage-3 training step on
-the card held to the same step on the CPU.
+the card held to the same step on the CPU; and the trainer's side-stream
+copy of the next batch.
 
 These tests need an NVIDIA GPU with nvcc (a CUDA kernel has no CPU mode) and
 skip without one.  They import neither JAX nor the JAX package, so they run
@@ -913,3 +914,26 @@ def test_plane_sweep_wide_rows_match_plain(cuda, shape):
                 plane_sweep_plain(*inputs, 328, True, True), inputs, (0, 1, 2, 3, 4),
                 ("d_src", "d_tgt") + names, 1)
     assert plane_sweep.img_bwd_launches - img >= 2          # one a segment
+
+
+def test_prefetch_to_device_hands_over_the_batches_in_order(cuda):
+    """``prefetch_to_device``: the batches copied on a side stream, from
+    pinned memory, equal the plain copy of each host batch, in order, and
+    are ready on the current stream when handed over (the next batch's copy
+    in flight meanwhile); a step that writes into them in place does not
+    disturb the next."""
+    from planedepth_tpu_torch.data.synthetic import make_stereo_batch
+    from planedepth_tpu_torch.parallel.mesh import prefetch_to_device
+
+    hosts = [make_stereo_batch(2, 64, 96, seed=i) for i in range(4)]
+    got = []
+    for host, device_batch in prefetch_to_device(iter(hosts), cuda):
+        for t in device_batch.values():
+            t.mul_(1)                        # a kernel on the current stream reads it
+        got.append((host, {k: v.cpu() for k, v in device_batch.items()}))
+    assert len(got) == len(hosts) and all(h is w for (h, _), w in zip(got, hosts))
+    for host, device_batch in got:
+        for k, v in host.items():
+            t = torch.from_numpy(np.ascontiguousarray(v))
+            want = t.permute(0, 3, 1, 2) if t.dim() == 4 else t
+            assert torch.equal(device_batch[k], want), k

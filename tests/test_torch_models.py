@@ -104,7 +104,7 @@ def test_other_net_types_name_the_roadmap():
     assert plade.plade.conv0.out_channels == 4
     with pytest.raises(NotImplementedError, match="FalNet has no render_probability head"):
         DepthModel(ModelConfig(net_type="FalNet", render_probability=True))
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(NotImplementedError, match="left out on purpose"):
         DepthModel(ModelConfig(net_type="PladeNet", planes=PlaneConfig(yz_levels=4)))
     with pytest.raises(ValueError, match="unknown net_type"):
         DepthModel(ModelConfig(net_type="Monodepth2"))

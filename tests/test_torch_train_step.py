@@ -322,7 +322,7 @@ def test_lr_schedule_matches_optax():
                  id="use_mom_temporal-A4"),
     pytest.param(dict(fused_sweep=False), None, id="fused_sweep_off-A4"),
     pytest.param(dict(model=tcfg.ModelConfig(net_type="PladeNet", planes=tcfg.PlaneConfig(
-        yz_levels=4))), "A10", id="pladenet_yz-A10"),
+        yz_levels=4))), "left out on purpose", id="pladenet_yz-A10"),
     pytest.param(dict(model=tcfg.ModelConfig(net_type="FalNet", render_probability=True)),
                  "FalNet has no render_probability head", id="falnet_render"),
 ])

@@ -73,14 +73,15 @@ def test_config_json_round_trip(name):
     (10, 3, True, True), (10, 3, False, False), (7, 2, True, False),
     (2, 4, False, False), (25, 4, True, True)])
 def test_epoch_sampler_order_equals_jax(n, batch, shuffle, drop_last):
-    """The port's one-process sampler is the JAX sampler at one host."""
+    """The port's sampler at its default of one host is the JAX sampler at
+    one host."""
     kw = dict(shuffle=shuffle, seed=3, drop_last=drop_last)
     got = tloader.EpochSampler(n, batch, **kw)
     want = jloader.EpochSampler(n, batch, num_hosts=1, host_id=0, **kw)
     assert got.steps_per_epoch() == want.steps_per_epoch()
     for epoch in range(3):
         np.testing.assert_array_equal(got.epoch_indices(epoch), want.epoch_indices(epoch))
-        np.testing.assert_array_equal(got.batches(epoch), want.host_batches(epoch))
+        np.testing.assert_array_equal(got.host_batches(epoch), want.host_batches(epoch))
 
 
 def test_mono_config_json_round_trip():
@@ -351,7 +352,13 @@ def test_stage2_to_stage3_hand_off(tmp_path):
 
     losses = []
     step = s3.train_step
-    s3.train_step = lambda batch: losses.append(step(batch)) or losses[-1]
+
+    def recorded(batch):
+        out = step(batch)
+        losses.append(s3.read_metrics(out))        # the step returns device tensors
+        return out
+
+    s3.train_step = recorded
     s3.train()
     s3.close()
     assert s3.step_count == 2 and len(losses) == 2
