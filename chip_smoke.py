@@ -1,4 +1,4 @@
-"""Drive the PyTorch/CUDA port's inference path, stage-1 step, stage-2 -> stage-3 trainer, mono trainer, FalNet and PladeNet trainers, no-mixture recipes, KITTI entry points, the render_probability, yz-plane and alpha_self recipes, the sweep's image gradients, the oracle view synthesis and every recipe in bf16 on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's inference path, stage-1 step, stage-2 -> stage-3 trainer, mono trainer, FalNet and PladeNet trainers, no-mixture recipes, KITTI entry points, the render_probability, yz-plane and alpha_self recipes, the sweep's image gradients, the oracle view synthesis, every recipe in bf16, the serving export and the API-parity networks on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -161,6 +161,23 @@ Phases, each printing a line:
      losses held to the oracle's at rtol 2e-4; then 2 steps each of
      mono_config with use_mom (the oracle) and of stage 1 with the
      ResNet-18 perceptual net.
+ 24. export: the eval recipe's forward (ResNet-50, DenseASPP, 49+14 planes,
+     mixture, residual, PE 8, seeded weights) at 1280x384 exported with
+     torch.export in float32 and bf16, through cli.export.main at batch 1
+     and export_forward at batch 8; each program loaded, held to the eager
+     forward (float32 within 1e-6 of max |disp|, bf16 within 4.4e-4 of
+     mean |disp|) and counted (one disp-head and one head-epilogue launch a
+     call, from the custom ops' CUDA implementations); the CLI's float32
+     program and the bf16 batch-8 one loaded and run again on the card by
+     a fresh python3 that imports torch and planedepth_tpu_torch.ops
+     alone; export seconds, bytes, the exported and eager forward's ms a
+     batch and peak memory above the weights;
+ 25. a11: PladePoseNet (BatchNorm, PE 8) on image pairs, Monov2Decoder on
+     ResNet-18 features and DepthDecoderContinuous (49 levels, mixture,
+     DenseASPP) on ResNet-50 features at 640x192, batch 8, in float32 and
+     bf16: a training forward and backward with finite outputs and
+     gradients, no kernel launched, the card's eval forward held to the
+     CPU's at 64x192, times;
  bf16 (the JAX package's default arithmetic, TrainConfig.bf16):
   sweep_wide (after 5b): rows wider than one launch (W = 2560, 4096) in
      column segments: forward, head-only backward and image-gradient
@@ -188,7 +205,9 @@ Phases, each printing a line:
      eval forward at 1280x384 on 8 images in bf16 beside float32.
   The kitti phase runs the CLIs' default, bf16.
 Each phase prints its wall time.  Then one JSON line of the kernels and,
-last, the ok line.  TF32 is off for convolutions and matmuls so that the
+last, the ok line.  ``python3 chip_smoke.py export a11`` runs the device and
+build phases and then the named phases alone (any phase that takes only
+the card), and prints no JSON line.  TF32 is off for convolutions and matmuls so that the
 float32 phases compute in float32 throughout; they pass bf16=False
 (``_float32``).
 """
@@ -216,7 +235,9 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from planedepth_tpu_torch.config import DataConfig, LossConfig, ModelConfig, PlaneConfig
 from planedepth_tpu_torch import config as _config
 from planedepth_tpu_torch.cli import evaluate as cli_evaluate
+from planedepth_tpu_torch.cli import export as cli_export
 from planedepth_tpu_torch.cli import train as cli_train
+from planedepth_tpu_torch.cli.options import args_to_config, build_parser, parse_with_explicit
 from planedepth_tpu_torch.data import native
 from planedepth_tpu_torch.data import image_io
 from planedepth_tpu_torch.data.image_io import png_decoder, read_png, write_png
@@ -230,10 +251,14 @@ from planedepth_tpu_torch.eval.export_gt import export_eigen_raw_gt
 from planedepth_tpu_torch.eval.metrics import evaluate_disparities
 from planedepth_tpu_torch.geometry.pose import transformation_from_parameters
 from planedepth_tpu_torch.models.depth_decoder import (
+    DepthDecoderContinuous,
     mixture_reweight,
     render_probability_from_logits,
 )
 from planedepth_tpu_torch.models.factory import DepthModel, build_depth_model, init_weights_
+from planedepth_tpu_torch.models.monov2_decoder import Monov2Decoder
+from planedepth_tpu_torch.models.pose_net import PladePoseNet
+from planedepth_tpu_torch.models.resnet import ResnetEncoder, encoder_channels
 from planedepth_tpu_torch.ops import _build
 from planedepth_tpu_torch.ops.disp_head import disp_head, disp_head_plain
 from planedepth_tpu_torch.ops.head_epilogue import head_epilogue, head_epilogue_plain
@@ -585,6 +610,12 @@ def check_against_cpu(model, dev):
     return (got["disp"].cpu() - want["disp"]).abs().max().item()
 
 
+def quantile(err, q):
+    """The ``q`` quantile of ``err``'s elements."""
+    err = err.flatten()
+    return float(err.kthvalue(max(1, int(q * err.numel()))).values)
+
+
 def check_against_cpu_bf16(model, dev):
     """A bf16 model's card forward against the same weights in bf16 on the
     CPU, on a small seeded input.  cuDNN's and the CPU's float32 sums tip bf16
@@ -606,16 +637,12 @@ def check_against_cpu_bf16(model, dev):
     with torch.inference_mode():
         want, ref = cpu_model(image, grid), f32(image, grid)
         got = model(image.to(dev), grid.to(dev))
-    def tail(err, q):
-        err = err.flatten()
-        return float(err.kthvalue(max(1, int(q * err.numel()))).values)
-
     out = {}
     for key in ("logits", "sigma", "probability", "disp"):
         e_card = (got[key].cpu().float() - want[key].float()).abs()
         e_bf16 = (want[key].float() - ref[key].float()).abs()
         d_card, d_bf16 = float(e_card.mean()), float(e_bf16.mean())
-        q_card, q_bf16 = tail(e_card, 0.999), tail(e_bf16, 0.999)
+        q_card, q_bf16 = quantile(e_card, 0.999), quantile(e_bf16, 0.999)
         m_card, m_bf16 = float(e_card.max()), float(e_bf16.max())
         if not (d_card <= 2.0 * d_bf16 + 1e-6 and q_card <= 2.5 * q_bf16 + 1e-6
                 and m_card <= 3.0 * m_bf16 + 1e-6):
@@ -3555,6 +3582,291 @@ def eval_forward_bf16(card, f32_ms, dev, batch=4):
 
 
 # ---------------------------------------------------------------------------
+# serving export (cli/export.py) and the API-parity networks
+# ---------------------------------------------------------------------------
+
+# the eval recipe's model (ResNet-50, DenseASPP, 49+14 planes, mixture,
+# plane residual, PE 8) through the export CLI's flags
+EXPORT_FLAGS = ["--height", "384", "--width", "1280", "--use_denseaspp", "--use_mixture_loss",
+                "--plane_residual"]
+EXPORT_F32_RTOL = 1e-6             # of max |disp|: the same kernels on the same weights
+EXPORT_BF16_TOL = 4.4e-4           # of mean |disp|: bf16's eval gap from float32 (PERF.md §5)
+REPO_DIR = os.path.dirname(os.path.abspath(__file__))
+
+# a fresh process with torch and the port's ops alone: load each program,
+# run it on the card (TF32 off, as in this script), save disp and the
+# kernels' launches a call
+FRESH_LOAD = """
+import json, sys
+import numpy as np
+import torch
+import planedepth_tpu_torch.ops as ops
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+device, tmp, names = torch.device(sys.argv[1]), sys.argv[2], sys.argv[3:]
+image = torch.from_numpy(np.load(f"{tmp}/image.npy")).to(device)
+grid = torch.from_numpy(np.load(f"{tmp}/grid.npy")).to(device)
+counts = {}
+for name in names:
+    forward = torch.export.load(f"{tmp}/{name}.pt2").module()
+    b = int(name.rsplit("_", 1)[1])
+    before = (ops.disp_head.disp_head.launches, ops.head_epilogue.head_epilogue.fwd_launches)
+    with torch.no_grad():
+        disp = forward(image[:b], grid[:b])
+    torch.cuda.synchronize() if device.type == "cuda" else None
+    after = (ops.disp_head.disp_head.launches, ops.head_epilogue.head_epilogue.fwd_launches)
+    counts[name] = [a - c for a, c in zip(after, before)]
+    np.save(f"{tmp}/{name}_fresh.npy", disp.cpu().numpy())
+models = [m for m in sys.modules if m.startswith("planedepth_tpu_torch.models")]
+assert not models and "jax" not in sys.modules, models
+print(json.dumps(counts))
+"""
+
+
+def hold_export(got, want, bf16, what):
+    """``got`` against ``want`` at the export's tolerance; returns the
+    measure held (max |d| / max |disp| in float32, mean |d| / mean |disp|
+    in bf16) and whether the two are bit-equal."""
+    d = (got.float() - want.float()).abs()
+    err = (float(d.mean() / want.float().abs().mean()) if bf16
+           else float(d.max() / want.float().abs().max()))
+    if err > (EXPORT_BF16_TOL if bf16 else EXPORT_F32_RTOL) or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: {err:.3e} apart")
+    return err, bool(torch.equal(got, want))
+
+
+def forward_peak_gb(fn, dev):
+    """Peak device memory one call of ``fn`` allocates above what is live
+    before it (the weights, the inputs), in GB."""
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    fn()
+    torch.cuda.synchronize(dev)
+    return (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+
+
+def phase_export(card, dev=torch.device("cuda"), flags=EXPORT_FLAGS, batch=8):
+    """The eval recipe's forward exported at 1280x384 in float32 and bf16:
+    through ``cli.export.main`` at batch 1 and ``export_forward`` at 8 (the
+    same seeded weights); each program loaded, held to the eager forward
+    and counted (one disp head and one head epilogue a call); the CLI's
+    float32 program and the bf16 batch one loaded and run again in a fresh
+    process that imports torch and the port's ops alone; export seconds,
+    bytes, ms a batch (CUDA events, median of 10) and peak memory above the
+    weights, exported and eager."""
+    free_cache()
+    args, _ = parse_with_explicit(build_parser(), flags)
+    H, W = args.height, args.width
+    images = make_stereo_batch(batch, H, W, seed=0)
+    image = torch.from_numpy(images["color_l"]).to(dev)
+    grid = torch.from_numpy(images["grid"]).to(dev)
+    want_calls = only(disp_head_fwd=1, head_epilogue_fwd=1)
+    rows = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        np.save(f"{tmp}/image.npy", images["color_l"])
+        np.save(f"{tmp}/grid.npy", images["grid"])
+        for name, bf16 in (("f32", False), ("bf16", True)):
+            dtype_flags = list(flags) + ([] if bf16 else ["--no_bf16"])
+            t0 = time.perf_counter()
+            bytes_1 = cli_export.main(dtype_flags + ["--out", f"{tmp}/{name}_1.pt2",
+                                                     "--export_batch", "1"])
+            cli_s = time.perf_counter() - t0
+            args, explicit = parse_with_explicit(build_parser(), dtype_flags)
+            if args.no_bf16 == bf16:
+                raise AssertionError(f"export {name}: --no_bf16 is {args.no_bf16}")
+            cfg, model = cli_evaluate.eval_model(args_to_config(args), explicit)
+            model = init_weights_(model, torch.Generator().manual_seed(cfg.seed)).to(dev)
+            t0 = time.perf_counter()
+            bytes_8 = cli_export.export_forward(cfg, model, f"{tmp}/{name}_{batch}.pt2", batch)
+            export_s = time.perf_counter() - t0
+            programs = {b: torch.export.load(f"{tmp}/{name}_{b}.pt2").module()
+                        for b in (1, batch)}
+            eager = cli_export.EvalForward(model)
+            held = {}
+            with torch.no_grad():
+                for b, program in programs.items():
+                    reset_launch_counts()
+                    got = program(image[:b], grid[:b])
+                    torch.cuda.synchronize(dev)
+                    if launch_counts() != want_calls:
+                        raise AssertionError(f"exported {name} batch {b}: launches "
+                                             f"{nonzero(launch_counts())}")
+                    want = eager(image[:b], grid[:b])
+                    if got.shape != (b, H, W, 1):
+                        raise AssertionError(f"exported {name}: disp {tuple(got.shape)}")
+                    held[b] = hold_export(got, want, bf16, f"exported {name} batch {b} vs eager")
+                    np.save(f"{tmp}/{name}_{b}_inproc.npy", got.cpu().numpy())
+                ms = cuda_ms(lambda: programs[batch](image, grid))
+                eager_ms = cuda_ms(lambda: eager(image, grid))
+                peak = forward_peak_gb(lambda: programs[batch](image, grid), dev)
+                eager_peak = forward_peak_gb(lambda: eager(image, grid), dev)
+            rows[name] = ms
+            print(f"[export] {name}: cli.export.main batch 1 {cli_s:.1f} s ({bytes_1} bytes), "
+                  f"export_forward batch {batch} {export_s:.1f} s ({bytes_8} bytes); exported "
+                  f"vs eager "
+                  + ", ".join(f"batch {b}: {e:.3e} ({'mean' if bf16 else 'max'} |d| / |disp|, "
+                              f"bit-equal {eq})" for b, (e, eq) in held.items())
+                  + f"; launches a call {nonzero(want_calls)}; forward at batch {batch}, "
+                  f"{H}x{W}: exported {ms:.2f} ms, eager {eager_ms:.2f} ms (CUDA events, "
+                  f"median of 10); peak above the weights exported {peak:.3f} GB, eager "
+                  f"{eager_peak:.3f} GB | {card}")
+            del model, programs, eager
+            free_cache()
+        # the CLI's float32 program and export_forward's bf16 one
+        names = ["f32_1", f"bf16_{batch}"]
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", FRESH_LOAD, str(dev), tmp, *names],
+                              env=dict(os.environ, PYTHONPATH=REPO_DIR), capture_output=True,
+                              text=True, timeout=600)
+        fresh_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"fresh process failed:\n{proc.stderr[-4000:]}")
+        counts = json.loads(proc.stdout.strip().splitlines()[-1])
+        fresh_equal = {}
+        for n in names:
+            if counts[n] != [1, 1]:
+                raise AssertionError(f"fresh process, {n}: launches {counts[n]}, want [1, 1]")
+            got = torch.from_numpy(np.load(f"{tmp}/{n}_fresh.npy"))
+            inproc = torch.from_numpy(np.load(f"{tmp}/{n}_inproc.npy"))
+            fresh_equal[n] = hold_export(got, inproc, n.startswith("bf16"),
+                                         f"fresh process {n} vs this process")[1]
+    print(f"[export] fresh python3 (torch + planedepth_tpu_torch.ops only) loaded and ran "
+          f"{names} on the card in {fresh_s:.1f} s: launches a call {counts}, bit-equal to "
+          f"this process's programs {fresh_equal}")
+    return rows
+
+
+A11_SIZE = (8, 192, 640)           # batch, height, width: the stage-1 training size
+A11_SMALL = (2, 64, 192)
+A11_LEVELS = PlaneConfig(disp_levels=49, xz_levels=0, yz_levels=0)
+
+
+def a11_features(num_layers, size, dtype, dev, seed):
+    """A seeded ResNet's pyramid of a seeded image batch (no grad)."""
+    b, h, w = size
+    encoder = init_weights_(ResnetEncoder(num_layers, dtype=dtype),
+                            torch.Generator().manual_seed(seed)).to(dev).eval()
+    image = torch.rand((b, 3, h, w), generator=torch.Generator().manual_seed(seed)).to(dev)
+    with torch.no_grad():
+        return [f.detach() for f in encoder(image)]
+
+
+def a11_nets():
+    """``name -> (build(dtype), inputs(size, dtype, dev), loss(out), outputs(out),
+    train_kw)`` of each API-parity network, on the inputs its docstring
+    names; ``train_kw`` are the keyword arguments of a training forward."""
+    def grid(size, dev, seed):
+        b, h, w = size
+        g = torch.Generator().manual_seed(seed)
+        return (torch.rand((b, 2, h, w), generator=g) * 2 - 1).to(dev)
+
+    def pair(size, dtype, dev):
+        b, h, w = size
+        g = torch.Generator().manual_seed(3)
+        x, y = (torch.rand((b, 3, h, w), generator=g).to(dev) for _ in range(2))
+        return (x, y, grid(size, dev, 4))
+
+    pose_out = lambda out: {"axisangle": out[0], "translation": out[1]}      # noqa: E731
+    return {
+        "PladePoseNet": (lambda dt: PladePoseNet(batch_norm=True, num_ep=8, dtype=dt), pair,
+                         lambda out: 100.0 * (out[0].sum() + out[1].sum()), pose_out, {}),
+        "Monov2Decoder": (lambda dt: Monov2Decoder(encoder_channels(18), dtype=dt),
+                          lambda size, dt, dev: (a11_features(18, size, dt, dev, 5),),
+                          lambda out: sum(v.mean() for v in out.values()),
+                          lambda out: {str(k): v for k, v in out.items()}, {}),
+        "DepthDecoderContinuous": (
+            lambda dt: DepthDecoderContinuous(encoder_channels(50), planes=A11_LEVELS,
+                                              dtype=dt),
+            lambda size, dt, dev: (a11_features(50, size, dt, dev, 6), grid(size, dev, 7)),
+            lambda out: out["disp"].mean(),
+            lambda out: {k: out[k] for k in ("disp_layered", "sigma", "probability", "disp")},
+            {"generator": torch.Generator().manual_seed(8)}),           # DenseASPP's dropout
+    }
+
+
+def a11_against_cpu(build, inputs, outputs, bf16, dev):
+    """The card's eval forward of one API-parity net against the same
+    weights on the CPU at ``A11_SMALL``: float32 at ``MODEL_TOL`` of each
+    output's largest magnitude; bf16 as ``check_against_cpu_bf16`` holds
+    the depth model (no further from the CPU's bf16 forward than that
+    stands from float32's: 2x on average, 2.5x at the 99.9th percentile,
+    3x at the largest).  Returns the largest error over the outputs."""
+    f32 = init_weights_(build(None), torch.Generator().manual_seed(0)).eval()
+    dt = torch.bfloat16 if bf16 else None
+    cpu = build(dt).eval()
+    cpu.load_state_dict(f32.state_dict())
+    card = copy.deepcopy(cpu).to(dev)
+    args = inputs(A11_SMALL, dt, torch.device("cpu"))
+    with torch.no_grad():
+        want = outputs(cpu(*args))
+        got = outputs(card(*[[a.to(dev) for a in x] if isinstance(x, list) else x.to(dev)
+                             for x in args]))
+        ref = outputs(f32(*[[a.float() for a in x] if isinstance(x, list) else x.float()
+                            for x in args])) if bf16 else None
+    worst = 0.0
+    for key, w in want.items():
+        g, w = got[key].cpu().float(), w.float()
+        err = (g - w).abs()
+        worst = max(worst, float(err.max()))
+        if not bf16:
+            torch.testing.assert_close(g, w, rtol=MODEL_TOL["rtol"],
+                                       atol=MODEL_TOL["atol"] * float(w.abs().max()), msg=key)
+            continue
+        e_bf16 = (w - ref[key].float()).abs()
+        if not (float(err.mean()) <= 2.0 * float(e_bf16.mean()) + 1e-6
+                and quantile(err, 0.999) <= 2.5 * quantile(e_bf16, 0.999) + 1e-6
+                and float(err.max()) <= 3.0 * float(e_bf16.max()) + 1e-6):
+            raise AssertionError(f"{key}: card from CPU bf16 {float(err.mean()):.3e} mean, "
+                                 f"CPU bf16 from float32 {float(e_bf16.mean()):.3e}")
+    return worst
+
+
+def phase_a11(card, dev=torch.device("cuda")):
+    """``PladePoseNet`` (BatchNorm, PE 8) on image pairs, ``Monov2Decoder`` on
+    ResNet-18 features and ``DepthDecoderContinuous`` (49 levels, mixture,
+    DenseASPP, PE 8) on ResNet-50 features, at 640x192, batch 8, in float32
+    and bf16: a training-mode forward and backward with finite outputs and
+    gradients for every parameter, the card's eval forward held to the CPU's
+    on a small input, and ms (CUDA events, median of 10) of the eval forward
+    and of a training forward + backward.  No kernel of the port runs."""
+    free_cache()
+    for name, (build, inputs, loss, outputs, train_kw) in a11_nets().items():
+        for bf16 in (False, True):
+            dt = torch.bfloat16 if bf16 else None
+            net = init_weights_(build(dt), torch.Generator().manual_seed(0)).to(dev)
+            args = inputs(A11_SIZE, dt, dev)
+            reset_launch_counts()
+            net.train()
+            out = net(*args, **train_kw)
+            loss(out).backward()
+            torch.cuda.synchronize(dev)
+            if nonzero(launch_counts()):
+                raise AssertionError(f"{name}: launches {nonzero(launch_counts())}")
+            bad = [k for k, v in outputs(out).items() if not bool(torch.isfinite(v).all())]
+            bad += [k for k, p in net.named_parameters()
+                    if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+            if bad:
+                raise AssertionError(f"{name} {'bf16' if bf16 else 'f32'}: not finite {bad}")
+
+            def step():
+                net.zero_grad(set_to_none=True)
+                loss(net(*args, **train_kw)).backward()
+
+            train_ms = cuda_ms(step)
+            net.eval()
+            with torch.no_grad():
+                eval_ms = cuda_ms(lambda: net(*args))
+            err = a11_against_cpu(build, inputs, outputs, bf16, dev)
+            print(f"[a11] {name} {'bf16' if bf16 else 'f32'} at {A11_SIZE}: train forward + "
+                  f"backward {train_ms:.2f} ms, eval forward {eval_ms:.2f} ms (CUDA events, "
+                  f"median of 10); outputs and gradients finite; card vs CPU at {A11_SMALL} "
+                  f"max_abs_err {err:.3e} | {card}")
+            del net, out, args
+            free_cache()
+
+
+# ---------------------------------------------------------------------------
 # data parallelism (parallel/mesh.py): two ranks on the one card, and one
 # NCCL rank through the train CLI under the launcher's environment
 # ---------------------------------------------------------------------------
@@ -3832,7 +4144,7 @@ def phase_ddp(card, dev=torch.device("cuda")):
           f"after | {card}")
 
 
-def main():
+def main(argv=()):
     t_start = time.perf_counter()
 
     def run(phase, *args, **kwargs):
@@ -3846,6 +4158,11 @@ def main():
     count_panels()
     card = run(phase_device)
     run(phase_build)
+    if argv:
+        # the named phases alone (those that take only the card), no JSON lines
+        for name in argv:
+            run(globals()[f"phase_{name}"], card)
+        return
     # launches: each kernel's count on the path that brought it to the port
     fields = {"disp_head_fwd": run(phase_kernel, card)}
     launches = {"disp_head_fwd": run(phase_slice, card)["disp_head_fwd"]}
@@ -3886,6 +4203,8 @@ def main():
                                          ("pladenet", "pladenet"), ("eval", "eval"))}
     launches.update(run(phase_bf16_recipes, card, {k: v for k, v in f32.items() if k != "eval"}
                         | {"eval": f32["eval"][0]}))
+    run(phase_export, card)
+    run(phase_a11, card)
     run(phase_ddp, card)
     print(f"[time] all phases: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
@@ -3898,4 +4217,4 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

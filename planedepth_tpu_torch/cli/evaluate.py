@@ -78,17 +78,35 @@ def load(argv=None, device: Optional[torch.device] = None
     if not cfg.load_weights_folder:
         return args, cfg, None
     if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("evaluate: CUDA is not available; pass "
-                               "device=torch.device('cpu') to run on the CPU")
-        device = torch.device("cuda")
-    cfg = apply_checkpoint_meta(cfg, load_checkpoint_meta(cfg.load_weights_folder), explicit)
+        device = default_device("evaluate")
+    cfg, model = eval_model(cfg, explicit)
+    return args, cfg, model.to(device)
+
+
+def eval_model(cfg: TrainConfig, explicit=frozenset()) -> Tuple[TrainConfig, torch.nn.Module]:
+    """``(cfg, model)``: the eval forward's model on the CPU, in eval mode.
+    With ``cfg.load_weights_folder`` the checkpoint's meta is adopted for
+    every flag not in ``explicit`` and every network is restored from it;
+    without, the networks keep the weights they were built with."""
+    if cfg.load_weights_folder:
+        cfg = apply_checkpoint_meta(cfg, load_checkpoint_meta(cfg.load_weights_folder),
+                                    explicit)
     # the decoder emits disp outside the fused training step; bf16
     # convolutions unless --no_bf16, as the JAX evaluator's ModelBundle(cfg)
     model = build_depth_model(dataclasses.replace(cfg.model, fused_sweep_loss=False),
                               cfg.bf16)
-    restore_submodules(model, load_checkpoint(cfg.load_weights_folder), network_names(model))
-    return args, cfg, model.to(device)
+    if cfg.load_weights_folder:
+        restore_submodules(model, load_checkpoint(cfg.load_weights_folder),
+                           network_names(model))
+    return cfg, model.eval()
+
+
+def default_device(entry: str) -> torch.device:
+    """The card, or a ``RuntimeError`` naming ``entry`` where CUDA is absent."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"{entry}: CUDA is not available; pass "
+                           f"device=torch.device('cpu') to run on the CPU")
+    return torch.device("cuda")
 
 
 def evaluate_kwargs(args) -> Dict:

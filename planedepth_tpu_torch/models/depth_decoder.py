@@ -93,35 +93,36 @@ def plane_dists(disp_layered: torch.Tensor, width: int, height: int) -> torch.Te
 
 
 def mixture_reweight(probability: torch.Tensor, sigma: torch.Tensor,
-                     padding_mask: torch.Tensor) -> torch.Tensor:
-    """``pi / sigma * mask`` renormalised over the plane axis (dim 1), with
-    the JAX package's guarded reciprocal (0 where the sum is <= 1e-7)."""
-    w = probability / sigma * padding_mask
+                     padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``pi / sigma`` (times the mask, where one is given) renormalised over
+    the plane axis (dim 1), with the JAX package's guarded reciprocal (0
+    where the sum is <= 1e-7)."""
+    w = probability / sigma
+    if padding_mask is not None:
+        w = w * padding_mask
     s = w.sum(dim=1, keepdim=True)
     inv = torch.where(s > 1e-7, 1.0 / torch.clamp_min(s, 1e-7), torch.zeros_like(s))
     return w * inv
 
 
-class DepthDecoder(nn.Module):
-    """Primary plane-probability head (reference depth_decoder.py:18-293)."""
+class _PlaneLadder(nn.Module):
+    """The U-Net ladder that ``DepthDecoder`` and ``DepthDecoderContinuous``
+    share (reference depth_decoder.py:18-293 and :296-453): the positional
+    encoding of the grid (``epconv``, or the frequency embedding), the
+    upconv pairs (4, 0) .. (0, 1) with the encoder's skips and the encoding
+    injected at every scale but the finest, and DenseASPP after (4, 1).
+    Its modules sit in the plain dict ``convs`` under the reference's
+    names; a subclass adds its heads there and then lists every module in
+    the ``decoder`` ModuleList, whose indices are the state_dict's keys."""
 
-    def __init__(self, num_ch_enc: Sequence[int], planes: PlaneConfig = PlaneConfig(),
-                 num_ep: int = 8, pe_type: str = "neural",
-                 use_denseaspp: bool = True, use_mixture_loss: bool = True,
-                 render_probability: bool = False, plane_residual: bool = True,
-                 fused_sweep_loss: bool = False,
-                 dtype: Optional[torch.dtype] = None):
+    def __init__(self, num_ch_enc: Sequence[int], num_ep: int, pe_type: str,
+                 use_denseaspp: bool, use_skips: bool, dtype: Optional[torch.dtype]):
         super().__init__()
         self.dtype = dtype
-        self.planes = planes
         self.num_ep = num_ep
         self.pe_type = pe_type
         self.use_denseaspp = use_denseaspp
-        self.use_mixture_loss = use_mixture_loss
-        self.render_probability = render_probability
-        self.plane_residual = plane_residual
-        self.fused_sweep_loss = fused_sweep_loss
-        n_planes = planes.all_levels
+        self.use_skips = use_skips
         if num_ep == 0:
             n_pe = 0
         elif pe_type == "neural":
@@ -139,10 +140,49 @@ class DepthDecoder(nn.Module):
             self.convs[f"upconv_{i}_0"] = ConvBlock(cin, NUM_CH_DEC[i], dtype)
             cin = NUM_CH_DEC[i]
             if i > 0:
-                cin += num_ch_enc[i - 1] + n_pe        # skip + PE
+                cin += (num_ch_enc[i - 1] if use_skips else 0) + n_pe   # skip + PE
             self.convs[f"upconv_{i}_1"] = ConvBlock(cin, NUM_CH_DEC[i], dtype)
         if use_denseaspp:
             self.convs["denseaspp"] = DenseAspp(NUM_CH_DEC[4], dtype=dtype)
+
+    def ladder(self, input_features: Sequence[torch.Tensor], grid: torch.Tensor,
+               generator: Optional[torch.Generator]) -> torch.Tensor:
+        """The finest ``(B, 16, H, W)`` features; ``generator`` draws
+        DenseASPP's dropout masks in training."""
+        c, dt = self.convs, self.dtype
+        grid_ep = None
+        if self.num_ep > 0:
+            grid_ep = (c["epconv"](grid) if self.pe_type == "neural"
+                       else to_dtype(frequency_embed(grid, self.num_ep), dt))
+
+        x = inject_grid(to_dtype(input_features[-1], dt), grid_ep)
+        for i in range(4, 0, -1):
+            x = upsample2x_nearest(c[f"upconv_{i}_0"](x))
+            if self.use_skips:
+                x = torch.cat([x, to_dtype(input_features[i - 1], dt)], dim=1)
+            x = c[f"upconv_{i}_1"](inject_grid(x, grid_ep))
+            if i == 4 and self.use_denseaspp:
+                x = c["denseaspp"](x, generator)
+        x = upsample2x_nearest(c["upconv_0_0"](x))
+        return c["upconv_0_1"](x)
+
+
+class DepthDecoder(_PlaneLadder):
+    """Primary plane-probability head (reference depth_decoder.py:18-293)."""
+
+    def __init__(self, num_ch_enc: Sequence[int], planes: PlaneConfig = PlaneConfig(),
+                 num_ep: int = 8, pe_type: str = "neural",
+                 use_denseaspp: bool = True, use_mixture_loss: bool = True,
+                 render_probability: bool = False, plane_residual: bool = True,
+                 fused_sweep_loss: bool = False,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__(num_ch_enc, num_ep, pe_type, use_denseaspp, True, dtype)
+        self.planes = planes
+        self.use_mixture_loss = use_mixture_loss
+        self.render_probability = render_probability
+        self.plane_residual = plane_residual
+        self.fused_sweep_loss = fused_sweep_loss
+        n_planes = planes.all_levels
         self.convs["dispconv"] = Conv3x3(NUM_CH_DEC[0],
                                          n_planes - 1 if render_probability else n_planes,
                                          dtype)
@@ -165,20 +205,7 @@ class DepthDecoder(nn.Module):
         without yz planes, distance ``(B, N)``, norm ``(B, N, 3)``, and under
         ``render_probability`` dists ``(B, N - 1, H, W)``."""
         cfg, c, dt = self.planes, self.convs, self.dtype
-        grid_ep = None
-        if self.num_ep > 0:
-            grid_ep = (c["epconv"](grid) if self.pe_type == "neural"
-                       else to_dtype(frequency_embed(grid, self.num_ep), dt))
-
-        x = inject_grid(to_dtype(input_features[-1], dt), grid_ep)
-        for i in range(4, 0, -1):
-            x = upsample2x_nearest(c[f"upconv_{i}_0"](x))
-            x = torch.cat([x, to_dtype(input_features[i - 1], dt)], dim=1)
-            x = c[f"upconv_{i}_1"](inject_grid(x, grid_ep))
-            if i == 4 and self.use_denseaspp:
-                x = c["denseaspp"](x, generator)
-        x = upsample2x_nearest(c["upconv_0_0"](x))
-        x = c["upconv_0_1"](x)
+        x = self.ladder(input_features, grid, generator)
 
         H, W = grid.shape[-2:]
         residual_levels = None
@@ -226,5 +253,79 @@ class DepthDecoder(nn.Module):
             out["disp"] = disp_head(logits, sigma, out["disp_rows"], mask_rows)
         else:
             out["disp"] = (probability * vol.disp_layered).sum(dim=1, keepdim=True)
+        out["depth"] = disp_to_depth(out["disp"], W)
+        return out
+
+
+class DepthDecoderContinuous(_PlaneLadder):
+    """Continuous-disparity variant (reference depth_decoder.py:296-453, JAX
+    ``depth_decoder.py:DepthDecoderContinuous``), kept for API parity: the
+    reference trainer never builds it.
+
+    No plane volume: ``dispconv`` gives each pixel its own sigmoid levels,
+    ``disp_layered = disp_max * (disp_min / disp_max) ** levels`` over the
+    ``disp_levels + xz_levels`` planes of ``planes``; ``piconv`` gives the
+    plane logits (N - 1 densities composited over the per-pixel
+    ``plane_dists`` under ``render_probability``); with the mixture,
+    ``sigmaconv``'s clipped sigmoid reweights the probability with no
+    padding mask; disp is the probability-weighted sum of ``disp_layered``.
+    The disparities vary along a row, so the row-constant disp-head kernel
+    does not apply: the class runs no kernel, as the JAX module runs none.
+
+    Names: the ladder it shares with :class:`DepthDecoder` takes
+    ``DepthDecoder``'s (the ``decoder`` ModuleList, ``convs`` keys
+    ``epconv``, ``upconv_{i}_{j}``, ``denseaspp``); the heads follow in the
+    ``decoder`` list as ``dispconv``, ``piconv``, ``sigmaconv``, the JAX
+    module names (``utils/weights.py:load_jax_continuous_params``).
+    ``dtype`` is the compute dtype; the heads leave it in float32, as the
+    JAX module's do.
+    """
+
+    def __init__(self, num_ch_enc: Sequence[int],
+                 planes: PlaneConfig = PlaneConfig(xz_levels=0, yz_levels=0),
+                 num_ep: int = 8, pe_type: str = "neural", use_skips: bool = True,
+                 use_denseaspp: bool = True, use_mixture_loss: bool = True,
+                 render_probability: bool = False, dtype: Optional[torch.dtype] = None):
+        super().__init__(num_ch_enc, num_ep, pe_type, use_denseaspp, use_skips, dtype)
+        self.planes = planes
+        self.use_mixture_loss = use_mixture_loss
+        self.render_probability = render_probability
+        n_levels = planes.disp_levels + planes.xz_levels
+        self.convs["dispconv"] = Conv3x3(NUM_CH_DEC[0], n_levels, dtype)
+        self.convs["piconv"] = Conv3x3(NUM_CH_DEC[0],
+                                       n_levels - 1 if render_probability else n_levels, dtype)
+        if use_mixture_loss:
+            self.convs["sigmaconv"] = Conv3x3(NUM_CH_DEC[0], n_levels, dtype)
+        self.decoder = nn.ModuleList(self.convs.values())
+
+    def forward(self, input_features: Sequence[torch.Tensor], grid: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """As :meth:`DepthDecoder.forward`; every output is plane-first:
+        disp_levels, disp_layered, logits, sigma, pi, probability ``(B, N,
+        H, W)``, disp and depth ``(B, 1, H, W)``, and under
+        ``render_probability`` dists ``(B, N - 1, H, W)``."""
+        cfg, c = self.planes, self.convs
+        x = self.ladder(input_features, grid, generator)
+        H, W = x.shape[-2:]
+        out = {}
+        levels = torch.sigmoid(upcast(c["dispconv"](x)))
+        out["disp_levels"] = levels
+        disp_layered = cfg.disp_max * (cfg.disp_min / cfg.disp_max) ** levels
+        out["disp_layered"] = disp_layered
+        logits = upcast(c["piconv"](x))
+        if self.render_probability:
+            out["dists"] = plane_dists(disp_layered, W, H)
+            probability = render_probability_from_logits(logits, out["dists"])
+            logits = torch.cat([logits, torch.ones_like(logits[:, :1])], dim=1)
+        else:
+            probability = torch.softmax(logits, dim=1)
+        out["logits"] = logits
+        if self.use_mixture_loss:
+            sigma = torch.clamp(torch.sigmoid(upcast(c["sigmaconv"](x))), 0.01, 1.0)
+            out["sigma"] = sigma
+            out["pi"] = probability
+            probability = mixture_reweight(probability, sigma)
+        out["probability"] = probability
+        out["disp"] = (probability * disp_layered).sum(dim=1, keepdim=True)
         out["depth"] = disp_to_depth(out["disp"], W)
         return out

@@ -3,8 +3,9 @@
 The ResNet decoder's blocks name their modules after the reference torch
 code, so a reference ``state_dict`` loads as it is: ``Conv3x3.conv``,
 ``ConvBlock.conv.conv``.  The PladeNet/FalNet blocks (``ConvELU``,
-``ResidualBlock``, ``Deconv``) name theirs after the JAX modules
-(``conv``, ``conv1``, ``conv2``), the names ``utils/weights.py`` maps.
+``ResidualBlock``, ``Deconv``, ``EpConv``) name theirs after the JAX modules
+(``conv``, ``norm``, ``conv1``, ``conv2``, ``conv0``), the names
+``utils/weights.py`` maps.
 
 Every block takes a ``dtype``, as the JAX package's flax modules do: None
 computes in the input's dtype (float32), ``torch.bfloat16`` in bf16 (the
@@ -174,20 +175,36 @@ def inject_grid(x: torch.Tensor, grid_ep: Optional[torch.Tensor]) -> torch.Tenso
 
 
 class ConvELU(nn.Module):
-    """Conv with bias, then ELU: the PladeNet/FalNet stage conv (reference
-    plade_net.py:33-46).  ``ModelConfig`` never turns its BatchNorm on, and
-    the port does not build one."""
+    """Conv, then ELU: the PladeNet/FalNet stage conv (reference
+    plade_net.py:33-46, JAX ``layers.py:ConvELU``).  With ``batch_norm`` the
+    conv is bias-free and a :class:`BatchNorm2d` named ``norm`` (torch
+    momentum 0.1, eps 1e-5) sits between the conv and the ELU, as in the
+    JAX module (``norm/bn``); only ``PladePoseNet`` builds it."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3, stride: int = 1,
                  pad: int = 1, batch_norm: bool = False, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        if batch_norm:
-            raise NotImplementedError("ConvELU with BatchNorm: no ModelConfig builds it")
         self.conv = Conv2d(in_ch, out_ch, kernel_size, stride=stride, padding=pad,
-                           dtype=dtype)
+                           bias=not batch_norm, dtype=dtype)
+        self.norm = BatchNorm2d(out_ch, eps=1e-5, momentum=0.1) if batch_norm else None
 
     def forward(self, x):
-        return F.elu(self.conv(x))
+        x = self.conv(x)
+        return F.elu(x if self.norm is None else self.norm(x))
+
+
+class EpConv(nn.Module):
+    """Neural positional encoding in the JAX module's names (``conv0``,
+    ``conv1``; JAX ``layers.py:EpConv``): 1x1 2->16 ELU -> 1x1 16->num_ep
+    ELU, the layers of :func:`ep_conv`."""
+
+    def __init__(self, num_ep: int, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.conv0 = Conv2d(2, 16, 1, dtype=dtype)
+        self.conv1 = Conv2d(16, num_ep, 1, dtype=dtype)
+
+    def forward(self, grid):
+        return F.elu(self.conv1(F.elu(self.conv0(grid))))
 
 
 class ResidualBlock(nn.Module):

@@ -12,8 +12,13 @@ HWIO -> OIHW; BatchNorm ``scale``/``bias`` (params) and ``mean``/``var``
 ``load_jax_pc_params`` for the frozen perceptual net (VGG-19, or the
 ResNet-18 trunk, whose tree is a ResNet encoder's), and
 ``load_jax_encoder_params`` for one ResNet trunk alone (the converted ImageNet
-files of ``utils/pretrained.py``).  ``jax_leaf_shapes`` lists the JAX leaves a
-module takes, with their JAX shapes.
+files of ``utils/pretrained.py``).  The API-parity networks take their JAX
+modules' trees: ``load_jax_plade_pose_params`` (``PladePoseNet``, whose
+module names are the flax ones), ``load_jax_monov2_params``
+(``Monov2Decoder``, the same) and ``load_jax_continuous_params``
+(``DepthDecoderContinuous``, the ``DepthDecoder`` ladder's reference names).
+``jax_leaf_shapes`` lists the JAX leaves a module takes, with their JAX
+shapes.
 """
 from __future__ import annotations
 
@@ -23,6 +28,10 @@ from typing import Dict, Mapping, Tuple
 import numpy as np
 import torch
 import torch.nn as nn
+
+from planedepth_tpu_torch.models.depth_decoder import DepthDecoderContinuous
+from planedepth_tpu_torch.models.monov2_decoder import Monov2Decoder
+from planedepth_tpu_torch.models.pose_net import PladePoseNet
 
 _BN_LEAF = {"weight": ("params", "scale"), "bias": ("params", "bias"),
             "running_mean": ("batch_stats", "mean"),
@@ -87,7 +96,7 @@ def _depth_model_path(model: nn.Module, parts) -> Tuple[str, ...]:
 
 def _leaf(path: Tuple[str, ...], leaf: str) -> Tuple[str, Tuple[str, ...], str]:
     """(collection, JAX module path, leaf name) of a port leaf at ``path``."""
-    if re.fullmatch(r"(bn\d|norm\d|downsample_bn)", path[-1]):
+    if re.fullmatch(r"(bn\d|norm\d*|downsample_bn)", path[-1]):
         collection, jleaf = _BN_LEAF[leaf]
         return collection, path + ("bn",), jleaf
     return "params", path, _CONV_LEAF[leaf]
@@ -104,10 +113,27 @@ def _leaves(module: nn.Module, module_path):
         yield (key, tensor) + _leaf(module_path(parts[:-1]), parts[-1])
 
 
-def jax_leaf_shapes(module: nn.Module, module_path=_trunk_path) -> Dict[str, Tuple[int, ...]]:
+def _flax_path(parts) -> Tuple[str, ...]:
+    """A module whose names are the flax ones: the path as it is."""
+    return tuple(parts)
+
+
+def _module_path(module: nn.Module):
+    """The JAX module path of ``module``'s leaves: the API-parity networks'
+    own, a ResNet trunk's for any other."""
+    if isinstance(module, (PladePoseNet, Monov2Decoder)):
+        return _flax_path
+    if isinstance(module, DepthDecoderContinuous):
+        return lambda parts: _decoder_path(list(module.convs), parts[1:])
+    return _trunk_path
+
+
+def jax_leaf_shapes(module: nn.Module, module_path=None) -> Dict[str, Tuple[int, ...]]:
     """The ``/``-joined JAX key (``params/encoder/conv1/kernel``) and the JAX
     shape (HWIO kernels) of every leaf ``module`` takes; ``module_path`` as
-    in :func:`_copy_leaves`, a ``ResnetEncoder``'s by default."""
+    in :func:`_copy_leaves`, by default the API-parity networks' own and a
+    ``ResnetEncoder``'s for any other module."""
+    module_path = module_path or _module_path(module)
     shapes = {}
     for _, tensor, collection, path, leaf in _leaves(module, module_path):
         shape = tuple(tensor.shape)
@@ -159,6 +185,26 @@ def load_jax_encoder_params(encoder: nn.Module, params: Mapping,
     each, numpy leaves) into the port's ``ResnetEncoder`` or
     ``ResnetPoseEncoder``."""
     _copy_leaves(encoder, {"params": params, "batch_stats": batch_stats}, _trunk_path)
+
+
+def load_jax_plade_pose_params(model: PladePoseNet, params: Mapping,
+                               batch_stats: Mapping) -> None:
+    """Copy a JAX ``PladePoseNet``'s variables (its ``params`` and, with
+    BatchNorm, ``batch_stats`` trees, numpy leaves) into the port's."""
+    _copy_leaves(model, {"params": params, "batch_stats": batch_stats}, _flax_path)
+
+
+def load_jax_monov2_params(model: Monov2Decoder, params: Mapping) -> None:
+    """Copy a JAX ``Monov2Decoder``'s ``params`` (numpy leaves) into the port's."""
+    _copy_leaves(model, {"params": params}, _flax_path)
+
+
+def load_jax_continuous_params(model: DepthDecoderContinuous, params: Mapping,
+                               batch_stats: Mapping) -> None:
+    """Copy a JAX ``DepthDecoderContinuous``'s variables (``params`` and, with
+    DenseASPP, ``batch_stats``, numpy leaves) into the port's."""
+    _copy_leaves(model, {"params": params, "batch_stats": batch_stats},
+                 _module_path(model))
 
 
 def load_reference_state_dicts(model: nn.Module, encoder_sd: Dict,

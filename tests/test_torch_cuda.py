@@ -937,3 +937,80 @@ def test_prefetch_to_device_hands_over_the_batches_in_order(cuda):
             t = torch.from_numpy(np.ascontiguousarray(v))
             want = t.permute(0, 3, 1, 2) if t.dim() == 4 else t
             assert torch.equal(device_batch[k], want), k
+
+
+def test_custom_ops_on_cuda_match_their_plain_versions(cuda):
+    """The ``planedepth_tpu_torch::`` ops called as ops on CUDA tensors: each
+    runs its kernel once (its launch counter moves by one) and equals its
+    plain version (the disp head's backward: its written-out adjoint, and
+    autograd through ``disp_head_plain``)."""
+    from planedepth_tpu_torch.ops.disp_head import disp_head_bwd_plain
+    from planedepth_tpu_torch.ops.head_epilogue import head_epilogue_bwd_plain
+
+    ops = torch.ops.planedepth_tpu_torch
+    inputs = _head_inputs((2, 63, 8, 200), 11, cuda)
+    g = torch.from_numpy(np.random.default_rng(12).normal(0, 1, (2, 1, 8, 200))
+                         .astype(np.float32)).to(cuda)
+    fwd, bwd = disp_head.launches, disp_head.bwd_launches
+    got = ops.disp_head(*inputs)
+    d_got = ops.disp_head_bwd(*inputs, g)
+    torch.cuda.synchronize()
+    assert (disp_head.launches, disp_head.bwd_launches) == (fwd + 1, bwd + 1)
+    torch.testing.assert_close(got, disp_head_plain(*inputs), **TOL)
+    wrt = [t.clone().requires_grad_() for t in inputs[:3]]
+    d_auto = torch.autograd.grad(disp_head_plain(*wrt, inputs[3]), wrt, g)
+    for got_d, plain_d, auto_d in zip(d_got, disp_head_bwd_plain(*inputs, g), d_auto):
+        scale = float(plain_d.abs().max())
+        torch.testing.assert_close(got_d, plain_d, rtol=1e-5, atol=1e-5 * scale)
+        torch.testing.assert_close(plain_d, auto_d, rtol=1e-5, atol=1e-5 * scale)
+
+    rng = np.random.default_rng(13)
+    shape = (2, 63, 8, 1280)
+    raw_l, raw_s, g_l, g_s = (torch.from_numpy(rng.normal(0, 4, shape).astype(np.float32))
+                              .to(cuda) for _ in range(4))
+    mask = torch.from_numpy((rng.uniform(0, 1, (2, 63, 8, 1)) > 0.3).astype(np.float32)).to(cuda)
+    for sigma_in, g_sigma in ((raw_s, g_s), (None, None)):
+        fwd, bwd = head_epilogue.fwd_launches, head_epilogue.bwd_launches
+        logits, sigma = ops.head_epilogue(raw_l, sigma_in, mask)
+        want_l, want_s = head_epilogue_plain(raw_l, sigma_in, mask)
+        saved = None if sigma_in is None else sigma
+        d_l, d_s = ops.head_epilogue_bwd(g_l, g_sigma, saved, mask)
+        torch.cuda.synchronize()
+        assert (head_epilogue.fwd_launches, head_epilogue.bwd_launches) == (fwd + 1, bwd + 1)
+        plain_d_l, plain_d_s = head_epilogue_bwd_plain(g_l, g_sigma, saved, mask)
+        torch.testing.assert_close(logits, want_l, rtol=1e-6, atol=1e-6)
+        torch.testing.assert_close(d_l, plain_d_l, rtol=1e-6, atol=1e-6)
+        if sigma_in is None:
+            assert sigma.numel() == 0 and d_s.numel() == 0         # the absent sigma
+        else:
+            torch.testing.assert_close(sigma, want_s, rtol=1e-6, atol=1e-6)
+            torch.testing.assert_close(d_s, plain_d_s, rtol=1e-6, atol=1e-6)
+
+
+def test_export_on_cuda_runs_the_kernels(cuda):
+    """A small model's eval forward exported on the card: the disp-head and
+    head-epilogue ops stand in its graph, each call of the program launches
+    each kernel once, and it equals the eager forward within 1e-6 of its
+    largest disparity."""
+    from planedepth_tpu_torch.cli.export import EvalForward, export_program
+    from planedepth_tpu_torch.config import TrainConfig
+
+    torch.backends.cudnn.allow_tf32 = False
+    model = init_weights_(DepthModel(ModelConfig(num_layers=18)),
+                          torch.Generator().manual_seed(0)).to(cuda).eval()
+    cfg = TrainConfig(data=DataConfig(height=64, width=192), bf16=False)
+    program = export_program(cfg, model, batch_size=2)
+    targets = {str(n.target) for n in program.graph.nodes if n.op == "call_function"}
+    assert {"planedepth_tpu_torch.disp_head.default",
+            "planedepth_tpu_torch.head_epilogue.default"} <= targets
+    rng = np.random.default_rng(1)
+    image = torch.from_numpy(rng.random((2, 64, 192, 3), dtype=np.float32)).to(cuda)
+    grid = torch.from_numpy(rng.uniform(-1, 1, (2, 64, 192, 2)).astype(np.float32)).to(cuda)
+    before = (disp_head.launches, head_epilogue.fwd_launches)
+    got = program.module()(image, grid)
+    torch.cuda.synchronize()
+    assert (disp_head.launches, head_epilogue.fwd_launches) == (before[0] + 1, before[1] + 1)
+    with torch.no_grad():
+        want = EvalForward(model)(image, grid)
+    assert got.shape == (2, 64, 192, 1) and not got.requires_grad
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6 * float(want.abs().max()))

@@ -92,17 +92,19 @@ def test_make_stereo_batch_bit_equal_to_jax(kw):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port (the KITTI reader, the evaluator and the
-    CLIs among them), chip_smoke.py and the port's profile script import
-    without JAX or the JAX package, and without PIL or OpenCV."""
+    """Every module of the port (the KITTI reader, the evaluator, the CLIs
+    with the export among them, and the API-parity networks),
+    chip_smoke.py and the port's profile script import without JAX or the
+    JAX package, and without PIL or OpenCV."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import planedepth_tpu_torch as p\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for m in mods + ['chip_smoke', 'scripts.profile_torch_step']:\n"
         "    importlib.import_module(m)\n"
-        "assert len(mods) >= 41, mods\n"
-        "for m in ('train.step', 'cli.options', 'cli.train', 'cli.evaluate', 'data.kitti',\n"
+        "assert len(mods) >= 43, mods\n"
+        "for m in ('train.step', 'cli.options', 'cli.train', 'cli.evaluate', 'cli.export',\n"
+        "          'models.monov2_decoder', 'models.pose_net', 'data.kitti',\n"
         "          'data.kitti_utils', 'data.transforms', 'data.native', 'data.image_io',\n"
         "          'data.kitti_tree', 'eval.export_gt', 'eval.evaluator', 'ops.ssim',\n"
         "          'train.view_synthesis'):\n"

@@ -95,8 +95,18 @@ def test_layers_match_jax(layer):
 
 
 def test_convelu_batch_norm_is_not_built():
-    with pytest.raises(NotImplementedError, match="BatchNorm"):
-        ConvELU(3, 8, batch_norm=True)
+    """FalNet's and PladeNet's stage convs build no BatchNorm (no
+    ModelConfig turns it on) and keep their bias; only ``batch_norm=True``
+    (PladePoseNet, held to JAX in tests/test_torch_api_nets.py) builds the
+    JAX module's bias-free conv and ``norm``."""
+    plain = ConvELU(3, 8)
+    assert plain.norm is None and plain.conv.bias is not None
+    for name in ("falnet", "pladenet_mixture_pe8"):
+        model = DepthModel(ModelConfig(**MODELS[name]))
+        assert not any(isinstance(m, torch.nn.BatchNorm2d) for m in model.modules()), name
+    with_bn = ConvELU(3, 8, batch_norm=True)
+    assert with_bn.conv.bias is None and isinstance(with_bn.norm, torch.nn.BatchNorm2d)
+    assert (with_bn.norm.momentum, with_bn.norm.eps) == (0.1, 1e-5)
 
 
 MODELS = {
