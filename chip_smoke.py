@@ -3633,6 +3633,18 @@ print(json.dumps(counts))
 """
 
 
+# the CLI's batch-1 export of one arithmetic, in a process of its own beside
+# this one's batch-8 exports (torch.export's tracing is host-bound): seconds
+# and bytes
+CLI_EXPORT = """
+import json, sys, time
+from planedepth_tpu_torch.cli import export
+t0 = time.perf_counter()
+n = export.main(sys.argv[1:])
+print(json.dumps([time.perf_counter() - t0, n]))
+"""
+
+
 def hold_export(got, want, bf16, what):
     """``got`` against ``want`` at the export's tolerance; returns the
     measure held (max |d| / max |disp| in float32, mean |d| / mean |disp|
@@ -3658,8 +3670,9 @@ def forward_peak_gb(fn, dev):
 
 def phase_export(card, dev=torch.device("cuda"), flags=EXPORT_FLAGS, batch=8):
     """The eval recipe's forward exported at 1280x384 in float32 and bf16:
-    through ``cli.export.main`` at batch 1 and ``export_forward`` at 8 (the
-    same seeded weights); each program loaded, held to the eager forward
+    through ``cli.export.main`` at batch 1 (in a process of its own for each
+    arithmetic, while this one runs the others) and ``export_forward`` at 8
+    (the same seeded weights); each program loaded, held to the eager forward
     and counted (one disp head and one head epilogue a call); the CLI's
     float32 program and the bf16 batch one loaded and run again in a fresh
     process that imports torch and the port's ops alone; export seconds,
@@ -3673,23 +3686,45 @@ def phase_export(card, dev=torch.device("cuda"), flags=EXPORT_FLAGS, batch=8):
     grid = torch.from_numpy(images["grid"]).to(dev)
     want_calls = only(disp_head_fwd=1, head_epilogue_fwd=1)
     rows = {}
+    arithmetics = (("f32", False), ("bf16", True))
     with tempfile.TemporaryDirectory() as tmp:
         np.save(f"{tmp}/image.npy", images["color_l"])
         np.save(f"{tmp}/grid.npy", images["grid"])
-        for name, bf16 in (("f32", False), ("bf16", True)):
-            dtype_flags = list(flags) + ([] if bf16 else ["--no_bf16"])
-            t0 = time.perf_counter()
-            bytes_1 = cli_export.main(dtype_flags + ["--out", f"{tmp}/{name}_1.pt2",
-                                                     "--export_batch", "1"])
-            cli_s = time.perf_counter() - t0
-            args, explicit = parse_with_explicit(build_parser(), dtype_flags)
-            if args.no_bf16 == bf16:
-                raise AssertionError(f"export {name}: --no_bf16 is {args.no_bf16}")
-            cfg, model = cli_evaluate.eval_model(args_to_config(args), explicit)
-            model = init_weights_(model, torch.Generator().manual_seed(cfg.seed)).to(dev)
-            t0 = time.perf_counter()
-            bytes_8 = cli_export.export_forward(cfg, model, f"{tmp}/{name}_{batch}.pt2", batch)
-            export_s = time.perf_counter() - t0
+        dtype_flags = {name: list(flags) + ([] if bf16 else ["--no_bf16"])
+                       for name, bf16 in arithmetics}
+        # cli.export.main at batch 1 in a process of each arithmetic, while
+        # this one exports batch 8 of both
+        cli = {name: subprocess.Popen(
+            [sys.executable, "-c", CLI_EXPORT, *dtype_flags[name], "--out",
+             f"{tmp}/{name}_1.pt2", "--export_batch", "1"],
+            env=dict(os.environ, PYTHONPATH=REPO_DIR), stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True) for name, _ in arithmetics}
+        try:
+            models, exported = {}, {}
+            for name, bf16 in arithmetics:
+                args, explicit = parse_with_explicit(build_parser(), dtype_flags[name])
+                if args.no_bf16 == bf16:
+                    raise AssertionError(f"export {name}: --no_bf16 is {args.no_bf16}")
+                cfg, model = cli_evaluate.eval_model(args_to_config(args), explicit)
+                model = init_weights_(model, torch.Generator().manual_seed(cfg.seed)).to(dev)
+                t0 = time.perf_counter()
+                bytes_8 = cli_export.export_forward(cfg, model, f"{tmp}/{name}_{batch}.pt2",
+                                                    batch)
+                exported[name] = (time.perf_counter() - t0, bytes_8)
+                models[name] = model
+            for name, proc in cli.items():
+                out, err = proc.communicate(timeout=600)
+                if proc.returncode != 0:
+                    raise AssertionError(f"cli.export.main {name} failed:\n{err[-4000:]}")
+                exported[name] += tuple(json.loads(out.strip().splitlines()[-1]))
+        finally:
+            for proc in cli.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait(10)
+        for name, bf16 in arithmetics:
+            export_s, bytes_8, cli_s, bytes_1 = exported[name]
+            model = models.pop(name)
             programs = {b: torch.export.load(f"{tmp}/{name}_{b}.pt2").module()
                         for b in (1, batch)}
             eager = cli_export.EvalForward(model)
@@ -3712,9 +3747,9 @@ def phase_export(card, dev=torch.device("cuda"), flags=EXPORT_FLAGS, batch=8):
                 peak = forward_peak_gb(lambda: programs[batch](image, grid), dev)
                 eager_peak = forward_peak_gb(lambda: eager(image, grid), dev)
             rows[name] = ms
-            print(f"[export] {name}: cli.export.main batch 1 {cli_s:.1f} s ({bytes_1} bytes), "
-                  f"export_forward batch {batch} {export_s:.1f} s ({bytes_8} bytes); exported "
-                  f"vs eager "
+            print(f"[export] {name}: cli.export.main batch 1 {cli_s:.1f} s in a process of "
+                  f"its own ({bytes_1} bytes), export_forward batch {batch} {export_s:.1f} s "
+                  f"({bytes_8} bytes) in this one, at the same time; exported vs eager "
                   + ", ".join(f"batch {b}: {e:.3e} ({'mean' if bf16 else 'max'} |d| / |disp|, "
                               f"bit-equal {eq})" for b, (e, eq) in held.items())
                   + f"; launches a call {nonzero(want_calls)}; forward at batch {batch}, "
@@ -4162,13 +4197,67 @@ def phase_ddp(card, dev=torch.device("cuda")):
 # ---------------------------------------------------------------------------
 
 SPATIAL_RANKS = 2
-# the kernels each spatial run must launch, on each rank as in one process
-SPATIAL_KERNELS = {
-    "bf16": ("plane_sweep_bf16_fwd", "plane_sweep_bf16_bwd", "head_epilogue_fwd",
-             "head_epilogue_bwd"),
-    "float32": ("plane_sweep_fwd", "plane_sweep_bwd", "head_epilogue_fwd", "head_epilogue_bwd"),
-    "stage3": ("plane_sweep_bf16_fwd", "plane_sweep_bf16_bwd", "head_epilogue_fwd",
-               "head_epilogue_bwd", "row_shift_fwd", "disp_head_fwd"),
+# ResNet render on vertical planes alone (C9: over ground planes the float32
+# compositing is ill-posed, so the ranks' sums and one process's part)
+RENDER_VERTICAL = dataclasses.replace(RENDER_MODEL, planes=PlaneConfig(xz_levels=0))
+# each spatial run: its config and one step's launches, on each rank as in
+# one process (a rank launches each kernel on its rows, the 2-D warp on the
+# gathered whole image); the first three since PR 18, the rest every other
+# recipe at full width
+SPATIAL_RUNS = {
+    "bf16": (lambda: hr_finetune_config(bf16=True), DDP_STEP),
+    "float32": (hr_finetune_config, DDP_STEP_F32),
+    "stage3": (lambda: self_distillation_config(bf16=True), bf16_step(DISTILL_STEP)),
+    "mono_bf16": (lambda: mono_config(bf16=True), bf16_step(MONO_STEP)),
+    "mono_float32": (mono_config, MONO_STEP),
+    "mixed": (lambda: mono_config(warp_type="disp_warp", bf16=True), bf16_step(MIXED_STEP)),
+    "self": (lambda: stage1_config(loss=SELF_LOSS, bf16=True), bf16_step(STAGE1_STEP)),
+    "oracle": (lambda: stage1_config(fused_sweep=False), ORACLE_STEP),
+    "render": (lambda: stage1_config(model=RENDER_VERTICAL, bf16=True),
+               bf16_step(RESCUE_STEP)),
+    "yz": (lambda: stage1_config(model=YZ_MODEL, bf16=True), bf16_step(RESCUE_STEP)),
+    "falnet": (lambda: hr_finetune_config(model=FALNET_MODEL, batch_size=4, bf16=True),
+               bf16_step(FALNET_STEP)),
+    "pladenet": (lambda: hr_finetune_config(model=PLADENET_MODEL, batch_size=4, bf16=True),
+                 bf16_step(PLADENET_STEP)),
+}
+# the runs that also hold the ranks' gradients and weights to one process's
+SPATIAL_C4 = ("float32", "mono_float32")
+# the bf16 runs of the recipes added to the phase after PR 18, whose loss
+# terms are also held at 2e-4 of the step's total loss: two valid
+# summation orders part a bf16 term by 1e-5 to 3e-5 at 640x192 in every
+# recipe (the card's stem conv, the bilinear resize and BatchNorm's float32
+# moments give a shard other bits than the whole image,
+# scripts/shard_bits.py), which is more than 2e-4 of mono's and mixed's
+# photometric term (0.056 and 0.015: a mean of per-pixel log-likelihoods of
+# both signs).  Their float32 twins hold every term at 2e-4 of itself.
+SPATIAL_TOTAL_SCALED = ("mono_bf16", "mixed", "self", "render", "yz", "falnet", "pladenet")
+# rank 0's kernels by name as torch.profiler sees them on the card, in the
+# runs it traces (substrings of the kernels' names)
+SPATIAL_TRACED = {
+    "bf16": {"sweep_fwd_kernel": 1, "sweep_bwd_kernel": 1},
+    "float32": {"sweep_fwd_kernel": 1, "sweep_bwd_kernel": 1},
+    "stage3": {"sweep_fwd_kernel": 1, "sweep_bwd_kernel": 1},
+    "mono_bf16": {"warp2d_fwd": 3, "warp2d_bwd": 3, "disp_head_bwd_kernel": 1},
+}
+SPATIAL_RECIPES = {
+    "bf16": "hr_finetune_config bf16 (ResNet-50, DenseASPP, 49+14 planes, VGG19, 8 x 1280x384)",
+    "float32": "hr_finetune_config float32 (the same)",
+    "stage3": "self_distillation_config bf16 (teacher + row shift, 4 x 1280x384)",
+    "mono_bf16": "mono_config bf16 (ResNet-50, DenseASPP, 49+14 planes, pose ResNet-18, "
+                 "homography to r, -1, 1 through the 2-D warp on gathered rows, automask, "
+                 "VGG19, 8 x 640x192)",
+    "mono_float32": "mono_config float32 (the same)",
+    "mixed": "mono_config disp_warp bf16 (side r in the sweep on the rows, -1 and 1 "
+             "through the gathered 2-D warp)",
+    "self": "stage1_config + alpha_self 0.1 with SSIM, bf16 (the right image gathered)",
+    "oracle": "stage1_config fused_sweep off, float32 (the oracle view synthesis)",
+    "render": "stage1_config render_probability on 49 vertical planes (C9), bf16 (the "
+              "disp_warp rescue through the gathered 2-D warp, plane_dists in global rows)",
+    "yz": "stage1_config yz_levels 8 (N = 71), bf16 (the gathered 2-D warp)",
+    "falnet": "FalNet 49 planes at 1280x384, batch 2 flipped to 4, bf16 (H % 64S)",
+    "pladenet": "PladeNet 49+14 planes at 1280x384, batch 2 flipped to 4, bf16 (H % 64S, "
+                "the residual head's image mean)",
 }
 
 
@@ -4179,23 +4268,37 @@ def tensor_digest(t):
     return hashlib.sha256(t.detach().contiguous().cpu().numpy().tobytes()).hexdigest()
 
 
+def traced_kernels(prof):
+    """The counts of rank 0's traced kernels (:data:`SPATIAL_TRACED`'s names)
+    in ``prof``, those it saw."""
+    names = {name for want in SPATIAL_TRACED.values() for name in want}
+    counts = {}
+    for e in prof.key_averages():
+        for name in names:
+            if name in e.key:
+                counts[name] = counts.get(name, 0) + e.count
+    return counts
+
+
 def spatial_runs(dev, mesh_shape, profile=False, keep_float32=True):
-    """One hr_finetune step (1280x384, the global batch
-    ``make_stereo_batch(4, 384, 1280)`` flipped to 8) in bf16, then in
-    float32, then one stage-3 step (batch 4, the frozen teacher on 8 images,
-    bf16), each from seeded weights, on this rank's rows of the images under
-    ``mesh_shape`` or on the whole images with ``()``.  Each run's losses,
-    launch counts, parameters after the step, peak device memory above
-    what was allocated before it and, under ``profile``, the sweep kernels
-    the profiler saw; the parameters' digests after the step; under
-    ``keep_float32`` the float32 run's parameters and gradients too."""
+    """One step of each of :data:`SPATIAL_RUNS` (the three of PR 18: an
+    hr_finetune step at 1280x384, the global batch 4 flipped to 8, in bf16
+    and in float32, and a stage-3 step, batch 4 with the frozen teacher on
+    8 images, bf16; then every other recipe at full width), each from
+    seeded weights on the batch ``step_batch(cfg, 0)``, on this rank's rows
+    of the images under ``mesh_shape`` or on the whole images with ``()``.
+    Each run's losses, launch counts, parameters' digests after the step,
+    peak device memory above what was allocated before it and, under
+    ``profile``, the kernels the profiler saw in the runs of
+    :data:`SPATIAL_TRACED`; under ``keep_float32`` the parameters and
+    gradients of the runs of :data:`SPATIAL_C4` too."""
     runs = {}
     # the card's activity alone: the kernels are all that is counted, and a
     # trace of the host's ops as well takes seconds to read back
     activities = [torch.profiler.ProfilerActivity.CUDA]
-    for tag, cfg in (("bf16", hr_finetune_config(bf16=True)), ("float32", hr_finetune_config()),
-                     ("stage3", self_distillation_config(bf16=True))):
-        cfg = cfg.replace(allow_random_pc=True, mesh_shape=mesh_shape)
+    for tag, (preset, _) in SPATIAL_RUNS.items():
+        cfg = preset().replace(allow_random_pc=True, mesh_shape=mesh_shape)
+        traced = profile and tag in SPATIAL_TRACED
         t_build = time.perf_counter()
         free_cache()
         base = torch.cuda.memory_allocated(dev)
@@ -4205,12 +4308,11 @@ def spatial_runs(dev, mesh_shape, profile=False, keep_float32=True):
             bundle.freeze_teacher()
         optimizer, scheduler = make_optimizer(cfg, bundle.parameters(), 1000)
         step = make_train_step(bundle, optimizer, scheduler)
-        batch = batch_to_tensors(make_stereo_batch(cfg.per_step_batch, cfg.data.height,
-                                                   cfg.data.width, seed=0), dev)
+        batch = batch_to_tensors(step_batch(cfg, 0), dev)
         reset_launch_counts()
         t0 = time.perf_counter()
         build_s = t0 - t_build
-        with torch.profiler.profile(activities=activities) if profile else \
+        with torch.profiler.profile(activities=activities) if traced else \
                 contextlib.nullcontext() as prof:
             losses = host_losses(step(batch))
             torch.cuda.synchronize(dev)
@@ -4219,16 +4321,12 @@ def spatial_runs(dev, mesh_shape, profile=False, keep_float32=True):
                "peak_gb": (torch.cuda.max_memory_allocated(dev) - base) / 1e9,
                "rows": batch["color_l"].shape[-2],
                "digests": {k: tensor_digest(p) for k, p in bundle.model.named_parameters()}}
-        if tag == "float32" and keep_float32:
+        if tag in SPATIAL_C4 and keep_float32:
             run["first"] = {k: p.detach().cpu() for k, p in bundle.model.named_parameters()}
             run["grads"] = {k: p.grad.detach().cpu() for k, p in
                             bundle.model.named_parameters() if p.grad is not None}
-        if profile:
-            run["kernels"] = {}
-            for e in prof.key_averages():
-                for name in ("sweep_fwd_kernel", "sweep_bwd_kernel"):
-                    if name in e.key:
-                        run["kernels"][name] = run["kernels"].get(name, 0) + e.count
+        if traced:
+            run["kernels"] = traced_kernels(prof)
         run["after_s"] = time.perf_counter() - t0 - run["seconds"]
         runs[tag] = run
         del bundle, optimizer, scheduler, step, batch
@@ -4260,14 +4358,17 @@ def spatial_rank(rank, size, tmp):
 
 
 def phase_spatial(card, dev=torch.device("cuda")):
-    """Image rows over ranks: two gloo ranks on the one card, each with 192
-    of the 384 rows, held to one process on the global batch (run while
-    the ranks run).  Held in bf16 and float32 and for the stage-3 step: the
-    losses at rtol 2e-4, equal on both ranks; the ranks' parameters after
-    the step bit-equal; each process's launches the same; rank 0's sweep
-    kernels as torch.profiler saw them; each rank's peak memory below the
-    one process's.  In float32 also the gradients and post-Adam weights
-    (:func:`first_step_c4`)."""
+    """Image rows over ranks: two gloo ranks on the one card, each with half
+    of the rows, held to one process on the global batch (run while the
+    ranks run), one step of each of :data:`SPATIAL_RUNS`.  Held in every
+    run: the losses finite, at rtol 2e-4 of one process's (in the runs of
+    :data:`SPATIAL_TOTAL_SCALED`, or within 2e-4 of the total loss) and
+    equal on both ranks; the ranks' parameters after the step bit-equal; each process's
+    launches those of one step (every kernel of the step launched) and the
+    same in all three; each rank's peak memory below the one process's; in
+    the runs of :data:`SPATIAL_TRACED` rank 0's kernels as torch.profiler
+    saw them; in those of :data:`SPATIAL_C4` the gradients and post-Adam
+    weights (:func:`first_step_c4`)."""
     import torch.multiprocessing as mp
 
     free_cache()
@@ -4278,10 +4379,10 @@ def phase_spatial(card, dev=torch.device("cuda")):
         try:
             one = spatial_runs(dev, ())
             t_one = time.perf_counter() - t0
-            deadline = time.monotonic() + 300
+            deadline = time.monotonic() + 600
             while not ranks.join(timeout=10):
                 if time.monotonic() > deadline:
-                    raise TimeoutError("the spatial ranks are still running after 300 s")
+                    raise TimeoutError("the spatial ranks are still running after 600 s")
         finally:
             for proc in ranks.processes:
                 if proc.is_alive():
@@ -4291,44 +4392,57 @@ def phase_spatial(card, dev=torch.device("cuda")):
         r0, r1 = (torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
                   for r in range(SPATIAL_RANKS))
     t_loaded = time.perf_counter() - t0
-    out = {}
+    out, failed = {}, []
     for tag, want in one.items():
         a, b = r0[tag], r1[tag]
-        cfg = (self_distillation_config if tag == "stage3" else hr_finetune_config)(
-            bf16=tag != "float32")
+        preset, per_step = SPATIAL_RUNS[tag]
+        cfg = preset()
+        faults = []
         for name, run in (("one process", want), ("rank 0", a), ("rank 1", b)):
-            check_losses(run["losses"], cfg)
-            missing = [k for k in SPATIAL_KERNELS[tag] if not run["launches"][k]]
+            try:
+                check_losses(run["losses"], cfg)
+            except AssertionError as e:
+                faults.append(f"{name}: {e}")
+            missing = [k for k in nonzero(per_step) if not run["launches"][k]]
             if missing:
-                raise AssertionError(f"spatial {tag} {name}: {missing} launched no time")
+                faults.append(f"{name}: {missing} launched no time")
             if run["launches"] != want["launches"]:
-                raise AssertionError(f"spatial {tag} {name}: launches {run['launches']}, "
-                                     f"one process {want['launches']}")
+                faults.append(f"{name}: launches {nonzero(run['launches'])}, one process "
+                              f"{nonzero(want['launches'])}")
         if a["rows"] * SPATIAL_RANKS != want["rows"] or a["rows"] != b["rows"]:
-            raise AssertionError(f"spatial {tag}: rows {a['rows']}, {b['rows']} of {want['rows']}")
-        if a["kernels"] != {"sweep_fwd_kernel": 1, "sweep_bwd_kernel": 1}:
-            raise AssertionError(f"spatial {tag} rank 0: the profiler saw sweep kernels "
-                                 f"{a['kernels']}")
+            faults.append(f"rows {a['rows']}, {b['rows']} of {want['rows']}")
+        if tag in SPATIAL_TRACED and a["kernels"] != SPATIAL_TRACED[tag]:
+            faults.append(f"rank 0: the profiler saw kernels {a['kernels']}, want "
+                          f"{SPATIAL_TRACED[tag]}")
         if a["losses"] != b["losses"]:
-            raise AssertionError(f"spatial {tag}: the ranks' losses differ")
+            faults.append("the ranks' losses differ")
         if a["digests"] != b["digests"] or set(a["digests"]) != set(want["digests"]):
-            raise AssertionError(f"spatial {tag}: the ranks' parameters differ after the step")
+            faults.append("the ranks' parameters differ after the step")
+        total = want["losses"][0]["loss/total_loss"]
+        abs_tol = 2e-4 * abs(total) if tag in SPATIAL_TOTAL_SCALED else 1e-7
         for k, v in want["losses"][0].items():
-            if not math.isclose(a["losses"][0][k], v, rel_tol=2e-4, abs_tol=1e-7):
-                raise AssertionError(f"spatial {tag} {k}: ranks {a['losses'][0][k]} vs {v}")
+            if not math.isclose(a["losses"][0][k], v, rel_tol=2e-4, abs_tol=abs_tol):
+                faults.append(f"{k}: ranks {a['losses'][0][k]} vs {v}")
         if max(a["peak_gb"], b["peak_gb"]) >= want["peak_gb"]:
-            raise AssertionError(f"spatial {tag}: peaks {a['peak_gb']:.3f}, {b['peak_gb']:.3f} "
-                                 f"GB, one process {want['peak_gb']:.3f} GB")
+            faults.append(f"peaks {a['peak_gb']:.3f}, {b['peak_gb']:.3f} GB, one process "
+                          f"{want['peak_gb']:.3f} GB")
         out[tag] = {"loss_rel_diff": loss_rel_diffs(a, want)[0],
+                    "losses": {k: [a["losses"][0][k], v] for k, v in want["losses"][0].items()},
                     "peak_gb": {"rank0": a["peak_gb"], "rank1": b["peak_gb"],
                                 "one_process": want["peak_gb"]},
                     "step_s": {"rank0": a["seconds"], "one_process": want["seconds"]},
                     "build_s": {"rank0": a["build_s"], "one_process": want["build_s"]},
                     "after_step_s": {"rank0": a["after_s"], "one_process": want["after_s"]},
-                    "launches": nonzero(a["launches"]), "kernels": a["kernels"],
-                    "total_loss": want["losses"][0]["loss/total_loss"]}
-        if tag == "float32":
-            out[tag]["first_step_c4"] = first_step_c4(a, want)
+                    "rows": f"{a['rows']} of {want['rows']}",
+                    "launches": nonzero(a["launches"]), "kernels": a.get("kernels")}
+        if tag in SPATIAL_C4:
+            try:
+                out[tag]["first_step_c4"] = first_step_c4(a, want)
+            except AssertionError as e:
+                faults.append(str(e))
+        if faults:
+            out[tag]["failed"] = faults
+            failed.append(tag)
     seconds = time.perf_counter() - t0
     timeline = {"rank0_started": r0["clock"]["started"] - clock0,
                 "rank0_joined": r0["clock"]["joined"] - clock0,
@@ -4336,13 +4450,13 @@ def phase_spatial(card, dev=torch.device("cuda")):
                 "ranks_done": t_ranks, "results_loaded": t_loaded, "checked": seconds}
     print(f"[spatial] phase timeline (s from its start): {json.dumps(timeline)}")
     for tag, run in out.items():
-        recipe = ("self_distillation_config bf16 (teacher + row shift)" if tag == "stage3"
-                  else f"hr_finetune_config {tag}")
-        print(f"[spatial] {SPATIAL_RANKS} gloo ranks on one card, mesh_shape (1, "
-              f"{SPATIAL_RANKS}), 192 of 384 rows each, {recipe} "
-              f"(ResNet-50, DenseASPP, 49+14 planes, VGG19, 1280x384), one step against one "
-              f"process on the global batch: {json.dumps(run)} ({seconds:.1f} s for the "
-              f"phase) | {card}")
+        print(f"[spatial] {tag}: {SPATIAL_RANKS} gloo ranks on one card, mesh_shape (1, "
+              f"{SPATIAL_RANKS}), {SPATIAL_RECIPES[tag]}, one step against one process on "
+              f"the global batch (losses: ranks, one process): {json.dumps(run)} "
+              f"({seconds:.1f} s for the phase) | {card}")
+    if failed:
+        raise AssertionError(f"spatial: {failed} failed: "
+                             + "; ".join(f"{t}: {out[t]['failed']}" for t in failed))
 
 
 def main(argv=()):

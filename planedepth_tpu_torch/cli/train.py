@@ -13,7 +13,8 @@ names before the Trainer is built and leaves it after; ``--batch_size`` is
 then the global batch, shared by the data ranks.  ``--mesh_shape D S``
 (``TrainConfig.mesh_shape``) lays the launcher's ``D S`` ranks out as a
 ``data x spatial`` mesh, each image's rows over the ``S`` ranks of a data
-rank (``parallel/mesh.py``; the height a multiple of ``32 S``):
+rank (``parallel/mesh.py``), for every recipe; the height a multiple of
+``32 S`` (``64 S`` for FalNet and PladeNet):
 
     python -m torch.distributed.run --nproc_per_node 4 -m planedepth_tpu_torch.cli.train \
         --stage hr_finetune --data_path ./kitti_data --png --mesh_shape 2 2

@@ -7,6 +7,7 @@ from __future__ import annotations
 import torch
 
 from planedepth_tpu_torch.geometry.warp import inv3x3
+from planedepth_tpu_torch.parallel.halo import global_rows
 
 
 def rot_from_axisangle(vec: torch.Tensor) -> torch.Tensor:
@@ -53,11 +54,13 @@ def transformation_from_parameters(axisangle: torch.Tensor, translation: torch.T
 def rc_correction(grid: torch.Tensor) -> torch.Tensor:
     """The crop's virtual-camera rotation ``Rc`` ``(B, 3, 3)`` from the
     ``(B, 2, H, W)`` augmentation grid: the pose net predicts motion in the
-    cropped camera, conjugated into the canonical one by ``Rc R Rc^-1``."""
-    gx, gy = grid[:, 0], grid[:, 1]
-    gx0 = (gx[:, 0, -1] + gx[:, 0, 0]) / 2.0
-    gy0 = (gy[:, -1, 0] + gy[:, 0, 0]) / 2.0
-    f = (gx[:, 0, -1] - gx[:, 0, 0]) / 2.0
+    cropped camera, conjugated into the canonical one by ``Rc R Rc^-1``.
+    It reads the image's first and last grid rows, from the ranks that
+    hold them on row shards (``parallel/halo.py:global_rows``)."""
+    ends = global_rows(grid, (0, -1))                      # (B, 2, 2, W)
+    gx0 = (ends[:, 0, 0, -1] + ends[:, 0, 0, 0]) / 2.0
+    gy0 = (ends[:, 1, 1, 0] + ends[:, 1, 0, 0]) / 2.0
+    f = (ends[:, 0, 0, -1] - ends[:, 0, 0, 0]) / 2.0
     col = torch.stack([-gx0 / (2 * 0.58), -gy0 / (2 * 1.92), f], dim=1)   # (B, 3)
     eye = torch.eye(3, dtype=grid.dtype, device=grid.device).expand(grid.shape[0], 3, 3)
     return torch.cat([eye[:, :, :2], col[:, :, None]], dim=2)

@@ -64,6 +64,7 @@ from planedepth_tpu_torch.models.layers import (
 )
 from planedepth_tpu_torch.ops.disp_head import disp_head
 from planedepth_tpu_torch.ops.head_epilogue import head_epilogue
+from planedepth_tpu_torch.parallel.halo import global_height, shard_rows
 
 NUM_CH_DEC = (16, 32, 64, 128, 256)
 
@@ -86,10 +87,12 @@ def plane_dists(disp_layered: torch.Tensor, width: int, height: int) -> torch.Te
     """Adjacent-plane metric distances along each pixel's camera ray
     (reference depth_decoder.py:262-267): successive depth differences
     scaled by ``|K^-1 [x, y, 1]|``.  disp_layered ``(B, N, H, W_b)`` ->
-    ``(B, N - 1, H, W)``."""
+    ``(B, N - 1, H, W)``.  On row shards ``height`` is the shard's: the rays
+    are the image's (K at its height) at the shard's global rows."""
     depth = disp_to_depth(disp_layered, width)
     d = depth[:, 1:] - depth[:, :-1]
-    rays = create_camera_plane(height, width, d.dtype, d.device)
+    rays = create_camera_plane(global_height(height), width, d.dtype,
+                               d.device)[shard_rows(height)]
     return d * torch.sqrt((rays * rays).sum(-1))
 
 

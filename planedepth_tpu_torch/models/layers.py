@@ -35,10 +35,10 @@ import torch.nn.functional as F
 
 from planedepth_tpu_torch.parallel.halo import (
     global_height,
+    image_mean,
     row_halo,
     sharded,
     spatial,
-    spatial_sum,
 )
 from planedepth_tpu_torch.parallel.mesh import global_moments, world
 
@@ -157,8 +157,7 @@ class GlobalAvgPool2d(nn.AdaptiveAvgPool2d):
     def forward(self, x):
         if not sharded():
             return super().forward(x)
-        total = spatial_sum(upcast(x).sum((-2, -1), keepdim=True))
-        return (total / (global_height(x.shape[-2]) * x.shape[-1])).to(x.dtype)
+        return image_mean(upcast(x))[..., None, None].to(x.dtype)
 
 
 def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:

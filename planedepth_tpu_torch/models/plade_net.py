@@ -15,7 +15,11 @@ Module names follow the JAX modules (``backbone.conv_ep1.conv``,
 ``conv_residual``, ``conv_sigma``), which ``utils/weights.py`` maps from a
 JAX ``{"plade": ...}`` tree.  ``dtype`` is the backbone's and heads'
 compute dtype (``models/layers.py``); the heads leave it in float32, as the
-JAX module's do.
+JAX module's do.  On row shards (a spatial mesh axis, ``H % 64 S == 0``:
+six stride-2 stages) the convs and resizes take their rows through
+``models/layers.py``, the nearest resizes of ``Deconv`` double the
+shard's rows, and the residual head's mean is the image's
+(``parallel/halo.py:image_mean``).
 """
 from __future__ import annotations
 
@@ -41,6 +45,7 @@ from planedepth_tpu_torch.models.layers import (
     to_dtype,
     upcast,
 )
+from planedepth_tpu_torch.parallel.halo import image_mean
 
 
 class PladeBackBone(nn.Module):
@@ -141,7 +146,7 @@ class PladeNet(nn.Module):
         if self.conv_residual is not None:
             # per image: the mean of the full-resolution residual map
             residual_levels = torch.sigmoid(
-                upcast(self.conv_residual(features)).mean(dim=(2, 3))) - 0.5
+                image_mean(upcast(self.conv_residual(features)))) - 0.5
         vol = build_plane_volume(grid, self.planes, W, residual_levels)
         logits = upcast(self.conv0(dlog))                 # not masked
         out = {"disp_layered": vol.disp_layered, "padding_mask": vol.padding_mask,

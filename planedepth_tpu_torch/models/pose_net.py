@@ -22,7 +22,10 @@ BatchNorm running statistics take two updates a forward, one an image, as
 the JAX module's do inside one ``apply`` and the reference's do.
 
 ``dtype`` is the compute dtype (``models/layers.py``); the spatial mean is
-float32, as the JAX modules'.
+float32, as the JAX modules'.  On row shards (a spatial mesh axis) the
+convs, the pool, BatchNorm and the resizes take their rows through
+``models/layers.py``, and the spatial mean is the image's, the same pose
+on every rank of the spatial group (``parallel/halo.py:image_mean``).
 """
 from __future__ import annotations
 
@@ -42,6 +45,7 @@ from planedepth_tpu_torch.models.layers import (
     to_dtype,
     upcast,
 )
+from planedepth_tpu_torch.parallel.halo import image_mean
 
 
 class PoseDecoder(nn.Module):
@@ -77,8 +81,9 @@ class PoseDecoder(nn.Module):
 
 def pose_head_output(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(B, 6, h, w)`` pose-conv output -> axisangle and translation, each
-    ``(B, 1, 1, 3)``: the float32 spatial mean scaled by 0.01."""
-    out = 0.01 * upcast(x).mean(dim=(2, 3)).reshape(-1, 1, 1, 6)
+    ``(B, 1, 1, 3)``: the float32 spatial mean (the image's on row shards)
+    scaled by 0.01."""
+    out = 0.01 * image_mean(upcast(x)).reshape(-1, 1, 1, 6)
     return out[..., :3], out[..., 3:]
 
 

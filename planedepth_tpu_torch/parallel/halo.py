@@ -21,7 +21,15 @@ as float32.
 
 :func:`shard_mean` is a rank's share of a mean over the global rows: the
 ranks' shares, averaged over the ranks as DDP averages their gradients and
-``mean_over_ranks`` their losses, give the mean over the whole image.
+``mean_over_ranks`` their losses, give the mean over the whole image;
+:func:`image_mean` is the mean itself, the same on every rank.
+
+The ops that read an image anywhere (the 2-D warp, the 2-D samples of the
+oracle view synthesis and of the self-reconstruction) run on the whole
+image, as the JAX package's ``shard_kernel`` gathers the 2-D warp's operands
+over the ``spatial`` axis (``planedepth_tpu/train/mono.py:302-307``):
+:func:`gather_rows` gives every rank of the group the whole image, and
+:func:`own_rows` keeps this rank's rows of a whole-image result.
 Without a spatial axis every function here is the op on the whole image.
 """
 from __future__ import annotations
@@ -33,7 +41,12 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from planedepth_tpu_torch.parallel.mesh import current_mesh, mesh_group, sum_over_ranks
+from planedepth_tpu_torch.parallel.mesh import (
+    current_mesh,
+    gather_batch,
+    mesh_group,
+    sum_over_ranks,
+)
 
 EDGES = {"zero": 0.0, "-inf": float("-inf"), "reflect": None}
 
@@ -52,6 +65,12 @@ def sharded() -> bool:
 def global_height(rows: int) -> int:
     """The image's rows, from a shard's ``rows``."""
     return rows * current_mesh().spatial_size
+
+
+def shard_rows(rows: int) -> slice:
+    """The image's rows that this rank holds in a shard of ``rows`` rows."""
+    rank = current_mesh().spatial_rank
+    return slice(rank * rows, (rank + 1) * rows)
 
 
 class _Plan(NamedTuple):
@@ -211,6 +230,36 @@ def global_rows(x: torch.Tensor, rows: Sequence[int]) -> torch.Tensor:
     want = tuple(r % height for r in rows)
     with torch.no_grad():
         return _exchange(x, _plan((want,) * size, x.shape[-2], rank), len(want), 0.0)
+
+
+def gather_rows(x: torch.Tensor) -> torch.Tensor:
+    """The whole image of the row shards ``x`` (rows on dim -2) on every
+    rank of the spatial group (``parallel/mesh.py:gather_batch``, 16-bit
+    tensors as float32), differentiably: the backward sums the group's
+    cotangents of the whole image and gives each rank those of its rows.  A
+    collective over the group.  Without a spatial axis ``x`` itself."""
+    if not sharded():
+        return x
+    return gather_batch(x.to(_wire(x)), mesh_group("spatial"), dim=-2).to(x.dtype)
+
+
+def own_rows(x: torch.Tensor) -> torch.Tensor:
+    """This rank's rows of the whole-image ``x`` (rows on dim -2), in a
+    tensor of their own (a view would keep the whole image alive);
+    without a spatial axis ``x`` itself."""
+    if not sharded():
+        return x
+    return x[..., shard_rows(x.shape[-2] // current_mesh().spatial_size), :].contiguous()
+
+
+def image_mean(t: torch.Tensor) -> torch.Tensor:
+    """The mean of ``t`` over its rows and columns (the last two dims):
+    on row shards the image's, the same on every rank of the spatial
+    group (the shards' sums added over it, over the global count), not a
+    rank's share."""
+    if not sharded():
+        return t.mean(dim=(-2, -1))
+    return spatial_sum(t.sum(dim=(-2, -1))) / (global_height(t.shape[-2]) * t.shape[-1])
 
 
 def spatial_sum(t: torch.Tensor) -> torch.Tensor:

@@ -28,8 +28,9 @@ data rank ``d`` share its samples, rank ``s`` holding rows ``[s H / S, (s +
 1) H / S)`` of every image (:func:`shard_batch`), and the row-coupled ops
 exchange their halos over the spatial group (``parallel/halo.py``).  Unlike
 GSPMD, which pads an uneven split, the port refuses one: ``H`` must be a
-multiple of ``32 S`` (the encoder's total stride), so that every scale of
-the network splits into equal shards.
+multiple of ``s S``, ``s`` the network's total stride (32 for the ResNet
+encoders, 64 for FalNet and PladeNet), so that every scale of the network
+splits into equal shards.
 """
 from __future__ import annotations
 
@@ -68,7 +69,7 @@ _MESH: Dict[str, object] = {}
 
 
 def make_mesh(spatial: int = 1, data: Optional[int] = None,
-              height: Optional[int] = None) -> Mesh:
+              height: Optional[int] = None, stride: int = 32) -> Mesh:
     """This rank's ``(data_rank, D, spatial_rank, S)`` on a ``D x S`` grid
     of the group's ranks (JAX ``make_mesh``: ``devices.reshape(len //
     spatial, spatial)``, so rank ``r = d S + s``), and the subgroups that the
@@ -78,12 +79,13 @@ def make_mesh(spatial: int = 1, data: Optional[int] = None,
     of the group calls it (building a subgroup is a collective).
 
     Raises ``ValueError`` where ``D S`` is not the launcher's world size, or
-    where ``height`` (the images' rows) is not a multiple of ``32 S``: each
-    of the encoder's five stride-2 stages halves the rows, and every scale
-    must split into equal shards.  GSPMD pads an uneven split; the port
-    refuses it."""
+    where ``height`` (the images' rows) is not a multiple of ``stride S``:
+    each of the network's stride-2 stages (five in the ResNet encoders, for
+    a ``stride`` of 32; six in FalNet and PladeNet, 64) halves the rows,
+    and every scale must split into equal shards.  GSPMD pads an uneven
+    split; the port refuses it."""
     if spatial > 1 and height is not None:
-        _check_rows(height, spatial)
+        _check_rows(height, spatial, stride)
     rank, size = world()
     if data is None:
         data = size // spatial
@@ -207,10 +209,11 @@ def row_block(height: int, mesh: Mesh) -> slice:
     return slice(mesh.spatial_rank * h, (mesh.spatial_rank + 1) * h)
 
 
-def _check_rows(height: int, spatial: int) -> None:
-    if height % (32 * spatial):
+def _check_rows(height: int, spatial: int, stride: int = 32) -> None:
+    if height % (stride * spatial):
         raise ValueError(f"image rows over {spatial} ranks: the height {height} must be a "
-                         f"multiple of 32 x S = {32 * spatial} (H % 32S == 0)")
+                         f"multiple of {stride} x S = {stride * spatial} "
+                         f"(H % {stride}S == 0)")
 
 
 def prefetch_to_device(batches: Iterable[Mapping[str, np.ndarray]], device: torch.device

@@ -24,6 +24,18 @@ Under ``alpha_self`` side 'r' adds the self-reconstruction loss.
 Under ``cfg.bf16`` or ``cfg.warp_sample_bf16`` the source image and the
 plane heads enter the warp in bf16 and its stacks come back bf16, upcast
 before any loss arithmetic (``planedepth_tpu/train/mono.py:276-285``).
+
+On row shards (a spatial mesh axis) the warp runs on the whole image, as
+the JAX package's ``shard_kernel`` gathers its operands over the
+``spatial`` axis (``planedepth_tpu/train/mono.py:302-307``): every rank of
+the spatial group gathers the source image, the logits and sigma, and the
+plane maps the coordinates read (``parallel/halo.py:gather_rows``, whose
+backward returns each row's cotangent to its owner); computes each side's
+coordinates, ``(dx, dy, mask)``, on the whole image after the gather, from
+those maps and the poses, which every rank holds whole; warps the whole
+image with the unchanged kernels; and keeps its own rows of the warped
+stacks (``own_rows``).  The losses are its rows' shares
+(``parallel/halo.py:shard_mean``); the automask minimum is per pixel.
 """
 from __future__ import annotations
 
@@ -41,6 +53,7 @@ from planedepth_tpu_torch.models.depth_decoder import render_probability_from_lo
 from planedepth_tpu_torch.models.layers import to_dtype, upcast
 from planedepth_tpu_torch.ops.losses import multimodal_nll, smooth_loss_disp
 from planedepth_tpu_torch.ops.warp2d import warp2d
+from planedepth_tpu_torch.parallel.halo import gather_rows, own_rows, shard_mean
 from planedepth_tpu_torch.train.losses import perceptual_loss, reprojection_loss
 from planedepth_tpu_torch.train.view_synthesis import pred_self_images
 
@@ -71,23 +84,25 @@ def _coords_to_disp(coords: torch.Tensor, H: int, W: int
     return xs - x, ys - y
 
 
-def _side_coords(cfg: TrainConfig, outputs: Dict[str, torch.Tensor], side,
+def _side_coords(cfg: TrainConfig, planes: Dict[str, torch.Tensor], side,
                  poses: Dict, K: torch.Tensor, inv_K: torch.Tensor, H: int, W: int):
-    """(dx, dy, mask) ``(B, N, H, W)`` of one target side: the stereo shift
-    of a stereo side under ``disp_warp``, the homography under
+    """(dx, dy, mask) ``(B, N, H, W)`` of one target side of an image of
+    ``H`` rows, from its ``planes`` (``disp_layered`` and ``padding_mask``
+    of those rows; ``distance`` and ``norm``): the stereo shift of a
+    stereo side under ``disp_warp``, the homography under
     ``homography_warp``, else the depth warp (``depth_warp``, and the
     temporal sides of the mixed ``disp_warp`` recipe)."""
     if cfg.warp_type == "disp_warp" and side in ("l", "r"):
-        d = outputs["disp_layered"]
+        d = planes["disp_layered"]
         shape = d.shape[:3] + (W,)
         dx = disp_warp_shift(d, side).expand(shape).contiguous()
-        return dx, torch.zeros_like(dx), outputs["padding_mask"].expand(shape).contiguous()
+        return dx, torch.zeros_like(dx), planes["padding_mask"].expand(shape).contiguous()
     if cfg.warp_type == "homography_warp":
-        coords, mask = homography_warp_coords(outputs["distance"], outputs["norm"],
+        coords, mask = homography_warp_coords(planes["distance"], planes["norm"],
                                               poses[side], K, inv_K, H, W)
     else:
-        coords = depth_warp_coords(outputs["disp_layered"], poses[side], K, inv_K, W)
-        mask = outputs["padding_mask"].expand(coords.shape[:-1])
+        coords = depth_warp_coords(planes["disp_layered"], poses[side], K, inv_K, W)
+        mask = planes["padding_mask"].expand(coords.shape[:-1])
     dx, dy = _coords_to_disp(coords, H, W)
     return dx, dy, mask
 
@@ -100,7 +115,7 @@ def self_reconstruction_loss(cfg: TrainConfig, disp: torch.Tensor,
     color = "color_aug" if cfg.loss.match_aug else "color"
     rec = pred_self_images(disp, batch[f"{color}_r"], batch["Rt_r"], batch["K"],
                            batch["inv_K"])
-    return reprojection_loss(rec, batch[f"{color}_l"], cfg.loss.use_ssim).mean()
+    return shard_mean(reprojection_loss(rec, batch[f"{color}_l"], cfg.loss.use_ssim))
 
 
 def fused_warp2d_losses(bundle, outputs: Dict[str, torch.Tensor],
@@ -118,23 +133,29 @@ def fused_warp2d_losses(bundle, outputs: Dict[str, torch.Tensor],
     sides = cfg.target_sides if sides is None else sides
     color = "color_aug" if cfg.loss.match_aug else "color"
     source = batch[f"{color}_l"]                                     # (B, 3, H, W)
-    B, _, H, W = source.shape
+    W = source.shape[-1]
     mix = cfg.model.use_mixture_loss
     render = cfg.model.render_probability
     in_dtype = torch.bfloat16 if (cfg.bf16 or cfg.warp_sample_bf16) else None
     logits = outputs["logits"]                                       # (B, N, H, W)
     N = logits.shape[1]
-    sigma = to_dtype(outputs["sigma"], in_dtype) if mix else None
-    src_in, logits_in = to_dtype(source, in_dtype), to_dtype(logits, in_dtype)
+    # the warp's operands on the whole image (row shards: gathered)
+    sigma = gather_rows(to_dtype(outputs["sigma"], in_dtype)) if mix else None
+    src_in, logits_in = (gather_rows(to_dtype(t, in_dtype)) for t in (source, logits))
+    H_img = src_in.shape[-2]
+    planes = ({k: outputs[k] for k in ("distance", "norm")}
+              if cfg.warp_type == "homography_warp" else
+              {k: gather_rows(outputs[k]) for k in ("disp_layered", "padding_mask")})
     mask_novel = outputs.get("mask_novel")                           # (B, 1, H, W)
 
     zero = torch.zeros((), dtype=source.dtype, device=source.device)
     losses = {"loss/ph_loss": zero, "loss/pc_loss": zero, "loss/total_loss": zero}
     for side in sides:
         target = batch[f"{color}_{side}"]
-        dx, dy, pmask = _side_coords(cfg, outputs, side, poses, batch["K"],
-                                     batch["inv_K"], H, W)
-        warped = [upcast(t) for t in warp2d(src_in, logits_in, sigma, dx, dy, pmask)]
+        dx, dy, pmask = _side_coords(cfg, planes, side, poses, batch["K"],
+                                     batch["inv_K"], H_img, W)
+        warped = [upcast(own_rows(t))
+                  for t in warp2d(src_in, logits_in, sigma, dx, dy, pmask)]
         rgb_l, logit_rec = warped[:2]
         if render:
             # the source view's dists: the stereo pair shares the layered
@@ -168,7 +189,7 @@ def fused_warp2d_losses(bundle, outputs: Dict[str, torch.Tensor],
             ph = (pred - target).abs().mean(1)                       # (B, H, W)
             if cfg.loss.automask:
                 ph = torch.minimum(ph, (source - target).abs().mean(1))
-        ph_loss = ph.mean()
+        ph_loss = shard_mean(ph)
         losses["loss/ph_loss"] = losses["loss/ph_loss"] + ph_loss
         total = ph_loss
 
@@ -188,7 +209,7 @@ def fused_warp2d_losses(bundle, outputs: Dict[str, torch.Tensor],
 
         if cfg.loss.self_distillation > 0 and "disp_pp" in outputs:
             # added once per side, as the reference's side loop does
-            disp_loss = (outputs["disp"] - outputs["disp_pp"]).abs().mean()
+            disp_loss = shard_mean((outputs["disp"] - outputs["disp_pp"]).abs())
             losses["loss/disp_loss"] = disp_loss
             total = total + cfg.loss.self_distillation * disp_loss
         losses["loss/total_loss"] = losses["loss/total_loss"] + total

@@ -22,7 +22,7 @@ Under ``cfg.bf16`` (the default, as in the JAX package) the networks
 compute in bf16 with float32 parameters, and the plane sweep and the 2-D
 warp take bf16 images and plane heads; the losses are float32.  Under
 ``cfg.mesh_shape`` ``(D, S)`` each rank trains on its rows of its data
-rank's samples (:func:`mesh_for`, :func:`make_train_step`).
+rank's samples, in every recipe (:func:`mesh_for`, :func:`make_train_step`).
 """
 from __future__ import annotations
 
@@ -94,40 +94,35 @@ def fused_sweep_ok(cfg: TrainConfig) -> bool:
 
 
 def spatial_recipe_gap(cfg: TrainConfig, training: bool = True) -> Optional[str]:
-    """What of ``cfg`` image rows over ranks do not cover, or None: the
-    spatial axis runs the ``DepthDecoder`` family's forward and its stereo
-    recipes through the fused sweep (stages 1 to 3, with or without
-    ``use_mom``); ``training=False`` asks for the forward alone."""
-    if cfg.model.net_type != "ResNet":
-        return f"the {cfg.model.net_type} network"
-    if cfg.model.render_probability:
-        return "render_probability"
-    if cfg.model.planes.yz_levels:
-        return "yz side planes"
-    if not training:
-        return None
-    if not fused_sweep_ok(cfg):
-        return ("the 2-D warp of the temporal sides (mono and mixed recipes)"
-                if cfg.novel_frame_ids else "the oracle view synthesis (fused_sweep off)")
-    if cfg.loss.alpha_self > 0:
-        return "alpha_self's self-reconstruction"
+    """What of ``cfg`` image rows over ranks do not cover, or None: they
+    cover every recipe the port trains and evaluates (the ResNet,
+    PladeNet and FalNet families, the fused sweep, the 2-D warp on
+    gathered rows, the oracle view synthesis, ``alpha_self``,
+    ``render_probability``, yz planes; ``training=False``: the forward
+    alone), so nothing."""
     return None
+
+
+def row_stride(cfg: TrainConfig) -> int:
+    """The network's total stride along the rows: 64 for FalNet and
+    PladeNet (six stride-2 stages), 32 for the ResNet encoders (five)."""
+    return 64 if cfg.model.net_type in ("FalNet", "PladeNet") else 32
 
 
 def mesh_for(cfg: TrainConfig, training: bool = True) -> Mesh:
     """The mesh of ``cfg.mesh_shape`` over the launcher's ranks
     (``parallel/mesh.py:make_mesh``; ``()`` puts every rank on the data
     axis, ``(D,)`` too).  Raises ``ValueError`` where ``D S`` is not the
-    world size or the height is not a multiple of ``32 S``, and
-    ``NotImplementedError`` (ROADMAP A6c) for a recipe the spatial axis
-    does not cover."""
+    world size or the height is not a multiple of :func:`row_stride` times
+    ``S``, and ``NotImplementedError`` for a recipe the spatial axis does
+    not cover (:func:`spatial_recipe_gap`)."""
     shape = tuple(cfg.mesh_shape)
     spatial = shape[1] if len(shape) > 1 else 1
     gap = spatial_recipe_gap(cfg, training) if spatial > 1 else None
     if gap is not None:
         raise NotImplementedError(f"image rows over ranks (mesh_shape {shape}) do not cover "
-                                  f"{gap}: ROADMAP A6c")
-    return make_mesh(spatial, shape[0] if shape else None, cfg.data.height)
+                                  f"{gap}")
+    return make_mesh(spatial, shape[0] if shape else None, cfg.data.height, row_stride(cfg))
 
 
 def fused_mixed_ok(cfg: TrainConfig) -> bool:
@@ -430,7 +425,10 @@ def make_train_step(bundle: ModelBundle, optimizer: torch.optim.Optimizer,
 
     On a spatial mesh axis (``cfg.mesh_shape`` ``(D, S)``) ``batch`` holds
     this rank's rows of its data rank's samples: the ops that couple rows
-    exchange halos over the spatial group, the dropout masks are the data
+    exchange halos over the spatial group, those that read an image
+    anywhere (the 2-D warp, the oracle's and the self-reconstruction's 2-D
+    samples) run on the gathered whole image and keep the rank's rows, the
+    pose nets' and PladeNet's means are the image's, the dropout masks are the data
     rank's rows (the same on its ``S`` ranks), and each loss is this rank's
     share of its mean over the image, ``S sum / count``
     (``parallel/halo.py:shard_mean``).  With L the global loss, the ranks'

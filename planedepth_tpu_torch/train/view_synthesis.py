@@ -17,6 +17,16 @@ expected disparity (reference trainer.py:605-633, border padding): one
 
 Layouts: images ``(B, 3, H, W)``; plane volumes ``(B, N, H, W)``; the
 layered reconstruction ``rgb_rec_layered`` ``(B, N, 3, H, W)``.
+
+On row shards (a spatial mesh axis) the stereo shift stays on the shard's
+rows (it moves columns only), while a 2-D sample may read any row: the
+source image, the logits and sigma are gathered whole
+(``parallel/halo.py:gather_rows``, whose backward returns each row's
+cotangent to its owner), the coordinates are computed on the whole image
+from the gathered plane maps (or, for the homography, from the poses and
+planes that every rank holds whole), and each rank samples at its own
+rows' coordinates; so does the self-reconstruction, from the gathered
+right image and disparity.
 """
 from __future__ import annotations
 
@@ -42,6 +52,7 @@ from planedepth_tpu_torch.ops.sampling import (
     shift_sample_planes,
     shift_sample_x,
 )
+from planedepth_tpu_torch.parallel.halo import gather_rows, global_height, own_rows, shard_rows
 
 Stack = Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]
 
@@ -94,24 +105,29 @@ def pred_novel_images(outputs: Dict[str, torch.Tensor], source_rgb: torch.Tensor
     source_rgb = to_dtype(source_rgb, sample_dtype)
 
     rec: Dict = {}
+    rows, whole = shard_rows(H), None          # whole: the 2-D samples' operands
     for side in target_sides:
         if warp_type == "disp_warp" and side in ("l", "r"):
             shift = disp_warp_shift(disp_layered, side).expand(B, N, H, W)
             rgb_l, logit_s, sigma_s = _sample_plane_stack_shift(source_rgb, logits, sigma,
                                                                 shift)
             pmask = outputs["padding_mask"]
-        elif warp_type == "depth_warp" or warp_type == "disp_warp":
-            coords = depth_warp_coords(disp_layered, poses[side], K, inv_K, W)
-            rgb_l, logit_s, sigma_s = _sample_plane_stack_coords(source_rgb, logits, sigma,
-                                                                 coords)
-            pmask = outputs["padding_mask"]
-        elif warp_type == "homography_warp":
-            coords, pmask = homography_warp_coords(outputs["distance"], outputs["norm"],
-                                                   poses[side], K, inv_K, H, W)
-            rgb_l, logit_s, sigma_s = _sample_plane_stack_coords(source_rgb, logits, sigma,
-                                                                 coords)
         else:
-            raise ValueError(f"unknown warp_type {warp_type}")
+            if warp_type == "depth_warp" or warp_type == "disp_warp":
+                coords = depth_warp_coords(gather_rows(disp_layered), poses[side], K, inv_K,
+                                           W)
+                pmask = outputs["padding_mask"]
+            elif warp_type == "homography_warp":
+                coords, pmask = homography_warp_coords(outputs["distance"], outputs["norm"],
+                                                       poses[side], K, inv_K,
+                                                       global_height(H), W)
+                pmask = own_rows(pmask)
+            else:
+                raise ValueError(f"unknown warp_type {warp_type}")
+            if whole is None:
+                whole = (gather_rows(source_rgb), gather_rows(logits),
+                         None if sigma is None else gather_rows(sigma))
+            rgb_l, logit_s, sigma_s = _sample_plane_stack_coords(*whole, coords[:, :, rows])
 
         pmask = pmask.to(rgb_l.dtype)
         rgb_layered = rgb_l * pmask[:, :, None]
@@ -140,8 +156,11 @@ def pred_self_images(disp: torch.Tensor, target_rgb: torch.Tensor, Rt_r: torch.T
                      K: torch.Tensor, inv_K: torch.Tensor) -> torch.Tensor:
     """disp ``(B, 1, H, W)`` expected disparity, target_rgb ``(B, 3, H, W)``
     the right image, ``Rt_r``, ``K``, ``inv_K`` ``(B, 4, 4)`` -> the
-    reconstruction of the left view ``(B, 3, H, W)``."""
+    reconstruction of the left view ``(B, 3, H, W)``; on row shards the
+    rank's rows of the whole image's."""
+    rows = shard_rows(disp.shape[-2])
+    disp, target_rgb = gather_rows(disp), gather_rows(target_rgb)
     B, _, H, W = disp.shape
     cam_points = backproject_depth(disp_to_depth(disp[:, 0], W), inv_K)
     coords = project_3d(cam_points, K, Rt_r, H, W)                   # (B, H, W, 2)
-    return grid_sample(target_rgb, coords, padding_mode="border")
+    return grid_sample(target_rgb, coords[:, rows], padding_mode="border")

@@ -69,18 +69,23 @@ def finish(rank, tmp, result):
 
 
 def one_step(case, rank, size):
-    """One training step of ``case`` (``cfg``, the depth model's ``state``,
-    the global numpy ``batch``, ``float64`` to step in float64) on this
+    """One training step of ``case`` (``cfg``, the depth model's ``state``
+    and, where given, the pose nets' ``pose_states``, the global numpy
+    ``batch``, ``float64`` to step in float64) on this
     rank's share of the batch (its data rank's samples; on a spatial mesh
     axis, ``cfg.mesh_shape``, their rows): its losses as floats, the
-    stepped state, the parameters' gradients (None where the step gives
-    none) and each BatchNorm's global count n."""
+    stepped state, the depth model's gradients (None where the step gives
+    none) and the pose nets' (``pose_grads``), and each BatchNorm's global
+    count n."""
     cfg = case["cfg"]
     bundle = ModelBundle(cfg, CPU)
     bundle.model.load_state_dict(case["state"])
+    for name, state in case.get("pose_states", {}).items():
+        getattr(bundle, name).load_state_dict(state)
     batch = case["batch"]
     if case.get("float64"):
-        bundle.model.double()
+        for net in bundle.nets().values():
+            net.double()
         batch = {k: v.astype(np.float64) if v.dtype == np.float32 else v
                  for k, v in batch.items()}
     if cfg.loss.self_distillation > 0:
@@ -104,6 +109,8 @@ def one_step(case, rank, size):
             "state": {k: v.clone() for k, v in bundle.model.state_dict().items()},
             "grads": {k: None if p.grad is None else p.grad.clone()
                       for k, p in bundle.model.named_parameters()},
+            "pose_grads": {k: p.grad.clone() for k, p in bundle.named_parameters()
+                           if not k.startswith("model.") and p.grad is not None},
             "sizes": counts}
 
 

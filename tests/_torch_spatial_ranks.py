@@ -12,6 +12,7 @@ import dataclasses
 import hashlib
 import os
 import pickle
+import time
 
 import numpy as np
 import torch
@@ -27,9 +28,17 @@ from planedepth_tpu_torch.models.layers import (
     max_pool_3x3_s2,
     resize_bilinear_align_corners,
 )
+from planedepth_tpu_torch.models.depth_decoder import plane_dists
 from planedepth_tpu_torch.ops.losses import smooth_loss_disp
 from planedepth_tpu_torch.ops.ssim import ssim
-from planedepth_tpu_torch.parallel.halo import row_halo, spatial
+from planedepth_tpu_torch.parallel.halo import (
+    gather_rows,
+    global_height,
+    image_mean,
+    own_rows,
+    row_halo,
+    spatial,
+)
 from planedepth_tpu_torch.parallel.mesh import make_mesh
 from planedepth_tpu_torch.train.step import ModelBundle
 from planedepth_tpu_torch.train.trainer import Trainer
@@ -63,8 +72,41 @@ OPS = {
     "smoothness": (4, 4, "share", lambda: lambda x: smooth_loss_disp(x[:, :1], x[:, 1:], 0.7)),
     "ssim_reflect": (4, 6, "rows", lambda: lambda x: ssim(x[:, :3], x[:, 3:])),
     "batchnorm_train": (4, 3, "rows", lambda: BatchNorm2d(3)),
+    "gather_rows": (4, 3, "replicated", lambda: gather_rows),
+    "gather_flip_own_rows": (4, 3, "rows", lambda: lambda x: own_rows(
+        torch.flip(gather_rows(x), [-2]) * 1.5)),
+    "image_mean": (4, 3, "replicated", lambda: image_mean),
+    "plane_dists": (4, 3, "rows", lambda: lambda x: plane_dists(x.abs() + 1.0, WIDTH,
+                                                                x.shape[-2])),
+    "homography_warp2d": (4, 7, "rows", lambda: homography_warp2d),
 }
 WIDTH = 7
+
+
+def homography_warp2d(x):
+    """The mono recipe's 2-D warp of one side as ``train/mono.py`` runs it
+    on this rank's rows: ``x`` holds the source image, two planes' logits
+    and two sigmas; the operands gathered, the homography's ``(dx, dy,
+    mask)`` of two tilted planes under a fixed pose computed on the whole
+    image, the warp's stacks joined on channels, this rank's rows."""
+    from planedepth_tpu_torch.geometry.camera import pixel_intrinsics
+    from planedepth_tpu_torch.geometry.pose import transformation_from_parameters
+    from planedepth_tpu_torch.ops.warp2d import warp2d
+    from planedepth_tpu_torch.train.mono import _side_coords
+
+    B, height, width = x.shape[0], global_height(x.shape[-2]), x.shape[-1]
+    K = torch.from_numpy(pixel_intrinsics(width, height)).expand(B, 4, 4)
+    pose = transformation_from_parameters(torch.tensor([[[0.01, -0.02, 0.015]]]),
+                                          torch.tensor([[[0.05, 0.02, 0.1]]])).expand(B, 4, 4)
+    planes = {"distance": torch.tensor([[4.0, 9.0]]).expand(B, 2),
+              "norm": torch.nn.functional.normalize(
+                  torch.tensor([[[0.0, 0.0, 1.0], [0.0, 0.3, 1.0]]]), dim=-1).expand(B, 2, 3)}
+    dx, dy, mask = _side_coords(recipe_config("mono"), planes, -1, {-1: pose}, K,
+                                torch.linalg.inv(K), height, width)
+    src, logits, sigma = (gather_rows(t) for t in (x[:, :3].detach(), x[:, 3:5],
+                                                   x[:, 5:].abs() + 0.1))
+    rgb, logit, sig = (own_rows(t) for t in warp2d(src, logits, sigma, dx, dy, mask))
+    return torch.cat([rgb.flatten(1, 2), logit, sig], 1)
 
 
 def _seeded(shape, seed):
@@ -150,17 +192,81 @@ def perturbed_state(model, seed):
     return state
 
 
-def step_cases():
+# the recipes beyond the stereo sweep, each one (1, 2) step against one process
+RECIPES = ("mono", "mixed", "oracle", "falnet", "pladenet", "render_probability", "yz",
+           "alpha_self")
+# FalNet and PladeNet: six stride-2 stages, so H % 64 S == 0
+H_64 = 128
+
+
+def recipe_config(name):
+    """``step_config`` (batch 2) changed to recipe ``name``: the mono
+    homography recipe and the mixed ``disp_warp`` one (sides r, -1, 1: the
+    pose nets, the automask, no flip), the oracle view synthesis, FalNet
+    (7 planes, no mixture) and PladeNet at ``H_64`` rows,
+    ``render_probability`` on vertical planes (float32 compositing is
+    ill-posed over ground planes), yz planes, ``alpha_self`` with SSIM."""
+    cfg = step_config(batch_size=2)
+    model, loss = cfg.model, cfg.loss
+    temporal = dict(novel_frame_ids=(-1, 1), flip_right=False,
+                    loss=dataclasses.replace(loss, automask=True))
+    tall = tcfg.DataConfig(height=H_64, width=W)
+    return {
+        "mono": lambda: cfg.replace(warp_type="homography_warp", **temporal),
+        "mixed": lambda: cfg.replace(**temporal),
+        "oracle": lambda: cfg.replace(fused_sweep=False),
+        "falnet": lambda: cfg.replace(data=tall, model=tcfg.ModelConfig(
+            net_type="FalNet", use_mixture_loss=False, plane_residual=False,
+            planes=tcfg.PlaneConfig(disp_levels=7, disp_min=2, disp_max=40, xz_levels=0))),
+        "pladenet": lambda: cfg.replace(data=tall, model=dataclasses.replace(
+            model, net_type="PladeNet")),
+        "render_probability": lambda: cfg.replace(model=dataclasses.replace(
+            model, render_probability=True,
+            planes=dataclasses.replace(model.planes, xz_levels=0))),
+        "yz": lambda: cfg.replace(model=dataclasses.replace(
+            model, planes=dataclasses.replace(model.planes, yz_levels=4))),
+        "alpha_self": lambda: cfg.replace(loss=dataclasses.replace(loss, alpha_self=0.1,
+                                                                   use_ssim=True)),
+    }[name]()
+
+
+def jittered(batch):
+    """``batch`` with ``Rt_r`` off the pure x-translation: a 2-D warp's
+    integer y coordinates make its bilinear y-gradient a subgradient that
+    two correct runs may take on either side."""
+    from planedepth_tpu_torch.geometry.pose import transformation_from_parameters
+
+    jitter = transformation_from_parameters(torch.tensor([[[0.002, -0.001, 0.003]]]),
+                                            torch.tensor([[[0.001, 0.004, 0.002]]]))[0]
+    return dict(batch, Rt_r=np.einsum("bij,jk->bik", batch["Rt_r"], jitter.numpy()))
+
+
+def recipe_batch(cfg, seed=11):
+    """The global batch of ``cfg``'s recipe at its size."""
+    batch = make_stereo_batch(cfg.per_step_batch, cfg.data.height, cfg.data.width, seed=seed,
+                              novel_frame_ids=cfg.novel_frame_ids)
+    return jittered(batch) if cfg.novel_frame_ids else batch
+
+
+def step_cases(mono_weights=None):
     """The steps on a (1, 2) mesh, each from one state and global batch:
     ``plain64`` in float64 (one image and its flip), ``dropout`` and
-    ``stage3`` in float32."""
+    ``stage3`` in float32; each of :data:`RECIPES` in float32, and
+    ``mono64``, the mono recipe with ``alpha_self`` and SSIM, in float64.
+    ``mono_weights`` (the depth model's state and the pose nets', from the
+    JAX package's init) replace the mono recipes' seeded ones."""
     cases = {}
     for name, cfg in (("plain64", step_config(batch_size=2)),
                       ("dropout", step_config(denseaspp=True)),
-                      ("stage3", step_config(stage3=True, batch_size=2))):
+                      ("stage3", step_config(stage3=True, batch_size=2)),
+                      *((r, recipe_config(r)) for r in RECIPES)):
         cases[name] = {"cfg": cfg, "state": perturbed_state(ModelBundle(cfg, CPU).model, 3),
-                       "batch": make_stereo_batch(cfg.per_step_batch, H, W, seed=11),
-                       "float64": name == "plain64"}
+                       "batch": recipe_batch(cfg), "float64": name == "plain64"}
+    if mono_weights is not None:
+        cases["mono"].update(mono_weights)
+    mono = cases["mono"]
+    cases["mono64"] = dict(mono, float64=True, cfg=mono["cfg"].replace(
+        loss=dataclasses.replace(mono["cfg"].loss, alpha_self=0.1, use_ssim=True)))
     return cases
 
 
@@ -229,6 +335,7 @@ def held(result, rank):
     if rank > 0:
         result.pop("state")
         result.pop("grads", None)
+        result.pop("pose_grads", None)
     return result
 
 
@@ -242,17 +349,28 @@ def in_group(rank, size, tmp, name, work):
         dist.destroy_process_group()
 
 
+def wait_for(path, timeout=120.0):
+    """``path`` once it exists (the test writes the cases while the ranks
+    train, and renames the file into place when it is whole)."""
+    deadline = time.monotonic() + timeout
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{path} not written after {timeout} s")
+        time.sleep(0.1)
+    return path
+
+
 def spatial_ranks(rank, size, tmp):
     """Four processes, three groups in turn: the Trainer on a (2, 2) mesh of
     all four; then ranks 0 and 1 on a (1, 2) mesh, the cases of
-    ``cases.pkl`` and every op; then ranks 0 to 2, every op at S = 3 (one
-    import of the port a process for the three)."""
+    ``cases.pkl`` (every recipe's step) and every op; then ranks 0 to 2,
+    every op at S = 3 (one import of the port a process for the three)."""
     assert size == 4
     out = {"trainer": held(in_group(rank, 4, tmp, "pg4", lambda: drive_trainer(Trainer(
         trainer_config(os.path.join(tmp, f"rank{rank}"), (2, 2)),
         datasets=(IndexedStereo(N_TRAIN), IndexedStereo(N_VAL)), device=CPU))), rank)}
     if rank < 2:
-        with open(os.path.join(tmp, "cases.pkl"), "rb") as f:
+        with open(wait_for(os.path.join(tmp, "cases.pkl")), "rb") as f:
             cases = pickle.load(f)
 
         def steps_and_ops():

@@ -27,26 +27,87 @@ thread each, float32) hold their rows of every image and are held to
     the state after it;
   * (d) one stage-3 step (the frozen teacher, the row shift) on a (1, 2)
     mesh against one process;
-  * (e) the rules: ``H % 32 S``, ``D S`` against the world size, and each
-    recipe that image rows over ranks do not cover names ROADMAP A6c.
+  * (e) every other recipe, one (1, 2) step each against one process at
+    the float32 bounds of (b): mono (the pose nets' image mean, the
+    homography on the whole image, the 2-D warp on gathered rows), mixed
+    (side 'r' in the sweep on the shard's rows, the temporal sides' depth
+    warps gathered), the oracle view synthesis, FalNet and PladeNet at 128
+    rows (H % 64 S), ``render_probability`` (``plane_dists`` in global
+    rows), yz planes and ``alpha_self`` (the right image gathered); the
+    mono recipe with ``alpha_self`` and SSIM in float64 at (b)'s float64
+    bounds, and the float32 mono step's losses held to the JAX package's
+    mono step from the same converted weights; the ops of the 2-D warp
+    route at S = 2 and 3 in (a): the row gather, a rank's rows of a
+    whole-image op, the image mean, ``plane_dists`` and the warp of one
+    homography side;
+  * (f) the rules: ``H % 32 S``, ``H % 64 S`` for FalNet and PladeNet,
+    ``D S`` against the world size.
 """
+import dataclasses
+import os
 import pickle
 import shutil
 
+import jax
 import numpy as np
 import pytest
 import torch
 
+from planedepth_tpu import config as jcfg
+from planedepth_tpu.train import ModelBundle as JaxBundle
 from planedepth_tpu_torch import config as tcfg
 from planedepth_tpu_torch.data.loader import EpochSampler
 from planedepth_tpu_torch.parallel import mesh
-from planedepth_tpu_torch.train.step import mesh_for
+from planedepth_tpu_torch.train.step import ModelBundle, mesh_for, spatial_recipe_gap
 from planedepth_tpu_torch.train.trainer import Trainer
+from planedepth_tpu_torch.utils.weights import load_jax_params, load_jax_pose_params
 from tests import _torch_spatial_ranks as sr
+from tests._torch_parity import perturbed_init
 from tests._torch_ranks import CPU, collect, one_step, start_ranks
 
 torch.set_num_threads(1)
-STEP_CASES = ("plain64", "dropout", "stage3")
+STEP_CASES = ("plain64", "dropout", "stage3", "mono64")
+
+
+def _jax_mono(tc):
+    """The JAX package's configuration of the port's mono recipe ``tc``,
+    through its oracle view synthesis (``fused_sweep`` off: XLA's
+    grid_sample), which tests/test_warp2d_train.py holds to its 2-D warp
+    step."""
+    m = tc.model
+    model = jcfg.ModelConfig(planes=jcfg.PlaneConfig(**dataclasses.asdict(m.planes)),
+                             **{k: getattr(m, k) for k in (
+                                 "num_layers", "num_ep", "use_denseaspp", "use_mixture_loss",
+                                 "plane_residual", "pose_num_layers", "pose_num_ep")})
+    return jcfg.TrainConfig(
+        model=model, loss=jcfg.LossConfig(alpha_pc=0.0, automask=tc.loss.automask),
+        data=jcfg.DataConfig(height=tc.data.height, width=tc.data.width),
+        optim=jcfg.OptimConfig(learning_rate=tc.optim.learning_rate), bf16=False,
+        fused_sweep=False, batch_size=tc.batch_size, flip_right=tc.flip_right,
+        warp_type=tc.warp_type, novel_frame_ids=tc.novel_frame_ids)
+
+
+def _mono_weights_and_jax_losses(tc, batch):
+    """The JAX package's perturbed init of the mono recipe as the port's
+    depth model and pose nets (``one_step``'s ``state`` and
+    ``pose_states``), and a function that returns its mono step's losses
+    on ``batch`` (compiled under ``jax.jit`` when called)."""
+    from planedepth_tpu.train.step import process_batch
+
+    bundle = JaxBundle(_jax_mono(tc))
+    params, stats, _ = perturbed_init(bundle, 0, tc.data.height, tc.data.width)
+    port = ModelBundle(tc, CPU)
+    load_jax_params(port.model, params["model"], stats["model"])
+    load_jax_pose_params(port.pose_encoder, port.pose, params, stats)
+    weights = {"state": port.model.state_dict(),
+               "pose_states": {k: getattr(port, k).state_dict() for k in ("pose_encoder", "pose")}}
+
+    def jax_losses():
+        step = jax.jit(lambda p, b: process_batch(bundle, p, stats, None, None, b,
+                                                  jax.random.PRNGKey(0), train=True)[0])
+        return {k: float(v) for k, v in step(params, batch).items()}
+
+    return weights, jax_losses
 
 
 def _op_reference(name, size):
@@ -66,14 +127,21 @@ def _op_reference(name, size):
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """The ranks' runs (four processes: the (2, 2) Trainer, then the S = 2
-    steps and ops, then the S = 3 ops), started first; while they run, one
-    process's steps and Trainer, and the whole-image ops."""
+    steps and ops, then the S = 3 ops), started first; while they run, the
+    cases (the mono recipe's weights from the JAX package's init), one
+    process's steps and Trainer, the JAX mono step and the whole-image
+    ops."""
     tmp = tmp_path_factory.mktemp("spatial")
-    cases = sr.step_cases()
-    with open(tmp / "cases.pkl", "wb") as f:
+    started = start_ranks(sr.spatial_ranks, 4, tmp)      # the Trainer first
+    mono_cfg = sr.recipe_config("mono")
+    mono_batch = sr.recipe_batch(mono_cfg)
+    mono_weights, jax_losses = _mono_weights_and_jax_losses(mono_cfg, mono_batch)
+    cases = sr.step_cases(mono_weights)
+    with open(tmp / "cases.part", "wb") as f:
         pickle.dump(cases, f)
-    started = start_ranks(sr.spatial_ranks, 4, tmp)
+    os.replace(tmp / "cases.part", tmp / "cases.pkl")
     one = {name: one_step(case, 0, 1) for name, case in cases.items()}
+    jax_mono = jax_losses()
     trainer = Trainer(sr.trainer_config(str(tmp / "one")),
                       datasets=(sr.IndexedStereo(sr.N_TRAIN), sr.IndexedStereo(sr.N_VAL)),
                       device=CPU)
@@ -83,7 +151,8 @@ def runs(tmp_path_factory):
     shutil.rmtree(tmp)                  # the cases, the runs' checkpoints: all read
     ranks = {"trainer": [r["trainer"] for r in got], "s2": [r["s2"] for r in got[:2]],
              "s3": [r["s3"] for r in got[:3]]}
-    return {"ranks": ranks, "one": one, "one_trainer": one_trainer, "ops": ops}
+    return {"ranks": ranks, "one": one, "one_trainer": one_trainer, "ops": ops,
+            "cases": cases, "jax_mono": jax_mono}
 
 
 @pytest.mark.parametrize("size", [2, 3])
@@ -115,30 +184,57 @@ def test_halo_ops_equal_the_whole_image_op(runs, name, size):
     torch.testing.assert_close(grad, want["grad"], **tol)
 
 
-@pytest.mark.parametrize("case", STEP_CASES)
-def test_one_by_two_mesh_step_equals_one_process(runs, case):
-    """(b), (d): losses, post-Adam state and averaged gradients of the
-    ranks against one process on the global batch, the ranks alike.  In
-    float64 every gradient leaf agrees within 1e-9 (relative L2): the
-    exchange and the loss shares are exact.  In float32 the reductions
-    that the shards split (BatchNorm's moments, each weight's gradient sum)
-    round in another order, which train-mode BatchNorm amplifies in the
-    encoder's gradients as it does between the JAX package and the port
-    (ROADMAP C4): 1e-2 there."""
+def _assert_step_equals_one_process(runs, case):
+    """(b), (d), (e): losses, post-Adam state and averaged gradients (the
+    pose nets' too) of the ranks against one process on the global batch,
+    the ranks alike.  In float64 every gradient leaf agrees within 1e-9
+    (relative L2): the exchanges, the gathers and the loss shares are
+    exact.  In float32 the reductions that the shards split (BatchNorm's
+    moments, each weight's gradient sum) round in another order, which
+    train-mode BatchNorm amplifies in the encoder's gradients as it does
+    between the JAX package and the port (ROADMAP C4): 1e-2 there."""
+    float64 = runs["cases"][case]["float64"]
     one, (r0, r1) = runs["one"][case], (r[case] for r in runs["ranks"]["s2"])
     assert set(r0["losses"]) == set(one["losses"])
     for k, v in one["losses"].items():
-        np.testing.assert_allclose(r0["losses"][k], v, rtol=1e-12 if case == "plain64" else 2e-4,
+        np.testing.assert_allclose(r0["losses"][k], v, rtol=1e-12 if float64 else 2e-4,
                                    atol=1e-7, err_msg=k)
         assert r1["losses"][k] == r0["losses"][k], k
     assert r1["state_digest"] == r0["state_digest"]
     for k, v in one["state"].items():
         assert float((r0["state"][k].double() - v.double()).abs().max()) < 5e-4, k
     assert r0["sizes"] == one["sizes"]
-    for k, g in one["grads"].items():
+    assert set(r0["pose_grads"]) == set(one["pose_grads"])
+    for k, g in [*one["grads"].items(), *one["pose_grads"].items()]:
         if g is not None and g.abs().max() > 1e-6:
-            rel = float((r0["grads"][k] - g).norm() / g.norm())
-            assert rel < (1e-9 if case == "plain64" else 1e-2), (k, rel)
+            got = r0["grads"][k] if k in r0["grads"] else r0["pose_grads"][k]
+            rel = float((got - g).norm() / g.norm())
+            assert rel < (1e-9 if float64 else 1e-2), (k, rel)
+
+
+@pytest.mark.parametrize("case", STEP_CASES)
+def test_one_by_two_mesh_step_equals_one_process(runs, case):
+    """(b), (d) and the mono recipe in float64."""
+    _assert_step_equals_one_process(runs, case)
+
+
+@pytest.mark.parametrize("recipe", sr.RECIPES)
+def test_spatial_recipe_equals_one_process(runs, recipe):
+    """(e): every recipe runs over ranks, for training and evaluation
+    (nothing gathers the batch into one process: each rank holds half of
+    the rows), and its (1, 2) step is one process's."""
+    cfg = runs["cases"][recipe]["cfg"].replace(mesh_shape=(1, 2))
+    assert spatial_recipe_gap(cfg) is None and spatial_recipe_gap(cfg, training=False) is None
+    _assert_step_equals_one_process(runs, recipe)
+
+
+def test_one_by_two_mono_step_equals_jax_step(runs):
+    """(e): the float32 mono step on a (1, 2) mesh from the JAX package's
+    converted weights, held to the JAX mono step's losses at rtol 2e-4, as
+    tests/test_torch_mono.py holds one process."""
+    r0 = runs["ranks"]["s2"][0]["mono"]
+    for k in ("loss/ph_loss", "loss/smooth_loss", "loss/total_loss"):
+        np.testing.assert_allclose(r0["losses"][k], runs["jax_mono"][k], rtol=2e-4, err_msg=k)
 
 
 def test_two_by_two_mesh_trainer_equals_one_process(runs):
@@ -172,27 +268,24 @@ def test_two_by_two_mesh_trainer_equals_one_process(runs):
     (dict(data=tcfg.DataConfig(height=96, width=96)), "H % 32S"),
     (dict(), "world size"),
     (dict(mesh_shape=(2, 2)), "world size"),
-    (dict(warp_type="homography_warp", novel_frame_ids=(-1, 1)), "A6c"),
-    (dict(novel_frame_ids=(-1, 1)), "A6c"),
-    (dict(fused_sweep=False), "A6c"),
-    (dict(model=tcfg.ModelConfig(net_type="FalNet", use_mixture_loss=False)), "A6c"),
-    (dict(model=tcfg.ModelConfig(net_type="PladeNet", num_ep=8)), "A6c"),
-    (dict(model=tcfg.ModelConfig(render_probability=True)), "A6c"),
-    (dict(model=tcfg.ModelConfig(planes=tcfg.PlaneConfig(yz_levels=4))), "A6c"),
-    (dict(loss=tcfg.LossConfig(alpha_self=0.1)), "A6c"),
-], ids=["height", "one_process", "two_by_two", "mono", "mixed", "oracle", "falnet",
-        "pladenet", "render_probability", "yz", "alpha_self"])
+    (dict(model=tcfg.ModelConfig(net_type="FalNet", use_mixture_loss=False)), "H % 64S"),
+    (dict(model=tcfg.ModelConfig(net_type="PladeNet", num_ep=8)), "H % 64S"),
+], ids=["height", "one_process", "two_by_two", "falnet_64", "pladenet_64"])
 def test_spatial_rules_raise(override, match):
-    """(e) in one process: each rule names itself, before any group is
-    asked for; nothing falls back to the whole image."""
+    """(f) in one process: each rule names itself, before any group is
+    asked for; nothing falls back to the whole image.  FalNet and
+    PladeNet halve the rows six times: 64 rows over 2 ranks are refused
+    (128 are taken, (e))."""
     cfg = tcfg.stage1_config(mesh_shape=(1, 2), data=tcfg.DataConfig(height=64, width=96))
     cfg = cfg.replace(**override)
-    err = NotImplementedError if match == "A6c" else ValueError
-    with pytest.raises(err, match=match):
+    with pytest.raises(ValueError, match=match):
         mesh_for(cfg)
     if match == "H % 32S":
         with pytest.raises(ValueError, match="32"):
             mesh.make_mesh(spatial=2, height=96)
+    if match == "H % 64S":
+        with pytest.raises(ValueError, match="64 x S = 128"):
+            mesh.make_mesh(spatial=2, height=64, stride=64)
 
 
 def test_train_cli_takes_mesh_shape(tmp_path, monkeypatch):
