@@ -1,4 +1,4 @@
-"""Drive the PyTorch/CUDA port's inference path, stage-1 step, stage-2 -> stage-3 trainer, mono trainer, FalNet and PladeNet trainers, no-mixture recipes, KITTI entry points, the render_probability, yz-plane and alpha_self recipes, the sweep's image gradients, the oracle view synthesis, every recipe in bf16, the serving export and the API-parity networks on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's inference path, stage-1 step, stage-2 -> stage-3 trainer, mono trainer, FalNet and PladeNet trainers, no-mixture recipes, KITTI entry points, the render_probability, yz-plane and alpha_self recipes, the sweep's image gradients, the oracle view synthesis, every recipe in bf16, the serving export, the API-parity networks, data parallelism, image rows over ranks and the rematerialisation switches on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -181,13 +181,24 @@ Phases, each printing a line:
  26. ddp: two gloo ranks on the one card against one process on the
      global batch (stage 1, bf16 and float32), and one NCCL rank through
      the train CLI;
- 27. spatial (last): image rows over ranks, mesh_shape (1, 2): two gloo
+ 27. spatial: image rows over ranks, mesh_shape (1, 2): two gloo
      ranks on the one card, 192 of the 384 rows each, one hr_finetune step
      in bf16 and in float32 and one stage-3 step (the teacher and the row
      shift) against one process on the global batch: losses at rtol 2e-4,
      float32 gradients and weights by the C4 rule, the ranks' parameters
      bit-equal, the launches alike, rank 0's sweep kernels under
      torch.profiler, each rank's peak memory below the one process's;
+ 28. remat (last): the rematerialisation switches on the spatial phase's
+     one-process runs, from their seeded weights and batches: hr_finetune
+     (8 x 1280x384, ResNet-50, 49+14 planes, VGG19) in bf16 and float32
+     under model.remat (the depth encoder's residual blocks recomputed in
+     the backward pass), the oracle stage 1 (float32, 8 x 640x192) under
+     remat_warp (its view synthesis and losses recomputed): the first step
+     with the switch on (taken while the spatial ranks run) against the
+     same step without it: losses, every BatchNorm buffer and the launches
+     bit-equal, each gradient leaf bit-equal or within the spread of two
+     steps without it; then 2 warm-up and 5 timed steps each way, with the
+     peak memory allocated and one step's memory by aten op;
  bf16 (the JAX package's default arithmetic, TrainConfig.bf16):
   sweep_wide (after 5b): rows wider than one launch (W = 2560, 4096) in
      column segments: forward, head-only backward and image-gradient
@@ -4280,7 +4291,7 @@ def traced_kernels(prof):
     return counts
 
 
-def spatial_runs(dev, mesh_shape, profile=False, keep_float32=True):
+def spatial_runs(dev, mesh_shape, profile=False, keep_float32=True, remat=None):
     """One step of each of :data:`SPATIAL_RUNS` (the three of PR 18: an
     hr_finetune step at 1280x384, the global batch 4 flipped to 8, in bf16
     and in float32, and a stage-3 step, batch 4 with the frozen teacher on
@@ -4291,7 +4302,10 @@ def spatial_runs(dev, mesh_shape, profile=False, keep_float32=True):
     peak device memory above what was allocated before it and, under
     ``profile``, the kernels the profiler saw in the runs of
     :data:`SPATIAL_TRACED`; under ``keep_float32`` the parameters and
-    gradients of the runs of :data:`SPATIAL_C4` too."""
+    gradients of the runs of :data:`SPATIAL_C4` too.  A dict ``remat`` (the
+    one process) takes the runs of :data:`REMAT_SWITCH` after their step
+    (:func:`remat_first_steps`: the same first step with the switch on and
+    off again, and the bundle kept for :func:`phase_remat`)."""
     runs = {}
     # the card's activity alone: the kernels are all that is counted, and a
     # trace of the host's ops as well takes seconds to read back
@@ -4309,6 +4323,8 @@ def spatial_runs(dev, mesh_shape, profile=False, keep_float32=True):
         optimizer, scheduler = make_optimizer(cfg, bundle.parameters(), 1000)
         step = make_train_step(bundle, optimizer, scheduler)
         batch = batch_to_tensors(step_batch(cfg, 0), dev)
+        kept = remat is not None and tag in REMAT_SWITCH
+        init = bundle_state(bundle) if kept else None
         reset_launch_counts()
         t0 = time.perf_counter()
         build_s = t0 - t_build
@@ -4329,6 +4345,10 @@ def spatial_runs(dev, mesh_shape, profile=False, keep_float32=True):
             run["kernels"] = traced_kernels(prof)
         run["after_s"] = time.perf_counter() - t0 - run["seconds"]
         runs[tag] = run
+        if kept:
+            remat[tag] = remat_first_steps(bundle, batch, init, REMAT_SWITCH[tag],
+                                           first_step_record(bundle, losses, run["launches"]))
+            remat[tag]["base"] = base
         del bundle, optimizer, scheduler, step, batch
     free_cache()
     return runs
@@ -4368,16 +4388,20 @@ def phase_spatial(card, dev=torch.device("cuda")):
     same in all three; each rank's peak memory below the one process's; in
     the runs of :data:`SPATIAL_TRACED` rank 0's kernels as torch.profiler
     saw them; in those of :data:`SPATIAL_C4` the gradients and post-Adam
-    weights (:func:`first_step_c4`)."""
+    weights (:func:`first_step_c4`).  While the ranks run, the one process
+    also takes the first steps of :func:`phase_remat` on its runs of
+    :data:`REMAT_SWITCH` (the card's memory is each process's own; no time
+    is taken then); returns them, with their bundles."""
     import torch.multiprocessing as mp
 
     free_cache()
+    kept = {}
     t0, clock0 = time.perf_counter(), time.time()
     with tempfile.TemporaryDirectory(prefix="pdt_chip_smoke_spatial_") as tmp:
         ranks = mp.spawn(spatial_rank, args=(SPATIAL_RANKS, tmp), nprocs=SPATIAL_RANKS,
                          join=False)
         try:
-            one = spatial_runs(dev, ())
+            one = spatial_runs(dev, (), remat=kept)
             t_one = time.perf_counter() - t0
             deadline = time.monotonic() + 600
             while not ranks.join(timeout=10):
@@ -4457,6 +4481,187 @@ def phase_spatial(card, dev=torch.device("cuda")):
     if failed:
         raise AssertionError(f"spatial: {failed} failed: "
                              + "; ".join(f"{t}: {out[t]['failed']}" for t in failed))
+    return kept
+
+
+# ---------------------------------------------------------------------------
+# the rematerialisation switches (models/layers.py:remat): the depth encoder's
+# residual blocks (model.remat) and the oracle's view synthesis and losses
+# (remat_warp) recomputed in the backward pass, against the same step without
+# ---------------------------------------------------------------------------
+
+# the spatial runs (their one process) checked under each switch
+REMAT_SWITCH = {"bf16": "remat", "float32": "remat", "oracle": "remat_warp"}
+REMAT_WARMUP, REMAT_STEPS = 2, 5
+# a gradient leaf that the step does not give bit for bit stays within this
+# many times the largest difference between two steps without the switch in
+# the same call (two draws of the card's nondeterministic backward), each
+# leaf's difference over max(its largest element, 1e-3 x the largest
+# gradient element), the scale of tests/_torch_parity.py:assert_grads_match;
+# a fault of the recompute (other statistics, another mask) moves a leaf by
+# orders more
+REMAT_SPREAD = 4.0
+
+
+def bundle_state(bundle):
+    """Every trained network's state on the host."""
+    return {name: {k: v.detach().cpu().clone() for k, v in net.state_dict().items()}
+            for name, net in bundle.nets().items()}
+
+
+def set_remat(bundle, field, on):
+    """``field`` (``remat`` or ``remat_warp``) on or off in the built bundle:
+    the depth encoder's trunk reads the first, the step the bundle's config."""
+    cfg = bundle.cfg
+    if field == "remat":
+        bundle.model.encoder.encoder.remat = on
+        bundle.cfg = cfg.replace(model=dataclasses.replace(cfg.model, remat=on))
+    else:
+        bundle.cfg = cfg.replace(remat_warp=on)
+
+
+def first_step_record(bundle, losses, launches):
+    """What a first step is held to: its losses and launches, the depth
+    model's gradients and every network's buffers (the BatchNorm statistics
+    and ``num_batches_tracked``) after it; the gradients are then released."""
+    grads = {k: p.grad.detach().clone() for k, p in bundle.named_parameters()
+             if p.grad is not None}
+    buffers = {f"{n}.{k}": b.detach().clone() for n, net in bundle.nets().items()
+               for k, b in net.named_buffers()}
+    for p in bundle.parameters():
+        p.grad = None
+    return {"losses": losses, "launches": launches, "grads": grads, "buffers": buffers}
+
+
+def remat_step(bundle, init, field, on):
+    """A train step of ``bundle`` from the state ``init`` and a fresh Adam,
+    with ``field`` ``on``."""
+    set_remat(bundle, field, on)
+    for name, net in bundle.nets().items():
+        net.load_state_dict(init[name])
+    optimizer, scheduler = make_optimizer(bundle.cfg, bundle.parameters(), 1000)
+    return make_train_step(bundle, optimizer, scheduler)
+
+
+def remat_first_steps(bundle, batch, init, field, off):
+    """The first step ``off`` (the switch off) taken again with it on, then
+    off once more, each from ``init``: the losses, every buffer and the
+    launches of the step with it on must be the step's without it, bit for
+    bit; each gradient leaf too, or (where the card's backward is not
+    deterministic: the two steps without the switch part) within
+    :data:`REMAT_SPREAD` times their largest relative difference.  The
+    second step without it is the control, reported.  Returns the
+    comparison, ``failed`` naming what broke, and the bundle, batch and
+    state for the timed steps."""
+    runs = {"off": off}
+    for name, on in (("on", True), ("off_again", False)):
+        step = remat_step(bundle, init, field, on)
+        reset_launch_counts()
+        losses = host_losses(step(batch))
+        runs[name] = first_step_record(bundle, losses, launch_counts())
+    set_remat(bundle, field, False)
+    gmax = max(float(g.abs().max()) for g in off["grads"].values())
+    rel, l2 = {}, {}
+    for name in ("on", "off_again"):
+        rel[name] = {k: float((runs[name]["grads"][k] - g).abs().max())
+                     / max(float(g.abs().max()), 1e-3 * gmax, 1e-30)
+                     for k, g in off["grads"].items()}
+        l2[name] = math.sqrt(sum(float((runs[name]["grads"][k] - g).double().square().sum())
+                                 for k, g in off["grads"].items())
+                             / sum(float(g.double().square().sum())
+                                   for g in off["grads"].values()))
+    spread = max(rel["off_again"].values())
+    same = {name: {"losses": runs[name]["losses"] == off["losses"],
+                   "launches": runs[name]["launches"] == off["launches"],
+                   "buffers": all(torch.equal(runs[name]["buffers"][k], b)
+                                  for k, b in off["buffers"].items())}
+            for name in ("on", "off_again")}
+    failed = [f"on: {what} differ from the step without remat"
+              for what, equal in same["on"].items() if not equal]
+    if set(runs["on"]["grads"]) != set(off["grads"]):
+        failed.append("on: other gradient leaves")
+    wide = [k for k, r in rel["on"].items() if r > 0 and r > REMAT_SPREAD * spread]
+    if wide:
+        failed.append(f"on: gradient leaves {wide[:4]} ({len(wide)}) beyond {REMAT_SPREAD} x "
+                      f"the spread {spread:.3e}: {[rel['on'][k] for k in wide[:4]]}")
+    check = {"field": field, "bit_equal": same, "leaves": len(off["grads"]),
+             "leaves_bit_equal": {n: sum(r == 0 for r in rel[n].values()) for n in rel},
+             "largest_rel_grad_diff": {n: max(rel[n].values()) for n in rel},
+             "rel_l2_grad_diff": l2,
+             "buffers": len(off["buffers"]), "launches": nonzero(off["launches"])}
+    return {"check": check, "failed": failed, "bundle": bundle, "batch": batch, "init": init}
+
+
+def remat_times(kept, dev):
+    """:data:`REMAT_WARMUP` warm-up and :data:`REMAT_STEPS` timed
+    synchronised steps with the switch off, then on, each from the kept
+    state: each one's median ms, the peak memory allocated in its timed
+    steps (the allocator's statistic reset after the warm-ups) above what
+    was allocated before the bundle, and one more step's memory by aten op
+    (:func:`memory_by_op`)."""
+    bundle, batch, field = kept["bundle"], kept["batch"], kept["check"]["field"]
+    out = {}
+    for name, on in (("off", False), ("on", True)):
+        step = remat_step(bundle, kept["init"], field, on)
+        for _ in range(REMAT_WARMUP):
+            host_losses(step(batch))
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        ms = []
+        for _ in range(REMAT_STEPS):
+            t = time.perf_counter()
+            host_losses(step(batch))
+            torch.cuda.synchronize(dev)
+            ms.append((time.perf_counter() - t) * 1e3)
+        peak = (torch.cuda.max_memory_allocated(dev) - kept["base"]) / 1e9
+        out[name] = {"ms": statistics.median(ms), "ms_all": ms, "peak_gb": peak,
+                     "by_op": memory_by_op(lambda: host_losses(step(batch)), dev)}
+    set_remat(bundle, field, False)
+    return out
+
+
+def phase_remat(card, kept=None, dev=torch.device("cuda")):
+    """The two rematerialisation switches on the spatial phase's one-process
+    runs of :data:`REMAT_SWITCH` (hr_finetune_config in bf16 and float32
+    under ``remat``, the oracle stage 1 in float32 under ``remat_warp``),
+    from their seeded weights and batches: ``kept`` holds their first steps
+    (:func:`remat_first_steps`) and bundles; alone (``python3 chip_smoke.py
+    remat``) the phase builds them and takes those steps first.  Then each
+    switch off and on timed (:func:`remat_times`).  Fails on any check of
+    the first steps."""
+    if kept is None:
+        kept = {}
+        for tag in REMAT_SWITCH:
+            free_cache()
+            base = torch.cuda.memory_allocated(dev)
+            cfg = SPATIAL_RUNS[tag][0]().replace(allow_random_pc=True)
+            bundle = ModelBundle(cfg, dev)
+            batch = batch_to_tensors(step_batch(cfg, 0), dev)
+            init = bundle_state(bundle)
+            step = remat_step(bundle, init, REMAT_SWITCH[tag], False)
+            reset_launch_counts()
+            losses = host_losses(step(batch))
+            kept[tag] = remat_first_steps(bundle, batch, init, REMAT_SWITCH[tag],
+                                          first_step_record(bundle, losses, launch_counts()))
+            kept[tag]["base"] = base
+    failed = []
+    for tag, run in kept.items():
+        want = nonzero(SPATIAL_RUNS[tag][1])
+        if run["check"]["launches"] != want:
+            run["failed"].append(f"launches {run['check']['launches']}, want {want}")
+        run["times"] = remat_times(run, dev)
+        out = {"check": run["check"], "failed": run["failed"], **run["times"]}
+        print(f"[remat] {tag}: {SPATIAL_RECIPES[tag]}, {run['check']['field']} on against off "
+              f"from the same seeded weights and batch (first steps; then {REMAT_WARMUP} "
+              f"warm-up and {REMAT_STEPS} timed steps each, the peak GB allocated in the "
+              f"timed steps above what was before the bundle): {json.dumps(out)} | {card}")
+        if run["failed"]:
+            failed.append(tag)
+        del run["bundle"], run["batch"], run["init"]
+        free_cache()
+    if failed:
+        raise AssertionError(f"remat: {failed} failed: "
+                             + "; ".join(f"{t}: {kept[t]['failed']}" for t in failed))
 
 
 def main(argv=()):
@@ -4474,9 +4679,12 @@ def main(argv=()):
     card = run(phase_device)
     run(phase_build)
     if argv:
-        # the named phases alone (those that take only the card), no JSON lines
+        # the named phases alone (those that take only the card), no JSON
+        # lines; remat after spatial takes the spatial phase's runs
+        kept = None
         for name in argv:
-            run(globals()[f"phase_{name}"], card)
+            out = run(globals()[f"phase_{name}"], card, *([kept] if name == "remat" else []))
+            kept = out if name == "spatial" else kept
         return
     # launches: each kernel's count on the path that brought it to the port
     fields = {"disp_head_fwd": run(phase_kernel, card)}
@@ -4521,7 +4729,7 @@ def main(argv=()):
     run(phase_export, card)
     run(phase_a11, card)
     run(phase_ddp, card)
-    run(phase_spatial, card)
+    run(phase_remat, card, run(phase_spatial, card))
     print(f"[time] all phases: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,

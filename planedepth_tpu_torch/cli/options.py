@@ -8,11 +8,14 @@ Deliberately NOT reproduced: the reference's dead/broken flags
 (--scheduler_step_size, --avg_reprojection, --stage1_weights_folder are
 parsed there but never read; --num_ep's help text is wrong).
 
-The JAX package's flags of TPU layout and memory trades (``--fused_head``,
-``--s2d_tail``, ``--remat``, ``--remat_warp``, ``--rowshift_warp``) are not
-here, so argparse refuses them by name: the port has no such fields
-(``config.py``).  ``--no_bf16`` (float32 networks and kernels) and
-``--warp_sample_bf16`` map as in the JAX package.
+The JAX package's flags of TPU layout and TPU-only samplers
+(``--fused_head``, ``--s2d_tail``, ``--rowshift_warp``) are not here, so
+argparse refuses them by name: the port has no such fields (``config.py``).
+``--no_bf16`` (float32 networks and kernels), ``--warp_sample_bf16`` and the
+two memory trades ``--remat`` (``model.remat``: the depth encoder's residual
+blocks recomputed in the backward pass) and ``--remat_warp`` (``remat_warp``:
+the oracle route's view synthesis and losses recomputed) map as in the JAX
+package.
 """
 from __future__ import annotations
 
@@ -89,6 +92,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="sample the warped plane stacks in bfloat16")
     p.add_argument("--fused_sweep", action="store_true",
                    help="fused plane sweep kernels for the stereo hot path")
+    p.add_argument("--remat", action="store_true",
+                   help="rematerialize encoder residual blocks")
+    p.add_argument("--remat_warp", action="store_true",
+                   help="rematerialize the view-synthesis + loss segment")
     # loading
     p.add_argument("--load_weights_folder", type=str, default=None)
     p.add_argument("--models_to_load", nargs="+", type=str,
@@ -137,6 +144,7 @@ _FLAG_MAP = {
     "fused_sweep": (None, "fused_sweep", _IDENT),
     "no_bf16": (None, "bf16", lambda v: not v),
     "warp_sample_bf16": (None, "warp_sample_bf16", _IDENT),
+    "remat_warp": (None, "remat_warp", _IDENT),
     "net_type": ("model", "net_type", _IDENT),
     "num_layers": ("model", "num_layers", _IDENT),
     "num_ep": ("model", "num_ep", _IDENT),
@@ -145,6 +153,7 @@ _FLAG_MAP = {
     "use_mixture_loss": ("model", "use_mixture_loss", _IDENT),
     "plane_residual": ("model", "plane_residual", _IDENT),
     "render_probability": ("model", "render_probability", _IDENT),
+    "remat": ("model", "remat", _IDENT),
     "disp_levels": ("planes", "disp_levels", _IDENT),
     "disp_min": ("planes", "disp_min", _IDENT),
     "disp_max": ("planes", "disp_max", _IDENT),

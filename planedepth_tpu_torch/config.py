@@ -7,15 +7,18 @@ format, crop and augmentation ranges), ``OptimConfig`` and the fields of
 presets, the monocular recipe of the JAX package's ``bench.py`` and the
 ``to_json``/``from_dict`` round trip (``from_dict`` skips the JAX package's
 fields that have no counterpart here, so it reads the JAX ``opt.json``
-too).  The fields that choose a TPU layout
-or a TPU memory trade (``s2d_tail``, ``s2d_stem``, ``fused_head``,
-``sweep_rows``, ``sweep_gp_taps*``, ``sweep_quad*``, ``pc_s2d``,
-``warp2d_*``, ``remat_warp``, ``rowshift_warp``) have no
+too).  The fields that choose a TPU layout (``s2d_tail``, ``s2d_stem``,
+``fused_head``, ``sweep_rows``, ``sweep_gp_taps*``, ``sweep_quad*``,
+``pc_s2d``, ``warp2d_*``) or a TPU-only sampler (``rowshift_warp``) have no
 counterpart: the kernels run whenever their tensors lie on the card, and
 the 2-D warp kernel samples every plane exactly, so the TPU's tap budget
 (``warp2d_plan``) has no use.  ``cli/options.py`` refuses the flags of
-those fields, and ``--remat`` (the encoder blocks' checkpointing, a memory
-trade on any backend: not ported yet).  ``bf16`` (default True, as in the JAX package) computes the
+those fields.  ``ModelConfig.remat`` and ``TrainConfig.remat_warp`` are
+memory trades on any backend, as in the JAX package: the first recomputes
+the depth encoder's residual blocks in the backward pass, the second the
+oracle route's view synthesis and losses (``train/step.py:oracle_losses``);
+each step's numbers are the same, and BatchNorm updates its statistics
+once.  ``bf16`` (default True, as in the JAX package) computes the
 networks in bf16 and feeds the plane sweep and the 2-D warp bf16 operands;
 ``warp_sample_bf16`` samples the 2-D warp's and the oracle view
 synthesis's plane stacks in bf16.  ``mesh_shape`` ``(D, S)`` lays the
@@ -71,6 +74,9 @@ class ModelConfig:
     use_mixture_loss: bool = True
     plane_residual: bool = True
     render_probability: bool = False
+    # recompute the depth encoder's residual blocks in the backward pass
+    # (models/resnet.py): their activations are not kept between the passes
+    remat: bool = False
     # set by train.step.ModelBundle on the fused stereo path: the decoder
     # then stops at the plane heads in training and the sweep computes disp
     fused_sweep_loss: bool = False
@@ -178,6 +184,9 @@ class TrainConfig:
     bf16: bool = True
     # sample the 2-D warp's and the oracle's plane stacks in bfloat16
     warp_sample_bf16: bool = False
+    # recompute the oracle route's view synthesis and losses in the backward
+    # pass (train/step.py:oracle_losses; the fused routes have no such segment)
+    remat_warp: bool = False
     # checkpoint the perceptual net's pred-branch forward (same numbers)
     pc_remat: bool = True
     fused_sweep: bool = False

@@ -206,15 +206,15 @@ def _wavefront(ftypes, rows, prior, bpp):
     return skew[col + row, row].astype(np.uint8).reshape(n, width * bpp)
 
 
-def _filter_rows(rows: np.ndarray, bpp: int, ftype: int) -> np.ndarray:
-    """Apply one PNG filter to every row (int16, before the mod 256)."""
-    x = rows.astype(np.int16)
+def _filter_rows(rows: np.ndarray, bpp: int, ftype: int, which: np.ndarray) -> np.ndarray:
+    """Apply one PNG filter to the rows ``which`` of ``rows`` (int16, before
+    the mod 256), each against the row above it in ``rows``."""
+    x = rows[which].astype(np.int16)
     a = np.zeros_like(x)
     a[:, bpp:] = x[:, :-bpp]                                   # left
-    b = np.zeros_like(x)
-    b[1:] = x[:-1]                                             # up
+    b = np.where((which > 0)[:, None], rows[which - 1], 0).astype(np.int16)   # up
     c = np.zeros_like(x)
-    c[1:, bpp:] = x[:-1, :-bpp]                                # up-left
+    c[:, bpp:] = b[:, :-bpp]                                   # up-left
     if ftype == 0:
         pred = 0
     elif ftype == 1:
@@ -253,8 +253,8 @@ def write_png(path: str, image: np.ndarray, filter_type=0) -> None:
     ftypes = np.broadcast_to(np.asarray(filter_type, np.uint8), (height,))
     filtered = np.empty_like(rows)
     for t in np.unique(ftypes):
-        chosen = ftypes == t
-        filtered[chosen] = _filter_rows(rows, channels * depth // 8, int(t))[chosen]
+        which = np.flatnonzero(ftypes == t)
+        filtered[which] = _filter_rows(rows, channels * depth // 8, int(t), which)
     raw = np.concatenate([ftypes[:, None], filtered], axis=1)
     header = struct.pack(">IIBBBBB", width, height, depth, color, 0, 0, 0)
     with open(path, "wb") as f:

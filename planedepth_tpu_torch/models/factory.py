@@ -51,7 +51,8 @@ class DepthModel(nn.Module):
                     "none and its factory drops the flag")
             self.fal = FalNet(cfg.planes, dtype=dtype)
             return
-        self.encoder = ResnetEncoder(cfg.num_layers, dtype=dtype)
+        # remat reaches the depth encoder alone, as in the JAX factory
+        self.encoder = ResnetEncoder(cfg.num_layers, dtype=dtype, remat=cfg.remat)
         self.depth = DepthDecoder(
             num_ch_enc=tuple(int(c) for c in self.encoder.num_ch_enc),
             planes=cfg.planes,

@@ -27,11 +27,14 @@ row-local (``upsample2x_nearest`` once the shards align).
 """
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from planedepth_tpu_torch.parallel.halo import (
     global_height,
@@ -41,6 +44,37 @@ from planedepth_tpu_torch.parallel.halo import (
     spatial,
 )
 from planedepth_tpu_torch.parallel.mesh import global_moments, world
+
+
+_recompute = threading.local()
+
+
+@contextlib.contextmanager
+def _recomputing():
+    depth = getattr(_recompute, "depth", 0)
+    _recompute.depth = depth + 1
+    try:
+        yield
+    finally:
+        _recompute.depth = depth
+
+
+def recomputing() -> bool:
+    """True inside a :func:`remat` segment's recompute in the backward pass."""
+    return getattr(_recompute, "depth", 0) > 0
+
+
+def remat(fn, *args):
+    """``fn(*args)`` with its activations recomputed in the backward pass
+    instead of kept (flax ``nn.remat`` / ``jax.checkpoint``): the
+    non-reentrant ``torch.utils.checkpoint``, which DDP's unused-parameter
+    search and a nested checkpoint take, the RNG state replayed.  The
+    recompute is marked (:func:`recomputing`), so that :class:`BatchNorm2d`
+    normalises as the forward did and updates its statistics only once, as
+    flax keeps the forward's update."""
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False,
+        context_fn=lambda: (contextlib.nullcontext(), _recomputing()))
 
 
 def upcast(x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
@@ -179,11 +213,20 @@ class BatchNorm2d(nn.BatchNorm2d):
     than one rank normalises by the global batch's moments
     (``parallel/mesh.py:global_moments``) in the same order, and updates the
     running variance with the global count's n / (n - 1).  Other training
-    and float32 inputs take ``nn.BatchNorm2d``."""
+    and float32 inputs take ``nn.BatchNorm2d``.
+
+    In a :func:`remat` segment's recompute, training normalises by the
+    batch's moments as the forward did, bit for bit (the same call, on
+    copies of the running statistics), and updates neither the statistics
+    nor ``num_batches_tracked``: the forward pass updated them once."""
 
     def forward(self, x):
         if self.training and world()[1] > 1:
             return self._global_batch_forward(x)
+        if self.training and recomputing():
+            return F.batch_norm(x, self.running_mean.clone(), self.running_var.clone(),
+                                self.weight, self.bias, True,
+                                self.momentum or 0.0, self.eps)
         if self.training or x.dtype not in (torch.bfloat16, torch.float16):
             return super().forward(x)
         view = lambda t: t[:, None, None]      # noqa: E731
@@ -196,13 +239,17 @@ class BatchNorm2d(nn.BatchNorm2d):
         view = lambda t: t[:, None, None]      # noqa: E731
         wide = upcast(x)
         mean, var, n = global_moments(wide)
-        with torch.no_grad():
-            m = self.momentum
-            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
-            self.running_var.mul_(1.0 - m).add_(var * (n / (n - 1)), alpha=m)
-            self.num_batches_tracked.add_(1)
+        if not recomputing():
+            self._update_statistics(mean, var, n)
         mul = torch.rsqrt(var + self.eps) * self.weight
         return torch.addcmul(view(self.bias), wide - view(mean), view(mul)).to(x.dtype)
+
+    @torch.no_grad()
+    def _update_statistics(self, mean, var, n):
+        m = self.momentum
+        self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+        self.running_var.mul_(1.0 - m).add_(var * (n / (n - 1)), alpha=m)
+        self.num_batches_tracked.add_(1)
 
 
 class Conv3x3(nn.Module):

@@ -20,7 +20,13 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from planedepth_tpu_torch.models.layers import BatchNorm2d, Conv2d, max_pool_3x3_s2, scalar
+from planedepth_tpu_torch.models.layers import (
+    BatchNorm2d,
+    Conv2d,
+    max_pool_3x3_s2,
+    remat,
+    scalar,
+)
 
 # blocks per stage and block type, as torchvision builds them
 RESNET_SPECS = {
@@ -91,11 +97,19 @@ class Bottleneck(nn.Module):
 
 class ResNetTrunk(nn.Module):
     """conv1 .. layer4, returning the 5 feature maps [relu1, layer1..layer4];
-    ``in_ch`` input channels (6 for the pose encoder's frame pairs)."""
+    ``in_ch`` input channels (6 for the pose encoder's frame pairs).
+
+    ``remat`` recomputes every residual block (each layer's first with its
+    downsample) in the backward pass when the trunk trains with grad on, as
+    the JAX trunk's ``nn.remat`` blocks: a block keeps only its input
+    between the passes (``models/layers.py:remat``).  The stem is not
+    recomputed; evaluation and ``torch.no_grad`` run the blocks as they
+    are."""
 
     def __init__(self, num_layers: int = 50, in_ch: int = 3,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, remat: bool = False):
         super().__init__()
+        self.remat = remat
         kind, blocks = RESNET_SPECS[num_layers]
         block = BasicBlock if kind == "basic" else Bottleneck
         self.conv1 = Conv2d(in_ch, 64, 7, stride=2, padding=3, bias=False, dtype=dtype)
@@ -113,22 +127,28 @@ class ResNetTrunk(nn.Module):
         x = F.relu(self.bn1(self.conv1(x)))
         features = [x]
         x = max_pool_3x3_s2(x)
+        recompute = self.remat and self.training and torch.is_grad_enabled()
         for layer in (self.layer1, self.layer2, self.layer3, self.layer4):
-            x = layer(x)
+            if recompute:
+                for block in layer:
+                    x = remat(block, x)
+            else:
+                x = layer(x)
             features.append(x)
         return features
 
 
 class ResnetEncoder(nn.Module):
     """Depth encoder (reference networks/resnet_encoder.py:18-55): input
-    normalisation ``(x - 0.45) / 0.225`` (in ``dtype``), then the trunk."""
+    normalisation ``(x - 0.45) / 0.225`` (in ``dtype``), then the trunk
+    (``remat``: its blocks recomputed in the backward pass)."""
 
     def __init__(self, num_layers: int = 50, in_ch: int = 3,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, remat: bool = False):
         super().__init__()
         self.dtype = dtype
         self.num_ch_enc = encoder_channels(num_layers)
-        self.encoder = ResNetTrunk(num_layers, in_ch, dtype)
+        self.encoder = ResNetTrunk(num_layers, in_ch, dtype, remat)
 
     def forward(self, image: torch.Tensor) -> List[torch.Tensor]:
         if self.dtype is None:

@@ -41,7 +41,7 @@ from planedepth_tpu_torch.geometry.pose import (
 )
 from planedepth_tpu_torch.models.denseaspp import DropoutRows
 from planedepth_tpu_torch.models.factory import DepthModel, build_depth_model, init_weights_
-from planedepth_tpu_torch.models.layers import to_dtype, upcast
+from planedepth_tpu_torch.models.layers import remat, to_dtype, upcast
 from planedepth_tpu_torch.models.perceptual import make_perceptual_net
 from planedepth_tpu_torch.models.pose_net import PoseDecoder
 from planedepth_tpu_torch.models.resnet import ResnetPoseEncoder
@@ -374,7 +374,17 @@ def oracle_losses(bundle: ModelBundle, outputs: Dict[str, torch.Tensor],
     ``flip_right`` the mirror occlusion mask of the source-view and the
     synthesised right-view probabilities replaces ``mask_novel``; under
     ``alpha_self`` the self-reconstruction of side 'r'; then
-    ``compute_losses``."""
+    ``compute_losses``.  Under ``cfg.remat_warp`` the whole segment is
+    recomputed in the backward pass, as ``jax.checkpoint`` does it in the
+    JAX step (``models/layers.py:remat``; on row shards its gathers run
+    again there, on every rank)."""
+    if bundle.cfg.remat_warp and torch.is_grad_enabled():
+        return remat(_synth_and_losses, bundle, outputs, batch, poses)
+    return _synth_and_losses(bundle, outputs, batch, poses)
+
+
+def _synth_and_losses(bundle: ModelBundle, outputs: Dict[str, torch.Tensor],
+                      batch: Dict[str, torch.Tensor], poses: Dict) -> Dict[str, torch.Tensor]:
     cfg = bundle.cfg
     color = "color_aug" if cfg.loss.match_aug else "color"
     rec = pred_novel_images(outputs, batch[f"{color}_l"], cfg.target_sides, poses,

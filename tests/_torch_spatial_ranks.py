@@ -248,20 +248,35 @@ def recipe_batch(cfg, seed=11):
     return jittered(batch) if cfg.novel_frame_ids else batch
 
 
+def with_remat(cfg, remat=True):
+    return cfg.replace(model=dataclasses.replace(cfg.model, remat=remat))
+
+
+def without_remat(case):
+    """``case`` as one process runs it: the encoder's blocks not recomputed."""
+    return dict(case, cfg=with_remat(case["cfg"], False))
+
+
 def step_cases(mono_weights=None):
     """The steps on a (1, 2) mesh, each from one state and global batch:
     ``plain64`` in float64 (one image and its flip), ``dropout`` and
-    ``stage3`` in float32; each of :data:`RECIPES` in float32, and
-    ``mono64``, the mono recipe with ``alpha_self`` and SSIM, in float64.
-    ``mono_weights`` (the depth model's state and the pose nets', from the
-    JAX package's init) replace the mono recipes' seeded ones."""
-    cases = {}
+    ``stage3`` in float32, ``remat`` (``plain64``'s step in float32 with
+    the encoder's blocks recomputed); each of :data:`RECIPES` in float32,
+    and ``mono64``, the mono recipe with ``alpha_self`` and SSIM, in
+    float64.  ``mono_weights`` (the depth model's state and the pose nets',
+    from the JAX package's init) replace the mono recipes' seeded ones."""
+    cases, states = {}, {}
     for name, cfg in (("plain64", step_config(batch_size=2)),
                       ("dropout", step_config(denseaspp=True)),
                       ("stage3", step_config(stage3=True, batch_size=2)),
+                      ("remat", with_remat(step_config(batch_size=2))),
                       *((r, recipe_config(r)) for r in RECIPES)):
-        cases[name] = {"cfg": cfg, "state": perturbed_state(ModelBundle(cfg, CPU).model, 3),
-                       "batch": recipe_batch(cfg), "float64": name == "plain64"}
+        # one state object for the cases of one network (pickled once)
+        net = dataclasses.replace(cfg.model, remat=False)
+        if net not in states:
+            states[net] = perturbed_state(ModelBundle(cfg, CPU).model, 3)
+        cases[name] = {"cfg": cfg, "state": states[net], "batch": recipe_batch(cfg),
+                       "float64": name == "plain64"}
     if mono_weights is not None:
         cases["mono"].update(mono_weights)
     mono = cases["mono"]
@@ -361,24 +376,34 @@ def wait_for(path, timeout=120.0):
 
 
 def spatial_ranks(rank, size, tmp):
-    """Four processes, three groups in turn: the Trainer on a (2, 2) mesh of
-    all four; then ranks 0 and 1 on a (1, 2) mesh, the cases of
-    ``cases.pkl`` (every recipe's step) and every op; then ranks 0 to 2,
-    every op at S = 3 (one import of the port a process for the three)."""
+    """Four processes, four groups in turn: the Trainer on a (2, 2) mesh of
+    all four (then rank 3 alone, in no group, one process's Trainer); then
+    two (1, 2) meshes side by side, ranks 0 and 1 and ranks 2 and 3, each
+    taking every other case of ``cases.pkl`` (every recipe's step), the
+    first every op as well; then ranks 0 to 2, every op at S = 3 (one
+    import of the port a process for it all)."""
     assert size == 4
-    out = {"trainer": held(in_group(rank, 4, tmp, "pg4", lambda: drive_trainer(Trainer(
-        trainer_config(os.path.join(tmp, f"rank{rank}"), (2, 2)),
-        datasets=(IndexedStereo(N_TRAIN), IndexedStereo(N_VAL)), device=CPU))), rank)}
-    if rank < 2:
-        with open(wait_for(os.path.join(tmp, "cases.pkl")), "rb") as f:
-            cases = pickle.load(f)
 
-        def steps_and_ops():
-            res = {name: held(one_step(dict(case, cfg=dataclasses.replace(
-                case["cfg"], mesh_shape=(1, 2))), rank, 2), rank)
-                for name, case in cases.items()}
-            return dict(res, ops={name: op_results(name, 2) for name in OPS})
-        out["s2"] = in_group(rank, 2, tmp, "pg2", steps_and_ops)
+    def trainer(mesh_shape, log):
+        return drive_trainer(Trainer(trainer_config(os.path.join(tmp, log), mesh_shape),
+                                     datasets=(IndexedStereo(N_TRAIN), IndexedStereo(N_VAL)),
+                                     device=CPU))
+    out = {"trainer": held(in_group(rank, 4, tmp, "pg4",
+                                    lambda: trainer((2, 2), f"rank{rank}")), rank)}
+    if rank == 3:
+        out["one_trainer"] = trainer((), "one")
+    with open(wait_for(os.path.join(tmp, "cases.pkl")), "rb") as f:
+        cases = pickle.load(f)
+    pair, member = divmod(rank, 2)
+
+    def steps():
+        res = {name: held(one_step(dict(case, cfg=dataclasses.replace(
+            case["cfg"], mesh_shape=(1, 2))), member, 2), member)
+            for name, case in list(cases.items())[pair::2]}
+        if pair == 0:
+            res["ops"] = {name: op_results(name, 2) for name in OPS}
+        return res
+    out["s2"] = in_group(member, 2, tmp, f"pg2_{pair}", steps)
     if rank < 3:
         def ops():
             make_mesh(spatial=3)

@@ -1,7 +1,10 @@
 """The port's CLIs against the JAX package's: flags, stage presets, the checkpoint meta.
 
 - ``build_parser`` has the JAX parser's flags with their defaults, but for
-  the TPU-only ones, which it refuses by name; each argv
+  the TPU-only ones, which it refuses by name (the JAX parser's performance
+  flags but ``--fused_sweep``, ``--warp_sample_bf16`` and the two memory
+  trades ``--remat`` and ``--remat_warp``, which map as in the JAX
+  package); each argv
   below gives a config whose every field equals the JAX config's (the port
   keeps a subset of the JAX fields, which the refused flags do not set);
 - ``apply_checkpoint_meta`` adopts what the JAX one adopts;
@@ -32,7 +35,8 @@ from planedepth_tpu_torch.data.kitti_tree import write_tree
 torch.set_num_threads(1)
 CPU = torch.device("cpu")
 TPU_ONLY = {"remat_warp", "rowshift_warp", "fused_head", "s2d_tail", "remat"}
-REFUSED = TPU_ONLY                         # JAX flags that the port's parser refuses
+REMAT = {"remat", "remat_warp"}            # memory trades on any backend: ported
+REFUSED = TPU_ONLY - REMAT                 # JAX flags that the port's parser refuses
 
 
 def _parse(mod, argv):
@@ -99,14 +103,23 @@ def test_flags_give_the_jax_config(argv):
     assert vars(args_t) == {k: v for k, v in vars(args_j).items() if k not in REFUSED}
     assert explicit_t == explicit_j - REFUSED
     _same_fields(got, want)
+    assert (got.model.remat, got.remat_warp) == (want.model.remat, want.remat_warp) == \
+        ("--remat" in argv, "--remat_warp" in argv)
     assert tcfg.TrainConfig.from_dict(json.loads(got.to_json())) == got
 
 
-@pytest.mark.parametrize("flag", sorted(REFUSED))
+@pytest.mark.parametrize("flag", sorted(TPU_ONLY))
 def test_refused_flag_is_named(flag, capsys):
-    """The JAX parser takes the flag; the port's stops and names it."""
+    """The JAX parser takes the flag; the port's stops and names it, but for
+    ``--remat`` and ``--remat_warp``, which both parsers take to the same
+    field."""
     argv = [f"--{flag}"] + (["off"] if flag in ("fused_head", "s2d_tail") else [])
-    joptions.build_parser().parse_args(argv)
+    args_j = joptions.build_parser().parse_args(argv)
+    if flag in REMAT:
+        args_t = toptions.build_parser().parse_args(argv)
+        assert getattr(args_t, flag) is getattr(args_j, flag) is True
+        assert toptions._FLAG_MAP[flag][:2] == joptions._FLAG_MAP[flag][:2]
+        return
     with pytest.raises(SystemExit):
         toptions.build_parser().parse_args(argv)
     assert f"unrecognized arguments: --{flag}" in capsys.readouterr().err
@@ -126,6 +139,24 @@ def test_bf16_defaults_and_a_jax_opt_json_keep_bf16():
         opt = json.loads(jcfg.stage1_config(bf16=bf16, warp_sample_bf16=sample).to_json())
         got = tcfg.TrainConfig.from_dict(opt)
         assert (got.bf16, got.warp_sample_bf16) == (bf16, sample)
+
+
+@pytest.mark.parametrize("remat,remat_warp", [(True, False), (False, True), (True, True)])
+def test_a_jax_opt_json_sets_the_remat_switches(remat, remat_warp):
+    """``ModelConfig.remat`` and ``TrainConfig.remat_warp`` default to False
+    at the JAX package's field positions, and ``from_dict`` of a JAX
+    ``opt.json`` that sets them sets them in the port."""
+    from planedepth_tpu import config as jcfg
+
+    names = lambda cls: [f.name for f in dataclasses.fields(cls)]   # noqa: E731
+    for jc, tc in ((jcfg.ModelConfig, tcfg.ModelConfig), (jcfg.TrainConfig, tcfg.TrainConfig)):
+        assert [n for n in names(jc) if n in names(tc)] == names(tc)
+    assert tcfg.TrainConfig().model.remat is False and tcfg.TrainConfig().remat_warp is False
+    want = jcfg.hr_finetune_config(remat_warp=remat_warp,
+                                   model=jcfg.ModelConfig(remat=remat))
+    got = tcfg.TrainConfig.from_dict(json.loads(want.to_json()))
+    assert (got.model.remat, got.remat_warp) == (remat, remat_warp)
+    _same_fields(got, want)
 
 
 def test_apply_checkpoint_meta_equals_jax():

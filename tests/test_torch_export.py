@@ -9,8 +9,12 @@ CPU both run the same plain versions, op for op), and again after
 ``torch.export.save`` and ``torch.export.load`` in a fresh process that
 imports ``torch`` and ``planedepth_tpu_torch.ops`` alone; it agrees with the
 JAX eval forward on the same weights at the model tolerance of
-``tests/test_torch_models.py``, rtol = atol = 1e-3.
+``tests/test_torch_models.py``, rtol = atol = 1e-3.  The same model with
+``remat`` (its encoder blocks recomputed in a training backward) has the
+same eval forward and, through ``export_forward``, the same program, bit for
+bit.
 """
+import dataclasses
 import os
 import subprocess
 import sys
@@ -21,6 +25,7 @@ import torch
 
 from planedepth_tpu_torch.cli import export
 from planedepth_tpu_torch.config import DataConfig, TrainConfig
+from planedepth_tpu_torch.models.factory import DepthModel
 from planedepth_tpu_torch.ops.disp_head import disp_head
 from planedepth_tpu_torch.ops.head_epilogue import head_epilogue
 from tests._torch_parity import inputs, jnp_in, make_models
@@ -75,6 +80,29 @@ def test_program_agrees_with_the_jax_eval_forward(exported):
     got = program.module()(torch.from_numpy(image), torch.from_numpy(grid))
     want = np.asarray(jax_forward(*jnp_in(image, grid))["disp"])
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-3, atol=1e-3)
+
+
+def test_remat_model_exports_the_same_program(exported, tmp_path, monkeypatch):
+    """``remat`` acts in training only: the eval forward and the program that
+    ``export_forward`` exports are the plain model's, node for node and bit
+    for bit (the saved program's load is held by the test below)."""
+    _, port, program, image, grid = exported
+    remat = DepthModel(dataclasses.replace(port.cfg, remat=True))
+    remat.load_state_dict(port.state_dict())
+    remat.eval()
+    assert remat.encoder.encoder.remat
+    image, grid = torch.from_numpy(image), torch.from_numpy(grid)
+    with torch.no_grad():
+        want = export.EvalForward(port)(image, grid)
+        assert torch.equal(export.EvalForward(remat)(image, grid), want)
+    made, real = [], export.export_program
+    monkeypatch.setattr(export, "export_program", lambda *a: made.append(real(*a)) or made[-1])
+    path = str(tmp_path / "remat.pt2")
+    cfg = TrainConfig(data=DataConfig(height=H, width=W), bf16=False)
+    assert export.export_forward(cfg, remat, path, batch_size=B) > 0
+    nodes = lambda p: [(n.op, str(n.target)) for n in p.graph.nodes]     # noqa: E731
+    assert len(made) == 1 and nodes(made[0]) == nodes(program)
+    assert torch.equal(made[0].module()(image, grid), program.module()(image, grid))
 
 
 def test_saved_program_runs_in_a_fresh_process(exported, tmp_path):

@@ -11,6 +11,12 @@ port's own fused step, and through the ``Trainer`` with its image panels.
   behind train-mode BatchNorm, where flax's float32 variance leaves JAX's
   gradients about a percent off, relative L2 1e-2 against the port's float64
   step, ROADMAP C4).
+- The same step with both rematerialisation switches on (``model.remat``:
+  the encoder's residual blocks; ``remat_warp``: the view synthesis and the
+  losses, recomputed in the backward pass) in both packages, from the same
+  weights (the JAX init shared), at the same bounds;
+  ``tests/test_torch_remat.py`` holds each switch to the step without it,
+  bit for bit.
 - The port's fused step (the plane sweep, and the mirror occlusion mask
   rebuilt from the plane heads) against its own oracle step from the same
   weights and batch, losses at rtol 2e-4, as tests/test_fused_train.py
@@ -62,13 +68,17 @@ MODEL = dict(num_layers=18, use_denseaspp=False, use_mixture_loss=True, plane_re
 LOSS = dict(alpha_pc=0.0, automask=True, use_mom=True)
 
 
-def _configs():
-    common = dict(batch_size=1, flip_right=True, warp_type="disp_warp", fused_sweep=False)
-    j = jcfg.TrainConfig(model=jcfg.ModelConfig(planes=jcfg.PlaneConfig(**PLANES), **MODEL),
+def _configs(remat=False):
+    """The JAX and port configurations; ``remat`` sets both switches."""
+    common = dict(batch_size=1, flip_right=True, warp_type="disp_warp", fused_sweep=False,
+                  remat_warp=remat)
+    j = jcfg.TrainConfig(model=jcfg.ModelConfig(planes=jcfg.PlaneConfig(**PLANES), remat=remat,
+                                                **MODEL),
                          loss=jcfg.LossConfig(**LOSS), data=jcfg.DataConfig(height=H, width=W),
                          bf16=False, **common)
     t = tcfg.TrainConfig(bf16=False,
-                         model=tcfg.ModelConfig(planes=tcfg.PlaneConfig(**PLANES), **MODEL),
+                         model=tcfg.ModelConfig(planes=tcfg.PlaneConfig(**PLANES), remat=remat,
+                                                **MODEL),
                          loss=tcfg.LossConfig(**LOSS), data=tcfg.DataConfig(height=H, width=W),
                          **common)
     return j, t
@@ -79,13 +89,22 @@ def _is_oracle(cfg):
 
 
 def test_oracle_step_matches_jax():
-    jc, tc = _configs()
+    _assert_step_matches_jax(remat=False)
+
+
+def test_oracle_step_with_both_remat_switches_matches_jax():
+    _assert_step_matches_jax(remat=True)
+
+
+def _assert_step_matches_jax(remat):
+    jc, tc = _configs(remat)
     assert _is_oracle(tc)
-    bundle = JaxBundle(jc)
-    params, stats, _ = perturbed_init(bundle, 0, H, W)
+    # the init of the configuration without the switches: the same variables
+    params, stats, _ = perturbed_init(JaxBundle(_configs()[0]), 0, H, W)
     batch = make_stereo_batch(1, H, W, seed=4)
-    losses_j, grads_j = jax_losses_and_grads(bundle, params, stats, None, batch)
+    losses_j, grads_j = jax_losses_and_grads(JaxBundle(jc), params, stats, None, batch)
     losses, grads, port = port_losses_and_grads(tc, params, stats, None, batch)
+    assert port.model.encoder.encoder.remat == remat
     assert set(losses) == set(losses_j)
     for k, v in losses.items():
         np.testing.assert_allclose(v, float(losses_j[k]), rtol=1e-4, err_msg=k)

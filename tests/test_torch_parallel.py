@@ -12,7 +12,10 @@ and are held to
     bounds: losses at rtol 2e-4, post-Adam parameters and BatchNorm running
     statistics within 5e-4, and each leaf's gradient, averaged over the
     ranks, within 1e-4 relative L2; with DenseASPP's channel dropout on as well
-    (each rank's masks are its rows of the global batch's); a parameter no
+    (each rank's masks are its rows of the global batch's); with the depth
+    encoder's blocks recomputed in the backward pass (``model.remat``: the
+    global moments' all-reduce issued again there, the statistics updated
+    once) against the one process without it; a parameter no
     forward reaches keeps no gradient and its value, as in one process; the
     two ranks' states are bit-equal;
   * the JAX package's ``make_train_step`` under ``jax.jit`` on the whole
@@ -25,6 +28,7 @@ and are held to
 
 The sampler's host sharding is held to the JAX sampler bit for bit.
 """
+import dataclasses
 import pickle
 
 import jax
@@ -90,10 +94,12 @@ def steps(tmp_path_factory):
     cases = {"plain": {"cfg": tc, "state": port.state_dict(), "batch": batch, "unused": True},
              "dropout": {"cfg": tc_drop, "state": ModelBundle(tc_drop, CPU).model.state_dict(),
                          "batch": batch}}
-    # and the plain step with image rows over the two ranks (a (1, 2) mesh)
+    # and the plain step with image rows over the two ranks (a (1, 2) mesh),
+    # and with the encoder's blocks recomputed (held to one process without)
     spatial = dict(cases["plain"], cfg=tc.replace(mesh_shape=(1, 2)))
+    remat = dict(cases["plain"], cfg=tc.replace(model=dataclasses.replace(tc.model, remat=True)))
     with open(tmp / "cases.pkl", "wb") as f:
-        pickle.dump(dict(cases, spatial=spatial), f)
+        pickle.dump(dict(cases, spatial=spatial, remat=remat), f)
     ranks = start_ranks(step_rank, 2, tmp)          # they run while this process works
 
     tx = jax_make_optimizer(jc, 10)
@@ -105,11 +111,12 @@ def steps(tmp_path_factory):
     load_jax_params(want, jax.tree.map(np.asarray, new_state.params["model"]),
                     jax.tree.map(np.asarray, new_state.batch_stats["model"]))
     one = {name: one_step(case, 0, 1) for name, case in cases.items()}
-    return {"cases": cases, "ranks": collect(ranks, tmp), "one": one,
+    one["remat"] = one["plain"]
+    return {"cases": dict(cases, remat=remat), "ranks": collect(ranks, tmp), "one": one,
             "jax": {k: float(v) for k, v in metrics.items()}, "want": want.state_dict()}
 
 
-@pytest.mark.parametrize("case", ["plain", "dropout"])
+@pytest.mark.parametrize("case", ["plain", "dropout", "remat"])
 def test_two_ranks_equal_one_process(steps, case):
     one, (r0, r1) = steps["one"][case], (r[case] for r in steps["ranks"])
     assert set(r0["losses"]) == set(one["losses"])

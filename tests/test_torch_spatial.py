@@ -18,11 +18,15 @@ thread each, float32) hold their rows of every image and are held to
     gradient leaf within 1e-9 (relative L2); in float32, with DenseASPP's
     dilated convs and dropout, losses at rtol 2e-4, post-Adam parameters
     and BatchNorm statistics within 5e-4, the gradients within 1e-2 (C4);
-    both ranks' states bit-equal;
+    both ranks' states bit-equal; at those float32 bounds, the step with
+    the encoder's blocks recomputed in the backward pass (``model.remat``:
+    their halo exchanges and BatchNorm moments issued again there, the
+    statistics updated once) against one process without it;
     ``tests/test_torch_parallel.py`` holds the (1, 2) step to the JAX
     package's step from the same converted weights, beside its
     data-parallel ranks, sharing their JAX step;
-  * (c) the Trainer on a (2, 2) mesh of four ranks against one process's:
+  * (c) the Trainer on a (2, 2) mesh of four ranks against one process's
+    (run in rank 3 once it has left the group):
     each data rank's samples, the step's losses, the epoch's validation,
     the state after it;
   * (d) one stage-3 step (the frozen teacher, the row shift) on a (1, 2)
@@ -59,14 +63,13 @@ from planedepth_tpu_torch import config as tcfg
 from planedepth_tpu_torch.data.loader import EpochSampler
 from planedepth_tpu_torch.parallel import mesh
 from planedepth_tpu_torch.train.step import ModelBundle, mesh_for, spatial_recipe_gap
-from planedepth_tpu_torch.train.trainer import Trainer
 from planedepth_tpu_torch.utils.weights import load_jax_params, load_jax_pose_params
 from tests import _torch_spatial_ranks as sr
 from tests._torch_parity import perturbed_init
 from tests._torch_ranks import CPU, collect, one_step, start_ranks
 
 torch.set_num_threads(1)
-STEP_CASES = ("plain64", "dropout", "stage3", "mono64")
+STEP_CASES = ("plain64", "dropout", "stage3", "mono64", "remat")
 
 
 def _jax_mono(tc):
@@ -126,11 +129,11 @@ def _op_reference(name, size):
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """The ranks' runs (four processes: the (2, 2) Trainer, then the S = 2
-    steps and ops, then the S = 3 ops), started first; while they run, the
-    cases (the mono recipe's weights from the JAX package's init), one
-    process's steps and Trainer, the JAX mono step and the whole-image
-    ops."""
+    """The ranks' runs (four processes: the (2, 2) Trainer and, in rank 3
+    alone, one process's Trainer; then the S = 2 steps and ops on two (1, 2)
+    meshes; then the S = 3 ops), started first; while they run, the cases
+    (the mono recipe's weights from the JAX package's init), one process's
+    steps, the JAX mono step and the whole-image ops."""
     tmp = tmp_path_factory.mktemp("spatial")
     started = start_ranks(sr.spatial_ranks, 4, tmp)      # the Trainer first
     mono_cfg = sr.recipe_config("mono")
@@ -140,18 +143,17 @@ def runs(tmp_path_factory):
     with open(tmp / "cases.part", "wb") as f:
         pickle.dump(cases, f)
     os.replace(tmp / "cases.part", tmp / "cases.pkl")
-    one = {name: one_step(case, 0, 1) for name, case in cases.items()}
+    one = {name: one_step(sr.without_remat(case), 0, 1) for name, case in cases.items()}
     jax_mono = jax_losses()
-    trainer = Trainer(sr.trainer_config(str(tmp / "one")),
-                      datasets=(sr.IndexedStereo(sr.N_TRAIN), sr.IndexedStereo(sr.N_VAL)),
-                      device=CPU)
-    one_trainer = sr.drive_trainer(trainer)
     ops = {size: {name: _op_reference(name, size) for name in sr.OPS} for size in (2, 3)}
     got = collect(started, tmp)
     shutil.rmtree(tmp)                  # the cases, the runs' checkpoints: all read
-    ranks = {"trainer": [r["trainer"] for r in got], "s2": [r["s2"] for r in got[:2]],
+    # rank 0 and rank 1 of the (1, 2) meshes, each holding its cases
+    s2 = [{**got[0]["s2"], **got[2]["s2"]}, {**got[1]["s2"], **got[3]["s2"]}]
+    assert set(s2[0]) == set(s2[1]) == set(cases) | {"ops"}
+    ranks = {"trainer": [r["trainer"] for r in got], "s2": s2,
              "s3": [r["s3"] for r in got[:3]]}
-    return {"ranks": ranks, "one": one, "one_trainer": one_trainer, "ops": ops,
+    return {"ranks": ranks, "one": one, "one_trainer": got[3]["one_trainer"], "ops": ops,
             "cases": cases, "jax_mono": jax_mono}
 
 
@@ -214,7 +216,7 @@ def _assert_step_equals_one_process(runs, case):
 
 @pytest.mark.parametrize("case", STEP_CASES)
 def test_one_by_two_mesh_step_equals_one_process(runs, case):
-    """(b), (d) and the mono recipe in float64."""
+    """(b), (d), the mono recipe in float64, and ``remat`` on the ranks."""
     _assert_step_equals_one_process(runs, case)
 
 
